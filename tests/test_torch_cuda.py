@@ -10,7 +10,9 @@ without the repository's conftest:
 They cover shapes the main path of chip_smoke.py does not: M from 1 to 8
 and ragged M / N for the matmuls, batch 2 with a different position per
 row, prefill at pos > 0 with a partial last query tile, and 4 query
-heads per kv head. Tolerance: the JAX suite's bf16 kernel tolerance,
+heads per kv head; for the fused kernels (K5-K8) M in {1, 3, 8, 9, 17,
+32}, K8 at pos 0 to 1500, K7 and K8 replayed from a CUDA graph, and
+their wrappers' refusals. Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
 
@@ -24,7 +26,14 @@ import torch
 
 from tinyllama_tpu_torch.config import POLICIES, tiny_test_config
 from tinyllama_tpu_torch.models import llama
-from tinyllama_tpu_torch.ops.kernels import build, flash_attention, qmatmul
+from tinyllama_tpu_torch.ops.kernels import (
+    attn_out_fused,
+    build,
+    decode_fused,
+    ffn_fused,
+    flash_attention,
+    qmatmul,
+)
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize
 from tinyllama_tpu_torch.runtime.engine import Engine
 from tinyllama_tpu_torch.runtime.kvcache import KVCache
@@ -104,6 +113,136 @@ def test_attention_kernels_match_plain(card, H, Kh, T, pos):
     torch.cuda.synchronize()
     assert got.shape == q.shape and got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _fused_inputs(M, device, D=256, F=512, L=2, seed=0):
+    """Activations, stacked [L, D] norm table and the four stacked
+    weights of a small fused layer (wqkv 256 -> 384)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, 1, D, generator=g).to(device, torch.bfloat16)
+    a = torch.randn(M, 1, D, generator=g).to(device, torch.bfloat16)
+    nw = (torch.rand(L, D, generator=g) + 0.5).to(device)
+    ws = {"wqkv": _weight(L, D, D + 128, seed + 1, device),
+          "wo": _weight(L, D, D, seed + 2, device),
+          "w_gateup": _weight(L, D, 2 * F, seed + 3, device),
+          "w_down": _weight(L, F, D, seed + 4, device)}
+    cfg = tiny_test_config(n_embd=D, n_ffn=F, n_heads=4, n_kv_heads=1)
+    return x, a, nw, ws, cfg
+
+
+def _counted(mod, name, fn):
+    before = mod.launches[name]
+    out = fn()
+    assert mod.launches[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 32])
+def test_fused_matmul_kernels_match_plain(card, M):
+    """K5, K6 and both entries of K7 against their plain versions on the
+    card, across both rounding bodies (M <= 8 exact, M > 8 bf16 weight)."""
+    x, a, nw, ws, cfg = _fused_inputs(M, card, seed=M)
+    layer = _i32([1], card)
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    cases = [
+        (decode_fused, "fused_norm_qkv",
+         lambda: decode_fused.fused_norm_qkv(x, nw, ws["wqkv"], layer, eps, inside),
+         lambda: decode_fused.fused_norm_qkv_ref(x, nw, ws["wqkv"], layer, eps,
+                                                 inside)),
+        (decode_fused, "fused_out_residual",
+         lambda: decode_fused.fused_out_residual(a, x, ws["wo"], layer),
+         lambda: decode_fused.fused_out_residual_ref(a, x, ws["wo"], layer)),
+        (ffn_fused, "ffn_fused_normed",
+         lambda: ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
+                                            layer, cfg),
+         lambda: ffn_fused.ffn_fused_ref(x, nw, ws["w_gateup"], ws["w_down"],
+                                         layer, cfg, eps, inside)),
+        (ffn_fused, "ffn_fused",
+         lambda: ffn_fused.ffn_fused(a, ws["w_gateup"], ws["w_down"], layer, cfg),
+         lambda: ffn_fused.ffn_fused_ref(a, None, ws["w_gateup"], ws["w_down"],
+                                         layer, cfg)),
+    ]
+    for mod, name, kernel, plain in cases:
+        got = _counted(mod, name, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+def _attn_out_inputs(device, G, pos, Kh=2, S=1536, seed=0):
+    H = G * Kh
+    D = H * 64
+    cache = _cache(1, Kh, S, [pos + 1], seed=seed, device=device)
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(1, 1, H, 64, generator=g).to(device, torch.bfloat16)
+    res = torch.randn(1, 1, D, generator=g).to(device, torch.bfloat16)
+    return q, cache, res, _weight(2, D, D, seed + 1, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [8, 4])
+@pytest.mark.parametrize("pos", [0, 63, 64, 127, 1500])
+def test_fused_attn_out_matches_plain(card, G, pos):
+    """K8 at fills on both sides of a key tile and deep in the cache, 8
+    and 4 query heads per kv head."""
+    q, cache, res, wo = _attn_out_inputs(card, G, pos, seed=pos)
+    layer, p = _i32([1], card), _i32([pos], card)
+    got = _counted(attn_out_fused, "fused_attn_out",
+                   lambda: attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
+    want = attn_out_fused.fused_attn_out_ref(q, cache, layer, p, res, wo)
+    torch.cuda.synchronize()
+    assert got.shape == res.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cooperative_kernels_replay_in_a_graph(card):
+    """K7 and K8 (one cooperative launch each, with a grid barrier)
+    captured in one CUDA graph and replayed 3 times give the eager
+    result every time."""
+    x, _, nw, ws, cfg = _fused_inputs(4, card, seed=3)
+    q, cache, res, wo = _attn_out_inputs(card, 8, 700, seed=3)
+    layer, p = _i32([1], card), _i32([700], card)
+
+    def run():
+        return (ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
+                                           layer, cfg),
+                attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_on_the_card(card):
+    x, a, nw, ws, cfg = _fused_inputs(2, card)
+    layer = _i32([0], card)
+    with pytest.raises(TypeError, match="bf16"):
+        decode_fused.fused_norm_qkv(x.float(), nw, ws["wqkv"], layer, 1e-6, False)
+    with pytest.raises(ValueError, match="norm weight"):
+        decode_fused.fused_norm_qkv(x, nw[0], ws["wqkv"], layer, 1e-6, False)
+    with pytest.raises(ValueError, match="residual"):
+        decode_fused.fused_out_residual(a, x.float(), ws["wo"], layer)
+    with pytest.raises(ValueError, match="M <= 32"):
+        ffn_fused.ffn_fused(torch.zeros(33, 1, 256, dtype=torch.bfloat16,
+                                        device=card),
+                            ws["w_gateup"], ws["w_down"], layer, cfg)
+    q, cache, res, wo = _attn_out_inputs(card, 8, 5)
+    with pytest.raises(ValueError, match="wo must map"):
+        attn_out_fused.fused_attn_out(q, cache, layer, _i32([5], card), res,
+                                      _weight(2, 1024, 512, 0, card))
 
 
 @pytest.mark.cuda

@@ -143,8 +143,19 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     def no_build(name):
         raise AssertionError(f"built {name} for a CPU tensor")
 
+    from tinyllama_tpu_torch.ops.kernels import (
+        attn_out_fused,
+        decode_fused,
+        ffn_fused,
+    )
+
     monkeypatch.setattr(build, "load", no_build)
-    before = {**qmatmul.launches, **flash_attention.launches}
+    mods = (qmatmul, flash_attention, decode_fused, ffn_fused, attn_out_fused)
+
+    def counts():
+        return {k: v for m in mods for k, v in m.launches.items()}
+
+    before = counts()
     _, pw = _stacked_q8(2, 64, 32, seed=5)
     x = torch.randn(3, 64, dtype=torch.bfloat16)
     li = torch.tensor([1], dtype=torch.int32)
@@ -156,7 +167,25 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     torch.testing.assert_close(
         flash_attention.flash_decode_heads_attention(q, pc, li, pos),
         flash_attention.attention_ref(q, pc, li, pos))
-    assert {**qmatmul.launches, **flash_attention.launches} == before
+    # the fused wrappers, on a 64-wide layer (wo 256 -> 64 for K8)
+    norm = torch.rand(2, 64) + 0.5
+    x3 = x.reshape(3, 1, 64)
+    torch.testing.assert_close(
+        decode_fused.fused_norm_qkv(x3, norm, pw, li, 1e-6, False),
+        decode_fused.fused_norm_qkv_ref(x3, norm, pw, li, 1e-6, False))
+    _, wgu = _stacked_q8(2, 64, 64, seed=6)
+    _, wdn = _stacked_q8(2, 32, 64, seed=7)
+    cfg = tiny_test_config(n_embd=64, n_ffn=32)
+    torch.testing.assert_close(
+        ffn_fused.ffn_fused_normed(x3, norm, wgu, wdn, li, cfg),
+        ffn_fused.ffn_fused_ref(x3, norm, wgu, wdn, li, cfg, cfg.norm_eps,
+                                cfg.norm_eps_inside_sqrt))
+    _, wo = _stacked_q8(2, 256, 64, seed=8)
+    res = torch.randn(1, 1, 64, dtype=torch.bfloat16)
+    torch.testing.assert_close(
+        attn_out_fused.fused_attn_out(q, pc, li, pos, res, wo),
+        attn_out_fused.fused_attn_out_ref(q, pc, li, pos, res, wo))
+    assert counts() == before
 
 
 def test_kernel_sources_present():

@@ -3,9 +3,11 @@
 JAX builds random q8 parameters on tiny_test_config; they cross to the
 port through interop.params_from_numpy. At f32 activations the port's
 forward (its kernels' plain versions on the CPU) must match JAX's
-``llama.forward(use_pallas=False)`` within rtol/atol 1e-4, prefill must
-equal decode inside the port, and greedy generation must give the very
-tokens of JAX's ``Engine.generate``.
+``llama.forward`` within rtol/atol 1e-4, both without Pallas and with it
+(interpret mode, where the JAX package takes its fused decode branch),
+prefill must equal decode inside the port, greedy generation must give
+the very tokens of JAX's ``Engine.generate``, and each path must reach
+exactly the kernels the JAX branch choice dictates.
 """
 
 import jax
@@ -54,10 +56,10 @@ def _tokens(B, T, seed):
     return np.random.default_rng(seed).integers(0, CFG.n_vocab, (B, T))
 
 
-def _jax_forward(jp, toks, cache, pos):
+def _jax_forward(jp, toks, cache, pos, use_pallas=False):
     hidden, cache = jllama.forward(JCFG, JPOL, jp, jnp.asarray(toks, jnp.int32),
                                    cache, jnp.asarray(pos, jnp.int32),
-                                   use_pallas=False)
+                                   use_pallas=use_pallas)
     B, T, D = hidden.shape
     logits = jllama.lm_head_logits(jp, hidden.reshape(B * T, D))
     return np.asarray(hidden), np.asarray(logits).reshape(B, T, -1), cache
@@ -89,6 +91,122 @@ def test_forward_matches_jax(both_params, phase):
     np.testing.assert_allclose(ph, jh, **TOL)
     np.testing.assert_allclose(pl, jl, **TOL)
     np.testing.assert_allclose(pc.k.numpy(), np.asarray(jc.k), **TOL)
+
+
+#: (rows, prompt tokens, decode steps after the prompt): the fused
+#: branch's three shapes. b1 decode takes K5 -> K8 -> K7; a 16-token
+#: prefill K5 -> K3 -> K6 -> K7; a 2-row decode step K5 -> K4 -> K6 -> K7.
+FUSED_CASES = {"b1_decode": (1, 9, 1), "prefill_16": (1, 16, 0),
+               "b2_decode": (2, 9, 1)}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_forward_matches_jax_pallas(both_params, case):
+    """The port picks the JAX package's fused branch: its forward matches
+    ``llama.forward(use_pallas=True)`` (Pallas in interpret mode) at f32,
+    hidden states, logits and cache."""
+    jp, pp = both_params
+    B, T, steps = FUSED_CASES[case]
+    toks = _tokens(B, T, seed=5)
+    jc = jax_init_cache(JCFG, B, "f32")
+    pc = init_cache(CFG, B, "f32")
+    jh, jl, jc = _jax_forward(jp, toks, jc, [0] * B, use_pallas=True)
+    ph, pl = _port_forward(pp, toks, pc, [0] * B)
+    for s in range(steps):
+        step = _tokens(B, 1, seed=6 + s)
+        jh, jl, jc = _jax_forward(jp, step, jc, [T + s] * B, use_pallas=True)
+        ph, pl = _port_forward(pp, step, pc, [T + s] * B)
+    np.testing.assert_allclose(ph, jh, **TOL)
+    np.testing.assert_allclose(pl, jl, **TOL)
+    np.testing.assert_allclose(pc.k.numpy(), np.asarray(jc.k), **TOL)
+    np.testing.assert_allclose(pc.v.numpy(), np.asarray(jc.v), **TOL)
+
+
+@pytest.mark.parametrize("prompt_len", [24, 40])
+def test_greedy_generate_matches_jax_pallas(both_params, prompt_len):
+    """Greedy tokens identical to JAX ``Engine(use_pallas=True)`` for a
+    prompt of at most 32 tokens (fused prefill, bucket 32) and a longer
+    one (unfused prefill, bucket 64); fused decode either way."""
+    jp, pp = both_params
+    prompt = [1] + np.random.default_rng(prompt_len).integers(
+        2, CFG.n_vocab, prompt_len - 1).tolist()
+    n_new = 16
+    jout, _ = JaxEngine(JCFG, JPOL, jp, use_pallas=True).generate(
+        prompt, JaxGen(n_predict=prompt_len + n_new, greedy=True,
+                       eos_token=-1, chunk_size=8))
+    pout, _ = Engine(CFG, POL, pp, device="cpu").generate(
+        prompt, pconfig.GenerationConfig(n_predict=prompt_len + n_new,
+                                         greedy=True, eos_token=-1,
+                                         chunk_size=8))
+    assert len(pout) == n_new
+    assert pout == [int(t) for t in jout]
+
+
+#: the plain version behind each kernel; a test spy counts their calls.
+SPIED = [
+    ("qmatmul", "qmatmul_ref", lambda x, *a, **k: "K1" if x.reshape(
+        -1, x.shape[-1]).shape[0] <= 8 else "K2"),
+    ("flash_attention", "attention_ref",
+     lambda q, *a, **k: "K4" if q.shape[1] == 1 else "K3"),
+    ("decode_fused", "fused_norm_qkv_ref", lambda *a, **k: "K5"),
+    ("decode_fused", "fused_out_residual_ref", lambda *a, **k: "K6"),
+    ("ffn_fused", "ffn_fused_ref", lambda x, norm_w, *a, **k:
+     "K7" if norm_w is not None else "K7 plain"),
+    ("attn_out_fused", "fused_attn_out_ref", lambda *a, **k: "K8"),
+]
+
+
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """Counts of the kernels a CPU run reaches, by the calls of their
+    plain versions (the wrappers' launch counters count launches on the
+    card only)."""
+    import collections
+    import importlib
+
+    calls = collections.Counter()
+    for mod_name, fn_name, which in SPIED:
+        mod = importlib.import_module(f"tinyllama_tpu_torch.ops.kernels.{mod_name}")
+        real = getattr(mod, fn_name)
+
+        def spy(*a, _real=real, _which=which, **k):
+            calls[_which(*a, **k)] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, fn_name, spy)
+    return calls
+
+
+def test_branch_choice_counts(both_params, kernel_calls):
+    """Exact kernel counts of each path at L = 2: a 16-bucket prefill is
+    fused (K5, K3, K6, K7), a longer one is not (K2, K3); a b1 decode
+    step runs K5, K8, K7 and no K4 or K6; a 2-row step K5, K4, K6, K7;
+    the lm_head is one K1 each time."""
+    _, pp = both_params
+    L = CFG.n_layers
+    eng = Engine(CFG, POL, pp, device="cpu")
+
+    def run(fn):
+        kernel_calls.clear()
+        fn()
+        return dict(kernel_calls)
+
+    cache = eng.new_cache(1)
+    assert run(lambda: eng.prefill(cache, [[1, 5, 9, 33, 70]])) == {
+        "K5": L, "K3": L, "K6": L, "K7": L, "K1": 1}
+    tok, pos = torch.tensor([7], dtype=torch.int32), torch.tensor(
+        [5], dtype=torch.int32)
+    assert run(lambda: eng.decode_step(cache, tok, pos)) == {
+        "K5": L, "K8": L, "K7": L, "K1": 1}
+    cache = eng.new_cache(1)
+    assert run(lambda: eng.prefill(cache, [list(range(1, 41))])) == {
+        "K2": 4 * L, "K3": L, "K1": 1}
+    cache2 = eng.new_cache(2)
+    eng.prefill(cache2, [[1, 2, 3], [4, 5, 6, 7]])
+    assert run(lambda: eng.decode_step(
+        cache2, torch.tensor([8, 9], dtype=torch.int32),
+        torch.tensor([3, 4], dtype=torch.int32))) == {
+        "K5": L, "K4": L, "K6": L, "K7": L, "K1": 1}
 
 
 def test_prefill_equals_decode(both_params):

@@ -7,14 +7,24 @@ on a leading layer axis, q/k/v fused into one ``wqkv`` and gate/up into
 one ``w_gateup`` along d_out. The forward is a Python loop over layers
 that hands each kernel the stacked weight and a device layer index.
 
-Each block runs the unfused kernel path of the JAX ``_block`` (the
-branch it takes when its fused decode kernels are not eligible):
-rms_norm, ``linear`` of wqkv, rope, the in-place cache write, flash
-attention (``flash_decode_heads_attention`` at T = 1,
-``flash_prefill_attention`` otherwise), ``x + linear(attn, wo)``, then
-rms_norm, ``linear`` of w_gateup, SwiGLU and ``x + linear(inner,
-w_down)``. The lm_head runs outside ``forward``, on the rows the caller
-picks. Weights are q8; the other formats come later (ROADMAP.md).
+Each block picks its branch as the JAX ``_block`` does, from shapes and
+weight types only:
+
+* fused (``decode_fused_eligible``: M = B * T <= 32, n_embd <= 2048):
+  ``fused_norm_qkv`` (K5), rope, the in-place cache write, then at
+  B = T = 1 ``fused_attn_out`` (K8: attention + wo + residual), else
+  flash attention (K4 at T = 1, K3 otherwise) and ``fused_out_residual``
+  (K6); then ``ffn_fused_normed`` (K7). This is b1 decode, the prefill of
+  a prompt of at most 32 tokens, and a decode step of up to 32 rows;
+* unfused (M > 32, a long prompt's prefill): rms_norm, ``linear`` of
+  wqkv (K2), rope, the cache write, ``flash_prefill_attention`` (K3),
+  ``x + linear(attn, wo)``, rms_norm, ``linear`` of w_gateup, SwiGLU
+  and ``x + linear(inner, w_down)``.
+
+Norm weights reach the fused kernels as the stacked [L, D] table with
+the device layer index. The lm_head (K1) runs outside ``forward``, on the
+rows the caller picks. Weights are q8; the other formats come later
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +35,17 @@ import torch
 import torch.nn.functional as F
 
 from tinyllama_tpu_torch.config import DtypePolicy, ModelConfig
+from tinyllama_tpu_torch.ops.kernels.attn_out_fused import fused_attn_out
+from tinyllama_tpu_torch.ops.kernels.decode_fused import (
+    decode_fused_eligible,
+    fused_norm_qkv,
+    fused_out_residual,
+)
+from tinyllama_tpu_torch.ops.kernels.ffn_fused import (
+    ffn_fused,
+    ffn_fused_eligible,
+    ffn_fused_normed,
+)
 from tinyllama_tpu_torch.ops.kernels.flash_attention import (
     flash_decode_heads_attention,
     flash_prefill_attention,
@@ -157,13 +178,19 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache: KVCache,
            li: int, layer: torch.Tensor, pos: torch.Tensor,
            cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """One pre-norm transformer block over x [B, T, D]; writes the
-    block's K/V into the cache in place."""
+    block's K/V into the cache in place. The branch follows the JAX
+    ``_block`` and depends on shapes and weight types only."""
     B, T, _ = x.shape
     H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    fused = decode_fused_eligible(cfg, lp, B * T)
+    ffn_eligible = ffn_fused_eligible(cfg, lp["w_gateup"], lp["w_down"], B * T)
 
-    h = rms_norm(x, lp["attn_norm"][li], eps, inside)
-    qkv = linear(h, lp["wqkv"], layer)
+    if fused:
+        qkv = fused_norm_qkv(x, lp["attn_norm"], lp["wqkv"], layer, eps, inside)
+    else:
+        qkv = linear(rms_norm(x, lp["attn_norm"][li], eps, inside), lp["wqkv"],
+                     layer)
     q = qkv[..., : H * d].reshape(B, T, H, d)
     k = qkv[..., H * d: (H + Kh) * d].reshape(B, T, Kh, d)
     v = qkv[..., (H + Kh) * d:].reshape(B, T, Kh, d)
@@ -171,11 +198,23 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache: KVCache,
     k = apply_rope_gathered(k, cos, sin)
 
     update_cache_at_layer(cache, li, k, v, pos)
-    attend = flash_decode_heads_attention if T == 1 else flash_prefill_attention
-    attn = attend(q, cache, layer, pos).reshape(B, T, H * d)
-    x = x + linear(attn, lp["wo"], layer)
+    if fused and T == 1 and B == 1 and d % 32 == 0:
+        x = fused_attn_out(q, cache, layer, pos, x, lp["wo"])
+    else:
+        attend = (flash_decode_heads_attention if T == 1
+                  else flash_prefill_attention)
+        attn = attend(q, cache, layer, pos).reshape(B, T, H * d)
+        if fused:
+            x = fused_out_residual(attn, x, lp["wo"], layer)
+        else:
+            x = x + linear(attn, lp["wo"], layer)
+    if fused and ffn_eligible:
+        return ffn_fused_normed(x, lp["ffn_norm"], lp["w_gateup"],
+                                lp["w_down"], layer, cfg)
 
     h = rms_norm(x, lp["ffn_norm"][li], eps, inside)
+    if ffn_eligible:  # the JAX branch for an unfused block; kn weights only
+        return x + ffn_fused(h, lp["w_gateup"], lp["w_down"], layer, cfg)
     gate_up = linear(h, lp["w_gateup"], layer)
     gate, up = gate_up[..., : cfg.n_ffn], gate_up[..., cfg.n_ffn:]
     inner = F.silu(gate.float()).to(x.dtype) * up

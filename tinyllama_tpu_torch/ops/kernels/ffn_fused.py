@@ -1,0 +1,146 @@
+"""Fused SwiGLU FFN: gate/up matmul, SwiGLU and down matmul in one
+launch, for M <= 32 rows.
+
+Replaces ``_ffn_fused_kernel`` of tinyllama_tpu/ops/pallas/ffn_fused.py
+(K7) with a hand-written Hopper kernel (csrc/ffn_fused.cu), behind the
+TPU kernel's two entries:
+
+* ``ffn_fused_normed``: x + down(silu(gate) * up) over rms_norm(x), the
+  fused branch's FFN (norm weight as the stacked [L, D] table);
+* ``ffn_fused``: down(silu(gate) * up) over an already normed input, no
+  residual: the same kernel with the norm and the residual switched off.
+
+Bound by the weight bytes over the memory rate (36.8 MB a layer at
+TinyLlama's widths). The TPU kernel keeps the [M, F] intermediate in VMEM
+across a sequential grid; Hopper blocks run in no order, so the kernel is
+one cooperative launch whose gate/up phase writes silu(gate) * up in f32
+to a workspace (L2-resident) and whose down phase starts after a
+grid-wide barrier. The workspace comes from the wrapper.
+
+``ffn_fused_eligible`` is the JAX package's gate, with the port's own
+copy of ``_pick_bn``'s rule: it decides the same branch as the JAX
+package, not a tile of the CUDA kernel. CUDA tensors (bf16 activations)
+launch the kernel or raise; only CPU tensors go to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tinyllama_tpu_torch.config import ModelConfig
+from tinyllama_tpu_torch.ops.kernels import build, qmatmul
+from tinyllama_tpu_torch.ops.kernels.decode_fused import (
+    FUSED_M,
+    STRIP,
+    check_norm,
+    check_rows,
+    rms_normed,
+)
+from tinyllama_tpu_torch.quant.codec import QTensor
+
+#: launches of each entry since the counts were last set to 0.
+launches = {"ffn_fused_normed": 0, "ffn_fused": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ffn_fused")
+    if lib.ffn_fused.argtypes is None:
+        lib.ffn_fused.argtypes = [_P] * 9 + [_I] * 3 + [ctypes.c_float, _I, _P]
+        lib.ffn_fused.restype = _I
+    return lib
+
+
+def pick_bn(N: int) -> int:
+    """The TPU matmul's lane tile (``qmatmul._pick_bn``): 2048 where it
+    divides N, else the largest 128-multiple in [384, 2048] dividing N,
+    else N rounded up to 128 (at most 2048)."""
+    if N >= 2048 and N % 2048 == 0:
+        return 2048
+    for bn in range(2048, 383, -128):
+        if N % bn == 0:
+            return bn
+    return min(2048, (N + 127) // 128 * 128)
+
+
+def ffn_fused_eligible(cfg: ModelConfig, wgu, wdown, M: int) -> bool:
+    """The JAX package's ``ffn_fused_eligible``: kn QTensors, M <= 32,
+    n_embd <= 2048, and n_ffn a whole number of gate/up tiles."""
+    if not (isinstance(wgu, QTensor) and isinstance(wdown, QTensor)):
+        return False
+    if wgu.layout != "kn" or wdown.layout != "kn":
+        return False
+    if M > FUSED_M or cfg.n_embd > 2048:
+        return False
+    bn = pick_bn(cfg.n_ffn)
+    return cfg.n_ffn % bn == 0 and 2 * cfg.n_ffn % bn == 0
+
+
+def ffn_fused_ref(x, norm_w, wgu, wdown, layer, cfg, eps=0.0,
+                  inside=False) -> torch.Tensor:
+    """Plain version of both entries; norm_w None is ``ffn_fused``. The
+    gate and up sums and silu(g) * up = g / (1 + exp(-g)) * up stay f32;
+    the intermediate is cast to x.dtype for the down dot; the residual
+    joins the f32 sum, cast once."""
+    B, T, D = x.shape
+    F = cfg.n_ffn
+    x2 = x.reshape(-1, D)
+    h = x2 if norm_w is None else rms_normed(x2, norm_w, layer, eps, inside)
+    gu = qmatmul.dot_ref(h, wgu, layer)
+    g, up = gu[:, :F], gu[:, F:]
+    act = g / (1.0 + torch.exp(-g)) * up
+    out = qmatmul.dot_ref(act.to(x.dtype), wdown, layer)
+    if norm_w is not None:
+        out = x2.float() + out
+    return out.to(x.dtype).reshape(B, T, D)
+
+
+def _launch(x, norm_w, wgu, wdown, layer, cfg, eps, inside, name):
+    B, T, D = x.shape
+    F = cfg.n_ffn
+    x2 = x.reshape(-1, D)
+    check_rows(x2, wgu, layer)
+    qmatmul.check_weight(wdown, F, layer, x.device)
+    if wgu.data.shape[-1] != 2 * F or wdown.data.shape[-1] != D \
+            or F % STRIP:
+        raise ValueError(f"w_gateup must be [L, {D}, {2 * F}] and w_down "
+                         f"[L, {F}, {D}], F % {STRIP} == 0")
+    if norm_w is not None:
+        check_norm(norm_w, wgu, D, x.device)
+    M = x2.shape[0]
+    act = torch.empty((M, F), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x2)
+    err = _lib().ffn_fused(
+        x2.data_ptr(), None if norm_w is None else norm_w.data_ptr(),
+        layer.data_ptr(), wgu.data.data_ptr(), wgu.scales.data_ptr(),
+        wdown.data.data_ptr(), wdown.scales.data_ptr(), act.data_ptr(),
+        out.data_ptr(), M, D, F, float(eps), int(inside), build.stream_ptr(x))
+    build.check(err, name)
+    launches[name] += 1
+    return out.reshape(B, T, D)
+
+
+def ffn_fused_normed(x: torch.Tensor, norm_w: torch.Tensor, wgu: QTensor,
+                     wdown: QTensor, layer: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """x + FFN(rms_norm(x)) -> [B, T, D] in x.dtype, one launch; norm_w
+    is the stacked [L, D] table. The caller has checked
+    ``ffn_fused_eligible``."""
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    if not x.is_cuda:
+        return ffn_fused_ref(x, norm_w, wgu, wdown, layer, cfg, eps, inside)
+    return _launch(x, norm_w, wgu, wdown, layer, cfg, eps, inside,
+                   "ffn_fused_normed")
+
+
+def ffn_fused(h: torch.Tensor, wgu: QTensor, wdown: QTensor,
+              layer: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """FFN(h) -> [B, T, D] in h.dtype for an already normed h, one launch,
+    no residual. The caller has checked ``ffn_fused_eligible``."""
+    if not h.is_cuda:
+        return ffn_fused_ref(h, None, wgu, wdown, layer, cfg)
+    return _launch(h, None, wgu, wdown, layer, cfg, 0.0, False, "ffn_fused")

@@ -30,6 +30,7 @@ import torch
 
 from tinyllama_tpu_torch.ops.attention import gqa_attention
 from tinyllama_tpu_torch.ops.kernels import build
+from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
 
 #: launches of each kernel since the counts were last set to 0.
@@ -57,11 +58,10 @@ def attention_ref(q: torch.Tensor, cache: KVCache, layer,
                   pos: torch.Tensor) -> torch.Tensor:
     """Plain version of both kernels, any device: q [B, T, H, d] at
     absolute positions pos[b] + t against cache layer `layer`."""
-    li = int(layer.reshape(-1)[0]) if torch.is_tensor(layer) else int(layer)
     B, T = q.shape[:2]
     q_positions = (pos.reshape(B, 1).long()
                    + torch.arange(T, device=q.device)[None, :])
-    k, v = layer_cache_view(cache, li, q.dtype)
+    k, v = layer_cache_view(cache, layer_index(layer), q.dtype)
     return gqa_attention(q, k, v, q_positions)
 
 

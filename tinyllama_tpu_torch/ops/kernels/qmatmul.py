@@ -49,30 +49,68 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def layer_index(layer) -> int:
+    """The host value of a layer index (an int or a one-element tensor),
+    for the plain versions."""
+    return int(layer.reshape(-1)[0]) if torch.is_tensor(layer) else int(layer)
+
+
 def _layer_view(w: QTensor, layer) -> tuple[torch.Tensor, torch.Tensor]:
     if layer is None:
         return w.data, w.scales
-    li = int(layer.reshape(-1)[0]) if torch.is_tensor(layer) else int(layer)
+    li = layer_index(layer)
     return w.data[li], w.scales[li]
+
+
+def dot_ref(x2: torch.Tensor, w: QTensor, layer=None) -> torch.Tensor:
+    """x2 [M, K] @ dequant(w) -> f32 [M, N], the arithmetic of every q8
+    kernel's dot. M <= 8 multiplies by the f32-dequantized weight (int8 x
+    fp16 is exact in f32, as a post-dot scaling is); larger M first rounds
+    the dequantized weight to x2.dtype, as K2 and the TPU's tile-dequant
+    bodies do. f32 accumulation either way, with TF32 off."""
+    data, scales = _layer_view(w, layer)
+    wd = dequantize(QTensor(data, scales, w.kind, w.layout), torch.float32)
+    if x2.shape[0] > SMALL_M:
+        wd = wd.to(x2.dtype).float()
+    with exact_f32():
+        return x2.float() @ wd
 
 
 def qmatmul_ref(x: torch.Tensor, w: QTensor, out_dtype=None,
                 layer=None) -> torch.Tensor:
-    """Plain version of both kernels, any device. M <= 8 multiplies by the
-    f32-dequantized weight (int8 x fp16 is exact in f32, as K1's post-dot
-    scaling is); larger M first rounds the dequantized weight to x.dtype,
-    as K2 and the TPU prefill kernel do. f32 accumulation either way,
-    with TF32 off."""
-    out_dtype = out_dtype or x.dtype
-    data, scales = _layer_view(w, layer)
-    wd = dequantize(QTensor(data, scales, w.kind, w.layout), torch.float32)
+    """Plain version of both kernels, any device (see ``dot_ref``)."""
     *lead, K = x.shape
-    x2 = x.reshape(-1, K)
-    if x2.shape[0] > SMALL_M:
-        wd = wd.to(x.dtype).float()
-    with exact_f32():
-        out = x2.float() @ wd
-    return out.to(out_dtype).reshape(*lead, wd.shape[-1])
+    out = dot_ref(x.reshape(-1, K), w, layer)
+    return out.to(out_dtype or x.dtype).reshape(*lead, out.shape[-1])
+
+
+def check_weight(w: QTensor, K: int, layer, device) -> None:
+    """What every q8 kernel takes as its weight: a kn q8 QTensor of K
+    rows on `device`, layer-stacked exactly when `layer` (a one-element
+    int32 tensor on `device`) is given."""
+    if w.kind != "q8" or w.layout != "kn":
+        raise ValueError(f"the CUDA kernels take q8 kn weights, got "
+                         f"{w.kind}/{w.layout}")
+    if w.data.dtype != torch.int8 or w.scales.dtype != torch.float16:
+        raise TypeError("q8 weights are int8 data with float16 scales")
+    stacked = w.data.dim() == 3
+    if w.data.dim() not in (2, 3) or stacked != (layer is not None):
+        raise ValueError("pass `layer` exactly when the weight is layer-stacked")
+    Kw, N = w.data.shape[-2:]
+    if K != Kw or K % BLOCK_SIZE:
+        raise ValueError(f"x has K={K}, weight K={Kw} (needs K % 32 == 0)")
+    if w.scales.shape != (*w.data.shape[:-2], K // BLOCK_SIZE, N):
+        raise ValueError(f"scales {tuple(w.scales.shape)} do not match data")
+    for t in (w.data, w.scales):
+        if not t.is_cuda or t.device != device:
+            raise ValueError("x and the weight must lie on one CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the CUDA kernels take contiguous tensors on "
+                             "16-byte boundaries (vector loads)")
+    if stacked and not (torch.is_tensor(layer) and layer.is_cuda
+                        and layer.dtype == torch.int32 and layer.numel() == 1
+                        and layer.device == device):
+        raise ValueError("`layer` must be a one-element int32 CUDA tensor")
 
 
 def _check(x2: torch.Tensor, w: QTensor, layer, out_dtype) -> None:
@@ -80,33 +118,15 @@ def _check(x2: torch.Tensor, w: QTensor, layer, out_dtype) -> None:
         raise TypeError(f"the CUDA qmatmul takes bf16 activations, got {x2.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
-    if w.kind != "q8" or w.layout != "kn":
-        raise ValueError(f"the CUDA qmatmul takes q8 kn weights, got "
-                         f"{w.kind}/{w.layout}")
-    if w.data.dtype != torch.int8 or w.scales.dtype != torch.float16:
-        raise TypeError("q8 weights are int8 data with float16 scales")
-    stacked = w.data.dim() == 3
-    if w.data.dim() not in (2, 3) or stacked != (layer is not None):
-        raise ValueError("pass `layer` exactly when the weight is layer-stacked")
+    check_weight(w, x2.shape[1], layer, x2.device)
     K, N = w.data.shape[-2:]
-    if x2.shape[1] != K or K % BLOCK_SIZE:
-        raise ValueError(f"x has K={x2.shape[1]}, weight K={K} (needs K % 32 == 0)")
-    if w.scales.shape[-2:] != (K // BLOCK_SIZE, N):
-        raise ValueError(f"scales {tuple(w.scales.shape)} do not match data")
     if x2.shape[0] <= SMALL_M and N % 4:
         raise ValueError(f"the decode kernel reads char4 rows: N % 4 != 0 ({N})")
     if x2.shape[0] > SMALL_M and K % (2 * BLOCK_SIZE):
         raise ValueError(f"the prefill kernel steps 64 rows of K: K={K}")
-    for t in (x2, w.data, w.scales):
-        if not t.is_cuda or t.device != x2.device:
-            raise ValueError("x and the weight must lie on one CUDA device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the CUDA qmatmul takes contiguous tensors on "
-                             "16-byte boundaries (vector loads)")
-    if stacked and not (torch.is_tensor(layer) and layer.is_cuda
-                        and layer.dtype == torch.int32 and layer.numel() == 1
-                        and layer.device == x2.device):
-        raise ValueError("`layer` must be a one-element int32 CUDA tensor")
+    if not x2.is_cuda or not x2.is_contiguous() or x2.data_ptr() % 16:
+        raise ValueError("the CUDA qmatmul takes contiguous CUDA tensors on "
+                         "16-byte boundaries (vector loads)")
 
 
 def qmatmul(x: torch.Tensor, w: QTensor, out_dtype=None,
