@@ -14,8 +14,11 @@ Phases, each fatal on failure:
    in bf16, at TinyLlama-1.1B's shapes (K1 on the five decode matmuls,
    K2 at M=128 and 512, K3 at T=128 and 512, K4 at pos 127 and 1500, K5
    at M=1, 4, 32, K6 at M=4, 32, K7 at M=1, 4, 32 and its plain entry at
-   M=1, K8 at pos 127 and 1500), with its time, its bound, the plain
-   version's time and a PyTorch library call's time; K7 and K8 must give
+   M=1, K8 at pos 127 and 1500, K9 at B=8 over a fill of 256 and a
+   32-slot staged tail, K10 at pos 127 and 1500, K11 at B=32 over a fill
+   of 256 and a 32-slot tail), with its time, its bound, the plain
+   version's time and a PyTorch library call's time (for attention, SDPA
+   with enable_gqa over the same un-repeated keys); K7 and K8 must give
    their eager result again when replayed from a CUDA graph;
 4. paths: TinyLlama-1.1B, q8 weights from a fixed seed, bf16
    activations and cache; the launch counts of every kernel are set to
@@ -28,10 +31,28 @@ Phases, each fatal on failure:
        K6, K7) through Engine.generate, 32 greedy tokens;
    (c) batched decode: Engine.prefill of 4 100-token prompts, then 8
        Engine.decode_step calls at B = 4 (K5, K4, K6, K7);
+   (d) Engine.generate_batch, monolithic: 4 prompts of 100 tokens, 64
+       greedy tokens each in two staged 32-step chunks (K5, K9, K6, K7);
+   (e) Engine(paged=True).generate: a 100-token prompt with 64 new
+       tokens and a 24-token one with 16 (its prefill attends a 32-key
+       temporary cache, padded to 64), each step K5, K10, K6, K7, no K8;
+   (f) ContinuousBatcher(Engine(paged=True), max_batch=32): 64
+       requests, prompts of 8-200 tokens and 32-96 new tokens from a
+       fixed seed, chunk 32;
+       every chunk stages over the pool (K11) or, at a bucket of 1, runs
+       K10; the counts follow from each chunk's batch and length and each
+       admission's shape, recorded by wrapping the engine's methods; it
+       prints aggregate tok/s, TTFT p50/p95 and the wall time;
+   (g) ContinuousBatcher(Engine(), max_batch=8): 16 requests through
+       the monolithic admission and K9;
+   then, for (f) and (g), one full-width staged step at a 100-token
+   fill, eager on the host clock against its CUDA-graph replay (the
+   device's busy share of an eager step);
 5. parity: a 2-layer model at TinyLlama's full widths, the same weights
    on the card (kernels) and the CPU (plain versions): a long prefill
-   and 4 teacher-forced decode steps, a short (fused) prefill, and a
-   B = 4 decode step; the logits must agree.
+   and 4 teacher-forced decode steps, a short (fused) prefill, a B = 4
+   decode step, a staged monolithic and a staged paged chunk step at
+   B = 4, and a paged b1 step (K10); the logits must agree.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -147,7 +168,13 @@ def check_close(name: str, got, want) -> float:
 
 def phase_kernels(engine, torch, ops) -> list[dict]:
     """Every kernel against its plain version at main-path shapes."""
-    qm, fa, df, ffn, ao, codec = ops
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache
+    from tinyllama_tpu_torch.runtime.paged import (
+        PagedKVCache, default_page_size, paged_layer_view,
+    )
+    from tinyllama_tpu_torch.runtime.staging import StagedKVCache
+
+    qm, fa, df, ffn, ao, fp, codec = ops
     cfg, params = engine.cfg, engine.params
     L, dev = cfg.n_layers, engine.device
     layers = [engine.layer_ids[i:i + 1] for i in range(L)]
@@ -278,19 +305,21 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
 
     # K3 / K4 / K8: attention over a full-size random bf16 cache
     H, Kh, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, engine.max_ctx
-    G = H // Kh
     cache = engine.new_cache(1)
     cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev))
     cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    def sdpa(q, k, v, is_causal=False):
+        # the library yardstick: K/V shared across each query group, so it
+        # reads the bytes the kernels read
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=is_causal, enable_gqa=True)
 
     src = "tinyllama_tpu_torch/csrc/attn_out_fused.cu"
     for p in (127, 1500):
         q = torch.randn((1, 1, H, d), generator=gen, device=dev).to(torch.bfloat16)
         res = torch.randn((1, 1, D), generator=gen, device=dev).to(torch.bfloat16)
         pos = torch.tensor([p], dtype=torch.int32, device=dev)
-        kx = cache.k[3, :, :, :p + 1].repeat_interleave(G, dim=1)
-        vx = cache.v[3, :, :, :p + 1].repeat_interleave(G, dim=1)
+        kx, vx = cache.k[3, :, :, :p + 1], cache.v[3, :, :, :p + 1]
         qh = q.transpose(1, 2)
         fused_case(
             "K8 fused_attn_out", f"pos={p} S={S} N={D}", src,
@@ -320,10 +349,9 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
         ms = time_ms(lambda i: fn(q, cache, layers[i % L], pos), 100, True)
         plain = time_ms(lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
                         5, False)
-        # library yardstick: SDPA over the visible keys, heads expanded
+        # library yardstick: SDPA over the visible keys
         n_keys = p + T
-        kx = cache.k[3, :, :, :n_keys].repeat_interleave(G, dim=1)
-        vx = cache.v[3, :, :, :n_keys].repeat_interleave(G, dim=1)
+        kx, vx = cache.k[3, :, :, :n_keys], cache.v[3, :, :, :n_keys]
         qh = q.transpose(1, 2)
         causal = T > 1
         lib = time_ms(lambda i: sdpa(qh, kx, vx, is_causal=causal), 100, True)
@@ -338,6 +366,69 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
         attn_case("K3 flash_prefill", T, 0)
     for p in (127, 1500):
         attn_case("K4 flash_decode_heads", 1, p)
+    del cache
+
+    # K9-K11: the serving attention at the shapes of paths (d)-(g)
+    src = "tinyllama_tpu_torch/csrc/flash_paged.cu"
+    P = default_page_size(S)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def serving_case(kernel, B, fill, tail, paged, rep):
+        """B rows whose pool holds `fill` keys (below the chunk's base) and,
+        staged, a 32-slot tail filled to `tail`; K10 (tail 0) at pos
+        fill - 1."""
+        q = rand(B, 1, H, d)
+        if paged:
+            n = -(-fill // P)
+            pool = PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
+                                rand(L, 1 + B * n, Kh, P, d),
+                                torch.zeros((B, S // P), dtype=torch.int32,
+                                            device=dev))
+            pool.table[:, :n] = 1 + torch.arange(B * n, device=dev).reshape(B, n)
+        else:
+            pool = KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d))
+        if tail:
+            st = StagedKVCache(pool, rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d),
+                               torch.full((B,), fill, dtype=torch.int32,
+                                          device=dev))
+            pos = torch.full((B,), fill + tail - 1, dtype=torch.int32, device=dev)
+            fn = (fp.flash_paged_staged_attention if paged
+                  else fa.flash_staged_attention)
+            cache_arg, plain = st, fp.staged_attention_ref
+        else:
+            pos = torch.full((B,), fill - 1, dtype=torch.int32, device=dev)
+            fn, cache_arg = fp.flash_paged_attention, pool
+            plain = fp.paged_attention_ref
+        # library yardstick: SDPA over the same keys, gathered dense
+        kd, vd = (paged_layer_view(pool, 3, torch.bfloat16) if paged
+                  else (pool.k[3], pool.v[3]))
+        kx, vx = kd[:, :, :fill], vd[:, :, :fill]
+        if tail:
+            kx = torch.cat([kx, st.sk[3, :, :, :tail]], dim=2)
+            vx = torch.cat([vx, st.sv[3, :, :, :tail]], dim=2)
+        qh = q.transpose(1, 2)
+        n_keys = fill + tail
+        label = (f"B={B} fill={fill} tail={tail} P={P}" if paged
+                 else f"B={B} fill={fill} tail={tail} S={S}")
+        if not tail:
+            label = f"B={B} pos={fill - 1} P={P}"
+        fused_case(
+            kernel, label, src, rep,
+            lambda i: fn(q, cache_arg, layers[i % L], pos),
+            lambda i: plain(q, cache_arg, layers[i % L], pos),
+            lambda i: sdpa(qh, kx, vx),
+            2 * B * Kh * n_keys * d * 2 + 2 * B * H * d * 2,
+            4 * d * H * n_keys * B)
+
+    serving_case("K9 flash_staged", 8, 256, 32, False,
+                 "tinyllama_tpu/ops/pallas/flash_prefill.py:375")
+    for p in (127, 1500):
+        serving_case("K10 flash_paged", 1, p + 1, 0, True,
+                     "tinyllama_tpu/ops/pallas/flash_paged.py:38")
+    serving_case("K11 flash_paged_staged", 32, 256, 32, True,
+                 "tinyllama_tpu/ops/pallas/flash_paged.py:171")
     return rows
 
 
@@ -399,9 +490,13 @@ def main() -> int:
     from tinyllama_tpu_torch.ops.kernels import decode_fused as df
     from tinyllama_tpu_torch.ops.kernels import ffn_fused as ffn
     from tinyllama_tpu_torch.ops.kernels import flash_attention as fa
+    from tinyllama_tpu_torch.ops.kernels import flash_paged as fp
     from tinyllama_tpu_torch.ops.kernels import qmatmul as qm
     from tinyllama_tpu_torch.quant import codec
     from tinyllama_tpu_torch.runtime.engine import Engine
+    from tinyllama_tpu_torch.runtime.engine import _bucket as engine_bucket
+    from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
+    from tinyllama_tpu_torch.runtime.staging import stage_cache
 
     # 1. card
     smi = subprocess.run(
@@ -433,11 +528,11 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init: TinyLlama-1.1B q8 random weights in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rows = phase_kernels(engine, torch, (qm, fa, df, ffn, ao, codec))
+    rows = phase_kernels(engine, torch, (qm, fa, df, ffn, ao, fp, codec))
 
     # 4. paths, each with exact launch counts
     counters = (qm.launches, fa.launches, df.launches, ffn.launches,
-                ao.launches)
+                ao.launches, fp.launches)
     totals = {k: 0 for c in counters for k in c}
 
     def reset():
@@ -539,13 +634,171 @@ def main() -> int:
     print(f"path (c): {BATCH_STEPS} decode steps at B={BATCH}: "
           f"{batch_ms:.4f} ms a step (eager, host clock)", flush=True)
 
+    # the serving paths: exact counts from the shapes each path ran at
+    def prefill_counts(c, b, T):
+        if b * T <= 32:  # the fused branch
+            for k in ("fused_norm_qkv", "flash_prefill", "fused_out_residual",
+                      "ffn_fused_normed"):
+                c[k] += L
+        else:
+            c["qmm_bigm"] += 4 * L
+            c["flash_prefill"] += L
+        c["qmm_smallm" if b <= qm.SMALL_M else "qmm_bigm"] += 1
+
+    def chunk_counts(c, B, C, paged):
+        attend = ({True: "flash_paged_staged", False: "flash_staged"}[paged]
+                  if B > 1 else "flash_paged" if paged else "fused_attn_out")
+        for k in ("fused_norm_qkv", attend, "ffn_fused_normed"):
+            c[k] += C * L
+        if attend != "fused_attn_out":
+            c["fused_out_residual"] += C * L
+        c["qmm_smallm" if B <= qm.SMALL_M else "qmm_bigm"] += C
+
+    def recorded(eng, paged, run):
+        """Run `run()` with eng.prefill and eng.chunk wrapped to record
+        each admission's (rows, bucket) and each chunk's (rows, steps);
+        returns run()'s result, the record and the counts it dictates."""
+        record = {"prefill": [], "chunk": []}
+        prefill, chunk = eng.prefill, eng.chunk
+
+        def rec_prefill(cache, prompts):
+            T = engine_bucket(max(len(p) for p in prompts), eng.max_ctx)
+            record["prefill"].append((len(prompts), T))
+            return prefill(cache, prompts)
+
+        def rec_chunk(cache, logits, pos, C, *a, **k):
+            record["chunk"].append((logits.shape[0], C))
+            return chunk(cache, logits, pos, C, *a, **k)
+
+        eng.prefill, eng.chunk = rec_prefill, rec_chunk
+        try:
+            reset()
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            del eng.prefill, eng.chunk
+        want = {k: 0 for c in counters for k in c}
+        for b, T in record["prefill"]:
+            prefill_counts(want, b, T)
+        for B, C in record["chunk"]:
+            chunk_counts(want, B, C, paged)
+        return out, record, want
+
+    def ids_ok(outs, n_new):
+        return all(len(o) == n and all(0 <= t < cfg.n_vocab for t in o)
+                   for o, n in zip(outs, n_new))
+
+    # (d) generate_batch, monolithic: staged chunks over the cache (K9)
+    gcfg = GenerationConfig(n_predict=PROMPT_LEN + 64, greedy=True,
+                            eos_token=-1, chunk_size=32)
+    prompts = [prompt_of(PROMPT_LEN) for _ in range(BATCH)]
+    engine.generate_batch(prompts[:2], GenerationConfig(
+        n_predict=PROMPT_LEN + 4, greedy=True, eos_token=-1, chunk_size=2))
+    t0 = time.perf_counter()
+    (outs, stats), record, want = recorded(
+        engine, False, lambda: engine.generate_batch(prompts, gcfg))
+    wall = time.perf_counter() - t0
+    if record != {"prefill": [(BATCH, 128)], "chunk": [(BATCH, 32)] * 2} \
+            or not ids_ok(outs, [64] * BATCH):
+        return fail(f"path (d): ran {record}, or ids out of range")
+    expect("(d)", **want)
+    print(f"path (d): generate_batch of {BATCH} x {PROMPT_LEN}-token prompts, "
+          f"64 new tokens each: prefill {stats.prefill_s * 1e3:.3f} ms, "
+          f"decode {stats.decode_s * 1e3 / stats.decode_steps:.4f} ms a "
+          f"staged B={BATCH} step, {stats.generated_tokens / stats.decode_s:.2f} "
+          f"tok/s; wall {wall:.3f} s", flush=True)
+
+    # (e) paged generate: K10 each step; the short prompt's prefill attends
+    # a 32-key temporary cache. The engine serves (f) too.
+    paged_engine = Engine(cfg, policy, engine.params, max_ctx=2048,
+                          device="cuda", paged=True)
+    paged_engine.generate(chat, GenerationConfig(n_predict=CHAT_LEN + 2,
+                                                 greedy=True, eos_token=-1))
+    for prompt_e, n_new in ((prompt, 64), (chat, 16)):
+        gcfg = GenerationConfig(n_predict=len(prompt_e) + n_new, greedy=True,
+                                eos_token=-1, chunk_size=32)
+        (out, stats), record, want = recorded(
+            paged_engine, True, lambda: paged_engine.generate(prompt_e, gcfg))
+        if not ids_ok([out], [n_new]) or stats.decode_steps != n_new:
+            return fail(f"path (e): {len(out)} ids in {stats.decode_steps} "
+                        "steps, or ids out of range")
+        expect(f"(e) {len(prompt_e)}-token prompt", **want)
+        print(f"path (e): paged generate, {len(prompt_e)}-token prompt: "
+              f"prefill {stats.prefill_s * 1e3:.3f} ms; decode "
+              f"{stats.ms_per_token:.4f} ms/token over {n_new} tokens",
+              flush=True)
+
+    # (f), (g) continuous batching: the batcher's cache is its engine's kind
+    def serve(path, eng, max_batch, n_requests, seed):
+        srng = np.random.default_rng(seed)
+        lens = srng.integers(8, 201, n_requests)
+        n_new = srng.integers(32, 97, n_requests).tolist()
+        reqs = [[1] + srng.integers(2, cfg.n_vocab, n - 1).tolist() for n in lens]
+        gcfg = GenerationConfig(greedy=True, eos_token=-1, chunk_size=32)
+        batcher = ContinuousBatcher(eng, gcfg, max_batch=max_batch)
+
+        def run():
+            ids = [batcher.submit(r, max_new=n) for r, n in zip(reqs, n_new)]
+            t0 = time.perf_counter()
+            res = batcher.run()
+            return ids, res, time.perf_counter() - t0
+
+        (ids, res, wall), record, want = recorded(eng, eng.paged, run)
+        outs = [res[i].output for i in ids]
+        if not ids_ok(outs, n_new):
+            return fail(f"path {path}: a request did not get its max_new ids "
+                        "in range")
+        expect(path, **want)
+        ttft = np.array([res[i].first_token_s - res[i].submitted_s for i in ids])
+        buckets = sorted({B for B, _ in record["chunk"]})
+        print(f"path {path}: ContinuousBatcher(paged={eng.paged}, max_batch="
+              f"{max_batch}), {n_requests} requests, prompts {int(lens.min())}-"
+              f"{int(lens.max())} tokens, {sum(n_new)} new tokens: "
+              f"{sum(n_new) / wall:.2f} tok/s aggregate, TTFT p50 "
+              f"{np.percentile(ttft, 50) * 1e3:.3f} ms p95 "
+              f"{np.percentile(ttft, 95) * 1e3:.3f} ms, wall {wall:.3f} s; "
+              f"{len(record['prefill'])} admissions, {len(record['chunk'])} "
+              f"chunks at buckets {buckets}", flush=True)
+        return 0
+
+    if serve("(f)", paged_engine, 32, 64, 5) or serve("(g)", engine, 8, 16, 6):
+        return 1
+    del paged_engine
+
+    # the device's share of a full-width staged step of (f) and (g): 8
+    # eager steps on the host clock against one step replayed as a CUDA
+    # graph, at a 100-token fill
+    for path, paged, width in (("(f)", True, 32), ("(g)", False, 8)):
+        cache = (engine.new_paged_cache(width) if paged
+                 else engine.new_cache(width))
+        engine.prefill(cache, [prompt] * width)
+        pos = torch.full((width,), PROMPT_LEN, dtype=torch.int32, device="cuda")
+        st = stage_cache(cache, pos, 32)
+        tok = torch.full((width,), 5, dtype=torch.int32, device="cuda")
+        engine.decode_step(st, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):
+            engine.decode_step(st, tok, pos + i)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / 8
+        graph_ms = time_ms(lambda i: engine.decode_step(st, tok, pos), 20, True)
+        print(f"path {path}: one staged B={width} step at pos {PROMPT_LEN}: "
+              f"eager {eager_ms:.4f} ms (host clock, 8 steps), replayed as a "
+              f"CUDA graph {graph_ms:.4f} ms, so the device is busy "
+              f"{graph_ms / eager_ms:.3f} of an eager step", flush=True)
+        del cache, st
+
     launch_names = {"K1 qmm_smallm": ["qmm_smallm"], "K2 qmm_bigm": ["qmm_bigm"],
                     "K3 flash_prefill": ["flash_prefill"],
                     "K4 flash_decode_heads": ["flash_decode_heads"],
                     "K5 fused_norm_qkv": ["fused_norm_qkv"],
                     "K6 fused_out_residual": ["fused_out_residual"],
                     "K7 ffn_fused": ["ffn_fused_normed", "ffn_fused"],
-                    "K8 fused_attn_out": ["fused_attn_out"]}
+                    "K8 fused_attn_out": ["fused_attn_out"],
+                    "K9 flash_staged": ["flash_staged"],
+                    "K10 flash_paged": ["flash_paged"],
+                    "K11 flash_paged_staged": ["flash_paged_staged"]}
     for r in rows:
         r["launches"] = sum(totals[k] for k in launch_names[r["kernel"]])
         if not r["launches"]:
@@ -576,9 +829,23 @@ def main() -> int:
         trace.append(("short prefill", logits))
         cache = eng.new_cache(BATCH)
         eng.prefill(cache, chats)
-        trace.append((f"B={BATCH} decode", eng.decode_step(
-            cache, torch.tensor(feed, dtype=torch.int32, device=dev),
-            torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev))))
+        step_tok = torch.tensor(feed, dtype=torch.int32, device=dev)
+        step_pos = torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev)
+        trace.append((f"B={BATCH} decode", eng.decode_step(cache, step_tok,
+                                                           step_pos)))
+        # staged chunk steps (K9, K11) and a paged b1 step (K10)
+        for kind, cache in (("monolithic", eng.new_cache(BATCH)),
+                            ("paged", eng.new_paged_cache(BATCH))):
+            eng.prefill(cache, chats)
+            st = stage_cache(cache, step_pos, 32)
+            eng.decode_step(st, step_tok, step_pos)
+            trace.append((f"B={BATCH} staged {kind} chunk step 2",
+                          eng.decode_step(st, step_tok + 1, step_pos + 1)))
+        cache = eng.new_paged_cache(1)
+        eng.prefill(cache, [prompt])
+        trace.append(("paged b1 decode", eng.decode_step(
+            cache, step_tok[:1], torch.tensor([PROMPT_LEN], dtype=torch.int32,
+                                              device=dev))))
         traces.append([(n, t.float().cpu()) for n, t in trace])
     for (name, a), (_, b) in zip(*traces):
         if not (torch.isfinite(a).all() and a.shape[-1] == cfg2.n_vocab):

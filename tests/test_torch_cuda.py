@@ -12,7 +12,11 @@ and ragged M / N for the matmuls, batch 2 with a different position per
 row, prefill at pos > 0 with a partial last query tile, and 4 query
 heads per kv head; for the fused kernels (K5-K8) M in {1, 3, 8, 9, 17,
 32}, K8 at pos 0 to 1500, K7 and K8 replayed from a CUDA graph, and
-their wrappers' refusals. Tolerance: the JAX suite's bf16 kernel tolerance,
+their wrappers' refusals; for the serving attention (K9-K11) pos and
+chunk bases 0, P - 1, P and 1500 with P = 256, B = 1, 4 and 32, 4 and 8
+query heads per kv head, staged tail fills 1 to C, a CUDA-graph replay,
+and the engine's staged and paged chunks against the plain path.
+Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
 
@@ -24,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from tinyllama_tpu_torch.config import POLICIES, tiny_test_config
+from tinyllama_tpu_torch.config import GenerationConfig, POLICIES, tiny_test_config
 from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.ops.kernels import (
     attn_out_fused,
@@ -32,11 +36,14 @@ from tinyllama_tpu_torch.ops.kernels import (
     decode_fused,
     ffn_fused,
     flash_attention,
+    flash_paged,
     qmatmul,
 )
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize
 from tinyllama_tpu_torch.runtime.engine import Engine
 from tinyllama_tpu_torch.runtime.kvcache import KVCache
+from tinyllama_tpu_torch.runtime.paged import PagedKVCache
+from tinyllama_tpu_torch.runtime.staging import StagedKVCache
 
 TOL = dict(rtol=2e-2, atol=5e-3)
 
@@ -279,6 +286,146 @@ def test_engine_on_the_card_matches_cpu(card):
         assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
 
 
+SERVE_S, SERVE_P, SERVE_C = 2048, 256, 32
+
+
+def _serving_inputs(B, G, base, seed, device="cpu", Kh=2, L=2):
+    """Random bf16 K9-K11 operands at full context: q [B, 1, G * Kh, 64]; a
+    dense cache [L, B, Kh, S, 64]; a page pool of 1 + B * J pages under a
+    shuffled table (page 0 the scratch page); a staged tail of C = 32
+    slots; row b's chunk base is (base + 97 b) % (S - C) and its tail fill
+    1 + (b + base) % C, so B = 32 covers every fill from 1 to C."""
+    g = torch.Generator().manual_seed(seed)
+    J = SERVE_S // SERVE_P
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+
+    bases = [(base + 97 * b) % (SERVE_S - SERVE_C) for b in range(B)]
+    if B == 1:
+        bases = [base]
+    fills = [1 + (b + base) % SERVE_C for b in range(B)]
+    dense = KVCache(rand(L, B, Kh, SERVE_S, 64), rand(L, B, Kh, SERVE_S, 64))
+    table = 1 + torch.randperm(B * J, generator=g).reshape(B, J)
+    pool = PagedKVCache(rand(L, 1 + B * J, Kh, SERVE_P, 64),
+                        rand(L, 1 + B * J, Kh, SERVE_P, 64),
+                        table.to(device, torch.int32))
+    sk, sv = rand(L, B, Kh, SERVE_C, 64), rand(L, B, Kh, SERVE_C, 64)
+    base_t = _i32(bases, device)
+    pos = _i32([b + f - 1 for b, f in zip(bases, fills)], device)
+    q = rand(B, 1, G * Kh, 64)
+    return (q, pos, pool, StagedKVCache(dense, sk, sv, base_t),
+            StagedKVCache(pool, sk, sv, base_t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("base", [0, SERVE_P - 1, SERVE_P, 1500])
+def test_serving_attention_kernels_match_plain(card, base, B, G):
+    """K9 and K11 at chunk bases on both sides of a page and deep in the
+    context, every tail fill; K10 at pos = base (0, P - 1, P, 1500 for row
+    0): each against its plain version on the same card and inputs."""
+    q, pos, pool, st_dense, st_paged = _serving_inputs(B, G, base, seed=base + B,
+                                                       device=card)
+    layer = _i32([1], card)
+    cases = [
+        (flash_attention, "flash_staged",
+         lambda: flash_attention.flash_staged_attention(q, st_dense, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_dense, layer, pos)),
+        (flash_paged, "flash_paged_staged",
+         lambda: flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_paged, layer, pos)),
+        (flash_paged, "flash_paged",
+         lambda: flash_paged.flash_paged_attention(q, pool, layer, st_paged.base),
+         lambda: flash_paged.paged_attention_ref(q, pool, layer, st_paged.base)),
+    ]
+    for mod, name, kernel, plain in cases:
+        got = _counted(mod, name, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+@pytest.mark.cuda
+def test_serving_attention_replays_in_a_graph(card):
+    """K9, K10 and K11 captured in one CUDA graph and replayed 3 times give
+    the eager result every time."""
+    q, pos, pool, st_dense, st_paged = _serving_inputs(32, 8, 700, seed=11,
+                                                       device=card)
+    layer = _i32([1], card)
+
+    def run():
+        return (flash_attention.flash_staged_attention(q, st_dense, layer, pos),
+                flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos),
+                flash_paged.flash_paged_attention(q, pool, layer, pos))
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+def test_serving_attention_refuses_on_the_card(card):
+    """Pages that are not whole 64-key tiles, and 2 query heads per kv
+    head, are refused before a launch."""
+    q, pos, pool, _, st_paged = _serving_inputs(2, 4, 10, seed=1, device=card)
+    layer = _i32([0], card)
+    small = PagedKVCache(pool.k[:, :, :, :32].contiguous(),
+                         pool.v[:, :, :, :32].contiguous(), pool.table)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_paged.flash_paged_attention(q, small, layer, pos)
+    with pytest.raises(ValueError, match="H / Kh"):
+        flash_paged.flash_paged_staged_attention(q[:, :, :4], st_paged, layer,
+                                                 pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_chunk_on_the_card_matches_cpu(card, paged):
+    """A small model (d_head 64, 4 query heads per kv head, max_ctx 256)
+    through a staged B = 3 decode chunk and a B = 1 chunk (K10 when paged,
+    K8 when not), on the card and through the plain path: the logits
+    agree to 5% of their largest magnitude, and the card's chunk launches
+    the serving kernels."""
+    cfg = tiny_test_config(n_embd=256, n_heads=4, n_kv_heads=1, n_ffn=512,
+                           max_ctx=256)
+    policy = POLICIES["q8"]
+    params = llama.init_quantized_params(cfg, policy,
+                                         torch.Generator().manual_seed(0))
+    gen = GenerationConfig(greedy=True, eos_token=-1)
+    prompts = [[1, 5, 9, 33, 70, 2, 8], [1, 4], [1] + list(range(2, 60))]
+    staged_name = "flash_paged_staged" if paged else "flash_staged"
+    staged_mod = flash_paged if paged else flash_attention
+    traces = []
+    for device in (card, "cpu"):
+        eng = Engine(cfg, policy, params, device=device, paged=paged)
+        trace = []
+        for rows in (prompts, prompts[:1]):
+            cache = eng.new_cache(len(rows))
+            logits, lens = eng.prefill(cache, rows)
+            pos = torch.from_numpy(lens.astype(np.int32)).to(eng.device)
+            before = staged_mod.launches[staged_name]
+            _, _, logits, _ = eng.chunk(cache, logits, pos, 5, gen)
+            if eng.device.type == "cuda" and len(rows) > 1:
+                assert staged_mod.launches[staged_name] == before + 5 * 2
+            trace.append(logits.float().cpu())
+        traces.append(trace)
+    for a, b in zip(*traces):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
+
+
 # --- anywhere -------------------------------------------------------------------
 
 
@@ -373,3 +520,24 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         build.check(1, "qmm_smallm")
     build.check(0, "qmm_smallm")
+
+
+def _bad_serving_inputs():
+    q, pos, pool, st_dense, st_paged = _serving_inputs(2, 4, 10, seed=2)
+    return {
+        "f32 queries": (q.float(), pool, st_paged, pos, TypeError),
+        "CPU tensors": (q, pool, st_paged, pos, ValueError),
+        "two tokens": (torch.cat([q, q], 1), pool, st_paged, pos, ValueError),
+        "row mismatch": (q[:1], pool, st_paged, pos[:1], ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_serving_inputs()))
+def test_serving_checks_refuse(case):
+    """What K10 and K11 do not take is refused before a launch."""
+    q, pool, st, pos, exc = _bad_serving_inputs()[case]
+    li = _i32([0])
+    with pytest.raises(exc):
+        flash_paged._check_paged(q, pool, li, pos)
+    with pytest.raises(exc):
+        flash_paged._check_paged(q, pool, li, pos, st)

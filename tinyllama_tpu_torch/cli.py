@@ -1,13 +1,14 @@
 """Command line: one prompt through the port's engine.
 
     python -m tinyllama_tpu_torch.cli --random-weights -q8 -p "..." -greedy \\
-        --npred 256 [--model tiny-test] [--device cuda|cpu]
+        --npred 256 [--model tiny-test] [--device cuda|cpu] [--paged]
 
 Flags follow the reference CLI (``-q8 -p PROMPT -greedy --temp --npred
 --topk``). Weights are random, made from ``--seed``; the checkpoint
 loaders and the tokenizer are not ported yet, so the prompt becomes token
 ids (BOS, then each character's code modulo the vocab) and the output
 prints as ids. Runs on the card unless ``--device cpu`` is given.
+``--paged`` keeps the KV cache in a page pool (decode attention K10).
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="context window override")
     p.add_argument("--chunk", type=int, default=32,
                    help="decode steps between host read-backs")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV cache (page pool + page table)")
     p.add_argument("--random-weights", action="store_true",
                    help="random weights made from --seed (required for now)")
     p.add_argument("--ckpt", default=None, help="checkpoint (not yet ported)")
@@ -91,7 +94,8 @@ def main(argv=None) -> int:
     generator = torch.Generator(device)
     generator.manual_seed(args.seed)
     params = llama.init_quantized_params(cfg, policy, generator, device)
-    engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device)
+    engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device,
+                    paged=args.paged)
     load_s = time.perf_counter() - load_t0
 
     gen = GenerationConfig(

@@ -1,0 +1,252 @@
+// Single-token grouped-query attention of the serving path for Hopper
+// (sm_90a): bf16 queries and keys, f32 softmax and accumulation.
+//
+// One kernel body walks a row's keys from one of two sources, then, in a
+// staged decode chunk, the chunk's staged tail:
+//
+// K9  flash_staged replaces _flash_staged_kernel in
+//     tinyllama_tpu/ops/pallas/flash_prefill.py: the monolithic cache
+//     [L, B, Kh, S, d] below npool = base[b], then the staged tail
+//     [L, B, Kh, Cs, d] at slots < ntail = pos[b] - base[b] + 1.
+// K10 flash_paged replaces _flash_paged_kernel in
+//     tinyllama_tpu/ops/pallas/flash_paged.py: the page pool
+//     [L, NP, Kh, P, d] through the row's page table [B, J], keys <= pos.
+// K11 flash_paged_staged replaces _flash_paged_staged_kernel (same file):
+//     K10's page walk below npool = base[b], then K9's staged tail.
+//
+// Bound: the bytes of the keys and values a row attends (its fill, not
+// max_ctx) over the memory rate; the arithmetic is 4 * d operations a
+// (query head, key) pair. Design: one block per (batch row, kv head) with
+// one warp per query head of the group, as K4 (flash_attention.cu). The
+// block stages each 64-key tile of K and V in shared memory once, and the
+// G warps of the group share it; each warp computes its head's scores
+// (a lane per key) and its part of P V (a lane per two output dims) in
+// f32, through online_softmax_update. A page is a whole number of key
+// tiles, so a tile never straddles pages and its page comes from one
+// table read. The layer, pos, base and the table are read on the card;
+// the walk stops at each row's own fill. Nothing is allocated and
+// nothing synchronizes with the host, so the kernels capture in a CUDA
+// graph. At batch 1 the grid is Kh blocks: splitting the key walk over
+// blocks is later work.
+//
+// Every entry point returns cudaGetLastError() after its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "online_softmax.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+constexpr int D = 64;         // head dim
+constexpr int BS = 64;        // keys per tile
+constexpr int K_LD = D + 2;   // padded K rows: 33 words, a bank per key
+
+struct Args {
+  const bf16* q;      // [B, 1, H, D]
+  const bf16* k;      // dense [L, B, Kh, S, D] or pool [L, NP, Kh, P, D]
+  const bf16* v;
+  const bf16* sk;     // staged [L, B, Kh, Cs, D] (staged kernels only)
+  const bf16* sv;
+  const int* layer;   // [1]
+  const int* pos;     // [B]
+  const int* base;    // [B] (staged kernels only)
+  const int* table;   // [B, J] (paged kernels only)
+  bf16* out;          // [B, 1, H, D]
+  int B, Kh;
+  int S;              // dense: positions a row; paged: page size P
+  int n_pages, J;     // paged: pool pages, table width
+  int Cs;             // staged slots
+};
+
+template <int G>
+struct Smem {
+  bf16 k[BS * K_LD];
+  bf16 v[BS * D];
+  float q[G][D];
+  float p[G][BS];
+};
+
+__device__ inline float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Stage n <= BS rows of k and v ([n, D] row-major) in the tile; rows past
+// n are zero, so a masked key adds 0 * 0 to the weighted sum.
+template <int G>
+__device__ void load_tile(Smem<G>& sm, const bf16* kp, const bf16* vp, int n) {
+  for (int i = threadIdx.x; i < BS * (D / 8); i += G * 32) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
+    if (r < n) {
+      kv = *reinterpret_cast<const uint4*>(kp + (size_t)r * D + c);
+      vv = *reinterpret_cast<const uint4*>(vp + (size_t)r * D + c);
+    }
+    uint32_t* kd = reinterpret_cast<uint32_t*>(&sm.k[r * K_LD + c]);
+    kd[0] = kv.x;
+    kd[1] = kv.y;
+    kd[2] = kv.z;
+    kd[3] = kv.w;
+    *reinterpret_cast<uint4*>(&sm.v[r * D + c]) = vv;
+  }
+}
+
+// One warp's online-softmax step over the staged tile: keys < n_ok are
+// visible. o0, o1 accumulate dims 2 * lane and 2 * lane + 1.
+template <int G>
+__device__ void attend_tile(Smem<G>& sm, int g, int lane, int n_ok, float& m,
+                            float& l, float& o0, float& o1) {
+  const float scale = 1.f / sqrtf((float)D);
+  float s[2];
+  bool ok[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int key = lane + 32 * e;
+    const __nv_bfloat162* kr =
+        reinterpret_cast<const __nv_bfloat162*>(&sm.k[key * K_LD]);
+    float acc = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < D / 2; ++dd) {
+      const float2 kf = __bfloat1622float2(kr[dd]);
+      acc += sm.q[g][2 * dd] * kf.x + sm.q[g][2 * dd + 1] * kf.y;
+    }
+    s[e] = acc * scale;
+    ok[e] = key < n_ok;
+  }
+  const float alpha = online_softmax_update(s, ok, m, l);
+  sm.p[g][lane] = round_bf16(s[0]);
+  sm.p[g][lane + 32] = round_bf16(s[1]);
+  __syncwarp();
+  float a0 = 0.f, a1 = 0.f;
+  const __nv_bfloat162* vcol = reinterpret_cast<const __nv_bfloat162*>(sm.v) + lane;
+#pragma unroll 8
+  for (int key = 0; key < BS; ++key) {
+    const float pk = sm.p[g][key];
+    const float2 vf = __bfloat1622float2(vcol[key * (D / 2)]);
+    a0 += pk * vf.x;
+    a1 += pk * vf.y;
+  }
+  o0 = o0 * alpha + a0;
+  o1 = o1 * alpha + a1;
+}
+
+template <int G, bool PAGED, bool STAGED>
+__global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args a) {
+  __shared__ __align__(16) Smem<G> sm;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int g = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int li = a.layer[0], p = a.pos[b];
+  const size_t qo = ((size_t)b * a.Kh * G + kh * G + g) * D;
+  sm.q[g][lane] = __bfloat162float(a.q[qo + lane]);
+  sm.q[g][lane + 32] = __bfloat162float(a.q[qo + lane + 32]);
+
+  // pool keys [0, npool): below the chunk base when staged, else <= pos;
+  // never past the row's capacity (a chunk may run past max_ctx)
+  const int cap = PAGED ? a.J * a.S : a.S;
+  const int npool = max(0, min(STAGED ? a.base[b] : p + 1, cap));
+  float m = TL_NEG_INF, l = 0.f, o0 = 0.f, o1 = 0.f;
+  for (int t = 0; t * BS < npool; ++t) {
+    size_t off;
+    if (PAGED) {
+      const int key0 = t * BS;
+      const int page = a.table[(size_t)b * a.J + key0 / a.S];
+      off = (((size_t)li * a.n_pages + page) * a.Kh + kh) * a.S * D +
+            (size_t)(key0 % a.S) * D;
+    } else {
+      off = (((size_t)li * a.B + b) * a.Kh + kh) * a.S * D + (size_t)t * BS * D;
+    }
+    __syncthreads();
+    load_tile(sm, a.k + off, a.v + off, BS);
+    __syncthreads();
+    attend_tile(sm, g, lane, npool - t * BS, m, l, o0, o1);
+  }
+  if (STAGED) {
+    const int ntail = max(0, min(p - a.base[b] + 1, a.Cs));
+    const size_t tail = (((size_t)li * a.B + b) * a.Kh + kh) * a.Cs * D;
+    for (int t = 0; t * BS < ntail; ++t) {
+      __syncthreads();
+      load_tile(sm, a.sk + tail + (size_t)t * BS * D,
+                a.sv + tail + (size_t)t * BS * D, min(BS, a.Cs - t * BS));
+      __syncthreads();
+      attend_tile(sm, g, lane, ntail - t * BS, m, l, o0, o1);
+    }
+  }
+  const float den = l > 0.f ? l : 1.f;
+  reinterpret_cast<__nv_bfloat162*>(a.out + qo)[lane] =
+      __floats2bfloat162_rn(o0 / den, o1 / den);
+}
+
+template <bool PAGED, bool STAGED>
+int launch(const Args& a, int G, void* stream) {
+  if (a.B < 1 || a.Kh < 1 || a.S < BS || a.S % BS ||
+      (STAGED && (a.Cs < 1 || a.Cs % 32)) || (PAGED && a.J < 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.Kh, a.B);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (G) {
+    case 4:
+      serve_attention_kernel<4, PAGED, STAGED><<<grid, 4 * 32, 0, st>>>(a);
+      break;
+    case 8:
+      serve_attention_kernel<8, PAGED, STAGED><<<grid, 8 * 32, 0, st>>>(a);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K9. q, out: [B, 1, H, d]; k, v: [L, B, Kh, S, d]; sk, sv: [L, B, Kh, Cs,
+// d]; layer [1]; pos, base [B]. Requires d == 64, H / Kh in {4, 8},
+// S % 64 == 0 and Cs % 32 == 0.
+int flash_staged(const void* q, const void* k, const void* v, const void* sk,
+                 const void* sv, const void* layer, const void* pos,
+                 const void* base, void* out, int B, int H, int Kh, int S,
+                 int Cs, int d, void* stream) {
+  if (d != D || Kh < 1 || H % Kh) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v), static_cast<const bf16*>(sk),
+         static_cast<const bf16*>(sv), static_cast<const int*>(layer),
+         static_cast<const int*>(pos), static_cast<const int*>(base), nullptr,
+         static_cast<bf16*>(out), B, Kh, S, 0, 0, Cs};
+  return launch<false, true>(a, H / Kh, stream);
+}
+
+// K10. q, out: [B, 1, H, d]; k, v: [L, NP, Kh, P, d]; table [B, J];
+// layer [1]; pos [B]. Requires d == 64, H / Kh in {4, 8}, P % 64 == 0.
+int flash_paged(const void* q, const void* k, const void* v, const void* layer,
+                const void* pos, const void* table, void* out, int B, int H,
+                int Kh, int n_pages, int P, int J, int d, void* stream) {
+  if (d != D || Kh < 1 || H % Kh) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v), nullptr, nullptr,
+         static_cast<const int*>(layer), static_cast<const int*>(pos), nullptr,
+         static_cast<const int*>(table), static_cast<bf16*>(out), B, Kh, P,
+         n_pages, J, 0};
+  return launch<true, false>(a, H / Kh, stream);
+}
+
+// K11. K10's operands plus sk, sv: [L, B, Kh, Cs, d] and base [B].
+// Requires d == 64, H / Kh in {4, 8}, P % 64 == 0 and Cs % 32 == 0.
+int flash_paged_staged(const void* q, const void* k, const void* v,
+                       const void* sk, const void* sv, const void* layer,
+                       const void* pos, const void* base, const void* table,
+                       void* out, int B, int H, int Kh, int n_pages, int P,
+                       int J, int Cs, int d, void* stream) {
+  if (d != D || Kh < 1 || H % Kh) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v), static_cast<const bf16*>(sk),
+         static_cast<const bf16*>(sv), static_cast<const int*>(layer),
+         static_cast<const int*>(pos), static_cast<const int*>(base),
+         static_cast<const int*>(table), static_cast<bf16*>(out), B, Kh, P,
+         n_pages, J, Cs};
+  return launch<true, true>(a, H / Kh, stream);
+}
+
+}  // extern "C"

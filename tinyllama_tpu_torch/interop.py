@@ -6,6 +6,10 @@ This module imports no JAX: a quantized tensor arrives as a tuple
 ``(data, scales, kind, layout)``; dense arrays (the norm weights) arrive
 as they are. The JAX package ships "kn" scales as int16 fp16 bit
 patterns; they are viewed back as float16, bits unchanged.
+
+``cache_from_numpy`` does the same for a KV cache: the k/v planes (and a
+page pool's table) of a JAX cache, as numpy, become the port's KVCache or
+PagedKVCache, so that both packages can be given the same pool.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import torch
 from tinyllama_tpu_torch.config import DtypePolicy, ModelConfig
 from tinyllama_tpu_torch.models.llama import LAYER_LINEARS, Params
 from tinyllama_tpu_torch.quant.codec import BLOCK_SIZE, QTensor
+from tinyllama_tpu_torch.runtime.kvcache import KVCache
+from tinyllama_tpu_torch.runtime.paged import PagedKVCache
 
 
 def qtensor_from_numpy(parts, device="cpu") -> QTensor:
@@ -58,3 +64,27 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, policy: DtypePolicy,
         raise ValueError("expected an nk embedding table and a kn lm_head")
     return {"embed": embed, "layers": layers, "norm": dense(tree["norm"]),
             "lm_head": lm_head}
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A numpy array as a tensor, bf16 (numpy's ml_dtypes bfloat16, as JAX
+    hands it out) included, bits unchanged."""
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def cache_from_numpy(k, v, table=None, device="cpu") -> KVCache | PagedKVCache:
+    """The port's cache from a JAX cache's planes as numpy: a monolithic
+    KVCache (k, v [L, B, Kh, S, d]) or, with a page table [B, J], a
+    PagedKVCache (k, v [L, n_pages, Kh, P, d]). The int8 cache is not
+    ported yet."""
+    k, v = tensor_from_numpy(k, device), tensor_from_numpy(v, device)
+    if k.dtype == torch.int8:
+        raise NotImplementedError("the int8 KV cache is not ported yet "
+                                  "(ROADMAP.md)")
+    if table is None:
+        return KVCache(k, v)
+    return PagedKVCache(k, v, torch.from_numpy(
+        np.asarray(table, np.int32)).to(device))

@@ -21,6 +21,14 @@ weight types only:
   ``x + linear(attn, wo)``, rms_norm, ``linear`` of w_gateup, SwiGLU
   and ``x + linear(inner, w_down)``.
 
+The cache's kind picks the attention, as in the JAX ``_block``: a
+staged decode chunk (runtime/staging.py) writes the step's K/V into its
+tail and attends with K9 (monolithic pool) or K11 (page pool); a page
+pool (runtime/paged.py) takes K10 at T = 1, and at T > 1 a prefill from
+position 0, which attends only its own keys, so K3 reads them from a
+one-layer temporary cache; the monolithic cache keeps the branches
+above.
+
 Norm weights reach the fused kernels as the stacked [L, D] table with
 the device layer index. The lm_head (K1) runs outside ``forward``, on the
 rows the caller picks. Weights are q8; the other formats come later
@@ -47,8 +55,14 @@ from tinyllama_tpu_torch.ops.kernels.ffn_fused import (
     ffn_fused_normed,
 )
 from tinyllama_tpu_torch.ops.kernels.flash_attention import (
+    KEY_TILE,
     flash_decode_heads_attention,
     flash_prefill_attention,
+    flash_staged_attention,
+)
+from tinyllama_tpu_torch.ops.kernels.flash_paged import (
+    flash_paged_attention,
+    flash_paged_staged_attention,
 )
 from tinyllama_tpu_torch.ops.linear import (
     embedding_lookup,
@@ -59,6 +73,11 @@ from tinyllama_tpu_torch.ops.norms import rms_norm
 from tinyllama_tpu_torch.ops.rope import apply_rope_gathered, gather_rope, rope_table
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, update_cache_at_layer
+from tinyllama_tpu_torch.runtime.paged import PagedKVCache, update_paged_at_layer
+from tinyllama_tpu_torch.runtime.staging import (
+    StagedKVCache,
+    update_staged_at_layer,
+)
 
 Params = dict[str, Any]
 
@@ -174,15 +193,38 @@ def pad_lm_head_vocab(params: Params, multiple: int = 2048) -> Params:
 # ----------------------------------------------------------------------------
 
 
-def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache: KVCache,
-           li: int, layer: torch.Tensor, pos: torch.Tensor,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+def _attend_paged_prefill(q, k, v, layer0, pos, from_zero):
+    """The paged prefill's attention (K3): a prefill from position 0
+    attends only its own keys, so K3 reads them from a one-layer
+    temporary cache instead of the pool. The temporary cache is padded
+    to whole 64-key tiles; the pad keys lie past every query, so the
+    causal mask hides them. Whether the prefill starts at 0 is the
+    caller's host fact, `from_zero`."""
+    B, T, Kh, d = k.shape
+    if not from_zero:
+        raise ValueError(
+            "a paged prefill attends only its own keys, so it must start at "
+            "position 0: pass from_zero=True")
+    S = -(-T // KEY_TILE) * KEY_TILE
+    tmp = [torch.zeros((1, B, Kh, S, d), dtype=k.dtype, device=k.device)
+           for _ in range(2)]
+    tmp[0][0, :, :, :T] = k.transpose(1, 2)
+    tmp[1][0, :, :, :T] = v.transpose(1, 2)
+    return flash_prefill_attention(q, KVCache(*tmp), layer0, pos)
+
+
+def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
+           li: int, layer_ids: torch.Tensor, pos: torch.Tensor,
+           cos: torch.Tensor, sin: torch.Tensor,
+           from_zero: bool = False) -> torch.Tensor:
     """One pre-norm transformer block over x [B, T, D]; writes the
-    block's K/V into the cache in place. The branch follows the JAX
-    ``_block`` and depends on shapes and weight types only."""
+    block's K/V into the cache (monolithic, paged, or a staged chunk's
+    tail) in place. The branch follows the JAX ``_block`` and depends on
+    shapes, weight types and the cache's kind only."""
     B, T, _ = x.shape
     H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    layer = layer_ids[li:li + 1]
     fused = decode_fused_eligible(cfg, lp, B * T)
     ffn_eligible = ffn_fused_eligible(cfg, lp["w_gateup"], lp["w_down"], B * T)
 
@@ -197,13 +239,30 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache: KVCache,
     q = apply_rope_gathered(q, cos, sin)
     k = apply_rope_gathered(k, cos, sin)
 
-    update_cache_at_layer(cache, li, k, v, pos)
-    if fused and T == 1 and B == 1 and d % 32 == 0:
-        x = fused_attn_out(q, cache, layer, pos, x, lp["wo"])
+    attn = None
+    if isinstance(cache, StagedKVCache):
+        # a staged decode chunk: one batched write of the step's K/V into
+        # the tail; attention reads the pool below base + the tail
+        update_staged_at_layer(cache, li, k, v)
+        attend = (flash_paged_staged_attention if cache.paged
+                  else flash_staged_attention)
+        attn = attend(q, cache, layer, pos)
+    elif isinstance(cache, PagedKVCache):
+        update_paged_at_layer(cache, li, k, v, pos)
+        if T == 1:
+            attn = flash_paged_attention(q, cache, layer, pos)
+        else:
+            attn = _attend_paged_prefill(q, k, v, layer_ids[:1], pos, from_zero)
     else:
-        attend = (flash_decode_heads_attention if T == 1
-                  else flash_prefill_attention)
-        attn = attend(q, cache, layer, pos).reshape(B, T, H * d)
+        update_cache_at_layer(cache, li, k, v, pos)
+        if fused and T == 1 and B == 1 and d % 32 == 0:
+            x = fused_attn_out(q, cache, layer, pos, x, lp["wo"])
+        else:
+            attend = (flash_decode_heads_attention if T == 1
+                      else flash_prefill_attention)
+            attn = attend(q, cache, layer, pos)
+    if attn is not None:
+        attn = attn.reshape(B, T, H * d)
         if fused:
             x = fused_out_residual(attn, x, lp["wo"], layer)
         else:
@@ -226,14 +285,18 @@ def forward(
     policy: DtypePolicy,
     params: Params,
     tokens: torch.Tensor,  # [B, T] integer, on the params' device
-    cache: KVCache,
+    cache,  # KVCache, PagedKVCache or StagedKVCache
     pos: torch.Tensor,  # [B] int32: absolute position of tokens[:, 0]
     rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
     layer_ids: torch.Tensor | None = None,  # [L] int32 = arange(L)
+    from_zero: bool = False,  # host fact: every pos is 0 (a prefill)
 ) -> torch.Tensor:
     """Run the model over T new tokens per sequence; the cache is updated
     in place. Returns hidden [B, T, D] after the final norm. Serves
-    prefill (T = padded prompt length) and decode (T = 1) alike."""
+    prefill (T = padded prompt length) and decode (T = 1) alike. A paged
+    prefill needs from_zero (it starts at position 0). Rope rows of
+    positions past max_ctx (the discarded overhang of a last chunk) read
+    the table's last row, as the JAX package's clamped gather does."""
     _require_q8(policy)
     B, T = tokens.shape
     device = tokens.device
@@ -242,12 +305,14 @@ def forward(
     if layer_ids is None:
         layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32, device=device)
     q_positions = pos.long()[:, None] + torch.arange(T, device=device)[None, :]
-    cos_g, sin_g = gather_rope(q_positions, cos, sin)
+    cos_g, sin_g = gather_rope(q_positions.clamp(max=cos.shape[0] - 1), cos, sin)
+    if isinstance(cache, StagedKVCache):
+        cache = cache.at_step(pos)
 
     x = embedding_lookup(tokens, params["embed"], act_dtype(policy))
     for li in range(cfg.n_layers):
-        x = _block(cfg, x, params["layers"], cache, li, layer_ids[li:li + 1],
-                   pos, cos_g, sin_g)
+        x = _block(cfg, x, params["layers"], cache, li, layer_ids, pos,
+                   cos_g, sin_g, from_zero)
     return rms_norm(x, params["norm"], cfg.norm_eps, cfg.norm_eps_inside_sqrt)
 
 

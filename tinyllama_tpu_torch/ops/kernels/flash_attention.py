@@ -15,6 +15,12 @@ softmax_update.online_update_batch):
   by the bytes of the pos+1 cached keys and values. One block per
   (row, kv head), one warp per query head; the key walk stops at pos.
   At batch 1 that is Kh blocks on 132 SMs; a split-KV walk is later work.
+* K9 ``flash_staged`` for ``_flash_staged_kernel`` (T = 1 in a staged
+  decode chunk): the cache rows below the chunk's base, then the chunk's
+  staged tail (runtime/staging.py). Bound by the bytes of the keys and
+  values each row attends. K4's design over two key sources; its source
+  is csrc/flash_paged.cu, beside K10 and K11 (ops/kernels/flash_paged.py),
+  whose input checks and plain version it shares.
 
 The layer index and the positions are device tensors, read inside the
 kernels. CUDA tensors (bf16 q and cache, d = 64) launch a kernel or
@@ -30,11 +36,12 @@ import torch
 
 from tinyllama_tpu_torch.ops.attention import gqa_attention
 from tinyllama_tpu_torch.ops.kernels import build
+from tinyllama_tpu_torch.ops.kernels import flash_paged as fp
 from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
 
 #: launches of each kernel since the counts were last set to 0.
-launches = {"flash_prefill": 0, "flash_decode_heads": 0}
+launches = {"flash_prefill": 0, "flash_decode_heads": 0, "flash_staged": 0}
 
 #: head dim the kernels take.
 HEAD_DIM = 64
@@ -130,4 +137,36 @@ def flash_decode_heads_attention(q: torch.Tensor, cache: KVCache, layer,
         B, H, Kh, S, d, build.stream_ptr(q))
     build.check(err, "flash_decode_heads")
     launches["flash_decode_heads"] += 1
+    return out
+
+
+def flash_staged_attention(q: torch.Tensor, st, layer,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """K9: single-token GQA attention over the monolithic cache's rows
+    below the chunk's base plus the staged tail up to slot pos - base
+    (st: runtime.staging.StagedKVCache over a KVCache; the step's k/v
+    already staged). Returns [B, 1, H, d] in q.dtype."""
+    if q.shape[1] != 1:
+        raise ValueError("flash_staged_attention is the T=1 decode path")
+    if st.paged:
+        raise TypeError("flash_staged_attention stages over a monolithic cache")
+    if not q.is_cuda:
+        return fp.staged_attention_ref(q, st, layer, pos)
+    cache = st.pool
+    B, _, H, d = q.shape
+    if cache.k.shape[1] != B or st.sk.shape[1] != B:
+        raise ValueError(f"{B} query rows against a cache of "
+                         f"{cache.k.shape[1]} and a staged tail of "
+                         f"{st.sk.shape[1]} rows")
+    fp.check_serving_inputs(
+        q, [(cache.k, KEY_TILE), (cache.v, KEY_TILE), (st.sk, 32), (st.sv, 32)],
+        {"layer": (layer, 1), "pos": (pos, B), "base": (st.base, B)})
+    Kh, S = cache.k.shape[2], cache.k.shape[3]
+    out = torch.empty_like(q)
+    err = fp._lib().flash_staged(
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), st.sk.data_ptr(),
+        st.sv.data_ptr(), layer.data_ptr(), pos.data_ptr(), st.base.data_ptr(),
+        out.data_ptr(), B, H, Kh, S, st.sk.shape[3], d, build.stream_ptr(q))
+    build.check(err, "flash_staged")
+    launches["flash_staged"] += 1
     return out

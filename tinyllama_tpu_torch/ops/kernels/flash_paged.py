@@ -1,0 +1,174 @@
+"""Single-token GQA attention over the page pool and over a staged chunk:
+the serving path's attention.
+
+Replaces two kernels of tinyllama_tpu/ops/pallas/flash_paged.py with
+hand-written Hopper kernels in csrc/flash_paged.cu, which also holds K9
+(ops/kernels/flash_attention.py):
+
+* K10 ``flash_paged`` for ``_flash_paged_kernel``: q [B, 1, H, d] at
+  pos[b] against the pool through row b's page table, keys <= pos[b].
+* K11 ``flash_paged_staged`` for ``_flash_paged_staged_kernel``: the
+  pool's keys below the chunk's base, then the chunk's staged tail up to
+  the step (runtime/staging.py).
+
+Both are bound by the bytes of the keys and values each row attends.
+One block per (row, kv head), one warp per query head, the group's G
+heads sharing each staged 64-key tile; the walk stops at each row's own
+fill. The layer, pos, base and the table are device tensors read inside
+the kernels. CUDA tensors (bf16 q and pool, d = 64, G in {4, 8}, pages a
+whole number of 64-key tiles) launch a kernel or raise; only CPU tensors
+go to the plain versions, ``gqa_attention`` over ``paged_layer_view`` or
+``staged_layer_view``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tinyllama_tpu_torch.ops.attention import gqa_attention
+from tinyllama_tpu_torch.ops.kernels import build
+from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
+from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
+from tinyllama_tpu_torch.runtime.staging import StagedKVCache, staged_layer_view
+
+#: launches of each kernel since the counts were last set to 0.
+launches = {"flash_paged": 0, "flash_paged_staged": 0}
+
+#: head dim the kernels take.
+HEAD_DIM = 64
+#: keys per tile: a page must be a whole number of tiles.
+KEY_TILE = 64
+#: query heads per kv head the kernels take.
+GROUPS = (4, 8)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_paged")
+    if lib.flash_paged.argtypes is None:
+        lib.flash_staged.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+        lib.flash_paged.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+        lib.flash_paged_staged.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+        lib.flash_staged.restype = lib.flash_paged.restype = _I
+        lib.flash_paged_staged.restype = _I
+    return lib
+
+
+def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer,
+                        pos: torch.Tensor) -> torch.Tensor:
+    """Plain version of K10, any device; the page gather stops at the
+    pages that hold the largest pos."""
+    k, v = paged_layer_view(cache, layer_index(layer), q.dtype,
+                            int(pos.max()) + 1)
+    return gqa_attention(q, k, v, pos.reshape(-1, 1))
+
+
+def staged_attention_ref(q: torch.Tensor, st: StagedKVCache, layer,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9 and K11, any device."""
+    k, v = staged_layer_view(st, layer_index(layer), q.dtype)
+    return gqa_attention(q, k, v, pos.reshape(-1, 1))
+
+
+def check_serving_inputs(q: torch.Tensor, planes, ints) -> None:
+    """What K9-K11 take: q [B, 1, H, d] bf16 with H / Kh in GROUPS and
+    d = 64; bf16 key planes [.., Kh, rows, d] whose rows are whole 64-key
+    tiles (32-slot multiples for a staged tail); contiguous, 16-byte
+    aligned tensors on q's device; int32 index tensors of the sizes in
+    `ints` ({name: (tensor, numel)})."""
+    B, T, H, d = q.shape
+    if T != 1:
+        raise ValueError("the serving attention kernels are the T=1 decode path")
+    if q.dtype != torch.bfloat16 or any(p.dtype != torch.bfloat16
+                                        for p, _ in planes):
+        raise TypeError("the serving attention kernels take bf16 queries "
+                        "and a bf16 cache")
+    for plane, rows_quantum in planes:
+        Kh, rows, dc = plane.shape[2:]
+        if d != HEAD_DIM or dc != d or H % Kh or H // Kh not in GROUPS:
+            raise ValueError(f"q {tuple(q.shape)} does not fit keys "
+                             f"{tuple(plane.shape)}: d must be {HEAD_DIM} and "
+                             f"H / Kh one of {GROUPS}")
+        if rows % rows_quantum:
+            raise ValueError(f"{rows} key rows a slab, not a multiple of "
+                             f"{rows_quantum}")
+    for t in [q] + [p for p, _ in planes]:
+        if not t.is_cuda or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError("q and the cache must be contiguous on one CUDA "
+                             "device, on 16-byte boundaries (vector loads)")
+    for name, (t, n) in ints.items():
+        if not (torch.is_tensor(t) and t.is_cuda and t.device == q.device
+                and t.dtype == torch.int32 and t.numel() == n
+                and t.is_contiguous()):
+            raise ValueError(f"{name} must be an int32 CUDA tensor of {n} "
+                             "elements")
+
+
+def _check_paged(q, cache: PagedKVCache, layer, pos, staged=None) -> None:
+    B = q.shape[0]
+    planes = [(cache.k, KEY_TILE), (cache.v, KEY_TILE)]
+    ints = {"layer": (layer, 1), "pos": (pos, B),
+            "table": (cache.table, B * cache.table.shape[1])}
+    if staged is not None:
+        planes += [(staged.sk, 32), (staged.sv, 32)]
+        ints["base"] = (staged.base, B)
+    rows = {cache.table.shape[0]} | (
+        set() if staged is None else {staged.sk.shape[1]})
+    if rows != {B}:
+        raise ValueError(f"{B} query rows against a page table or staged "
+                         f"tail of {sorted(rows)} rows")
+    check_serving_inputs(q, planes, ints)
+
+
+def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA attention (q [B, 1, H, d] at pos[b], its k/v
+    already written) over the page pool. Returns [B, 1, H, d] in q.dtype.
+    The kernel stops at each row's own fill."""
+    if q.shape[1] != 1:
+        raise ValueError("flash_paged_attention is the T=1 decode path")
+    if not q.is_cuda:
+        return paged_attention_ref(q, cache, layer, pos)
+    _check_paged(q, cache, layer, pos)
+    B, _, H, d = q.shape
+    _, NP, Kh, P, _ = cache.k.shape
+    out = torch.empty_like(q)
+    err = _lib().flash_paged(
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), layer.data_ptr(),
+        pos.data_ptr(), cache.table.data_ptr(), out.data_ptr(),
+        B, H, Kh, NP, P, cache.table.shape[1], d, build.stream_ptr(q))
+    build.check(err, "flash_paged")
+    launches["flash_paged"] += 1
+    return out
+
+
+def flash_paged_staged_attention(q: torch.Tensor, st: StagedKVCache, layer,
+                                 pos: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA attention over the pool's pages below the chunk's
+    base plus the staged tail up to slot pos - base (the step's k/v
+    already staged). Returns [B, 1, H, d] in q.dtype."""
+    if q.shape[1] != 1:
+        raise ValueError("flash_paged_staged_attention is the T=1 decode path")
+    if not st.paged:
+        raise TypeError("flash_paged_staged_attention stages over a page pool")
+    if not q.is_cuda:
+        return staged_attention_ref(q, st, layer, pos)
+    cache = st.pool
+    _check_paged(q, cache, layer, pos, st)
+    B, _, H, d = q.shape
+    _, NP, Kh, P, _ = cache.k.shape
+    out = torch.empty_like(q)
+    err = _lib().flash_paged_staged(
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
+        st.sk.data_ptr(), st.sv.data_ptr(), layer.data_ptr(), pos.data_ptr(),
+        st.base.data_ptr(), cache.table.data_ptr(), out.data_ptr(),
+        B, H, Kh, NP, P, cache.table.shape[1], st.sk.shape[3], d,
+        build.stream_ptr(q))
+    build.check(err, "flash_paged_staged")
+    launches["flash_paged_staged"] += 1
+    return out

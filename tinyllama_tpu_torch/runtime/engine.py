@@ -1,16 +1,22 @@
 """Inference engine: bucketed prefill, single-token decode, and the
 chunked generation loop.
 
-The counterpart of the JAX package's runtime/engine.py for one prompt:
+The counterpart of the JAX package's runtime/engine.py:
 
-* ``prefill`` runs the whole (bucket-padded) prompt through the model,
-  writing its K/V into the cache, and returns the last row's logits;
+* ``prefill`` runs the whole (bucket-padded) prompts through the model
+  from position 0, writing their K/V into the cache, and returns each
+  last row's logits;
 * ``decode_step`` runs one token per sequence at device positions;
-* ``generate`` samples on the device and reads the sampled tokens back
-  once per ``chunk_size`` steps, so the host waits on the card once a
-  chunk and not once a token (the role of the JAX package's on-device
-  decode chunk). Each step is dispatched eagerly from Python; capturing
-  the step in a CUDA graph is queued work (ROADMAP.md).
+* ``chunk`` runs C decode steps with sampling on the device and no
+  read-back (the role of the JAX package's on-device decode chunk); at
+  B > 1 it stages the chunk's K/V (runtime/staging.py);
+* ``generate`` (one prompt) and ``generate_batch`` (prompts in
+  lockstep) read the sampled tokens back once a chunk, so the host
+  waits on the card once a chunk and not once a token.
+
+The cache is monolithic, or with ``paged=True`` a page pool
+(runtime/paged.py). Each step is dispatched eagerly from Python;
+capturing it in a CUDA graph is queued work (ROADMAP.md).
 
 The engine runs on the card unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain version. With no card and no
@@ -31,6 +37,12 @@ from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.ops import sampling
 from tinyllama_tpu_torch.ops.rope import rope_table
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, init_cache
+from tinyllama_tpu_torch.runtime.paged import (
+    PagedKVCache,
+    default_page_size,
+    init_paged_cache,
+)
+from tinyllama_tpu_torch.runtime.staging import flush_staged, stage_cache
 
 
 @dataclass
@@ -79,11 +91,14 @@ def _bucket(n: int, max_ctx: int, minimum: int = 16) -> int:
 
 
 class Engine:
-    """One model + dtype policy on one device."""
+    """One model + dtype policy on one device.
+
+    ``paged`` makes every cache of the engine a page pool (one static run
+    of pages a row, page 0 the scratch page)."""
 
     def __init__(self, cfg: ModelConfig, policy: DtypePolicy,
                  params: llama.Params, max_ctx: int | None = None,
-                 device=None):
+                 device=None, paged: bool = False):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and (
                 policy.adtype != "bf16" or policy.kv_dtype != "bf16"):
@@ -93,6 +108,7 @@ class Engine:
         self.cfg = cfg
         self.policy = policy
         self.max_ctx = max_ctx or cfg.max_ctx
+        self.paged = paged
         # whole char4 rows and strips for the lm_head kernel
         self.params = llama.pad_lm_head_vocab(llama.params_to(params, self.device))
         self.rope_tables = rope_table(self.max_ctx, cfg.d_head, cfg.rope_theta,
@@ -100,28 +116,43 @@ class Engine:
         self.layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32,
                                       device=self.device)
 
-    def new_cache(self, batch: int = 1) -> KVCache:
+    def new_cache(self, batch: int) -> KVCache | PagedKVCache:
+        if self.paged:
+            return self.new_paged_cache(batch)
         return init_cache(self.cfg, batch, self.policy.kv_dtype, self.max_ctx,
                           self.device)
+
+    def new_paged_cache(self, batch: int) -> PagedKVCache:
+        """A page pool for the paths outside the scheduler (generate,
+        generate_batch, the CLI's --paged): row b owns pages 1 + b * J ..
+        (b + 1) * J, covering max_ctx; page 0 stays the scratch page."""
+        J = self.max_ctx // default_page_size(self.max_ctx)
+        cache = init_paged_cache(self.cfg, 1 + batch * J, batch,
+                                 self.policy.kv_dtype, self.max_ctx,
+                                 device=self.device)
+        return cache.with_table(
+            1 + torch.arange(batch * J, dtype=torch.int32).reshape(batch, J))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _forward_logits(self, cache: KVCache, tokens: torch.Tensor,
-                        pos: torch.Tensor,
-                        last: torch.Tensor | None = None) -> torch.Tensor:
+    def _forward_logits(self, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                        last: torch.Tensor | None = None,
+                        from_zero: bool = False) -> torch.Tensor:
         """Logits of row b's token `last[b]` (the only token at decode)."""
         hidden = llama.forward(self.cfg, self.policy, self.params, tokens,
-                               cache, pos, self.rope_tables, self.layer_ids)
+                               cache, pos, self.rope_tables, self.layer_ids,
+                               from_zero)
         if last is None:
             return llama.lm_head_logits(self.params, hidden[:, 0])
         rows = torch.arange(hidden.shape[0], device=self.device)
         return llama.lm_head_logits(self.params, hidden[rows, last])
 
-    def prefill(self, cache: KVCache, prompts: list[list[int]]):
-        """Prefill a batch of prompts, padded to one bucket length.
-        Returns (logits [B, V] f32 of each prompt's last token, lens)."""
+    def prefill(self, cache, prompts: list[list[int]]):
+        """Prefill a batch of prompts from position 0, padded to one bucket
+        length. Returns (logits [B, V] f32 of each prompt's last token,
+        lens)."""
         lens = np.array([len(p) for p in prompts], np.int64)
         if int(lens.max()) > self.max_ctx:
             raise ValueError(
@@ -132,16 +163,65 @@ class Engine:
         for i, p in enumerate(prompts):
             toks[i, : len(p)] = p
         pos = torch.zeros(len(prompts), dtype=torch.int32, device=self.device)
+        # from position 0: the paged prefill attends its own keys only
+        # (models/llama.py)
         logits = self._forward_logits(
             cache, torch.from_numpy(toks).to(self.device), pos,
-            torch.from_numpy(lens - 1).to(self.device))
+            torch.from_numpy(lens - 1).to(self.device), from_zero=True)
         return logits, lens
 
-    def decode_step(self, cache: KVCache, tokens: torch.Tensor,
+    def decode_step(self, cache, tokens: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
         """One token per sequence: tokens [B], pos [B] int32 (device) ->
         logits [B, V] f32; the cache is written in place."""
         return self._forward_logits(cache, tokens[:, None], pos)
+
+    def chunk(self, cache, logits: torch.Tensor, pos: torch.Tensor, C: int,
+              gen: GenerationConfig,
+              generator: torch.Generator | None = None):
+        """C decode steps back to back on the device, sampling included:
+        the counterpart of the JAX package's ``_chunk_fn``. The token of
+        step i is sampled from the logits entering step i; once a row
+        samples EOS it keeps emitting EOS. Returns (tokens [B, C] int32,
+        done [B], logits, pos + C); nothing is read back to the host.
+
+        At B > 1 the steps' K/V go to a chunk-local staging tail, one
+        write a plane a layer-step, flushed into the cache at the end. At
+        B == 1 the plain write is one write already, so the chunk writes
+        the cache directly. A chunk may run past max_ctx (the scheduler
+        runs whole chunks and drops the tokens past the end): a staged
+        chunk's flush keeps to max_ctx, and an unstaged one writes and
+        reads those steps at max_ctx - 1."""
+        B = logits.shape[0]
+        staged = B > 1
+        state = stage_cache(cache, pos, C) if staged else cache
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        eos = torch.full((B,), gen.eos_token, dtype=torch.int32,
+                         device=self.device)
+        toks = torch.empty((B, C), dtype=torch.int32, device=self.device)
+        pos = pos.clone()
+        for i in range(C):
+            if gen.greedy:
+                tok = sampling.greedy(logits)
+            else:
+                tok = sampling.sample_top_k(logits, generator, gen.temperature,
+                                            gen.top_k)
+            tok = torch.where(done, eos, tok)
+            done |= tok == eos
+            toks[:, i] = tok
+            step_pos = pos if staged else pos.clamp(max=self.max_ctx - 1)
+            logits = self.decode_step(state, tok, step_pos)
+            pos += 1
+        if staged:
+            flush_staged(state, C)
+        return toks, done, logits, pos
+
+    def _generator(self, gen: GenerationConfig) -> torch.Generator | None:
+        if gen.greedy:
+            return None
+        generator = torch.Generator(self.device)
+        generator.manual_seed(gen.seed)
+        return generator
 
     def generate(
         self,
@@ -151,9 +231,8 @@ class Engine:
     ) -> tuple[list[int], GenStats]:
         """Single-prompt generation (greedy or top-k), with the reference
         loop's semantics: up to n_predict - len(prompt) new tokens, ending
-        at EOS (not emitted). The token of step i is sampled from the
-        logits entering step i; after EOS a row keeps emitting EOS and the
-        host cuts the rest."""
+        at EOS (not emitted). Decodes in chunks of chunk_size steps (the
+        last one cut so no step passes max_ctx) with one read-back each."""
         gen = gen or GenerationConfig()
         stats = GenStats(prompt_tokens=len(prompt_tokens))
         cache = self.new_cache(1)
@@ -168,31 +247,15 @@ class Engine:
         if not max_new:
             return [], stats
         C = max(1, min(gen.chunk_size, max_new))
-        generator = None
-        if not gen.greedy:
-            generator = torch.Generator(self.device)
-            generator.manual_seed(gen.seed)
+        generator = self._generator(gen)
         pos = torch.tensor([int(lens[0])], dtype=torch.int32, device=self.device)
-        done = torch.zeros(1, dtype=torch.bool, device=self.device)
-        eos = torch.full((1,), gen.eos_token, dtype=torch.int32,
-                         device=self.device)
 
         out: list[int] = []
         t_decode = time.perf_counter()
         while len(out) < max_new:
             n = min(C, max_new - len(out))  # never past max_ctx
-            toks = torch.empty((1, n), dtype=torch.int32, device=self.device)
-            for i in range(n):
-                if gen.greedy:
-                    tok = sampling.greedy(logits)
-                else:
-                    tok = sampling.sample_top_k(logits, generator,
-                                                gen.temperature, gen.top_k)
-                tok = torch.where(done, eos, tok)
-                done |= tok == eos
-                toks[:, i] = tok
-                logits = self.decode_step(cache, tok, pos)
-                pos += 1
+            toks, _, logits, pos = self.chunk(cache, logits, pos, n, gen,
+                                              generator)
             stats.decode_steps += n
             t1 = time.perf_counter()
             chunk = toks[0].tolist()  # one read-back per chunk
@@ -213,3 +276,56 @@ class Engine:
         stats.decode_s = time.perf_counter() - t_decode
         stats.generated_tokens = len(out)
         return out, stats
+
+    def generate_batch(
+        self,
+        prompts: list[list[int]],
+        gen: GenerationConfig | None = None,
+    ) -> tuple[list[list[int]], GenStats]:
+        """Offline batched generation: all prompts decode in lockstep, in
+        whole chunks of chunk_size steps (staged at B > 1), one read-back
+        a chunk. Row b keeps min(n_predict, max_ctx) - len(prompt b) new
+        tokens, cut at EOS; a row past its budget or max_ctx decodes
+        padding that the host drops (ContinuousBatcher serves requests
+        that arrive over time)."""
+        gen = gen or GenerationConfig()
+        B = len(prompts)
+        stats = GenStats(prompt_tokens=sum(len(p) for p in prompts))
+        cache = self.new_cache(B)
+        t0 = time.perf_counter()
+        logits, lens = self.prefill(cache, prompts)
+        self._sync()
+        stats.prefill_s = time.perf_counter() - t0
+
+        budgets = [max(0, min(gen.n_predict, self.max_ctx) - int(n))
+                   for n in lens]
+        max_new = max(budgets, default=0)
+        if not max_new:
+            return [[] for _ in range(B)], stats
+        C = max(1, min(gen.chunk_size, max_new))
+        generator = self._generator(gen)
+        pos = torch.from_numpy(lens.astype(np.int32)).to(self.device)
+
+        outs: list[list[int]] = [[] for _ in range(B)]
+        finished = [b == 0 for b in budgets]
+        t_decode = time.perf_counter()
+        emitted = 0
+        while emitted < max_new and not all(finished):
+            toks, _, logits, pos = self.chunk(cache, logits, pos, C, gen,
+                                              generator)
+            stats.decode_steps += C
+            toks_np = toks.cpu().numpy()  # one read-back per chunk
+            emitted += C
+            for b in range(B):
+                if finished[b]:
+                    continue
+                for t in toks_np[b]:
+                    t = int(t)
+                    if t == gen.eos_token or len(outs[b]) >= budgets[b]:
+                        finished[b] = True
+                        break
+                    outs[b].append(t)
+
+        stats.decode_s = time.perf_counter() - t_decode
+        stats.generated_tokens = sum(len(o) for o in outs)
+        return outs, stats
