@@ -20,10 +20,10 @@ Phases, each fatal on failure:
    version's time and a PyTorch library call's time (for attention, SDPA
    with enable_gqa over the same un-repeated keys); K7 and K8 must give
    their eager result again when replayed from a CUDA graph;
-4. paths: TinyLlama-1.1B, q8 weights from a fixed seed, bf16
-   activations and cache; the launch counts of every kernel are set to
-   0 just before each path and must come out exactly as the path
-   dictates:
+4. paths: TinyLlama-1.1B, q8 weights from a fixed seed ((a)-(g)), then
+   q4 and q4g weights from a file ((h), (i)), bf16 activations and
+   cache; the launch counts of every kernel are set to 0 just before
+   each path and must come out exactly as the path dictates:
    (a) main path: a 100-token prompt (bucket 128, unfused prefill)
        through Engine.generate, greedy, 256 new tokens, each decode step
        on the fused branch (K5, K8, K7, then K1 for the lm_head);
@@ -48,11 +48,28 @@ Phases, each fatal on failure:
    then, for (f) and (g), one full-width staged step at a 100-token
    fill, eager on the host clock against its CUDA-graph replay (the
    device's busy share of an eager step);
+   (h) 4-bit weights from a file through the CLI: a full-depth q4 .gten
+       of random N(0, 0.02) weights (written one tensor at a time) and a
+       stand-in tokenizer.bin of 32,000 pieces go to a temporary
+       directory; cli.main(["-q4", "--ckpt", ..., "--tokenizer", ...,
+       "-p", P, "-greedy", "--npred", "256"]) runs it (P is 105 tokens in
+       the chat template: the unfused prefill, then fused b1 decode K5,
+       K8, K7 and K1 until the tokenizer's EOS or the budget), then the
+       same file with -q4g (requantized at load); each prints its load
+       seconds, prefill ms and ms/token, and one decode step replayed as a
+       CUDA graph;
+   (i) on each engine of (h): a 24-token prompt with 32 greedy tokens
+       (K5, K3, K6, K7), and 8 decode steps at B = 4 (K5, K4, K6, K7);
+   after each kind's (h) and (i), that kind's weight kernels (K1, K2 at
+   M = 128, K5-K8) against their plain versions, as in phase 3, with
+   the launches of (h) and (i);
 5. parity: a 2-layer model at TinyLlama's full widths, the same weights
    on the card (kernels) and the CPU (plain versions): a long prefill
    and 4 teacher-forced decode steps, a short (fused) prefill, a B = 4
    decode step, a staged monolithic and a staged paged chunk step at
-   B = 4, and a paged b1 step (K10); the logits must agree.
+   B = 4, and a paged b1 step (K10); then the same widths with q4 and
+   with q4g weights: a long and a short prefill, 2 b1 decode steps and a
+   B = 4 step; the logits must agree.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -69,7 +86,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -96,6 +115,51 @@ PROMPT_LEN = 100
 CHAT_LEN, CHAT_NEW = 24, 32
 #: path (c): rows and decode steps of the batched decode
 BATCH, BATCH_STEPS = 4, 8
+#: path (h): the chat prompt (105 tokens in the chat template over the
+#: stand-in vocab: bucket 128, the unfused prefill) and --npred
+CLI_PROMPT = ("Give three tips for staying healthier, and explain for each "
+              "one why it helps, what it costs in time and money, and how a "
+              "busy person can start on it this week.")
+CLI_NPRED = 256
+
+
+class RandomWeights(Mapping):
+    """HF-named weights of `cfg`, made when looked up: N(0, 0.02) f32 from
+    (seed, the name's index) for the matrices, ones for the norms. Writing
+    a full-depth .gten from it holds one tensor at a time."""
+
+    def __init__(self, cfg, seed: int):
+        D, kv, F, V = cfg.n_embd, cfg.kv_dim, cfg.n_ffn, cfg.n_vocab
+        block = {"self_attn.q_proj.weight": (D, D),
+                 "self_attn.k_proj.weight": (kv, D),
+                 "self_attn.v_proj.weight": (kv, D),
+                 "self_attn.o_proj.weight": (D, D),
+                 "mlp.gate_proj.weight": (F, D), "mlp.up_proj.weight": (F, D),
+                 "mlp.down_proj.weight": (D, F),
+                 "input_layernorm.weight": (D,),
+                 "post_attention_layernorm.weight": (D,)}
+        self.shapes = {"model.embed_tokens.weight": (V, D),
+                       "model.norm.weight": (D,), "lm_head.weight": (V, D)}
+        for i in range(cfg.n_layers):
+            for suffix, shape in block.items():
+                self.shapes[f"model.layers.{i}.{suffix}"] = shape
+        self.index = {name: i for i, name in enumerate(self.shapes)}
+        self.seed = seed
+
+    def __getitem__(self, name):
+        import numpy as np
+
+        shape = self.shapes[name]
+        if len(shape) == 1:
+            return np.ones(shape, np.float32)
+        rng = np.random.default_rng([self.seed, self.index[name]])
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def __iter__(self):
+        return iter(self.shapes)
+
+    def __len__(self):
+        return len(self.shapes)
 
 
 def fail(msg: str) -> int:
@@ -166,8 +230,23 @@ def check_close(name: str, got, want) -> float:
     return err
 
 
-def phase_kernels(engine, torch, ops) -> list[dict]:
-    """Every kernel against its plain version at main-path shapes."""
+#: the TPU kernel bodies each weight kernel's 4-bit rows replace, by kind
+REPLACES_4BIT = {
+    "K1": {"q4g": "tinyllama_tpu/ops/pallas/qmatmul.py:128",
+           "q4": "tinyllama_tpu/ops/pallas/qmatmul.py:176"},
+    "K2": {"q4g": "tinyllama_tpu/ops/pallas/qmatmul.py:232",
+           "q4": "tinyllama_tpu/ops/pallas/qmatmul.py:264"},
+    "K5-K7": {"q4g": "tinyllama_tpu/ops/pallas/ffn_fused.py:72",
+              "q4": "tinyllama_tpu/ops/pallas/ffn_fused.py:112"},
+    "K8": {"q4g": "tinyllama_tpu/ops/pallas/attn_out_fused.py:61",
+           "q4": "tinyllama_tpu/ops/pallas/attn_out_fused.py:114"},
+}
+
+
+def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
+    """Every kernel against its plain version at main-path shapes, on the
+    engine's weights of `kind`. For a 4-bit kind only the weight kernels
+    (K1, K2, K5-K8): the attention kernels take no weights."""
     from tinyllama_tpu_torch.runtime.kvcache import KVCache
     from tinyllama_tpu_torch.runtime.paged import (
         PagedKVCache, default_page_size, paged_layer_view,
@@ -181,11 +260,16 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
     gen = torch.Generator(dev)
     gen.manual_seed(7)
     rows = []
+    label = "" if kind == "q8" else f"{kind} "
+
+    def replaces(kernel, q8_line):
+        return q8_line if kind == "q8" else REPLACES_4BIT[kernel][kind]
 
     def row(kernel, shape, route_src, replaces, err, ms, plain_ms, nbytes,
             flops, library_ms):
         t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / PEAK_BF16 * 1e3
-        r = dict(name=f"{kernel} {shape}", kernel=kernel, route="cuda",
+        r = dict(name=f"{kernel} {label}{shape}", kernel=kernel, kind=kind,
+                 route="cuda",
                  source=route_src, replaces=replaces, launches=0,
                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=max(t_bytes, t_ops),
@@ -201,14 +285,19 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
     # K1 / K2: the quantized matmuls
     lin = params["layers"]
     mats = {n: lin[n] for n in ("wqkv", "wo", "w_gateup", "w_down")}
-    dense = {n: [codec.dequantize(codec.QTensor(w.data[i], w.scales[i], "q8",
+    dense = {n: [codec.dequantize(codec.QTensor(w.data[i], w.scales[i], kind,
                                                 "kn"), torch.bfloat16)
                  for i in range(L)] for n, w in mats.items()}
     lm = params["lm_head"]
     lm_dense = codec.dequantize(lm, torch.bfloat16)
 
+    def nbytes_of(w, stacked=True):
+        """Bytes of one layer's data and scale planes."""
+        d, s = (w.data[0], w.scales[0]) if stacked else (w.data, w.scales)
+        return d.numel() * d.element_size() + s.numel() * 2
+
     def qmm_case(label, w, wd, M, layered, out_dtype):
-        K, N = w.data.shape[-2:]
+        N, K = w.shape[-2:]  # logical: 4-bit data holds K/2 rows
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         lay = (lambda i: layers[i % L]) if layered else (lambda i: None)
         wdl = (lambda i: wd[i % L]) if layered else (lambda i: wd)
@@ -220,26 +309,25 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
         plain = time_ms(lambda i: qm.qmatmul_ref(x, w, out_dtype, lay(i)), 10, False)
         lib = time_ms(lambda i: torch.matmul(x, wdl(i)), 200, True)
         out_b = 4 if out_dtype == torch.float32 else 2
-        nbytes = K * N + (K // 32) * N * 2 + M * K * 2 + M * N * out_b
+        nbytes = nbytes_of(w, layered) + M * K * 2 + M * N * out_b
         kernel = "K1 qmm_smallm" if small else "K2 qmm_bigm"
         src = "tinyllama_tpu_torch/csrc/qmatmul.cu"
-        rep = ("tinyllama_tpu/ops/pallas/qmatmul.py:87" if small
-               else "tinyllama_tpu/ops/pallas/qmatmul.py:288")
+        rep = (replaces("K1", "tinyllama_tpu/ops/pallas/qmatmul.py:87") if small
+               else replaces("K2", "tinyllama_tpu/ops/pallas/qmatmul.py:288"))
         row(kernel, f"{label} M={M} K={K} N={N}", src, rep, err, ms, plain,
             nbytes, 2 * M * K * N, lib)
 
     for n, w in mats.items():
         qmm_case(n, w, dense[n], 1, True, torch.bfloat16)
     qmm_case("lm_head", lm, lm_dense, 1, False, torch.float32)
-    for M in (128, 512):
+    for M in (128, 512) if kind == "q8" else (128,):
         for n, w in mats.items():
             qmm_case(n, w, dense[n], M, True, torch.bfloat16)
 
     # K5-K7: the fused decode-layer matmuls on the same weights
     D, F = cfg.n_embd, cfg.n_ffn
     eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
-    w_bytes = {n: w.data[0].numel() + 2 * w.scales[0].numel()
-               for n, w in mats.items()}
+    w_bytes = {n: nbytes_of(w) for n, w in mats.items()}
 
     def rows_bf16(M, K):
         return torch.randn((M, 1, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -261,7 +349,8 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
         x = rows_bf16(M, D)
         wq, N = lin["wqkv"], lin["wqkv"].data.shape[-1]
         fused_case(
-            "K5 fused_norm_qkv", f"M={M} K={D} N={N}", src, f"{rep}:49",
+            "K5 fused_norm_qkv", f"M={M} K={D} N={N}", src,
+            replaces("K5-K7", f"{rep}:49"),
             lambda i: df.fused_norm_qkv(x, norm_a, wq, layers[i % L], eps, inside),
             lambda i: df.fused_norm_qkv_ref(x, norm_a, wq, layers[i % L], eps,
                                             inside),
@@ -270,14 +359,15 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
     for M in (4, 32):
         a, r = rows_bf16(M, D), rows_bf16(M, D)
         fused_case(
-            "K6 fused_out_residual", f"M={M} K={D} N={D}", src, f"{rep}:130",
+            "K6 fused_out_residual", f"M={M} K={D} N={D}", src,
+            replaces("K5-K7", f"{rep}:130"),
             lambda i: df.fused_out_residual(a, r, lin["wo"], layers[i % L]),
             lambda i: df.fused_out_residual_ref(a, r, lin["wo"], layers[i % L]),
             lambda i: torch.addmm(r.view(M, D), a.view(M, D), dense["wo"][i % L]),
             w_bytes["wo"] + 3 * M * D * 2, 2 * M * D * D)
 
     src = "tinyllama_tpu_torch/csrc/ffn_fused.cu"
-    rep = "tinyllama_tpu/ops/pallas/ffn_fused.py:160"
+    rep = replaces("K5-K7", "tinyllama_tpu/ops/pallas/ffn_fused.py:160")
     gu, wd = lin["w_gateup"], lin["w_down"]
     ffn_bytes = w_bytes["w_gateup"] + w_bytes["w_down"]
 
@@ -323,7 +413,7 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
         qh = q.transpose(1, 2)
         fused_case(
             "K8 fused_attn_out", f"pos={p} S={S} N={D}", src,
-            "tinyllama_tpu/ops/pallas/attn_out_fused.py:143",
+            replaces("K8", "tinyllama_tpu/ops/pallas/attn_out_fused.py:143"),
             lambda i: ao.fused_attn_out(q, cache, layers[i % L], pos, res,
                                         lin["wo"]),
             lambda i: ao.fused_attn_out_ref(q, cache, layers[i % L], pos, res,
@@ -335,6 +425,8 @@ def phase_kernels(engine, torch, ops) -> list[dict]:
             w_bytes["wo"] + 2 * Kh * (p + 1) * d * 2 + H * d * 2 + 2 * D * 2,
             4 * d * H * (p + 1) + 2 * D * D, replay=True)
     del dense, lm_dense
+    if kind != "q8":
+        return rows
 
     src = "tinyllama_tpu_torch/csrc/flash_attention.cu"
 
@@ -481,9 +573,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from tinyllama_tpu_torch import cli
     from tinyllama_tpu_torch.config import (
         GenerationConfig, POLICIES, TINYLLAMA_1_1B,
     )
+    from tinyllama_tpu_torch.io import gten, tokenizer
     from tinyllama_tpu_torch.models import llama
     from tinyllama_tpu_torch.ops.kernels import attn_out_fused as ao
     from tinyllama_tpu_torch.ops.kernels import build
@@ -533,21 +627,24 @@ def main() -> int:
     # 4. paths, each with exact launch counts
     counters = (qm.launches, fa.launches, df.launches, ffn.launches,
                 ao.launches, fp.launches)
-    totals = {k: 0 for c in counters for k in c}
+    #: launches summed over the paths of each weight kind: (a)-(g) are q8,
+    #: (h) and (i) run q4 and q4g
+    totals = {kind: {k: 0 for c in counters for k in c}
+              for kind in ("q8", "q4", "q4g")}
 
     def reset():
         for c in counters:
             for k in c:
                 c[k] = 0
 
-    def expect(path, **want):
+    def expect(path, kind="q8", **want):
         got = {k: v for c in counters for k, v in c.items()}
         want = {k: want.get(k, 0) for k in got}
         print(f"path {path}: launches {json.dumps(got)}", flush=True)
         if got != want:
             raise AssertionError(f"path {path}: launch counts {got}, want {want}")
         for k, v in got.items():
-            totals[k] += v
+            totals[kind][k] += v
 
     L = cfg.n_layers
     rng = np.random.default_rng(0)
@@ -555,11 +652,11 @@ def main() -> int:
     def prompt_of(n):
         return [1] + rng.integers(2, cfg.n_vocab, n - 1).tolist()
 
-    def generate(prompt, n_new):
+    def generate(prompt, n_new, eng=None):
         gcfg = GenerationConfig(n_predict=len(prompt) + n_new, greedy=True,
                                 eos_token=-1, chunk_size=32)
         reset()
-        out, stats = engine.generate(prompt, gcfg)
+        out, stats = (eng or engine).generate(prompt, gcfg)
         torch.cuda.synchronize()
         steps = stats.decode_steps
         if len(out) != n_new or steps != n_new or not all(
@@ -596,43 +693,55 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_decode(engine, prompt, torch)
 
-    # (b) chat-length prompt: fused prefill (bucket 32), fused b1 decode
-    chat = prompt_of(CHAT_LEN)
-    engine.generate(chat, GenerationConfig(n_predict=CHAT_LEN + 2, greedy=True,
-                                           eos_token=-1))
-    out, stats = generate(chat, CHAT_NEW)
-    expect("(b)", fused_norm_qkv=L * (1 + CHAT_NEW), flash_prefill=L,
-           fused_out_residual=L, ffn_fused_normed=L * (1 + CHAT_NEW),
-           fused_attn_out=L * CHAT_NEW, qmm_smallm=1 + CHAT_NEW)
-    print(f"path (b): prefill {stats.prefill_s * 1e3:.3f} ms "
-          f"({stats.prompt_tokens} tokens, bucket 32); decode "
-          f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
-          "tokens", flush=True)
+    def chat_path(eng, path, kind="q8"):
+        """(b), and (i) at 4 bits: a chat-length prompt (bucket 32, fused
+        prefill: K5, K3, K6, K7), then fused b1 decode."""
+        chat = prompt_of(CHAT_LEN)
+        eng.generate(chat, GenerationConfig(n_predict=CHAT_LEN + 2, greedy=True,
+                                            eos_token=-1))
+        out, stats = generate(chat, CHAT_NEW, eng)
+        expect(path, kind, fused_norm_qkv=L * (1 + CHAT_NEW), flash_prefill=L,
+               fused_out_residual=L, ffn_fused_normed=L * (1 + CHAT_NEW),
+               fused_attn_out=L * CHAT_NEW, qmm_smallm=1 + CHAT_NEW)
+        print(f"path {path}: prefill {stats.prefill_s * 1e3:.3f} ms "
+              f"({stats.prompt_tokens} tokens, bucket 32); decode "
+              f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
+              "tokens", flush=True)
+        return chat
 
+    def batch_path(eng, path, kind="q8"):
+        """(c), and (i) at 4 bits: the unfused prefill of 4 rows, then
+        fused B = 4 decode steps (K5, K4, K6, K7)."""
+        prompts = [prompt_of(PROMPT_LEN) for _ in range(BATCH)]
+        cache = eng.new_cache(BATCH)
+        reset()
+        logits, lens = eng.prefill(cache, prompts)
+        torch.cuda.synchronize()
+        expect(f"{path} prefill", kind, qmm_bigm=4 * L, flash_prefill=L,
+               qmm_smallm=1)
+        pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        reset()
+        t0 = time.perf_counter()
+        for _ in range(BATCH_STEPS):
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            logits = eng.decode_step(cache, tok, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3 / BATCH_STEPS
+        if not (torch.isfinite(logits).all()
+                and logits.shape == (BATCH, cfg.n_vocab)):
+            raise AssertionError(f"path {path}: logits not finite or misshapen")
+        expect(f"{path} decode", kind, fused_norm_qkv=L * BATCH_STEPS,
+               flash_decode_heads=L * BATCH_STEPS,
+               fused_out_residual=L * BATCH_STEPS,
+               ffn_fused_normed=L * BATCH_STEPS, qmm_smallm=BATCH_STEPS)
+        print(f"path {path}: {BATCH_STEPS} decode steps at B={BATCH}: "
+              f"{batch_ms:.4f} ms a step (eager, host clock)", flush=True)
+
+    # (b) chat-length prompt: fused prefill (bucket 32), fused b1 decode
+    chat = chat_path(engine, "(b)")
     # (c) batched decode steps: unfused prefill of 4 rows, fused B = 4 steps
-    prompts = [prompt_of(PROMPT_LEN) for _ in range(BATCH)]
-    cache = engine.new_cache(BATCH)
-    reset()
-    logits, lens = engine.prefill(cache, prompts)
-    torch.cuda.synchronize()
-    expect("(c) prefill", qmm_bigm=4 * L, flash_prefill=L, qmm_smallm=1)
-    pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    reset()
-    t0 = time.perf_counter()
-    for _ in range(BATCH_STEPS):
-        tok = logits.argmax(dim=-1).to(torch.int32)
-        logits = engine.decode_step(cache, tok, pos)
-        pos += 1
-    torch.cuda.synchronize()
-    batch_ms = (time.perf_counter() - t0) * 1e3 / BATCH_STEPS
-    if not (torch.isfinite(logits).all() and logits.shape == (BATCH, cfg.n_vocab)):
-        return fail("path (c): logits not finite or misshapen")
-    expect("(c) decode", fused_norm_qkv=L * BATCH_STEPS,
-           flash_decode_heads=L * BATCH_STEPS,
-           fused_out_residual=L * BATCH_STEPS,
-           ffn_fused_normed=L * BATCH_STEPS, qmm_smallm=BATCH_STEPS)
-    print(f"path (c): {BATCH_STEPS} decode steps at B={BATCH}: "
-          f"{batch_ms:.4f} ms a step (eager, host clock)", flush=True)
+    batch_path(engine, "(c)")
 
     # the serving paths: exact counts from the shapes each path ran at
     def prefill_counts(c, b, T):
@@ -789,6 +898,84 @@ def main() -> int:
               f"{graph_ms / eager_ms:.3f} of an eager step", flush=True)
         del cache, st
 
+    # (h) 4-bit weights from a file through the CLI: a full-depth q4 .gten
+    # loaded as q4, then as q4g (requantized at load); (i) the chat and
+    # batched paths on each of those engines; then the 4-bit kernel rows
+    # on its weights
+    del engine, params
+
+    def cli_path(kind, ckpt, vocab, n_prompt):
+        """cli.main on the file; the engine it builds and its generate
+        call are caught by wrapping Engine.generate."""
+        seen = []
+        real = Engine.generate
+
+        def spy(self, prompt_tokens, gen=None, stream=None):
+            out, stats = real(self, prompt_tokens, gen, stream)
+            seen.append((self, prompt_tokens, out, stats))
+            return out, stats
+
+        Engine.generate = spy
+        try:
+            reset()
+            rc = cli.main([f"-{kind}", "--ckpt", str(ckpt), "--tokenizer",
+                           str(vocab), "-p", CLI_PROMPT, "-greedy", "--npred",
+                           str(CLI_NPRED), "--model", cfg.name])
+            torch.cuda.synchronize()
+        finally:
+            Engine.generate = real
+        if rc or len(seen) != 1:
+            raise AssertionError(f"path (h) {kind}: cli.main gave {rc} after "
+                                 f"{len(seen)} generate calls")
+        eng, toks, out, stats = seen[0]
+        steps = stats.decode_steps
+        if (len(toks) != n_prompt or eng.policy.wdtype != kind
+                or eng.params["lm_head"].kind != kind
+                or not len(out) <= steps <= CLI_NPRED - n_prompt
+                or not all(0 <= t < cfg.n_vocab for t in out)):
+            raise AssertionError(f"path (h) {kind}: {len(toks)} prompt tokens, "
+                                 f"{len(out)} ids in {steps} steps, weights "
+                                 f"{eng.policy.wdtype}, or ids out of range")
+        expect(f"(h) {kind}", kind, qmm_bigm=4 * L, flash_prefill=L,
+               qmm_smallm=1 + steps, fused_norm_qkv=L * steps,
+               fused_attn_out=L * steps, ffn_fused_normed=L * steps)
+        print(f"path (h) {kind}: cli.main -{kind} --ckpt (q4 .gten) --tokenizer: "
+              f"load {stats.load_s:.3f} s, prefill {stats.prefill_s * 1e3:.3f} "
+              f"ms ({n_prompt} tokens, bucket 128, first launches of the "
+              f"{kind} kernels included), decode {stats.ms_per_token:.4f} "
+              f"ms/token over {len(out)} tokens in {steps} steps", flush=True)
+        # the device's own time for one decode step, as for (a)
+        cache = eng.new_cache(1)
+        eng.prefill(cache, [toks])
+        tok = torch.tensor([5], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([n_prompt], dtype=torch.int32, device="cuda")
+        step_ms = time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
+        print(f"path (h) {kind}: one decode step at pos {n_prompt} replayed as "
+              f"a CUDA graph: {step_ms:.4f} ms device time; eager "
+              f"{stats.ms_per_token:.4f} ms/token, so the device is busy "
+              f"{step_ms / stats.ms_per_token:.3f} of an eager step", flush=True)
+        return eng
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, vocab = Path(tmp) / "tinyllama.q4.gten", Path(tmp) / "tokenizer.bin"
+        t0 = time.perf_counter()
+        gten.write_gten(ckpt, cfg, RandomWeights(cfg, seed=4321), "q4")
+        tokenizer.stand_in_vocab(vocab)
+        print(f"path (h): wrote a {ckpt.stat().st_size / 1e6:.1f} MB q4 .gten "
+              f"of TinyLlama-1.1B (random N(0, 0.02) weights, one tensor at a "
+              f"time) and a stand-in tokenizer.bin in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        n_prompt = len(tokenizer.Tokenizer(vocab).encode(CLI_PROMPT))
+        if not 33 <= n_prompt <= 128:
+            return fail(f"path (h): the templated prompt has {n_prompt} tokens")
+        for kind in ("q4", "q4g"):
+            eng4 = cli_path(kind, ckpt, vocab, n_prompt)
+            chat_path(eng4, f"(i) {kind} chat", kind)
+            batch_path(eng4, f"(i) {kind} B={BATCH}", kind)
+            rows += phase_kernels(eng4, torch, (qm, fa, df, ffn, ao, fp, codec),
+                                  kind)
+            del eng4
+
     launch_names = {"K1 qmm_smallm": ["qmm_smallm"], "K2 qmm_bigm": ["qmm_bigm"],
                     "K3 flash_prefill": ["flash_prefill"],
                     "K4 flash_decode_heads": ["flash_decode_heads"],
@@ -800,10 +987,10 @@ def main() -> int:
                     "K10 flash_paged": ["flash_paged"],
                     "K11 flash_paged_staged": ["flash_paged_staged"]}
     for r in rows:
-        r["launches"] = sum(totals[k] for k in launch_names[r["kernel"]])
+        r["launches"] = sum(totals[r["kind"]][k] for k in launch_names[r["kernel"]])
         if not r["launches"]:
-            return fail(f"{r['kernel']} was not launched on any path")
-    del engine, params
+            return fail(f"{r['kernel']} ({r['kind']}) was not launched on any "
+                        "path")
 
     # 5. parity: 2 layers at full width, the same weights on card and CPU
     cfg2 = TINYLLAMA_1_1B.replace(n_layers=2, max_ctx=256)
@@ -847,7 +1034,34 @@ def main() -> int:
             cache, step_tok[:1], torch.tensor([PROMPT_LEN], dtype=torch.int32,
                                               device=dev))))
         traces.append([(n, t.float().cpu()) for n, t in trace])
-    for (name, a), (_, b) in zip(*traces):
+    pairs = list(zip(*traces))
+    # the 4-bit weights: a long (K2) and a short (K5, K3, K6, K7) prefill,
+    # b1 decode steps (K5, K8, K7, K1) and a B = 4 step (K6)
+    for kind in ("q4", "q4g"):
+        policy4 = POLICIES[kind]
+        p4 = llama.init_quantized_params(cfg2, policy4, cpu_gen, "cpu")
+        traces = []
+        for eng in (Engine(cfg2, policy4, p4, device=d) for d in ("cuda", "cpu")):
+            dev = eng.device
+            cache = eng.new_cache(1)
+            logits, _ = eng.prefill(cache, [prompt])
+            trace = [(f"{kind} long prefill", logits)]
+            pos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device=dev)
+            for i, t in enumerate(feed[:2]):
+                tok = torch.tensor([t], dtype=torch.int32, device=dev)
+                trace.append((f"{kind} b1 decode {i}",
+                              eng.decode_step(cache, tok, pos)))
+                pos += 1
+            logits, _ = eng.prefill(eng.new_cache(1), [chat])
+            trace.append((f"{kind} short prefill", logits))
+            cache = eng.new_cache(BATCH)
+            eng.prefill(cache, chats)
+            trace.append((f"{kind} B={BATCH} decode", eng.decode_step(
+                cache, torch.tensor(feed, dtype=torch.int32, device=dev),
+                torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev))))
+            traces.append([(n, t.float().cpu()) for n, t in trace])
+        pairs += list(zip(*traces))
+    for (name, a), (_, b) in pairs:
         if not (torch.isfinite(a).all() and a.shape[-1] == cfg2.n_vocab):
             return fail(f"parity {name}: logits not finite or misshapen")
         err = float((a - b).abs().max())
@@ -860,7 +1074,7 @@ def main() -> int:
     print(f"parity: worst relative max error {worst:.5f} (limit {PARITY_REL})")
 
     for r in rows:
-        del r["kernel"]
+        del r["kernel"], r["kind"]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -426,6 +426,199 @@ def test_engine_chunk_on_the_card_matches_cpu(card, paged):
         assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
 
 
+# --- 4-bit weights on the card ---------------------------------------------------
+
+#: TinyLlama-1.1B's matmul weights (K, N), the lm_head padded to 32768
+TINYLLAMA_SHAPES = {"wqkv": (2048, 2560), "wo": (2048, 2048),
+                    "w_gateup": (2048, 11264), "w_down": (5632, 2048),
+                    "lm_head": (2048, 32768)}
+_weights4: dict = {}
+
+
+def _weight4(kind, name, device):
+    """A TinyLlama-shaped 4-bit kn weight made and quantized on the card
+    (2 layers; the lm_head unstacked), kept for the module's tests."""
+    key = (kind, name)
+    if key not in _weights4:
+        K, N = TINYLLAMA_SHAPES[name]
+        g = torch.Generator(device).manual_seed(len(_weights4))
+        shape = (N, K) if name == "lm_head" else (2, N, K)
+        _weights4[key] = quantize(torch.randn(shape, generator=g, device=device)
+                                  * 0.02, kind, "kn")
+    return _weights4[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TINYLLAMA_SHAPES))
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 16, 32])
+@pytest.mark.parametrize("kind", ["q4", "q4g"])
+def test_qmatmul_4bit_kernels_match_plain(card, kind, M, name):
+    """K1 (M <= 8) and K2 (M = 16, 32) with q4 and q4g weights at every
+    TinyLlama weight shape; f32 out for the lm_head, bf16 otherwise."""
+    w = _weight4(kind, name, card)
+    K = TINYLLAMA_SHAPES[name][0]
+    layer = None if name == "lm_head" else _i32([1], card)
+    out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+    x = torch.randn(M, K, device=card).to(torch.bfloat16)
+    kname = "qmm_smallm" if M <= qmatmul.SMALL_M else "qmm_bigm"
+    got = _counted(qmatmul, kname, lambda: qmatmul.qmatmul(x, w, out_dtype, layer))
+    want = qmatmul.qmatmul_ref(x, w, out_dtype, layer)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _fused4_inputs(kind, M, device, seed=0):
+    cfg = tiny_test_config(n_embd=2048, n_ffn=5632, n_heads=32, n_kv_heads=4)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, 1, 2048, generator=g).to(device, torch.bfloat16)
+    a = torch.randn(M, 1, 2048, generator=g).to(device, torch.bfloat16)
+    nw = (torch.rand(2, 2048, generator=g) + 0.5).to(device)
+    ws = {n: _weight4(kind, n, device) for n in ("wqkv", "wo", "w_gateup",
+                                                 "w_down")}
+    return x, a, nw, ws, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 32])
+@pytest.mark.parametrize("kind", ["q4", "q4g"])
+def test_fused_4bit_kernels_match_plain(card, kind, M):
+    """K5, K6 and both entries of K7 with 4-bit weights at TinyLlama's
+    widths (w_down's K of 5632: 176 blocks of 32, 44 groups of 128),
+    across both rounding bodies."""
+    x, a, nw, ws, cfg = _fused4_inputs(kind, M, card, seed=M)
+    layer = _i32([1], card)
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    cases = [
+        (decode_fused, "fused_norm_qkv",
+         lambda: decode_fused.fused_norm_qkv(x, nw, ws["wqkv"], layer, eps, inside),
+         lambda: decode_fused.fused_norm_qkv_ref(x, nw, ws["wqkv"], layer, eps,
+                                                 inside)),
+        (decode_fused, "fused_out_residual",
+         lambda: decode_fused.fused_out_residual(a, x, ws["wo"], layer),
+         lambda: decode_fused.fused_out_residual_ref(a, x, ws["wo"], layer)),
+        (ffn_fused, "ffn_fused_normed",
+         lambda: ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
+                                            layer, cfg),
+         lambda: ffn_fused.ffn_fused_ref(x, nw, ws["w_gateup"], ws["w_down"],
+                                         layer, cfg, eps, inside)),
+        (ffn_fused, "ffn_fused",
+         lambda: ffn_fused.ffn_fused(a, ws["w_gateup"], ws["w_down"], layer, cfg),
+         lambda: ffn_fused.ffn_fused_ref(a, None, ws["w_gateup"], ws["w_down"],
+                                         layer, cfg)),
+    ]
+    for mod, name, kernel, plain in cases:
+        got = _counted(mod, name, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+def _attn_out4_inputs(kind, device, pos, seed=0):
+    cache = _cache(1, 4, 2048, [pos + 1], seed=seed, device=device)
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(1, 1, 32, 64, generator=g).to(device, torch.bfloat16)
+    res = torch.randn(1, 1, 2048, generator=g).to(device, torch.bfloat16)
+    return q, cache, res, _weight4(kind, "wo", device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 127, 1500])
+@pytest.mark.parametrize("kind", ["q4", "q4g"])
+def test_fused_attn_out_4bit_matches_plain(card, kind, pos):
+    """K8 with a 4-bit wo at TinyLlama's widths (32 heads, 4 kv heads)."""
+    q, cache, res, wo = _attn_out4_inputs(kind, card, pos, seed=pos)
+    layer, p = _i32([1], card), _i32([pos], card)
+    got = _counted(attn_out_fused, "fused_attn_out",
+                   lambda: attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
+    want = attn_out_fused.fused_attn_out_ref(q, cache, layer, p, res, wo)
+    torch.cuda.synchronize()
+    assert got.shape == res.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cooperative_4bit_kernels_replay_in_a_graph(card):
+    """K7 and K8 with q4g weights captured in one CUDA graph and replayed
+    3 times give the eager result every time."""
+    x, _, nw, ws, cfg = _fused4_inputs("q4g", 4, card, seed=3)
+    q, cache, res, wo = _attn_out4_inputs("q4g", card, 700, seed=3)
+    layer, p = _i32([1], card), _i32([700], card)
+
+    def run():
+        return (ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
+                                           layer, cfg),
+                attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+def test_4bit_wrappers_refuse_on_the_card(card):
+    """Malformed 4-bit weights on the card are refused before a launch:
+    the wrong data type, scales of the other 4-bit kind, and two kinds in
+    one FFN."""
+    x, a, nw, ws, cfg = _fused4_inputs("q4", 2, card)
+    layer = _i32([0], card)
+    w = ws["wqkv"]
+    with pytest.raises(TypeError, match="uint8"):
+        qmatmul.qmatmul(x[0], QTensor(w.data.view(torch.int8), w.scales, "q4",
+                                      "kn"), layer=layer)
+    with pytest.raises(ValueError, match="scales"):
+        decode_fused.fused_norm_qkv(x, nw, QTensor(w.data, w.scales[:, ::4],
+                                                   "q4", "kn"), layer, 1e-6, False)
+    with pytest.raises(ValueError, match="one kind"):
+        ffn_fused.ffn_fused(a, ws["w_gateup"], _weight4("q4g", "w_down", card),
+                            layer, cfg)
+    with pytest.raises(ValueError, match="K=2048"):
+        attn_out_fused.fused_attn_out(
+            *_attn_out4_inputs("q4", card, 5)[:2], layer, _i32([5], card),
+            _attn_out4_inputs("q4", card, 5)[2],
+            QTensor(w.data[:, :512], w.scales[:, :32], "q4", "kn"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["q4", "q4g"])
+def test_engine_4bit_on_the_card_matches_cpu(card, kind):
+    """A small 4-bit model through the kernels and the plain path:
+    last-token logits of a long prefill (K2), a short one (K5, K6, K7)
+    and two decode steps (K5, K8, K7, K1) agree to 5% of their largest
+    magnitude."""
+    cfg = tiny_test_config(n_embd=256, n_heads=4, n_kv_heads=1, n_ffn=512)
+    policy = POLICIES[kind]
+    params = llama.init_quantized_params(cfg, policy,
+                                         torch.Generator().manual_seed(0))
+    traces = []
+    for device in (card, "cpu"):
+        eng = Engine(cfg, policy, params, device=device)
+        logits, _ = eng.prefill(eng.new_cache(1), [list(range(1, 41))])
+        trace = [logits.float().cpu()]
+        cache = eng.new_cache(1)
+        logits, _ = eng.prefill(cache, [[1, 5, 9, 33, 70, 2, 8]])
+        trace.append(logits.float().cpu())
+        p = _i32([7], eng.device)
+        for t in (11, 12):
+            trace.append(eng.decode_step(cache, _i32([t], eng.device), p)
+                         .float().cpu())
+            p += 1
+        traces.append(trace)
+    for a, b in zip(*traces):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
+
+
 # --- anywhere -------------------------------------------------------------------
 
 

@@ -142,6 +142,74 @@ def test_greedy_generate_matches_jax_pallas(both_params, prompt_len):
     assert pout == [int(t) for t in jout]
 
 
+#: the 4-bit models: JAX config, port config, by n_embd (256: d_head 64)
+WIDTHS = {128: (JCFG, CFG),
+          256: (jax_tiny(n_embd=256, n_ffn=512, n_kv_heads=2),
+                pconfig.tiny_test_config(n_embd=256, n_ffn=512, n_kv_heads=2))}
+_params4: dict = {}
+
+
+def _both_params4(kind, width):
+    """Random q4/q4g parameters of the width's config: JAX's tree (the
+    layout of its init_quantized_params, quantized by its jitted codec
+    from numpy weights) and the port's copy."""
+    key = (kind, width)
+    if key not in _params4:
+        jcfg, pcfg = WIDTHS[width]
+        quant = jax.jit(jcodec.quantize, static_argnums=(1, 2))
+        rng = np.random.default_rng(width)
+
+        def q(shape, layout):
+            w = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+            return quant(jnp.asarray(w), kind, layout)
+
+        L, D, F, V = jcfg.n_layers, jcfg.n_embd, jcfg.n_ffn, jcfg.n_vocab
+        ones = jnp.ones((L, D), jnp.float32)
+        jp = {"embed": q((V, D), "nk"), "lm_head": q((V, D), "kn"),
+              "norm": jnp.ones((D,), jnp.float32),
+              "layers": {"wqkv": q((L, D + 2 * jcfg.kv_dim, D), "kn"),
+                         "wo": q((L, D, D), "kn"),
+                         "w_gateup": q((L, 2 * F, D), "kn"),
+                         "w_down": q((L, D, F), "kn"),
+                         "attn_norm": ones, "ffn_norm": ones}}
+        _params4[key] = jp, params_from_numpy(
+            _to_numpy(jp), pcfg, pconfig.DtypePolicy(kind, "f32", "f32"))
+    return _params4[key]
+
+
+@pytest.mark.parametrize("mode", ["b1", "b4"])
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("kind", ["q4", "q4g"])
+def test_greedy_4bit_matches_jax_pallas(kind, width, mode):
+    """Greedy f32 tokens with q4 and q4g weights equal JAX
+    ``Engine(use_pallas=True)``'s: b1 ``generate`` of a 20-token prompt
+    (fused prefill, K5 -> K8 -> K7 decode), and ``generate_batch`` of 4
+    prompts of staggered lengths (staged B = 4 chunks)."""
+    jp, pp = _both_params4(kind, width)
+    jcfg, pcfg = WIDTHS[width]
+    jpol, ppol = JaxPolicy(kind, "f32", "f32"), pconfig.DtypePolicy(kind, "f32",
+                                                                    "f32")
+    rng = np.random.default_rng(width + len(kind))
+    if mode == "b1":
+        prompt = [1] + rng.integers(2, pcfg.n_vocab, 19).tolist()
+        gen = dict(n_predict=32, greedy=True, eos_token=-1, chunk_size=6)
+        jout, _ = JaxEngine(jcfg, jpol, jp, use_pallas=True).generate(
+            prompt, JaxGen(**gen))
+        pout, _ = Engine(pcfg, ppol, pp, device="cpu").generate(
+            prompt, pconfig.GenerationConfig(**gen))
+        assert len(pout) == 12 and pout == [int(t) for t in jout]
+    else:
+        prompts = [[1] + rng.integers(2, pcfg.n_vocab, n - 1).tolist()
+                   for n in (5, 9, 12, 20)]
+        gen = dict(n_predict=28, greedy=True, eos_token=-1, chunk_size=6)
+        jout, _ = JaxEngine(jcfg, jpol, jp, max_batch=4, use_pallas=True
+                            ).generate_batch(prompts, JaxGen(**gen))
+        pout, _ = Engine(pcfg, ppol, pp, device="cpu").generate_batch(
+            prompts, pconfig.GenerationConfig(**gen))
+        assert [len(o) for o in pout] == [23, 19, 16, 8]
+        assert pout == [[int(t) for t in o] for o in jout]
+
+
 #: the plain version behind each kernel; a test spy counts their calls.
 SPIED = [
     ("qmatmul", "qmatmul_ref", lambda x, *a, **k: "K1" if x.reshape(
@@ -281,5 +349,7 @@ def test_cli_runs_on_cpu(capsys):
     captured = capsys.readouterr()
     assert len(captured.err.split()) == 12 - 6
     assert "Throughput" in captured.out
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="not both"):
         cli_main(["--random-weights", "--ckpt", "x.gten", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        cli_main(["--ckpt", "no-such-file.gten", "--device", "cpu"])

@@ -1,14 +1,24 @@
-"""Command line: one prompt through the port's engine.
+"""Command line: chat with TinyLlama through the port's engine.
 
-    python -m tinyllama_tpu_torch.cli --random-weights -q8 -p "..." -greedy \\
-        --npred 256 [--model tiny-test] [--device cuda|cpu] [--paged]
+    python -m tinyllama_tpu_torch.cli -q4 --ckpt tinyllama.q4.gten \\
+        --tokenizer tokenizer.bin [-p "..."] [-greedy] [--npred 768]
+    python -m tinyllama_tpu_torch.cli --random-weights -q8 -p "..." \\
+        [--model tiny-test] [--device cuda|cpu] [--paged]
 
-Flags follow the reference CLI (``-q8 -p PROMPT -greedy --temp --npred
---topk``). Weights are random, made from ``--seed``; the checkpoint
-loaders and the tokenizer are not ported yet, so the prompt becomes token
-ids (BOS, then each character's code modulo the vocab) and the output
-prints as ids. Runs on the card unless ``--device cpu`` is given.
-``--paged`` keeps the KV cache in a page pool (decode attention K10).
+Flags follow the reference CLI (``-q8 -q4 -p PROMPT -greedy --temp
+--npred --topk``), plus ``-q4g`` (the group-128 4-bit format, requantized
+from the checkpoint at load). ``--ckpt`` takes a .gten file or a
+HuggingFace checkpoint (a .safetensors / .bin file or a directory);
+``--tokenizer`` a tokenizer.bin or tokenizer.json (default: tokenizer.bin
+in the working directory, when there is one). Without ``-p`` the CLI is a
+chat REPL. Generated text streams to stderr; a greedy run prints the
+performance table to stdout.
+
+``--random-weights`` makes the weights from ``--seed`` instead of loading
+them; without a tokenizer the prompt then becomes token ids (BOS, then
+each character's code modulo the vocab) and the output prints as ids.
+Runs on the card unless ``--device cpu`` is given. ``--paged`` keeps the
+KV cache in a page pool (decode attention K10).
 """
 
 from __future__ import annotations
@@ -16,27 +26,39 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 from tinyllama_tpu_torch.config import (
     GenerationConfig, MODEL_REGISTRY, POLICIES, tiny_test_config,
 )
+from tinyllama_tpu_torch.io.checkpoint import load_gten_checkpoint, load_hf_checkpoint
+from tinyllama_tpu_torch.io.hf_tokenizer import load_tokenizer
+from tinyllama_tpu_torch.io.tokenizer import safe_piece
 from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.runtime.engine import Engine, resolve_device
 from tinyllama_tpu_torch.runtime.perf import perf_report
+
+#: suffixes of a HuggingFace checkpoint file (a directory is one too)
+HF_SUFFIXES = (".safetensors", ".bin", ".pt")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tinyllama-tpu-torch",
         description="TinyLlama on an NVIDIA GPU (PyTorch + CUDA port).")
-    p.add_argument("-q8", action="store_const", dest="dtype", const="q8",
-                   help="8-bit quantized weights. [default; the only "
-                        "format ported so far]")
-    p.set_defaults(dtype="q8")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("-q8", action="store_const", dest="dtype", const="q8",
+                   help="8-bit quantized weights (1.1GB). [default with "
+                        "--random-weights or an HF checkpoint]")
+    g.add_argument("-q4", action="store_const", dest="dtype", const="q4",
+                   help="4-bit quantized weights (0.62GB).")
+    g.add_argument("-q4g", action="store_const", dest="dtype", const="q4g",
+                   help="4-bit weights with one scale per 128 (0.57GB; "
+                        "requantized from the checkpoint at load).")
     p.add_argument("-p", dest="prompt", default="", metavar="PROMPT",
-                   help="the prompt")
+                   help="single prompt (otherwise: chat REPL)")
     p.add_argument("-greedy", action="store_true", help="greedy sampling")
     p.add_argument("--temp", type=float, default=0.9,
                    help="sampling temperature (> 0). [default=0.9]")
@@ -52,11 +74,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode steps between host read-backs")
     p.add_argument("--paged", action="store_true",
                    help="paged KV cache (page pool + page table)")
-    p.add_argument("--random-weights", action="store_true",
-                   help="random weights made from --seed (required for now)")
-    p.add_argument("--ckpt", default=None, help="checkpoint (not yet ported)")
+    p.add_argument("--ckpt", default=None,
+                   help=".gten checkpoint, or a HuggingFace checkpoint file "
+                        "or directory")
     p.add_argument("--tokenizer", default=None,
-                   help="tokenizer.bin (not yet ported)")
+                   help="tokenizer.bin or tokenizer.json "
+                        "(default: ./tokenizer.bin)")
+    p.add_argument("--random-weights", action="store_true",
+                   help="random weights made from --seed (no checkpoint)")
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="run device. [default=cuda]")
     p.add_argument("--seed", type=int, default=0, help="weights and sampling seed")
@@ -72,11 +97,29 @@ def validate(args) -> None:
         raise SystemExit("temp value must be greater than zero.")
     if not (1 <= args.topk <= 32003):
         raise SystemExit("topk must be gte 1 and lte 32003.")
-    if args.ckpt or args.tokenizer:
-        raise SystemExit("--ckpt and --tokenizer are not yet ported "
-                         "(ROADMAP.md, Queue 1); use --random-weights")
-    if not args.random_weights:
-        raise SystemExit("checkpoints are not yet ported; pass --random-weights")
+    if args.random_weights and args.ckpt:
+        raise SystemExit("pass either --ckpt or --random-weights, not both")
+    if not (args.random_weights or args.ckpt):
+        raise SystemExit("pass --ckpt (a .gten or HuggingFace checkpoint) or "
+                         "--random-weights")
+    if args.ckpt and not Path(args.ckpt).exists():
+        raise SystemExit(f"no checkpoint at {args.ckpt}")
+
+
+def load_params(args, cfg, device):
+    """(params, policy) from the flags: random, an HF checkpoint, or a
+    .gten file (whose own dtype serves when no dtype flag is given)."""
+    if args.random_weights:
+        policy = POLICIES[args.dtype or "q8"]
+        generator = torch.Generator(device)
+        generator.manual_seed(args.seed)
+        return llama.init_quantized_params(cfg, policy, generator, device), policy
+    ckpt = Path(args.ckpt)
+    if ckpt.is_dir() or ckpt.suffix in HF_SUFFIXES:
+        policy = POLICIES[args.dtype or "q8"]
+        return load_hf_checkpoint(ckpt, cfg, policy, device), policy
+    return load_gten_checkpoint(ckpt, cfg, args.dtype and POLICIES[args.dtype],
+                                device)
 
 
 def main(argv=None) -> int:
@@ -88,33 +131,67 @@ def main(argv=None) -> int:
            else MODEL_REGISTRY[args.model])
     if args.max_ctx:
         cfg = cfg.replace(max_ctx=args.max_ctx)
-    policy = POLICIES[args.dtype]
 
     load_t0 = time.perf_counter()
-    generator = torch.Generator(device)
-    generator.manual_seed(args.seed)
-    params = llama.init_quantized_params(cfg, policy, generator, device)
+    params, policy = load_params(args, cfg, device)
     engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device,
                     paged=args.paged)
     load_s = time.perf_counter() - load_t0
 
+    tok_path = args.tokenizer or ("tokenizer.bin" if Path("tokenizer.bin").exists()
+                                  else None)
+    if tok_path is None and not args.random_weights:
+        raise SystemExit("no tokenizer: pass --tokenizer")
+    tokenizer = load_tokenizer(tok_path) if tok_path else None
+
     gen = GenerationConfig(
         n_predict=args.npred, temperature=args.temp, top_k=args.topk,
         greedy=args.greedy, seed=args.seed, chunk_size=args.chunk,
-        eos_token=-1,  # no tokenizer, so no EOS id
+        eos_token=tokenizer.eos if tokenizer else -1,
     )
-    tokens = [1] + [ord(c) % cfg.n_vocab for c in args.prompt]
 
-    def stream(t: int) -> None:
-        sys.stderr.write(f"{t} ")
-        sys.stderr.flush()
+    def run_once(prompt: str) -> None:
+        if tokenizer:
+            tokens = tokenizer.encode(prompt)
+            # the first piece decodes after BOS, which strips its
+            # leading sentencepiece space
+            prev = [1]
 
-    out, stats = engine.generate(tokens, gen, stream=stream)
-    stats.load_s = load_s
-    sys.stderr.write("\n")
-    if args.greedy and not args.no_perf:
-        sys.stdout.write(perf_report(stats, engine.params, engine.new_cache(1),
-                                     device))
+            def stream(t: int) -> None:
+                piece = safe_piece(tokenizer.decode(prev[0], t))
+                prev[0] = t
+                sys.stderr.buffer.write(piece)
+                sys.stderr.flush()
+        else:
+            tokens = [1] + [ord(c) % cfg.n_vocab for c in prompt]
+
+            def stream(t: int) -> None:
+                sys.stderr.write(f"{t} ")
+                sys.stderr.flush()
+
+        out, stats = engine.generate(tokens, gen, stream=stream)
+        stats.load_s = load_s
+        sys.stderr.write("\n")
+        if args.greedy and not args.no_perf:
+            sys.stdout.write(perf_report(stats, engine.params,
+                                         engine.new_cache(1), device))
+
+    if args.prompt:
+        run_once(args.prompt)
+    else:
+        print("Chat interface. Write your prompt and press enter to submit. "
+              "Enter q or press ctrl+c to quit.")
+        while True:
+            try:
+                sys.stderr.write("\n\n[You]: ")
+                sys.stderr.flush()
+                prompt = input()
+            except (EOFError, KeyboardInterrupt):
+                break
+            if prompt == "q":
+                break
+            sys.stderr.write("\n[Tinyllama-Chat]: \n\n")
+            run_once(prompt)
     return 0
 
 

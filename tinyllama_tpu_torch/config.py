@@ -112,7 +112,8 @@ def tiny_test_config(**overrides) -> ModelConfig:
 
 #: Weight formats. "q8"/"q4" are block-32 weight-only quantization, "q4g"
 #: the group-128 4-bit serving format; f32/bf16/f16 are dense. The port
-#: runs q8 so far (ROADMAP.md, Queue 1).
+#: runs the three quantized formats; the dense ones are queued
+#: (ROADMAP.md, Queue 1).
 WEIGHT_DTYPES = ("f32", "bf16", "f16", "q8", "q4", "q4g")
 #: Activation compute dtypes.
 ACT_DTYPES = ("f32", "bf16", "f16")

@@ -3,12 +3,13 @@
 //   out = residual + attention(q, cache layer, keys 0..pos) @ dequant(wo)
 // q [H, 64] bf16 of the one new token; the stacked bf16 cache
 // [L, 1, Kh, S, 64] with the token's k/v already written; wo the
-// layer-stacked q8 "kn" weight [L, H*64, N]; the layer index and pos read
-// from device memory.
+// layer-stacked "kn" weight [L, H*64, N] (q8, or q4 / q4g as [L, H*32, N]
+// nibble data; qkind.cuh); the layer index and pos read from device
+// memory.
 //
 // K8 replaces the kernel of _run_attn_out in
 //   tinyllama_tpu/ops/pallas/attn_out_fused.py. Bound: the bytes of wo
-//   (4.46 MB at TinyLlama's 2048 x 2048) plus the 1,024 * (pos + 1) bytes
+//   (4.46 MB at TinyLlama's 2048 x 2048 in q8, 2.36 MB in q4) plus the 1,024 * (pos + 1) bytes
 //   of the visible keys and values, over the memory rate. Design: the TPU
 //   kernel walks one sequential grid, the attention's online softmax into
 //   VMEM scratch first, then wo's tiles against that scratch. On Hopper
@@ -26,7 +27,8 @@
 //   - barrier; wo strips of qstrip.cuh at M = 1 (exact dequantization, the
 //     TPU's m = 1 blockdot) stage that result through L2 (__ldcg: written
 //     by other SMs in this launch), and the residual joins the f32 sum.
-//   The grid is capped at the blocks the card holds at once.
+//   The grid is capped at the blocks the card holds at once, counted for
+//   each bits instantiation.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -47,13 +49,14 @@ constexpr int K_LD = D + 2;            // padded K rows: a bank per key
 constexpr int MAX_G = THREADS / 32;    // query heads per kv head
 constexpr int PART = 2 + D;            // a tile's (max, sum, weighted V)
 
+template <int BITS>
 __global__ void __launch_bounds__(THREADS)
 fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                       const bf16* __restrict__ vc, const int* __restrict__ layer,
-                      const int* __restrict__ pos, const int8_t* __restrict__ w,
+                      const int* __restrict__ pos, const uint8_t* __restrict__ w,
                       const __half* __restrict__ s, const bf16* __restrict__ res,
                       float* part, float* attn, bf16* __restrict__ out, int H,
-                      int Kh, int S, int N) {
+                      int Kh, int S, int N, int sshift) {
   extern __shared__ __align__(128) float buf[];
   __shared__ __align__(16) bf16 Ks[TILE * K_LD];
   __shared__ __align__(16) bf16 Vs[TILE * D];
@@ -152,11 +155,11 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 
   // wo strips against the merged result, plus the residual
   const int K = H * D;
-  w += (size_t)li * K * N;
-  s += (size_t)li * (K / qstrip::QBLOCK) * N;
+  w += (size_t)li * qkind::plane_bytes(BITS, K, N);
+  s += (size_t)li * (K >> sshift) * N;
   for (int j = blockIdx.x * COLS; j < N; j += gridDim.x * COLS) {
-    qstrip::strip_matmul<1>(
-        buf, w, s, K, N, j,
+    qstrip::strip_matmul<1, BITS>(
+        buf, w, s, K, N, j, sshift,
         [&](float* b, int k0, int kc_) {
           qstrip::stage_rows<1>(b, 1, k0, kc_, [&](int, int k, float(&v)[8]) {
             qstrip::load_l2_f32x8(attn + k, v);
@@ -173,35 +176,39 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 extern "C" {
 
 // q: [H, 64] bf16; k, v: [L, 1, Kh, S, 64] bf16; layer, pos: [1] int32;
-// w, s: [L, H*64, N] int8 and [L, H*64/32, N] fp16; res, out: [N] bf16;
-// part: [H * S/64 * 66] f32 and attn: [H * 64] f32 workspaces. Requires
+// kind: 0 q8, 1 q4, 2 q4g; w, s: [L, H*64, N] int8 (or [L, H*32, N] uint8)
+// and [L, H*64/32 (or /128), N] fp16; res, out: [N] bf16; part:
+// [H * S/64 * 66] f32 and attn: [H * 64] f32 workspaces. Requires
 // H / Kh <= 8, S % 64 == 0, N % 32 == 0 and pos < S.
 int fused_attn_out(const void* q, const void* k, const void* v, const void* layer,
                    const void* pos, const void* w, const void* s, const void* res,
-                   void* part, void* attn, void* out, int H, int Kh, int S,
-                   int N, void* stream) {
-  if (Kh < 1 || H % Kh || H / Kh > MAX_G || S < TILE || S % TILE || N < COLS ||
-      N % COLS)
+                   void* part, void* attn, void* out, int kind, int H, int Kh,
+                   int S, int N, void* stream) {
+  if (!qkind::valid(kind) || Kh < 1 || H % Kh || H / Kh > MAX_G || S < TILE ||
+      S % TILE || N < COLS || N % COLS || (H * D) % qkind::scale_rows(kind))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  auto kernel = fused_attn_out_kernel;
   const int bytes = qstrip::smem_floats(1) * sizeof(float);
   int want = Kh * (S / TILE);
   if (N / COLS > want) want = N / COLS;
   if ((H + MAX_G - 1) / MAX_G > want) want = (H + MAX_G - 1) / MAX_G;
-  static int resident = 0;
-  static const cudaError_t occ = qstrip::resident_blocks(kernel, bytes, &resident);
-  if (occ) return (int)occ;
-  const int grid = want < resident ? want : resident;
-  const cudaError_t err = qstrip::launch_cooperative(
-      kernel, grid, bytes, st, static_cast<const bf16*>(q),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(layer), static_cast<const int*>(pos),
-      static_cast<const int8_t*>(w), static_cast<const __half*>(s),
-      static_cast<const bf16*>(res), static_cast<float*>(part),
-      static_cast<float*>(attn), static_cast<bf16*>(out), H, Kh, S, N);
-  cudaError_t last = cudaGetLastError();
-  return (int)(err ? err : last);
+  return qkind::with_bits(kind, [&](auto bits) {
+    auto kernel = fused_attn_out_kernel<decltype(bits)::value>;
+    static int resident = 0;
+    static const cudaError_t occ = qstrip::resident_blocks(kernel, bytes, &resident);
+    if (occ) return (int)occ;
+    const int grid = want < resident ? want : resident;
+    const cudaError_t err = qstrip::launch_cooperative(
+        kernel, grid, bytes, st, static_cast<const bf16*>(q),
+        static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const int*>(layer), static_cast<const int*>(pos),
+        static_cast<const uint8_t*>(w), static_cast<const __half*>(s),
+        static_cast<const bf16*>(res), static_cast<float*>(part),
+        static_cast<float*>(attn), static_cast<bf16*>(out), H, Kh, S, N,
+        qkind::scale_shift(kind));
+    cudaError_t last = cudaGetLastError();
+    return (int)(err ? err : last);
+  });
 }
 
 }  // extern "C"

@@ -1,33 +1,42 @@
-// Q8_0 weight-only quantized matmul for Hopper (sm_90a):
+// Weight-only quantized matmul for Hopper (sm_90a):
 //   out[M, N] = x[M, K] (bf16) @ dequant(w)[K, N],  f32 accumulation.
 //
-// The weight is the port's "kn" QTensor: int8 data [L, K, N] and fp16
-// block scales [L, K/32, N] (one scale per 32 rows of K, per column), both
-// stacked over layers; the layer index is read from device memory (a null
-// pointer means an unstacked weight), so no layer is ever sliced or copied
-// and a decode step stays capturable.
+// The weight is the port's "kn" QTensor (qkind.cuh): q8 int8 data
+// [L, K, N], or 4-bit (q4, q4g) data [L, K/2, N] whose byte-rows each pack
+// two K-rows of a 32-row block; fp16 block scales [L, K/32, N] (q8, q4) or
+// [L, K/128, N] (q4g). Both planes are stacked over layers; the layer
+// index is read from device memory (a null pointer means an unstacked
+// weight), so no layer is ever sliced or copied and a decode step stays
+// capturable. Each kernel is a template on the bits; q4 and q4g differ
+// only in the scale row a 32-row block reads.
 //
 // K1 qmm_smallm (M <= 8, decode) replaces _qmm_kernel_smallm in
-//   tinyllama_tpu/ops/pallas/qmatmul.py. Bound: the weight bytes over the
-//   memory rate (2 * M flops per weight byte is far below the ridge).
-//   Design: the weight streams exactly once. A block owns a strip of 32
-//   columns; its 256 threads are 8 column groups (4 columns each, read as
-//   one char4, so a row of the strip is one 32-byte sector) times 32 K
-//   slices that walk 32-row blocks. x is staged in shared memory as f32,
-//   1024 rows of K at a time. Each 32-block's integer-valued partial dot
-//   is scaled by that block's fp16 scale after the dot, as the TPU kernel
-//   does; the 32 K slices are summed in shared memory in a fixed order.
+//   tinyllama_tpu/ops/pallas/qmatmul.py (its q8 and q4/q4g bodies). Bound:
+//   the weight bytes over the memory rate (2 * M flops per weight byte at
+//   q8, 4 * M at 4 bits, far below the ridge). Design: the weight streams
+//   exactly once. A block owns a strip of 32 columns; its 256 threads are
+//   8 column groups (4 columns each, read as one 4-byte word, so a row of
+//   the strip is one 32-byte sector) times 32 K slices that walk 32-row
+//   blocks: 32 word rows at q8, 16 at 4 bits, where each word holds two
+//   K-rows of 4 columns. x is staged in shared memory as f32, 1024 rows
+//   of K at a time. A 4-bit value is dequantized to (v - 7) in f32 before
+//   its FMA (exact, so no x-sum correction is needed, where the TPU body
+//   folds the offset into block sums of x after the dot); each 32-block's
+//   partial dot is then scaled by that block's fp16 scale after the dot,
+//   as the TPU kernel does; the 32 K slices are summed in shared memory in
+//   a fixed order.
 //
-// K2 qmm_bigm (M > 8, prefill) replaces _qmm_kernel_bigm + _dequant_tile.
-//   Bound: tensor-core operations at large M (2*M*K*N over 989 TFLOP/s).
-//   Design: 64x64 output tiles, 4 warps of 32x32; each 64-deep K step
-//   dequantizes the 64x64 int8 weight tile (two scale rows) to bf16 in
-//   shared memory, once for all 64 rows of x, and multiplies with
-//   nvcuda::wmma bf16 tensor-core products into f32 accumulators; the
-//   epilogue casts to the output type. The next step's global loads are
-//   issued into registers before this step's products, so their latency
-//   hides behind the tensor cores. TMA, wgmma and a deeper shared-memory
-//   ring are later work.
+// K2 qmm_bigm (M > 8, prefill) replaces _qmm_kernel_bigm + _dequant_tile
+//   (q8 and q4/q4g bodies). Bound: tensor-core operations at large M
+//   (2*M*K*N over 989 TFLOP/s). Design: 64x64 output tiles, 4 warps of
+//   32x32; each 64-deep K step dequantizes the 64x64 weight tile ((v - 7)
+//   * s or q * s, exact in f32, then rounded to bf16 once, which equals the
+//   TPU body's hi16 * (s/16) + s) into shared memory, once for all 64 rows
+//   of x, and multiplies with nvcuda::wmma bf16 tensor-core products into
+//   f32 accumulators; the epilogue casts to the output type. The next
+//   step's global loads are issued into registers before this step's
+//   products, so their latency hides behind the tensor cores. TMA, wgmma
+//   and a deeper shared-memory ring are later work.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -36,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "qkind.cuh"
 
 namespace {
 
@@ -54,24 +65,24 @@ __device__ inline void store_out<__nv_bfloat16>(__nv_bfloat16* p, float v) {
 
 constexpr int SM_THREADS = 256;
 constexpr int SM_COLS = 32;                   // output columns per block
-constexpr int SM_CG = SM_COLS / 4;            // column groups (char4 each)
+constexpr int SM_CG = SM_COLS / 4;            // column groups (4 bytes each)
 constexpr int SM_KS = SM_THREADS / SM_CG;     // K slices per block
 constexpr int SM_KCHUNK = SM_KS * QBLOCK;     // K rows of x staged per pass
 constexpr int SM_XLD = SM_KCHUNK + SM_KS;     // one pad float per 32-block
 
-template <int M, typename OutT>
+template <int M, typename OutT, int BITS>
 __global__ void __launch_bounds__(SM_THREADS)
 qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ w,
+                  const uint8_t* __restrict__ w,
                   const __half* __restrict__ s,
                   const int* __restrict__ layer,
-                  OutT* __restrict__ out, int K, int N) {
+                  OutT* __restrict__ out, int K, int N, int sshift) {
   // x chunk [M][SM_XLD] during the K walk, then the [SM_KS][M][SM_COLS]
   // partial sums of the cross-slice reduction
   __shared__ float buf[M * SM_XLD];
   const int li = layer ? layer[0] : 0;
-  w += (size_t)li * K * N;
-  s += (size_t)li * (K / QBLOCK) * N;
+  w += (size_t)li * qkind::plane_bytes(BITS, K, N);
+  s += (size_t)li * (K >> sshift) * N;
   const int tc = threadIdx.x % SM_CG;
   const int ks = threadIdx.x / SM_CG;
   const int n = blockIdx.x * SM_COLS + tc * 4;
@@ -94,39 +105,66 @@ qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
     const int kb = ks * QBLOCK;
     if (kb < kc && n < N) {
-      const int8_t* wp = w + (size_t)(k0 + kb) * N + n;
       const float* xs = buf + ks * (QBLOCK + 1);
-      // all 32 rows' loads first, so they are in flight together
-      char4 q[QBLOCK];
-      if (full) {
-#pragma unroll
-        for (int r = 0; r < QBLOCK; ++r)
-          q[r] = *reinterpret_cast<const char4*>(wp + (size_t)r * N);
-      } else {
-#pragma unroll
-        for (int r = 0; r < QBLOCK; ++r) {
-          const int8_t* row = wp + (size_t)r * N;
-          q[r] = make_char4(row[0], n + 1 < N ? row[1] : 0,
-                            n + 2 < N ? row[2] : 0, 0);
-        }
-      }
       float part[M][4];
 #pragma unroll
       for (int m = 0; m < M; ++m)
 #pragma unroll
         for (int j = 0; j < 4; ++j) part[m][j] = 0.f;
+      if constexpr (BITS == 8) {
+        const int8_t* wp = reinterpret_cast<const int8_t*>(w) + (size_t)(k0 + kb) * N + n;
+        // all 32 rows' loads first, so they are in flight together
+        char4 q[QBLOCK];
+        if (full) {
 #pragma unroll
-      for (int r = 0; r < QBLOCK; ++r) {
+          for (int r = 0; r < QBLOCK; ++r)
+            q[r] = *reinterpret_cast<const char4*>(wp + (size_t)r * N);
+        } else {
 #pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const float xv = xs[m * SM_XLD + r];
-          part[m][0] += xv * (float)q[r].x;
-          part[m][1] += xv * (float)q[r].y;
-          part[m][2] += xv * (float)q[r].z;
-          part[m][3] += xv * (float)q[r].w;
+          for (int r = 0; r < QBLOCK; ++r) {
+            const int8_t* row = wp + (size_t)r * N;
+            q[r] = make_char4(row[0], n + 1 < N ? row[1] : 0,
+                              n + 2 < N ? row[2] : 0, 0);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < QBLOCK; ++r) {
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const float xv = xs[m * SM_XLD + r];
+            part[m][0] += xv * (float)q[r].x;
+            part[m][1] += xv * (float)q[r].y;
+            part[m][2] += xv * (float)q[r].z;
+            part[m][3] += xv * (float)q[r].w;
+          }
+        }
+      } else {
+        // 16 byte-rows: word j holds K-rows j (high nibbles) and j + 16
+        // (low nibbles) of the block, for 4 columns (N % 4 == 0, so a
+        // strip's column group is whole or absent)
+        const uint8_t* wp = w + (size_t)((k0 + kb) / 2) * N + n;
+        uint32_t q[QBLOCK / 2];
+#pragma unroll
+        for (int j = 0; j < QBLOCK / 2; ++j)
+          q[j] = *reinterpret_cast<const uint32_t*>(wp + (size_t)j * N);
+#pragma unroll
+        for (int j = 0; j < QBLOCK / 2; ++j) {
+          float hv[4], lv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            hv[c] = qkind::hi4(q[j] >> (8 * c));
+            lv[c] = qkind::lo4(q[j] >> (8 * c));
+          }
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const float xh = xs[m * SM_XLD + j];
+            const float xl = xs[m * SM_XLD + j + QBLOCK / 2];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[m][c] += xh * hv[c] + xl * lv[c];
+          }
         }
       }
-      const __half* sp = s + (size_t)((k0 + kb) / QBLOCK) * N + n;
+      const __half* sp = s + (size_t)((k0 + kb) >> sshift) * N + n;
       float sc[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -154,14 +192,14 @@ qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <typename OutT>
+template <typename OutT, int BITS>
 void launch_smallm(int M, dim3 grid, cudaStream_t st,
-                   const __nv_bfloat16* x, const int8_t* w, const __half* s,
-                   const int* layer, OutT* out, int K, int N) {
+                   const __nv_bfloat16* x, const uint8_t* w, const __half* s,
+                   const int* layer, OutT* out, int K, int N, int sshift) {
 #define TL_SMALLM(MM)                                                      \
   case MM:                                                                 \
-    qmm_smallm_kernel<MM, OutT><<<grid, SM_THREADS, 0, st>>>(x, w, s,      \
-                                                             layer, out, K, N); \
+    qmm_smallm_kernel<MM, OutT, BITS><<<grid, SM_THREADS, 0, st>>>(        \
+        x, w, s, layer, out, K, N, sshift);                                \
     break;
   switch (M) {
     TL_SMALLM(1) TL_SMALLM(2) TL_SMALLM(3) TL_SMALLM(4)
@@ -178,24 +216,36 @@ constexpr int A_LD = BK + 8;   // bf16 elements; 16-row steps stay 32-byte align
 constexpr int B_LD = BN + 8;
 constexpr int C_LD = BN + 4;   // f32 elements
 constexpr int A_CHUNKS = BM * BK / 8 / BG_THREADS;    // 16-byte x chunks a thread
-constexpr int B_ROWS = BK * BN / 16 / BG_THREADS;     // 16-column weight rows a thread
 
 // One K step's global tile data, held in registers while the tensor cores
 // work on the previous step's shared-memory tiles: x chunks, and per
-// 16-column weight row its 16 int8 values and 16 fp16 scales.
+// 16-column data row (a K-row at q8, a byte-row of two K-rows at 4 bits)
+// its 16 bytes and its 16 fp16 scales.
+template <int BITS>
 struct BigmStage {
+  static constexpr int ROWS = BK * BITS / 8;                // data rows a step
+  static constexpr int UNITS = ROWS * BN / 16 / BG_THREADS;  // rows a thread
   uint4 a[A_CHUNKS];
-  int4 q[B_ROWS];
-  int4 sc[B_ROWS][2];
+  int4 q[UNITS];
+  int4 sc[UNITS][2];
 };
 
 __device__ inline int word_of(const int4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__device__ inline void bigm_load(BigmStage& st, const __nv_bfloat16* x,
-                                 const int8_t* w, const __half* s, int M,
-                                 int K, int N, int m0, int n0, int k0) {
+// The first K-row of data row r of the step at k0: r itself at q8; at 4
+// bits byte-row r packs K-rows 32 (r / 16) + r % 16 and that + 16.
+template <int BITS>
+__device__ inline int bigm_krow(int k0, int r) {
+  return BITS == 8 ? k0 + r : k0 + (r / 16) * QBLOCK + r % 16;
+}
+
+template <int BITS>
+__device__ inline void bigm_load(BigmStage<BITS>& st, const __nv_bfloat16* x,
+                                 const uint8_t* w, const __half* s, int M,
+                                 int K, int N, int m0, int n0, int k0,
+                                 int sshift) {
 #pragma unroll
   for (int c = 0; c < A_CHUNKS; ++c) {
     const int i = threadIdx.x + c * BG_THREADS;
@@ -205,11 +255,11 @@ __device__ inline void bigm_load(BigmStage& st, const __nv_bfloat16* x,
         : make_uint4(0, 0, 0, 0);
   }
 #pragma unroll
-  for (int b = 0; b < B_ROWS; ++b) {
+  for (int b = 0; b < BigmStage<BITS>::UNITS; ++b) {
     const int i = threadIdx.x + b * BG_THREADS;
     const int r = i / (BN / 16), n = n0 + (i % (BN / 16)) * 16;
-    const int8_t* wp = w + (size_t)(k0 + r) * N + n;
-    const __half* sp = s + (size_t)((k0 + r) / QBLOCK) * N + n;
+    const uint8_t* wp = w + (size_t)(k0 * BITS / 8 + r) * N + n;
+    const __half* sp = s + (size_t)(bigm_krow<BITS>(k0, r) >> sshift) * N + n;
     if (N % 16 == 0 && n + 15 < N) {
       st.q[b] = *reinterpret_cast<const int4*>(wp);
       st.sc[b][0] = *reinterpret_cast<const int4*>(sp);
@@ -219,7 +269,7 @@ __device__ inline void bigm_load(BigmStage& st, const __nv_bfloat16* x,
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         if (n + j < N) {
-          qw[j / 4] |= (unsigned)(uint8_t)wp[j] << (8 * (j % 4));
+          qw[j / 4] |= (unsigned)wp[j] << (8 * (j % 4));
           sw[j / 2] |= (unsigned)__half_as_ushort(sp[j]) << (16 * (j % 2));
         }
       }
@@ -230,7 +280,32 @@ __device__ inline void bigm_load(BigmStage& st, const __nv_bfloat16* x,
   }
 }
 
-__device__ inline void bigm_store(const BigmStage& st, __nv_bfloat16* As,
+// Row `dst` of the bf16 weight tile: column j gets val(byte j) * scale j.
+template <class Val>
+__device__ inline void bigm_row(__nv_bfloat16* Bs, int dst, int c16, const int4& q,
+                                const int4 (&sc)[2], Val val) {
+  uint32_t ow[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    float f[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 2 * p + e;
+      const uint32_t byte = (uint32_t)(word_of(q, j / 4) >> (8 * (j % 4))) & 0xFFu;
+      const float sv = __half2float(__ushort_as_half((unsigned short)(
+          word_of(sc[j / 8], (j % 8) / 2) >> (16 * (j % 2)))));
+      f[e] = val(byte) * sv;
+    }
+    const __nv_bfloat162 v = __floats2bfloat162_rn(f[0], f[1]);
+    ow[p] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  uint4* d = reinterpret_cast<uint4*>(&Bs[dst * B_LD + c16]);
+  d[0] = make_uint4(ow[0], ow[1], ow[2], ow[3]);
+  d[1] = make_uint4(ow[4], ow[5], ow[6], ow[7]);
+}
+
+template <int BITS>
+__device__ inline void bigm_store(const BigmStage<BITS>& st, __nv_bfloat16* As,
                                   __nv_bfloat16* Bs) {
 #pragma unroll
   for (int c = 0; c < A_CHUNKS; ++c) {
@@ -239,44 +314,36 @@ __device__ inline void bigm_store(const BigmStage& st, __nv_bfloat16* As,
     *reinterpret_cast<uint4*>(&As[r * A_LD + c8]) = st.a[c];
   }
 #pragma unroll
-  for (int b = 0; b < B_ROWS; ++b) {
+  for (int b = 0; b < BigmStage<BITS>::UNITS; ++b) {
     const int i = threadIdx.x + b * BG_THREADS;
     const int r = i / (BN / 16), c16 = (i % (BN / 16)) * 16;
-    uint32_t ow[8];
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      float f[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = 2 * p + e;
-        const float qv = (float)(int8_t)(word_of(st.q[b], j / 4) >> (8 * (j % 4)));
-        const float sv = __half2float(__ushort_as_half((unsigned short)(
-            word_of(st.sc[b][j / 8], (j % 8) / 2) >> (16 * (j % 2)))));
-        f[e] = qv * sv;
-      }
-      const __nv_bfloat162 v = __floats2bfloat162_rn(f[0], f[1]);
-      ow[p] = *reinterpret_cast<const uint32_t*>(&v);
+    if constexpr (BITS == 8) {
+      bigm_row(Bs, r, c16, st.q[b], st.sc[b],
+               [](uint32_t v) { return (float)(int8_t)v; });
+    } else {
+      const int hi = bigm_krow<BITS>(0, r);
+      bigm_row(Bs, hi, c16, st.q[b], st.sc[b],
+               [](uint32_t v) { return qkind::hi4(v); });
+      bigm_row(Bs, hi + QBLOCK / 2, c16, st.q[b], st.sc[b],
+               [](uint32_t v) { return qkind::lo4(v); });
     }
-    uint4* dst = reinterpret_cast<uint4*>(&Bs[r * B_LD + c16]);
-    dst[0] = make_uint4(ow[0], ow[1], ow[2], ow[3]);
-    dst[1] = make_uint4(ow[4], ow[5], ow[6], ow[7]);
   }
 }
 
-template <typename OutT>
+template <typename OutT, int BITS>
 __global__ void __launch_bounds__(BG_THREADS)
 qmm_bigm_kernel(const __nv_bfloat16* __restrict__ x,
-                const int8_t* __restrict__ w,
+                const uint8_t* __restrict__ w,
                 const __half* __restrict__ s,
                 const int* __restrict__ layer,
-                OutT* __restrict__ out, int M, int K, int N) {
+                OutT* __restrict__ out, int M, int K, int N, int sshift) {
   using namespace nvcuda;
   __shared__ __align__(32) __nv_bfloat16 As[BM * A_LD];
   __shared__ __align__(32) __nv_bfloat16 Bs[BK * B_LD];
   __shared__ __align__(32) float Cs[BM * C_LD];
   const int li = layer ? layer[0] : 0;
-  w += (size_t)li * K * N;
-  s += (size_t)li * (K / QBLOCK) * N;
+  w += (size_t)li * qkind::plane_bytes(BITS, K, N);
+  s += (size_t)li * (K >> sshift) * N;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
@@ -287,14 +354,14 @@ qmm_bigm_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
 
-  BigmStage st;
-  bigm_load(st, x, w, s, M, K, N, m0, n0, 0);
+  BigmStage<BITS> st;
+  bigm_load(st, x, w, s, M, K, N, m0, n0, 0, sshift);
   for (int k0 = 0; k0 < K; k0 += BK) {
     // dequantize this step's weight tile to bf16 (x tile as it is), then
     // start the next step's global loads before the tensor-core work
     bigm_store(st, As, Bs);
     __syncthreads();
-    if (k0 + BK < K) bigm_load(st, x, w, s, M, K, N, m0, n0, k0 + BK);
+    if (k0 + BK < K) bigm_load(st, x, w, s, M, K, N, m0, n0, k0 + BK, sshift);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
@@ -331,42 +398,61 @@ qmm_bigm_kernel(const __nv_bfloat16* __restrict__ x,
 
 extern "C" {
 
-// out: [M, N] f32 (out_f32 != 0) or bf16. Requires 1 <= M <= 8,
-// K % 32 == 0 and N % 4 == 0 (char4 rows).
+// kind: 0 q8, 1 q4, 2 q4g (qkind.cuh); out: [M, N] f32 (out_f32 != 0) or
+// bf16. Requires 1 <= M <= 8, K a multiple of the scale block (32, or 128
+// for q4g) and N % 4 == 0 (4-byte column groups).
 int qmm_smallm(const void* x, const void* w, const void* s, const void* layer,
-               void* out, int out_f32, int M, int K, int N, void* stream) {
-  if (M < 1 || M > 8 || K % QBLOCK || N % 4) return (int)cudaErrorInvalidValue;
+               void* out, int out_f32, int kind, int M, int K, int N,
+               void* stream) {
+  if (!qkind::valid(kind) || M < 1 || M > 8 || K < 1 ||
+      K % qkind::scale_rows(kind) || N % 4)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((N + SM_COLS - 1) / SM_COLS);
   auto st = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto wb = static_cast<const int8_t*>(w);
+  auto wb = static_cast<const uint8_t*>(w);
   auto sb = static_cast<const __half*>(s);
   auto lb = static_cast<const int*>(layer);
-  if (out_f32)
-    launch_smallm(M, grid, st, xb, wb, sb, lb, static_cast<float*>(out), K, N);
-  else
-    launch_smallm(M, grid, st, xb, wb, sb, lb,
-                  static_cast<__nv_bfloat16*>(out), K, N);
+  const int sh = qkind::scale_shift(kind);
+  qkind::with_bits(kind, [&](auto bits) {
+    constexpr int BITS = decltype(bits)::value;
+    if (out_f32)
+      launch_smallm<float, BITS>(M, grid, st, xb, wb, sb, lb,
+                                 static_cast<float*>(out), K, N, sh);
+    else
+      launch_smallm<__nv_bfloat16, BITS>(M, grid, st, xb, wb, sb, lb,
+                                         static_cast<__nv_bfloat16*>(out), K, N, sh);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 
-// out: [M, N] f32 (out_f32 != 0) or bf16. Requires K % 64 == 0 (whole
-// 64-deep K steps, 16-byte rows of x); ragged M and N are masked.
+// kind as above; out: [M, N] f32 (out_f32 != 0) or bf16. Requires K % 64
+// == 0 (whole 64-deep K steps, 16-byte rows of x) and K a multiple of the
+// scale block; ragged M and N are masked.
 int qmm_bigm(const void* x, const void* w, const void* s, const void* layer,
-             void* out, int out_f32, int M, int K, int N, void* stream) {
-  if (M < 1 || K % BK || N < 1) return (int)cudaErrorInvalidValue;
+             void* out, int out_f32, int kind, int M, int K, int N,
+             void* stream) {
+  if (!qkind::valid(kind) || M < 1 || K < 1 || K % BK ||
+      K % qkind::scale_rows(kind) || N < 1)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   auto st = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto wb = static_cast<const int8_t*>(w);
+  auto wb = static_cast<const uint8_t*>(w);
   auto sb = static_cast<const __half*>(s);
   auto lb = static_cast<const int*>(layer);
-  if (out_f32)
-    qmm_bigm_kernel<float><<<grid, BG_THREADS, 0, st>>>(
-        xb, wb, sb, lb, static_cast<float*>(out), M, K, N);
-  else
-    qmm_bigm_kernel<__nv_bfloat16><<<grid, BG_THREADS, 0, st>>>(
-        xb, wb, sb, lb, static_cast<__nv_bfloat16*>(out), M, K, N);
+  const int sh = qkind::scale_shift(kind);
+  qkind::with_bits(kind, [&](auto bits) {
+    constexpr int BITS = decltype(bits)::value;
+    if (out_f32)
+      qmm_bigm_kernel<float, BITS><<<grid, BG_THREADS, 0, st>>>(
+          xb, wb, sb, lb, static_cast<float*>(out), M, K, N, sh);
+    else
+      qmm_bigm_kernel<__nv_bfloat16, BITS><<<grid, BG_THREADS, 0, st>>>(
+          xb, wb, sb, lb, static_cast<__nv_bfloat16*>(out), M, K, N, sh);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 

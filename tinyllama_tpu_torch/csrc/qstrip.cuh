@@ -1,33 +1,42 @@
-// The q8 strip walk shared by the fused decode-layer kernels (K5-K8):
+// The weight strip walk shared by the fused decode-layer kernels (K5-K8):
 // out[m, n0:n0+32] = x[m, :] @ dequant(w)[:, n0:n0+32] for m < MT <= 32,
 // with x staged in shared memory by the caller and the result handed to
 // the caller's epilogue, so each kernel adds its own prologue (a norm)
 // and epilogue (a residual, SwiGLU) around the same weight stream.
 //
-// The weight is the port's "kn" q8 QTensor: int8 [K, N] with fp16 block
-// scales [K/32, N] (the caller offsets both to its layer). As in K1
-// (qmatmul.cu), a 256-thread block owns 32 columns: 8 column groups read
-// a row of the strip as char4s (one 32-byte sector) and 32 K slices walk
-// 32-row blocks, so the weight streams exactly once. x is staged 1024
-// rows of K at a time, eight values a thread from one 16-byte load: at
-// M = 32, staging one element a thread cost more than the weights. The
-// slices are summed in shared memory in a fixed order.
+// The weight is the port's "kn" QTensor (qkind.cuh): q8 int8 [K, N], or
+// 4-bit (q4, q4g) uint8 [K/2, N] whose byte-rows each pack two K-rows of
+// a 32-row block, with fp16 block scales [K >> sshift, N] (the caller
+// offsets both to its layer). The walk is a template on the bits (8 or
+// 4); q4 and q4g differ only in the scale row a 32-row block reads. As in
+// K1 (qmatmul.cu), a 256-thread block owns 32 columns: 8 column groups
+// read a row of the strip as 4-byte words (one 32-byte sector) and 32 K
+// slices walk 32-row blocks (32 word rows at q8, 16 at 4 bits), so the
+// weight streams exactly once. x is staged 1024 rows of K at a time,
+// eight values a thread from one 16-byte load: at M = 32, staging one
+// element a thread cost more than the weights. The slices are summed in
+// shared memory in a fixed order.
 //
 // The two bodies follow the TPU kernels' two dot bodies (ffn_fused.py
-// _block_dot_q / _tile_dot_q):
+// _block_dot_q / _tile_dot_q, which decode_fused.py and attn_out_fused.py
+// share, with their q8 and q4/q4g branches):
 // - MT <= 8 (latency): x staged as f32, one pad float per 32-block so
-//   the slices hit distinct banks; f32 FMAs on the CUDA cores, each
-//   32-block's integer-valued dot scaled by its fp16 scale after the dot
-//   (exact dequantization), as K1 does;
+//   the slices hit distinct banks; f32 FMAs on the CUDA cores, a 4-bit
+//   value dequantized to (v - 7) in f32 first (exact), each 32-block's
+//   dot scaled by its fp16 scale after the dot (exact dequantization),
+//   as K1 does;
 // - MT > 8 (serving): x is staged as bf16, and each warp in turn
 //   dequantizes one 32 x 32 block of the strip to bf16 in its own shared
-//   tile (one weight row a lane) and multiplies it on the tensor cores
-//   (nvcuda::wmma, f32 accumulators), as the tile-dequantizing body
-//   rounds every weight to the compute dtype before one MXU dot. The 8
-//   warps' partial sums are added in shared memory in a fixed order.
+//   tile and multiplies it on the tensor cores (nvcuda::wmma, f32
+//   accumulators), as the tile-dequantizing body rounds every weight to
+//   the compute dtype before one MXU dot. At q8 a lane dequantizes one
+//   weight row; at 4 bits a lane takes half of a byte-row (16 columns)
+//   and writes its two K-rows. The 8 warps' partial sums are added in
+//   shared memory in a fixed order.
 //
 // The caller's dynamic shared memory holds smem_floats(MT) floats, at a
-// 128-byte aligned base (the tensor cores' tiles need 32 bytes).
+// 128-byte aligned base (the tensor cores' tiles need 32 bytes); it does
+// not depend on the bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,13 +47,15 @@
 
 #include <type_traits>
 
+#include "qkind.cuh"
+
 namespace qstrip {
 
 constexpr int QBLOCK = 32;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int COLS = 32;                  // output columns per strip
-constexpr int CG = COLS / 4;              // column groups (char4 each)
+constexpr int CG = COLS / 4;              // column groups (4 bytes each)
 constexpr int KS = THREADS / CG;          // K slices
 constexpr int KCHUNK = KS * QBLOCK;       // rows of x staged per pass
 constexpr int XLD = KCHUNK + KS;          // f32 rows: a pad float per 32-block
@@ -124,28 +135,57 @@ __device__ inline void load_l2_f32x8(const float* p, float (&v)[8]) {
 }
 
 // Rows [kb, kb + 32) of the strip [n0, n0 + 32) dequantized to bf16 into
-// a warp's tile (row stride BLD), one row a lane: q * scale in f32,
-// rounded once.
-__device__ inline void dequant_block(bf16* tile, const int8_t* __restrict__ w,
+// a warp's tile (row stride BLD): q * scale, or (v - 7) * scale, in f32,
+// rounded once. q8: one weight row a lane. 4 bits: lane l reads 16
+// columns (half l / 16) of byte-row l % 16 and writes K-rows l % 16 and
+// l % 16 + 16.
+template <int BITS>
+__device__ inline void dequant_block(bf16* tile, const uint8_t* __restrict__ w,
                                      const __half* __restrict__ s, int N, int n0,
-                                     int kb) {
+                                     int kb, int sshift) {
   const int lane = threadIdx.x % 32;
-  const int4* wr = reinterpret_cast<const int4*>(w + (size_t)(kb + lane) * N + n0);
-  const int4* sr = reinterpret_cast<const int4*>(s + (size_t)(kb / QBLOCK) * N + n0);
-  const int4 q[2] = {wr[0], wr[1]};
-  const int8_t* qb = reinterpret_cast<const int8_t*>(q);
-  uint32_t* dst = reinterpret_cast<uint32_t*>(tile + lane * BLD);
+  const __half* srow = s + (size_t)(kb >> sshift) * N + n0;
+  if constexpr (BITS == 8) {
+    const int4* wr = reinterpret_cast<const int4*>(w + (size_t)(kb + lane) * N + n0);
+    const int4* sr = reinterpret_cast<const int4*>(srow);
+    const int4 q[2] = {wr[0], wr[1]};
+    const int8_t* qb = reinterpret_cast<const int8_t*>(q);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(tile + lane * BLD);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {  // 8 columns a 16-byte scale load
-    const int4 sv = sr[c];
-    const __half2* sh = reinterpret_cast<const __half2*>(&sv);
+    for (int c = 0; c < 4; ++c) {  // 8 columns a 16-byte scale load
+      const int4 sv = sr[c];
+      const __half2* sh = reinterpret_cast<const __half2*>(&sv);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __half22float2(sh[e]);
-      const int j = 8 * c + 2 * e;
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn((float)qb[j] * f.x, (float)qb[j + 1] * f.y);
-      dst[j / 2] = *reinterpret_cast<const uint32_t*>(&v);
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __half22float2(sh[e]);
+        const int j = 8 * c + 2 * e;
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn((float)qb[j] * f.x, (float)qb[j + 1] * f.y);
+        dst[j / 2] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+    }
+  } else {
+    const int j = lane % 16, c0 = (lane / 16) * 16;
+    const int4 q = *reinterpret_cast<const int4*>(w + (size_t)(kb / 2 + j) * N + n0 + c0);
+    const uint8_t* qb = reinterpret_cast<const uint8_t*>(&q);
+    const int4* sr = reinterpret_cast<const int4*>(srow + c0);
+    uint32_t* hi = reinterpret_cast<uint32_t*>(tile + j * BLD + c0);
+    uint32_t* lo = reinterpret_cast<uint32_t*>(tile + (j + QBLOCK / 2) * BLD + c0);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {  // 8 columns a 16-byte scale load
+      const int4 sv = sr[c];
+      const __half2* sh = reinterpret_cast<const __half2*>(&sv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __half22float2(sh[e]);
+        const int b = 8 * c + 2 * e;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(qkind::hi4(qb[b]) * f.x,
+                                                       qkind::hi4(qb[b + 1]) * f.y);
+        const __nv_bfloat162 l = __floats2bfloat162_rn(qkind::lo4(qb[b]) * f.x,
+                                                       qkind::lo4(qb[b + 1]) * f.y);
+        hi[b / 2] = *reinterpret_cast<const uint32_t*>(&h);
+        lo[b / 2] = *reinterpret_cast<const uint32_t*>(&l);
+      }
     }
   }
 }
@@ -187,10 +227,10 @@ __device__ inline void load_normed8(const bf16* x, const float* w, int K,
 }
 
 // The latency body (MT <= 8): f32 FMAs, post-dot block scales.
-template <int MT, class Stage, class Epi>
-__device__ inline void strip_fma(float* buf, const int8_t* __restrict__ w,
+template <int MT, int BITS, class Stage, class Epi>
+__device__ inline void strip_fma(float* buf, const uint8_t* __restrict__ w,
                                  const __half* __restrict__ s, int K, int N,
-                                 int n0, Stage stage, Epi epi) {
+                                 int n0, int sshift, Stage stage, Epi epi) {
   const int tc = threadIdx.x % CG, ks = threadIdx.x / CG;
   const int n = n0 + tc * 4;
   float acc[MT][4];
@@ -206,32 +246,56 @@ __device__ inline void strip_fma(float* buf, const int8_t* __restrict__ w,
     __syncthreads();
     const int kb = ks * QBLOCK;
     if (kb < kc) {
-      const int8_t* wp = w + (size_t)(k0 + kb) * N + n;
       const float* xs = buf + ks * (QBLOCK + 1);
-      char4 q[QBLOCK];  // all 32 rows' loads first, in flight together
-#pragma unroll
-      for (int r = 0; r < QBLOCK; ++r)
-        q[r] = *reinterpret_cast<const char4*>(wp + (size_t)r * N);
-      const __half2* sp = reinterpret_cast<const __half2*>(
-          s + (size_t)((k0 + kb) / QBLOCK) * N + n);
-      const float2 s01 = __half22float2(sp[0]), s23 = __half22float2(sp[1]);
-      const float sc[4] = {s01.x, s01.y, s23.x, s23.y};
       float part[MT][4];
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int j = 0; j < 4; ++j) part[m][j] = 0.f;
+      if constexpr (BITS == 8) {
+        const int8_t* wp = reinterpret_cast<const int8_t*>(w) + (size_t)(k0 + kb) * N + n;
+        char4 q[QBLOCK];  // all 32 rows' loads first, in flight together
 #pragma unroll
-      for (int r = 0; r < QBLOCK; ++r) {
+        for (int r = 0; r < QBLOCK; ++r)
+          q[r] = *reinterpret_cast<const char4*>(wp + (size_t)r * N);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float xv = xs[m * XLD + r];
-          part[m][0] += xv * (float)q[r].x;
-          part[m][1] += xv * (float)q[r].y;
-          part[m][2] += xv * (float)q[r].z;
-          part[m][3] += xv * (float)q[r].w;
+        for (int r = 0; r < QBLOCK; ++r) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const float xv = xs[m * XLD + r];
+            part[m][0] += xv * (float)q[r].x;
+            part[m][1] += xv * (float)q[r].y;
+            part[m][2] += xv * (float)q[r].z;
+            part[m][3] += xv * (float)q[r].w;
+          }
+        }
+      } else {
+        // word j: K-rows j (high nibbles) and j + 16 (low) of 4 columns
+        const uint8_t* wp = w + (size_t)((k0 + kb) / 2) * N + n;
+        uint32_t q[QBLOCK / 2];
+#pragma unroll
+        for (int j = 0; j < QBLOCK / 2; ++j)
+          q[j] = *reinterpret_cast<const uint32_t*>(wp + (size_t)j * N);
+#pragma unroll
+        for (int j = 0; j < QBLOCK / 2; ++j) {
+          float hv[4], lv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            hv[c] = qkind::hi4(q[j] >> (8 * c));
+            lv[c] = qkind::lo4(q[j] >> (8 * c));
+          }
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const float xh = xs[m * XLD + j], xl = xs[m * XLD + j + QBLOCK / 2];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[m][c] += xh * hv[c] + xl * lv[c];
+          }
         }
       }
+      const __half2* sp = reinterpret_cast<const __half2*>(
+          s + (size_t)((k0 + kb) >> sshift) * N + n);
+      const float2 s01 = __half22float2(sp[0]), s23 = __half22float2(sp[1]);
+      const float sc[4] = {s01.x, s01.y, s23.x, s23.y};
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -255,10 +319,10 @@ __device__ inline void strip_fma(float* buf, const int8_t* __restrict__ w,
 }
 
 // The serving body (MT = 16, 32): bf16 weight blocks on the tensor cores.
-template <int MT, class Stage, class Epi>
-__device__ inline void strip_mma(float* buf, const int8_t* __restrict__ w,
+template <int MT, int BITS, class Stage, class Epi>
+__device__ inline void strip_mma(float* buf, const uint8_t* __restrict__ w,
                                  const __half* __restrict__ s, int K, int N,
-                                 int n0, Stage stage, Epi epi) {
+                                 int n0, int sshift, Stage stage, Epi epi) {
   using namespace nvcuda;
   static_assert(MT % 16 == 0, "the tensor-core body takes 16-row tiles");
   const int warp = threadIdx.x / 32;
@@ -276,7 +340,7 @@ __device__ inline void strip_mma(float* buf, const int8_t* __restrict__ w,
     stage(buf, k0, kc);
     __syncthreads();
     for (int kb = warp * QBLOCK; kb < kc; kb += WARPS * QBLOCK) {
-      dequant_block(tile, w, s, N, n0, k0 + kb);
+      dequant_block<BITS>(tile, w, s, N, n0, k0 + kb, sshift);
       __syncwarp();
 #pragma unroll
       for (int kk = 0; kk < QBLOCK; kk += 16) {
@@ -312,18 +376,19 @@ __device__ inline void strip_mma(float* buf, const int8_t* __restrict__ w,
   }
 }
 
-// One 32-column strip [n0, n0 + 32) of w against the staged rows.
-// stage(buf, k0, kc) fills the chunk (see stage_rows); epi(m, n, v) gets
-// the f32 sum of every row m < MT (pad rows included) and column n. Every
-// thread of the block must call it (it synchronizes the block).
-template <int MT, class Stage, class Epi>
-__device__ inline void strip_matmul(float* buf, const int8_t* __restrict__ w,
+// One 32-column strip [n0, n0 + 32) of w (BITS-bit data, scale rows of
+// 1 << sshift K-rows) against the staged rows. stage(buf, k0, kc) fills
+// the chunk (see stage_rows); epi(m, n, v) gets the f32 sum of every row
+// m < MT (pad rows included) and column n. Every thread of the block must
+// call it (it synchronizes the block).
+template <int MT, int BITS, class Stage, class Epi>
+__device__ inline void strip_matmul(float* buf, const uint8_t* __restrict__ w,
                                     const __half* __restrict__ s, int K, int N,
-                                    int n0, Stage stage, Epi epi) {
+                                    int n0, int sshift, Stage stage, Epi epi) {
   if constexpr (MT > 8)
-    strip_mma<MT>(buf, w, s, K, N, n0, stage, epi);
+    strip_mma<MT, BITS>(buf, w, s, K, N, n0, sshift, stage, epi);
   else
-    strip_fma<MT>(buf, w, s, K, N, n0, stage, epi);
+    strip_fma<MT, BITS>(buf, w, s, K, N, n0, sshift, stage, epi);
 }
 
 // Call f(std::integral_constant<int, MT>{}) with the row tile MT that

@@ -7,6 +7,19 @@ This module imports no JAX: a quantized tensor arrives as a tuple
 as they are. The JAX package ships "kn" scales as int16 fp16 bit
 patterns; they are viewed back as float16, bits unchanged.
 
+The JAX package's 4-bit planes are laid out for Mosaic, so they are
+unpacked to their values in numpy and repacked in the port's layout
+(quant/codec.py):
+
+* "kn" data: each byte is stored XOR 0x80 (a biased high nibble), and
+  K is packed in planar groups of G rows, packed row g*G/2 + j holding
+  K-row g*G + j (high nibble) and g*G + G/2 + j (low nibble); G is 64
+  for q4 and ``q4g_pack_group(K)`` (256, or 128) for q4g;
+* "kn" q4g scales: each group-128 scale duplicated into 4 rows of a
+  [K/32, N] plane;
+* "nk" data: the same planar groups along each row, unbiased, G =
+  ``q4_group_size(K)`` for q4 and ``q4g_pack_group(K)`` for q4g.
+
 ``cache_from_numpy`` does the same for a KV cache: the k/v planes (and a
 page pool's table) of a JAX cache, as numpy, become the port's KVCache or
 PagedKVCache, so that both packages can be given the same pool.
@@ -19,18 +32,85 @@ import torch
 
 from tinyllama_tpu_torch.config import DtypePolicy, ModelConfig
 from tinyllama_tpu_torch.models.llama import LAYER_LINEARS, Params
-from tinyllama_tpu_torch.quant.codec import BLOCK_SIZE, QTensor
+from tinyllama_tpu_torch.quant.codec import (
+    BLOCK_SIZE,
+    Q4G_BLOCK,
+    QTensor,
+    block_size,
+    pack_q4,
+)
 from tinyllama_tpu_torch.runtime.kvcache import KVCache
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache
 
+#: the JAX package's kn packing group for q4 (its codec.KN_GROUP)
+JAX_KN_GROUP = 64
 
-def qtensor_from_numpy(parts, device="cpu") -> QTensor:
-    data, scales, kind, layout = parts
+
+def jax_q4_group_size(d_in: int) -> int:
+    """The JAX package's nk packing group for q4 (``q4_group_size``)."""
+    for g in (512, 256, 128, 64):
+        if d_in % g == 0:
+            return g
+    raise ValueError(f"q4 requires d_in % 64 == 0, got {d_in}")
+
+
+def jax_q4g_pack_group(d_in: int) -> int:
+    """The JAX package's packing group for q4g (``q4g_pack_group``)."""
+    for g in (256, 128):
+        if d_in % g == 0:
+            return g
+    raise ValueError(f"q4g requires d_in % 128 == 0, got {d_in}")
+
+
+def _planar_values(packed: np.ndarray, group: int) -> np.ndarray:
+    """Planar-packed uint8 [.., K//2] -> offset-7 values [.., K]: in each
+    group of `group` values, byte j holds value j high, j + group/2 low."""
+    K = packed.shape[-1] * 2
+    g = packed.reshape(*packed.shape[:-1], K // group, group // 2)
+    return np.concatenate([g >> 4, g & 0x0F], axis=-1).reshape(
+        *packed.shape[:-1], K)
+
+
+def _scales_f16(scales) -> np.ndarray:
     scales = np.asarray(scales)
     if scales.dtype == np.int16:
         scales = scales.view(np.float16)
     if scales.dtype != np.float16:
-        raise TypeError(f"q8 scales arrive as fp16 values or bits, got {scales.dtype}")
+        raise TypeError(f"scales arrive as fp16 values or bits, got {scales.dtype}")
+    return scales
+
+
+def _from_jax_4bit(data: np.ndarray, scales: np.ndarray, kind: str,
+                   layout: str) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX package's 4-bit planes -> the port's (data, scales)."""
+    u8 = np.asarray(data).view(np.uint8)
+    if layout == "kn":
+        K = u8.shape[-2] * 2
+        group = JAX_KN_GROUP if kind == "q4" else jax_q4g_pack_group(K)
+        rows = np.swapaxes(u8 ^ 0x80, -1, -2)  # [.., N, K//2], unbiased
+        vals = _planar_values(rows, group)
+        if kind == "q4g":
+            dup = Q4G_BLOCK // BLOCK_SIZE
+            true = scales[..., ::dup, :]
+            if not all(np.array_equal(true.view(np.uint16),
+                                      scales[..., i::dup, :].view(np.uint16))
+                       for i in range(1, dup)):
+                raise ValueError("q4g kn scales are not 4x duplicated rows")
+            scales = true
+        packed = pack_q4(torch.from_numpy(vals)).numpy()
+        return np.ascontiguousarray(np.swapaxes(packed, -1, -2)), scales
+    K = u8.shape[-1] * 2
+    group = jax_q4_group_size(K) if kind == "q4" else jax_q4g_pack_group(K)
+    return pack_q4(torch.from_numpy(_planar_values(u8, group))).numpy(), scales
+
+
+def qtensor_from_numpy(parts, device="cpu") -> QTensor:
+    data, scales, kind, layout = parts
+    scales = _scales_f16(scales)
+    if kind in ("q4", "q4g"):
+        data, scales = _from_jax_4bit(data, scales, kind, layout)
+    elif kind != "q8":
+        raise ValueError(f"unknown quant kind: {kind}")
     return QTensor(torch.from_numpy(np.array(data)).to(device),
                    torch.from_numpy(np.array(scales)).to(device), kind, layout)
 
@@ -39,9 +119,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, policy: DtypePolicy,
                       device="cpu") -> Params:
     """The port's parameters from the JAX tree in numpy form (see the
     module docstring), checked against `cfg` and `policy`."""
-    if policy.wdtype != "q8":
+    kind = policy.wdtype
+    if kind not in ("q8", "q4", "q4g"):
         raise NotImplementedError(
-            f"weights {policy.wdtype!r} are not ported yet (ROADMAP.md)")
+            f"weights {kind!r} are not ported yet (ROADMAP.md)")
+    bs = block_size(kind)
+    rows = 1 if kind == "q8" else 2
 
     def dense(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.float32)).to(device)
@@ -50,11 +133,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, policy: DtypePolicy,
     for name, shape_fn in LAYER_LINEARS.items():
         qt = qtensor_from_numpy(tree["layers"][name], device)
         N, K = shape_fn(cfg)
-        want = (cfg.n_layers, K, N)
-        if qt.layout != "kn" or tuple(qt.data.shape) != want \
-                or tuple(qt.scales.shape) != (cfg.n_layers, K // BLOCK_SIZE, N):
-            raise ValueError(f"{name}: expected kn data {want}, got "
-                             f"{qt.layout} {tuple(qt.data.shape)}")
+        want = (cfg.n_layers, K // rows, N)
+        if qt.kind != kind or qt.layout != "kn" \
+                or tuple(qt.data.shape) != want \
+                or tuple(qt.scales.shape) != (cfg.n_layers, K // bs, N):
+            raise ValueError(f"{name}: expected {kind} kn data {want}, got "
+                             f"{qt.kind} {qt.layout} {tuple(qt.data.shape)}")
         layers[name] = qt
     for name in ("attn_norm", "ffn_norm"):
         layers[name] = dense(tree["layers"][name])

@@ -31,7 +31,8 @@ above.
 
 Norm weights reach the fused kernels as the stacked [L, D] table with
 the device layer index. The lm_head (K1) runs outside ``forward``, on the
-rows the caller picks. Weights are q8; the other formats come later
+rows the caller picks. Weights are q8, q4 or q4g (weight-only: every
+kernel takes each kind); dense weights and aq8 activations come later
 (ROADMAP.md).
 """
 
@@ -71,7 +72,7 @@ from tinyllama_tpu_torch.ops.linear import (
 )
 from tinyllama_tpu_torch.ops.norms import rms_norm
 from tinyllama_tpu_torch.ops.rope import apply_rope_gathered, gather_rope, rope_table
-from tinyllama_tpu_torch.quant.codec import QTensor, quantize
+from tinyllama_tpu_torch.quant.codec import QTensor, quantize, stack
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, update_cache_at_layer
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache, update_paged_at_layer
 from tinyllama_tpu_torch.runtime.staging import (
@@ -98,11 +99,14 @@ def act_dtype(policy: DtypePolicy) -> torch.dtype:
     return ACT_DTYPES[policy.adtype]
 
 
-def _require_q8(policy: DtypePolicy) -> None:
-    if policy.wdtype != "q8" or policy.aq8:
+def require_weight_only(policy: DtypePolicy) -> None:
+    """The port runs quantized weights (q8, q4, q4g) with activations in
+    their own dtype; dense weights and aq8 are not ported yet."""
+    if not policy.is_quantized or policy.aq8:
         raise NotImplementedError(
             f"weights {policy.wdtype!r} (aq8={policy.aq8}) are not ported "
-            "yet: the port runs q8 weight-only (ROADMAP.md, Queue 1)")
+            "yet: the port runs q8, q4 and q4g weight-only (ROADMAP.md, "
+            "Queue 1)")
 
 
 # ----------------------------------------------------------------------------
@@ -113,11 +117,12 @@ def _require_q8(policy: DtypePolicy) -> None:
 def init_quantized_params(cfg: ModelConfig, policy: DtypePolicy,
                           generator: torch.Generator,
                           device="cpu") -> Params:
-    """Random q8 parameters (N(0, 0.02) before quantization) built on
-    `device` one f32 tensor at a time, so the peak extra memory is one
-    layer's tensor plus the embedding tables. `generator` lives on
-    `device`."""
-    _require_q8(policy)
+    """Random parameters of the policy's kind (N(0, 0.02) before
+    quantization) built on `device` one f32 tensor at a time, so the peak
+    extra memory is one layer's tensor plus the quantized layers and the
+    embedding tables. `generator` lives on `device`."""
+    require_weight_only(policy)
+    kind = policy.wdtype
 
     def rand(shape):
         return torch.randn(shape, generator=generator, device=device) * 0.02
@@ -126,32 +131,29 @@ def init_quantized_params(cfg: ModelConfig, policy: DtypePolicy,
     layers: dict[str, Any] = {}
     for name, shape_fn in LAYER_LINEARS.items():
         N, K = shape_fn(cfg)
-        data = torch.empty((L, K, N), dtype=torch.int8, device=device)
-        scales = torch.empty((L, K // 32, N), dtype=torch.float16, device=device)
-        for li in range(L):
-            qt = quantize(rand((N, K)), "q8", layout="kn")
-            data[li], scales[li] = qt.data, qt.scales
-        layers[name] = QTensor(data, scales, "q8", "kn")
+        layers[name] = stack([quantize(rand((N, K)), kind, layout="kn")
+                              for _ in range(L)])
     layers["attn_norm"] = torch.ones((L, cfg.n_embd), device=device)
     layers["ffn_norm"] = torch.ones((L, cfg.n_embd), device=device)
     return {
-        "embed": quantize(rand((cfg.n_vocab, cfg.n_embd)), "q8", layout="nk"),
+        "embed": quantize(rand((cfg.n_vocab, cfg.n_embd)), kind, layout="nk"),
         "layers": layers,
         "norm": torch.ones((cfg.n_embd,), device=device),
-        "lm_head": quantize(rand((cfg.n_vocab, cfg.n_embd)), "q8", layout="kn"),
+        "lm_head": quantize(rand((cfg.n_vocab, cfg.n_embd)), kind, layout="kn"),
     }
 
 
 def convert_params(dense: Params, policy: DtypePolicy) -> Params:
     """Block-quantize dense f32 params ([L, d_out, d_in] per layer linear)
-    per the policy. Norm weights stay f32; the embedding table is "nk",
-    every matmul weight "kn"."""
-    _require_q8(policy)
+    into the policy's kind. Norm weights stay f32; the embedding table is
+    "nk", every matmul weight "kn"."""
+    require_weight_only(policy)
 
     def conv(name: str, w: torch.Tensor):
         if name.endswith("norm"):
             return w.float()
-        return quantize(w, "q8", layout="nk" if name == "embed" else "kn")
+        return quantize(w, policy.wdtype,
+                        layout="nk" if name == "embed" else "kn")
 
     return {
         "embed": conv("embed", dense["embed"]),
@@ -176,8 +178,9 @@ def params_to(params: Params, device) -> Params:
 
 def pad_lm_head_vocab(params: Params, multiple: int = 2048) -> Params:
     """Pad a kn lm_head's vocab dim (32003 -> 32768) with zero data and
-    zero scales, so the decode kernel reads whole char4 rows and strips.
-    Zero scales null the pad columns exactly; lm_head_logits slices them
+    zero scales, so the decode kernel reads whole 4-byte column groups and
+    strips. Zero scales null the pad columns exactly (a 4-bit column's -7
+    offset is multiplied by its scale too); lm_head_logits slices them
     off, so samplers never see pad ids."""
     lm = params["lm_head"]
     pad = (-lm.data.shape[-1]) % multiple
@@ -297,7 +300,7 @@ def forward(
     prefill needs from_zero (it starts at position 0). Rope rows of
     positions past max_ctx (the discarded overhang of a last chunk) read
     the table's last row, as the JAX package's clamped gather does."""
-    _require_q8(policy)
+    require_weight_only(policy)
     B, T = tokens.shape
     device = tokens.device
     cos, sin = rope_tables if rope_tables is not None else rope_table(

@@ -6,12 +6,13 @@ with a hand-written Hopper kernel (csrc/attn_out_fused.cu): the new
 token's GQA attention over cache layer `layer` (keys 0..pos), then
 residual + attn @ dequant(wo), in one launch.
 
-Bound by the bytes of wo plus the visible keys and values. The TPU kernel
-keeps the attention result in VMEM for the wo steps of its sequential
-grid; the Hopper kernel computes the attention once per launch, split
-over (kv head, 64-key tile) pairs across blocks, merges the tiles after a
-grid-wide barrier into a 4 KB workspace, and runs wo's strips after a
-second one (a cooperative launch). The workspaces come from the wrapper.
+Bound by the bytes of wo (q8, q4 or q4g) plus the visible keys and
+values. The TPU kernel keeps the attention result in VMEM for the wo
+steps of its sequential grid; the Hopper kernel computes the attention
+once per launch, split over (kv head, 64-key tile) pairs across blocks,
+merges the tiles after a grid-wide barrier into a 4 KB workspace, and
+runs wo's strips after a second one (a cooperative launch). The
+workspaces come from the wrapper.
 
 The layer index and pos are device tensors. CUDA tensors (bf16 q, cache
 and residual, d_head 64, at most 8 query heads per kv head) launch the
@@ -45,7 +46,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("attn_out_fused")
     if lib.fused_attn_out.argtypes is None:
-        lib.fused_attn_out.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+        lib.fused_attn_out.argtypes = [_P] * 11 + [_I] * 5 + [_P]
         lib.fused_attn_out.restype = _I
     return lib
 
@@ -94,7 +95,7 @@ def fused_attn_out(q: torch.Tensor, cache: KVCache, layer: torch.Tensor,
         q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), layer.data_ptr(),
         pos.data_ptr(), wo.data.data_ptr(), wo.scales.data_ptr(),
         residual.data_ptr(), part.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        H, Kh, S, N, build.stream_ptr(q))
+        qmatmul.KIND_CODE[wo.kind], H, Kh, S, N, build.stream_ptr(q))
     build.check(err, "fused_attn_out")
     launches["fused_attn_out"] += 1
     return out

@@ -1,5 +1,5 @@
 """Fused decode-layer matmuls: rms_norm and the residual add inside the
-q8 weight stream, for M <= 32 rows.
+quantized weight stream (q8, q4 or q4g), for M <= 32 rows.
 
 Replaces two kernels of tinyllama_tpu/ops/pallas/decode_fused.py with
 hand-written Hopper kernels (csrc/decode_fused.cu, over the strip walk of
@@ -46,8 +46,8 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_fused")
     if lib.fused_norm_qkv.argtypes is None:
-        lib.fused_norm_qkv.argtypes = [_P] * 6 + [_I] * 3 + [ctypes.c_float, _I, _P]
-        lib.fused_out_residual.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+        lib.fused_norm_qkv.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P]
+        lib.fused_out_residual.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.fused_norm_qkv.restype = lib.fused_out_residual.restype = _I
     return lib
 
@@ -96,7 +96,7 @@ def fused_out_residual_ref(attn, residual, w, layer) -> torch.Tensor:
 
 def check_rows(x2: torch.Tensor, w: QTensor, layer) -> None:
     """What the fused strip kernels take for x2 [M, K] against the
-    layer-stacked q8 weight w [L, K, N]: qmatmul's checks, M <= 32 and
+    layer-stacked kn weight w (any kind): qmatmul's checks, M <= 32 and
     whole 32-column strips."""
     qmatmul._check(x2, w, layer, torch.bfloat16)
     M, N = x2.shape[0], w.data.shape[-1]
@@ -133,8 +133,8 @@ def fused_norm_qkv(x: torch.Tensor, norm_w: torch.Tensor, w: QTensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     err = _lib().fused_norm_qkv(
         x2.data_ptr(), norm_w.data_ptr(), layer.data_ptr(), w.data.data_ptr(),
-        w.scales.data_ptr(), out.data_ptr(), M, D, N, float(eps), int(inside),
-        build.stream_ptr(x))
+        w.scales.data_ptr(), out.data_ptr(), qmatmul.KIND_CODE[w.kind], M, D, N,
+        float(eps), int(inside), build.stream_ptr(x))
     build.check(err, "fused_norm_qkv")
     launches["fused_norm_qkv"] += 1
     return out.reshape(B, T, N)
@@ -154,8 +154,8 @@ def fused_out_residual(attn: torch.Tensor, residual: torch.Tensor, w: QTensor,
     out = torch.empty_like(residual)
     err = _lib().fused_out_residual(
         a2.data_ptr(), residual.data_ptr(), layer.data_ptr(), w.data.data_ptr(),
-        w.scales.data_ptr(), out.data_ptr(), B * T, a2.shape[1], D,
-        build.stream_ptr(attn))
+        w.scales.data_ptr(), out.data_ptr(), qmatmul.KIND_CODE[w.kind], B * T,
+        a2.shape[1], D, build.stream_ptr(attn))
     build.check(err, "fused_out_residual")
     launches["fused_out_residual"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Quantized matmul: x [..., K] @ dequant(w) -> [..., N], w a "kn" q8 QTensor.
+"""Quantized matmul: x [..., K] @ dequant(w) -> [..., N], w a "kn" QTensor
+of kind q8, q4 or q4g.
 
 Replaces the two kernel bodies behind ``qmatmul`` in
 tinyllama_tpu/ops/pallas/qmatmul.py with hand-written Hopper kernels
@@ -6,18 +7,22 @@ tinyllama_tpu/ops/pallas/qmatmul.py with hand-written Hopper kernels
 
 * K1 ``qmm_smallm`` (M <= 8, decode) for ``_qmm_kernel_smallm``: bound
   by the weight bytes over the memory rate. The weight streams once,
-  read as char4 along N; each 32-block's dot is scaled by its fp16 scale
-  after the dot.
+  read as 4-byte words along N (one K-row of 4 columns at q8, two at 4
+  bits, each 4-bit value dequantized to v - 7 exactly); each 32-block's
+  dot is scaled by its fp16 scale after the dot.
 * K2 ``qmm_bigm`` (M > 8, prefill) for ``_qmm_kernel_bigm``: bound by
   tensor-core operations at large M. Each weight tile is dequantized to
   bf16 once in shared memory and multiplied on the tensor cores with f32
   accumulation.
 
-Both take the layer-stacked weight ``[L, K, N]`` with a device layer
-index, so nothing is sliced or copied per layer and the launch stays
-capturable. The wrapper launches a kernel for CUDA tensors (bf16
-activations only) and raises on what the kernels do not take; only CPU
-tensors go to the plain version ``qmatmul_ref``.
+Both take the layer-stacked weight (``[L, K, N]`` int8, or ``[L, K/2,
+N]`` uint8 nibbles, with ``[L, K/bs, N]`` fp16 scales) with a device
+layer index, so nothing is sliced or copied per layer and the launch
+stays capturable. Each kernel is a template on the bits; q4 and q4g
+differ only in the scale row a 32-row block reads. The wrapper launches
+a kernel for CUDA tensors (bf16 activations only) and raises on what the
+kernels do not take; only CPU tensors go to the plain version
+``qmatmul_ref``.
 """
 
 from __future__ import annotations
@@ -28,13 +33,23 @@ import torch
 
 from tinyllama_tpu_torch.ops.kernels import build
 from tinyllama_tpu_torch.ops.precision import exact_f32
-from tinyllama_tpu_torch.quant.codec import BLOCK_SIZE, QTensor, dequantize
+from tinyllama_tpu_torch.quant.codec import (
+    BLOCK_SIZE,
+    QTensor,
+    block_size,
+    dequantize,
+)
 
 #: largest M that takes the decode kernel (K1); larger M takes K2.
 SMALL_M = 8
 
 #: launches of each kernel since the counts were last set to 0.
 launches = {"qmm_smallm": 0, "qmm_bigm": 0}
+
+#: the kernels' code for each weight kind (csrc/qkind.cuh)
+KIND_CODE = {"q8": 0, "q4": 1, "q4g": 2}
+#: the data plane's dtype of each kind
+DATA_DTYPE = {"q8": torch.int8, "q4": torch.uint8, "q4g": torch.uint8}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,7 +59,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("qmatmul")
     if lib.qmm_smallm.argtypes is None:
         for fn in (lib.qmm_smallm, lib.qmm_bigm):
-            fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+            fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
             fn.restype = _I
     return lib
 
@@ -63,11 +78,12 @@ def _layer_view(w: QTensor, layer) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def dot_ref(x2: torch.Tensor, w: QTensor, layer=None) -> torch.Tensor:
-    """x2 [M, K] @ dequant(w) -> f32 [M, N], the arithmetic of every q8
-    kernel's dot. M <= 8 multiplies by the f32-dequantized weight (int8 x
-    fp16 is exact in f32, as a post-dot scaling is); larger M first rounds
-    the dequantized weight to x2.dtype, as K2 and the TPU's tile-dequant
-    bodies do. f32 accumulation either way, with TF32 off."""
+    """x2 [M, K] @ dequant(w) -> f32 [M, N], the arithmetic of every
+    kernel's dot, for every kind. M <= 8 multiplies by the f32-dequantized
+    weight (int x fp16 is exact in f32, as a post-dot scaling is); larger
+    M first rounds the dequantized weight to x2.dtype, as K2 and the
+    TPU's tile-dequant bodies do. f32 accumulation either way, with TF32
+    off."""
     data, scales = _layer_view(w, layer)
     wd = dequantize(QTensor(data, scales, w.kind, w.layout), torch.float32)
     if x2.shape[0] > SMALL_M:
@@ -85,21 +101,25 @@ def qmatmul_ref(x: torch.Tensor, w: QTensor, out_dtype=None,
 
 
 def check_weight(w: QTensor, K: int, layer, device) -> None:
-    """What every q8 kernel takes as its weight: a kn q8 QTensor of K
-    rows on `device`, layer-stacked exactly when `layer` (a one-element
-    int32 tensor on `device`) is given."""
-    if w.kind != "q8" or w.layout != "kn":
-        raise ValueError(f"the CUDA kernels take q8 kn weights, got "
-                         f"{w.kind}/{w.layout}")
-    if w.data.dtype != torch.int8 or w.scales.dtype != torch.float16:
-        raise TypeError("q8 weights are int8 data with float16 scales")
+    """What every kernel takes as its weight: a kn QTensor of K rows on
+    `device` (q8: int8 [.., K, N]; q4, q4g: uint8 [.., K/2, N]; float16
+    scales [.., K/bs, N], K a multiple of bs), layer-stacked exactly when
+    `layer` (a one-element int32 tensor on `device`) is given."""
+    if w.kind not in KIND_CODE or w.layout != "kn":
+        raise ValueError(f"the CUDA kernels take q8, q4 or q4g kn weights, "
+                         f"got {w.kind}/{w.layout}")
+    if w.data.dtype != DATA_DTYPE[w.kind] or w.scales.dtype != torch.float16:
+        raise TypeError(f"{w.kind} weights are {DATA_DTYPE[w.kind]} data with "
+                        "float16 scales")
     stacked = w.data.dim() == 3
     if w.data.dim() not in (2, 3) or stacked != (layer is not None):
         raise ValueError("pass `layer` exactly when the weight is layer-stacked")
-    Kw, N = w.data.shape[-2:]
-    if K != Kw or K % BLOCK_SIZE:
-        raise ValueError(f"x has K={K}, weight K={Kw} (needs K % 32 == 0)")
-    if w.scales.shape != (*w.data.shape[:-2], K // BLOCK_SIZE, N):
+    rows, N = w.data.shape[-2:]
+    bs = block_size(w.kind)
+    Kw = rows if w.kind == "q8" else 2 * rows
+    if K != Kw or K % bs:
+        raise ValueError(f"x has K={K}, weight K={Kw} (needs K % {bs} == 0)")
+    if w.scales.shape != (*w.data.shape[:-2], K // bs, N):
         raise ValueError(f"scales {tuple(w.scales.shape)} do not match data")
     for t in (w.data, w.scales):
         if not t.is_cuda or t.device != device:
@@ -119,7 +139,7 @@ def _check(x2: torch.Tensor, w: QTensor, layer, out_dtype) -> None:
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     check_weight(w, x2.shape[1], layer, x2.device)
-    K, N = w.data.shape[-2:]
+    K, N = x2.shape[1], w.data.shape[-1]
     if x2.shape[0] <= SMALL_M and N % 4:
         raise ValueError(f"the decode kernel reads char4 rows: N % 4 != 0 ({N})")
     if x2.shape[0] > SMALL_M and K % (2 * BLOCK_SIZE):
@@ -133,7 +153,7 @@ def qmatmul(x: torch.Tensor, w: QTensor, out_dtype=None,
             layer: torch.Tensor | None = None) -> torch.Tensor:
     """x [..., K] @ dequant(w) -> [..., N] in out_dtype (default x.dtype).
 
-    `w` is a "kn" q8 QTensor, layer-stacked ([L, K, N]) iff `layer` is
+    `w` is a "kn" QTensor (q8, q4 or q4g), layer-stacked iff `layer` is
     given; on CUDA `layer` is a one-element int32 device tensor."""
     if not x.is_cuda:
         return qmatmul_ref(x, w, out_dtype, layer)
@@ -147,8 +167,8 @@ def qmatmul(x: torch.Tensor, w: QTensor, out_dtype=None,
     fn = getattr(_lib(), name)
     li = None if layer is None else layer.data_ptr()
     err = fn(x2.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), li,
-             out.data_ptr(), int(out_dtype == torch.float32), M, K, N,
-             build.stream_ptr(x))
+             out.data_ptr(), int(out_dtype == torch.float32), KIND_CODE[w.kind],
+             M, K, N, build.stream_ptr(x))
     build.check(err, name)
     launches[name] += 1
     return out.reshape(*lead, N)

@@ -1,7 +1,7 @@
 """Linear layers over block-quantized weights, and the token embedding.
 
-Weights are q8 QTensors: "kn" for every matmul (layer-stacked inside the
-model) and "nk" for the embedding table. Every matmul goes to
+Weights are QTensors of kind q8, q4 or q4g: "kn" for every matmul
+(layer-stacked inside the model) and "nk" for the embedding table. Every matmul goes to
 ``ops/kernels/qmatmul.py``: its kernels for CUDA tensors, its plain
 version for CPU tensors.
 """
@@ -31,7 +31,8 @@ def linear_f32_out(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 def embedding_lookup(tokens: torch.Tensor, table: QTensor,
                      dtype) -> torch.Tensor:
     """Gather the packed rows and scales of the tokens, then dequantize
-    only those rows. tokens [B, T] -> [B, T, D] in `dtype`."""
+    only those rows (any kind: a 4-bit row is d_in/2 bytes of nibbles).
+    tokens [B, T] -> [B, T, D] in `dtype`."""
     if table.layout != "nk":
         raise ValueError("embedding tables are row-major (nk)")
     idx = tokens.long()
