@@ -19,11 +19,17 @@ Phases, each fatal on failure:
    of 256 and a 32-slot tail), with its time, its bound, the plain
    version's time and a PyTorch library call's time (for attention, SDPA
    with enable_gqa over the same un-repeated keys); K7 and K8 must give
-   their eager result again when replayed from a CUDA graph;
-4. paths: TinyLlama-1.1B, q8 weights from a fixed seed ((a)-(g)), then
-   q4 and q4g weights from a file ((h), (i)), bf16 activations and
-   cache; the launch counts of every kernel are set to 0 just before
-   each path and must come out exactly as the path dictates:
+   their eager result again when replayed from a CUDA graph; then the
+   int8-KV instantiations of K3, K4, K8-K11 at the same shapes over
+   int8 caches (the same random values quantized; their bound counts
+   int8 data and f32 scales, their yardstick is SDPA over the
+   dequantized bf16 K/V);
+4. paths: TinyLlama-1.1B, q8 weights from a fixed seed ((a)-(g), (j)),
+   then q4 and q4g weights from a file ((h), (i)), bf16 activations, a
+   bf16 cache except in (j) and (h)'s --kv i8 run; the launch counts of
+   every kernel (the int8-cache instantiations counted apart) are set to
+   0 just before each path and must come out exactly as the path
+   dictates:
    (a) main path: a 100-token prompt (bucket 128, unfused prefill)
        through Engine.generate, greedy, 256 new tokens, each decode step
        on the fused branch (K5, K8, K7, then K1 for the lm_head);
@@ -60,6 +66,16 @@ Phases, each fatal on failure:
        CUDA graph;
    (i) on each engine of (h): a 24-token prompt with 32 greedy tokens
        (K5, K3, K6, K7), and 8 decode steps at B = 4 (K5, K4, K6, K7);
+       then the same file through cli.main with "-q4 --kv i8" (q4-kvi8);
+   (j) the int8 KV cache, POLICIES["q8-kvi8"] on (a)'s weights, run
+       before (h): (a)'s prompt with 64 greedy tokens (K2, int8 K3, then
+       K5, int8 K8, K7, K1) and its step replayed as a CUDA graph; (c) at
+       B = 4 (int8 K4); (d)'s generate_batch for one 32-step chunk (int8
+       K9); a paged generate of 100 + 32 tokens (int8 K3 over the
+       prompt's own quantized keys, then int8 K10); (f)'s and (g)'s
+       requests through paged and monolithic batchers (int8 K11, K10 at
+       bucket 1, K9), each printed beside the bf16 run's tok/s, TTFT and
+       KV pool bytes;
    after each kind's (h) and (i), that kind's weight kernels (K1, K2 at
    M = 128, K5-K8) against their plain versions, as in phase 3, with
    the launches of (h) and (i);
@@ -69,7 +85,9 @@ Phases, each fatal on failure:
    decode step, a staged monolithic and a staged paged chunk step at
    B = 4, and a paged b1 step (K10); then the same widths with q4 and
    with q4g weights: a long and a short prefill, 2 b1 decode steps and a
-   B = 4 step; the logits must agree.
+   B = 4 step; and q8 weights with an int8 KV cache: a long prefill, 2
+   b1 steps, a B = 4 step, staged monolithic and paged chunk steps and a
+   paged b1 step; the logits must agree.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -113,6 +131,10 @@ N_NEW = 256
 PROMPT_LEN = 100
 #: path (b): a chat-length prompt (bucket 32, fused prefill)
 CHAT_LEN, CHAT_NEW = 24, 32
+#: the attention kernels' launch counters; with an int8 cache they count
+#: under "<name>_i8"
+ATTENTION = ("flash_prefill", "flash_decode_heads", "flash_staged",
+             "fused_attn_out", "flash_paged", "flash_paged_staged")
 #: path (c): rows and decode steps of the batched decode
 BATCH, BATCH_STEPS = 4, 8
 #: path (h): the chat prompt (105 tokens in the chat template over the
@@ -243,11 +265,27 @@ REPLACES_4BIT = {
 }
 
 
-def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
+#: the TPU kernel bodies' int8-KV branches each int8 row replaces
+REPLACES_I8 = {
+    "K3": "tinyllama_tpu/ops/pallas/flash_prefill.py:78",
+    "K4": "tinyllama_tpu/ops/pallas/flash_prefill.py:218",
+    "K8": "tinyllama_tpu/ops/pallas/attn_out_fused.py:169",
+    "K9": "tinyllama_tpu/ops/pallas/flash_prefill.py:397",
+    "K10": "tinyllama_tpu/ops/pallas/flash_paged.py:43",
+    "K11": "tinyllama_tpu/ops/pallas/flash_paged.py:194",
+}
+
+
+def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
     """Every kernel against its plain version at main-path shapes, on the
     engine's weights of `kind`. For a 4-bit kind only the weight kernels
-    (K1, K2, K5-K8): the attention kernels take no weights."""
-    from tinyllama_tpu_torch.runtime.kvcache import KVCache
+    (K1, K2, K5-K8): the attention kernels take no weights. With kv="i8"
+    only the attention kernels (K3, K4, K8-K11), over int8 caches: the
+    same random values quantized, their bound counting int8 data and f32
+    scales, their library yardstick SDPA over the dequantized bf16 K/V."""
+    from tinyllama_tpu_torch.runtime.kvcache import (
+        KVCache, layer_cache_view, quantize_kv,
+    )
     from tinyllama_tpu_torch.runtime.paged import (
         PagedKVCache, default_page_size, paged_layer_view,
     )
@@ -260,15 +298,30 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
     gen = torch.Generator(dev)
     gen.manual_seed(7)
     rows = []
-    label = "" if kind == "q8" else f"{kind} "
+    i8 = kv == "i8"
+    label = "i8 " if i8 else "" if kind == "q8" else f"{kind} "
+    row_kind = "q8-kvi8" if i8 else kind
+    #: bytes a cached key or value row costs: d values, and int8's scale
+    kv_row = cfg.d_head + 4 if i8 else 2 * cfg.d_head
 
     def replaces(kernel, q8_line):
+        if i8:
+            return REPLACES_I8.get(kernel, q8_line)
         return q8_line if kind == "q8" else REPLACES_4BIT[kernel][kind]
+
+    def quant(cache):
+        """`cache` as it is for kv="bf16"; quantized to int8 for "i8"."""
+        if not i8:
+            return cache
+        (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
+        if isinstance(cache, PagedKVCache):
+            return PagedKVCache(k, v, cache.table, ks, vs)
+        return KVCache(k, v, ks, vs)
 
     def row(kernel, shape, route_src, replaces, err, ms, plain_ms, nbytes,
             flops, library_ms):
         t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / PEAK_BF16 * 1e3
-        r = dict(name=f"{kernel} {label}{shape}", kernel=kernel, kind=kind,
+        r = dict(name=f"{kernel} {label}{shape}", kernel=kernel, kind=row_kind,
                  route="cuda",
                  source=route_src, replaces=replaces, launches=0,
                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -279,7 +332,8 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
         print(f"kernel {r['name']}: max_abs_err {err:.3e} "
               f"(rtol {RTOL}, atol {ATOL}) kernel_ms {ms:.5f} "
               f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
-              f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f}",
+              f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f}"
+              + (" (SDPA over the dequantized bf16 K/V)" if i8 else ""),
               flush=True)
 
     # K1 / K2: the quantized matmuls
@@ -317,12 +371,13 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
         row(kernel, f"{label} M={M} K={K} N={N}", src, rep, err, ms, plain,
             nbytes, 2 * M * K * N, lib)
 
-    for n, w in mats.items():
-        qmm_case(n, w, dense[n], 1, True, torch.bfloat16)
-    qmm_case("lm_head", lm, lm_dense, 1, False, torch.float32)
-    for M in (128, 512) if kind == "q8" else (128,):
+    if not i8:
         for n, w in mats.items():
-            qmm_case(n, w, dense[n], M, True, torch.bfloat16)
+            qmm_case(n, w, dense[n], 1, True, torch.bfloat16)
+        qmm_case("lm_head", lm, lm_dense, 1, False, torch.float32)
+        for M in (128, 512) if kind == "q8" else (128,):
+            for n, w in mats.items():
+                qmm_case(n, w, dense[n], M, True, torch.bfloat16)
 
     # K5-K7: the fused decode-layer matmuls on the same weights
     D, F = cfg.n_embd, cfg.n_ffn
@@ -345,7 +400,7 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
     src = "tinyllama_tpu_torch/csrc/decode_fused.cu"
     rep = "tinyllama_tpu/ops/pallas/decode_fused.py"
     norm_a, norm_f = lin["attn_norm"], lin["ffn_norm"]
-    for M in (1, 4, 32):
+    for M in () if i8 else (1, 4, 32):
         x = rows_bf16(M, D)
         wq, N = lin["wqkv"], lin["wqkv"].data.shape[-1]
         fused_case(
@@ -356,7 +411,7 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
                                             inside),
             lambda i: torch.matmul(x.view(M, D), dense["wqkv"][i % L]),
             w_bytes["wqkv"] + M * D * 2 + D * 4 + M * N * 2, 2 * M * D * N)
-    for M in (4, 32):
+    for M in () if i8 else (4, 32):
         a, r = rows_bf16(M, D), rows_bf16(M, D)
         fused_case(
             "K6 fused_out_residual", f"M={M} K={D} N={D}", src,
@@ -377,7 +432,7 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
             torch.matmul(x.view(M, D), dense["w_gateup"][i % L])[:, :F],
             dense["w_down"][i % L])
 
-    for M in (1, 4, 32):
+    for M in () if i8 else (1, 4, 32):
         x = rows_bf16(M, D)
         fused_case(
             "K7 ffn_fused", f"normed M={M} D={D} F={F}", src, rep,
@@ -386,18 +441,23 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
                                         eps, inside),
             ffn_library(x, M), ffn_bytes + 2 * M * D * 2 + D * 4,
             2 * M * 3 * F * D, replay=True)
-    x = rows_bf16(1, D)
-    fused_case(
-        "K7 ffn_fused", f"plain entry M=1 D={D} F={F}", src, rep,
-        lambda i: ffn.ffn_fused(x, gu, wd, layers[i % L], cfg),
-        lambda i: ffn.ffn_fused_ref(x, None, gu, wd, layers[i % L], cfg),
-        ffn_library(x, 1), ffn_bytes + 2 * D * 2, 2 * 3 * F * D)
+    if not i8:
+        x = rows_bf16(1, D)
+        fused_case(
+            "K7 ffn_fused", f"plain entry M=1 D={D} F={F}", src, rep,
+            lambda i: ffn.ffn_fused(x, gu, wd, layers[i % L], cfg),
+            lambda i: ffn.ffn_fused_ref(x, None, gu, wd, layers[i % L], cfg),
+            ffn_library(x, 1), ffn_bytes + 2 * D * 2, 2 * 3 * F * D)
 
     # K3 / K4 / K8: attention over a full-size random bf16 cache
     H, Kh, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, engine.max_ctx
-    cache = engine.new_cache(1)
-    cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev))
-    cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev))
+    shape = (L, 1, Kh, S, d)
+    cache = quant(KVCache(
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
+    # the library's K/V: layer 3, dequantized where the cache is int8
+    dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
+
     def sdpa(q, k, v, is_causal=False):
         # the library yardstick: K/V shared across each query group, so it
         # reads the bytes the kernels read
@@ -409,7 +469,7 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
         q = torch.randn((1, 1, H, d), generator=gen, device=dev).to(torch.bfloat16)
         res = torch.randn((1, 1, D), generator=gen, device=dev).to(torch.bfloat16)
         pos = torch.tensor([p], dtype=torch.int32, device=dev)
-        kx, vx = cache.k[3, :, :, :p + 1], cache.v[3, :, :, :p + 1]
+        kx, vx = dense_k[:, :, :p + 1], dense_v[:, :, :p + 1]
         qh = q.transpose(1, 2)
         fused_case(
             "K8 fused_attn_out", f"pos={p} S={S} N={D}", src,
@@ -422,7 +482,7 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
             lambda i: torch.addmm(res.view(1, D),
                                   sdpa(qh, kx, vx).reshape(1, D),
                                   dense["wo"][i % L]),
-            w_bytes["wo"] + 2 * Kh * (p + 1) * d * 2 + H * d * 2 + 2 * D * 2,
+            w_bytes["wo"] + 2 * Kh * (p + 1) * kv_row + H * d * 2 + 2 * D * 2,
             4 * d * H * (p + 1) + 2 * D * D, replay=True)
     del dense, lm_dense
     if kind != "q8":
@@ -443,14 +503,15 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
                         5, False)
         # library yardstick: SDPA over the visible keys
         n_keys = p + T
-        kx, vx = cache.k[3, :, :, :n_keys], cache.v[3, :, :, :n_keys]
+        kx, vx = dense_k[:, :, :n_keys], dense_v[:, :, :n_keys]
         qh = q.transpose(1, 2)
         causal = T > 1
         lib = time_ms(lambda i: sdpa(qh, kx, vx, is_causal=causal), 100, True)
         pairs = H * sum(p + t + 1 for t in range(T))
-        nbytes = 2 * T * H * d * 2 + 2 * Kh * n_keys * d * 2
-        rep = ("tinyllama_tpu/ops/pallas/flash_prefill.py:201" if T == 1
-               else "tinyllama_tpu/ops/pallas/flash_prefill.py:35")
+        nbytes = 2 * T * H * d * 2 + 2 * Kh * n_keys * kv_row
+        rep = replaces(kernel.split()[0],
+                       "tinyllama_tpu/ops/pallas/flash_prefill.py:201" if T == 1
+                       else "tinyllama_tpu/ops/pallas/flash_prefill.py:35")
         row(kernel, f"T={T} pos={p} S={S}", src, rep, err, ms, plain, nbytes,
             4 * d * pairs, lib)
 
@@ -474,17 +535,18 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
         q = rand(B, 1, H, d)
         if paged:
             n = -(-fill // P)
-            pool = PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
-                                rand(L, 1 + B * n, Kh, P, d),
-                                torch.zeros((B, S // P), dtype=torch.int32,
-                                            device=dev))
-            pool.table[:, :n] = 1 + torch.arange(B * n, device=dev).reshape(B, n)
+            table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
+            table[:, :n] = 1 + torch.arange(B * n, device=dev).reshape(B, n)
+            pool = quant(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
+                                      rand(L, 1 + B * n, Kh, P, d), table))
         else:
-            pool = KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d))
+            pool = quant(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)))
         if tail:
-            st = StagedKVCache(pool, rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d),
+            t = quant(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)))
+            st = StagedKVCache(pool, t.k, t.v,
                                torch.full((B,), fill, dtype=torch.int32,
-                                          device=dev))
+                                          device=dev),
+                               sk_scale=t.k_scale, sv_scale=t.v_scale)
             pos = torch.full((B,), fill + tail - 1, dtype=torch.int32, device=dev)
             fn = (fp.flash_paged_staged_attention if paged
                   else fa.flash_staged_attention)
@@ -495,11 +557,12 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
             plain = fp.paged_attention_ref
         # library yardstick: SDPA over the same keys, gathered dense
         kd, vd = (paged_layer_view(pool, 3, torch.bfloat16) if paged
-                  else (pool.k[3], pool.v[3]))
+                  else layer_cache_view(pool, 3, torch.bfloat16))
         kx, vx = kd[:, :, :fill], vd[:, :, :fill]
         if tail:
-            kx = torch.cat([kx, st.sk[3, :, :, :tail]], dim=2)
-            vx = torch.cat([vx, st.sv[3, :, :, :tail]], dim=2)
+            tk, tv = layer_cache_view(t, 3, torch.bfloat16)
+            kx = torch.cat([kx, tk[:, :, :tail]], dim=2)
+            vx = torch.cat([vx, tv[:, :, :tail]], dim=2)
         qh = q.transpose(1, 2)
         n_keys = fill + tail
         label = (f"B={B} fill={fill} tail={tail} P={P}" if paged
@@ -511,16 +574,16 @@ def phase_kernels(engine, torch, ops, kind="q8") -> list[dict]:
             lambda i: fn(q, cache_arg, layers[i % L], pos),
             lambda i: plain(q, cache_arg, layers[i % L], pos),
             lambda i: sdpa(qh, kx, vx),
-            2 * B * Kh * n_keys * d * 2 + 2 * B * H * d * 2,
+            2 * B * Kh * n_keys * kv_row + 2 * B * H * d * 2,
             4 * d * H * n_keys * B)
 
     serving_case("K9 flash_staged", 8, 256, 32, False,
-                 "tinyllama_tpu/ops/pallas/flash_prefill.py:375")
+                 replaces("K9", "tinyllama_tpu/ops/pallas/flash_prefill.py:375"))
     for p in (127, 1500):
         serving_case("K10 flash_paged", 1, p + 1, 0, True,
-                     "tinyllama_tpu/ops/pallas/flash_paged.py:38")
+                     replaces("K10", "tinyllama_tpu/ops/pallas/flash_paged.py:38"))
     serving_case("K11 flash_paged_staged", 32, 256, 32, True,
-                 "tinyllama_tpu/ops/pallas/flash_paged.py:171")
+                 replaces("K11", "tinyllama_tpu/ops/pallas/flash_paged.py:171"))
     return rows
 
 
@@ -564,6 +627,7 @@ def profile_decode(engine, prompt, torch, steps: int = 4) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "tinyllama_tpu_torch" / "csrc").is_dir():
         return fail("the tinyllama_tpu_torch package is not beside this script")
     import torch
@@ -589,6 +653,7 @@ def main() -> int:
     from tinyllama_tpu_torch.quant import codec
     from tinyllama_tpu_torch.runtime.engine import Engine
     from tinyllama_tpu_torch.runtime.engine import _bucket as engine_bucket
+    from tinyllama_tpu_torch.runtime.perf import tree_nbytes
     from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
     from tinyllama_tpu_torch.runtime.staging import stage_cache
 
@@ -622,15 +687,17 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init: TinyLlama-1.1B q8 random weights in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rows = phase_kernels(engine, torch, (qm, fa, df, ffn, ao, fp, codec))
+    ops = (qm, fa, df, ffn, ao, fp, codec)
+    rows = phase_kernels(engine, torch, ops)
+    rows += phase_kernels(engine, torch, ops, kv="i8")
 
     # 4. paths, each with exact launch counts
     counters = (qm.launches, fa.launches, df.launches, ffn.launches,
                 ao.launches, fp.launches)
-    #: launches summed over the paths of each weight kind: (a)-(g) are q8,
-    #: (h) and (i) run q4 and q4g
+    #: launches summed over the paths of each policy: (a)-(g) are q8, (h)
+    #: and (i) run q4 and q4g, (j) q8-kvi8, (h)'s third run q4-kvi8
     totals = {kind: {k: 0 for c in counters for k in c}
-              for kind in ("q8", "q4", "q4g")}
+              for kind in ("q8", "q4", "q4g", "q8-kvi8", "q4-kvi8")}
 
     def reset():
         for c in counters:
@@ -638,7 +705,16 @@ def main() -> int:
                 c[k] = 0
 
     def expect(path, kind="q8", **want):
+        """The launch counts of a path of policy `kind` must be `want`
+        (by the bf16 names: with an int8 cache the attention kernels'
+        counts move to their "_i8" names)."""
         got = {k: v for c in counters for k, v in c.items()}
+        if kind.endswith("kvi8"):
+            moved = {}
+            for k, v in want.items():
+                k = k + "_i8" if k in ATTENTION else k
+                moved[k] = moved.get(k, 0) + v
+            want = moved
         want = {k: want.get(k, 0) for k in got}
         print(f"path {path}: launches {json.dumps(got)}", flush=True)
         if got != want:
@@ -838,7 +914,9 @@ def main() -> int:
               flush=True)
 
     # (f), (g) continuous batching: the batcher's cache is its engine's kind
-    def serve(path, eng, max_batch, n_requests, seed):
+    def serve(path, eng, max_batch, n_requests, seed, kind="q8"):
+        """Run the requests of `seed` through a batcher; returns its
+        aggregate tok/s, TTFT p50 and p95 (s) and its pool's bytes."""
         srng = np.random.default_rng(seed)
         lens = srng.integers(8, 201, n_requests)
         n_new = srng.integers(32, 97, n_requests).tolist()
@@ -855,9 +933,9 @@ def main() -> int:
         (ids, res, wall), record, want = recorded(eng, eng.paged, run)
         outs = [res[i].output for i in ids]
         if not ids_ok(outs, n_new):
-            return fail(f"path {path}: a request did not get its max_new ids "
-                        "in range")
-        expect(path, **want)
+            raise AssertionError(f"path {path}: a request did not get its "
+                                 "max_new ids in range")
+        expect(path, kind, **want)
         ttft = np.array([res[i].first_token_s - res[i].submitted_s for i in ids])
         buckets = sorted({B for B, _ in record["chunk"]})
         print(f"path {path}: ContinuousBatcher(paged={eng.paged}, max_batch="
@@ -868,10 +946,12 @@ def main() -> int:
               f"{np.percentile(ttft, 95) * 1e3:.3f} ms, wall {wall:.3f} s; "
               f"{len(record['prefill'])} admissions, {len(record['chunk'])} "
               f"chunks at buckets {buckets}", flush=True)
-        return 0
+        pool = batcher.pool if eng.paged else batcher.cache
+        return (sum(n_new) / wall, np.percentile(ttft, 50),
+                np.percentile(ttft, 95), tree_nbytes(pool))
 
-    if serve("(f)", paged_engine, 32, 64, 5) or serve("(g)", engine, 8, 16, 6):
-        return 1
+    served = {"(f)": serve("(f)", paged_engine, 32, 64, 5),
+              "(g)": serve("(g)", engine, 8, 16, 6)}
     del paged_engine
 
     # the device's share of a full-width staged step of (f) and (g): 8
@@ -898,15 +978,77 @@ def main() -> int:
               f"{graph_ms / eager_ms:.3f} of an eager step", flush=True)
         del cache, st
 
+    # (j) the int8 KV cache, POLICIES["q8-kvi8"], on (a)'s weights through
+    # every cache kind: the int8 instantiations of K3, K4, K8-K11
+    kvi8 = POLICIES["q8-kvi8"]
+    eng8 = Engine(cfg, kvi8, engine.params, max_ctx=2048, device="cuda")
+    eng8.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
+                                           greedy=True, eos_token=-1))
+    out, stats = generate(prompt, 64, eng8)
+    expect("(j) b1", "q8-kvi8", qmm_bigm=4 * L, flash_prefill=L,
+           qmm_smallm=1 + 64, fused_norm_qkv=L * 64, fused_attn_out=L * 64,
+           ffn_fused_normed=L * 64)
+    cache = eng8.new_cache(1)
+    eng8.prefill(cache, [prompt])
+    tok = torch.tensor([5], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device="cuda")
+    step8_ms = time_ms(lambda i: eng8.decode_step(cache, tok, pos), 20, True)
+    print(f"path (j) b1: prefill {stats.prefill_s * 1e3:.3f} ms "
+          f"({stats.prompt_tokens} tokens, bucket 128); decode "
+          f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
+          f"tokens; one decode step at pos {PROMPT_LEN} replayed as a CUDA "
+          f"graph {step8_ms:.4f} ms against (a)'s {step_ms:.4f} ms (bf16 "
+          f"cache); busy {step8_ms / stats.ms_per_token:.3f} of an eager "
+          "step", flush=True)
+    del cache
+    batch_path(eng8, "(j) B=4", "q8-kvi8")
+    gcfg = GenerationConfig(n_predict=PROMPT_LEN + 32, greedy=True,
+                            eos_token=-1, chunk_size=32)
+    (outs, stats), record, want = recorded(
+        eng8, False, lambda: eng8.generate_batch(prompts, gcfg))
+    if record != {"prefill": [(BATCH, 128)], "chunk": [(BATCH, 32)]} \
+            or not ids_ok(outs, [32] * BATCH):
+        return fail(f"path (j) generate_batch: ran {record}, or ids out of range")
+    expect("(j) generate_batch", "q8-kvi8", **want)
+    print(f"path (j) generate_batch: {BATCH} x {PROMPT_LEN}-token prompts, one "
+          f"staged 32-step chunk: {stats.decode_s * 1e3 / stats.decode_steps:.4f}"
+          f" ms a staged B={BATCH} step", flush=True)
+    paged8 = Engine(cfg, kvi8, engine.params, max_ctx=2048, device="cuda",
+                    paged=True)
+    (out, stats), record, want = recorded(
+        paged8, True, lambda: paged8.generate(prompt, gcfg))
+    if not ids_ok([out], [32]) or stats.decode_steps != 32:
+        return fail(f"path (j) paged: {len(out)} ids in {stats.decode_steps} "
+                    "steps, or ids out of range")
+    expect("(j) paged generate", "q8-kvi8", **want)
+    print(f"path (j) paged generate: prefill {stats.prefill_s * 1e3:.3f} ms "
+          f"(K3 over the prompt's own quantized keys); decode "
+          f"{stats.ms_per_token:.4f} ms/token over 32 tokens", flush=True)
+    served["(j) paged batcher"] = serve("(j) paged batcher", paged8, 32, 64, 5,
+                                        "q8-kvi8")
+    served["(j) monolithic batcher"] = serve("(j) monolithic batcher", eng8, 8,
+                                             16, 6, "q8-kvi8")
+    for bf, i8_path in (("(f)", "(j) paged batcher"),
+                        ("(g)", "(j) monolithic batcher")):
+        (tps, p50, p95, nb), (tps8, p508, p958, nb8) = served[bf], served[i8_path]
+        print(f"path {i8_path} against {bf}, same requests, same call: "
+              f"{tps8:.2f} tok/s against {tps:.2f}; TTFT p50 {p508 * 1e3:.3f} "
+              f"ms against {p50 * 1e3:.3f}, p95 {p958 * 1e3:.3f} ms against "
+              f"{p95 * 1e3:.3f}; KV pool {nb8} B (int8 data and f32 scales) "
+              f"against {nb} B (bf16), {nb8 / nb:.4f}", flush=True)
+    del eng8, paged8
+
     # (h) 4-bit weights from a file through the CLI: a full-depth q4 .gten
     # loaded as q4, then as q4g (requantized at load); (i) the chat and
     # batched paths on each of those engines; then the 4-bit kernel rows
     # on its weights
     del engine, params
 
-    def cli_path(kind, ckpt, vocab, n_prompt):
-        """cli.main on the file; the engine it builds and its generate
-        call are caught by wrapping Engine.generate."""
+    def cli_path(kind, ckpt, vocab, n_prompt, kv=None):
+        """cli.main on the file (with --kv `kv` when given); the engine it
+        builds and its generate call are caught by wrapping
+        Engine.generate."""
+        policy_name = f"{kind}-kvi8" if kv else kind
         seen = []
         real = Engine.generate
 
@@ -920,7 +1062,8 @@ def main() -> int:
             reset()
             rc = cli.main([f"-{kind}", "--ckpt", str(ckpt), "--tokenizer",
                            str(vocab), "-p", CLI_PROMPT, "-greedy", "--npred",
-                           str(CLI_NPRED), "--model", cfg.name])
+                           str(CLI_NPRED), "--model", cfg.name]
+                          + (["--kv", kv] if kv else []))
             torch.cuda.synchronize()
         finally:
             Engine.generate = real
@@ -929,17 +1072,19 @@ def main() -> int:
                                  f"{len(seen)} generate calls")
         eng, toks, out, stats = seen[0]
         steps = stats.decode_steps
-        if (len(toks) != n_prompt or eng.policy.wdtype != kind
+        if (len(toks) != n_prompt or eng.policy != POLICIES[policy_name]
                 or eng.params["lm_head"].kind != kind
                 or not len(out) <= steps <= CLI_NPRED - n_prompt
                 or not all(0 <= t < cfg.n_vocab for t in out)):
             raise AssertionError(f"path (h) {kind}: {len(toks)} prompt tokens, "
                                  f"{len(out)} ids in {steps} steps, weights "
                                  f"{eng.policy.wdtype}, or ids out of range")
-        expect(f"(h) {kind}", kind, qmm_bigm=4 * L, flash_prefill=L,
-               qmm_smallm=1 + steps, fused_norm_qkv=L * steps,
+        expect(f"(h) {policy_name}", policy_name, qmm_bigm=4 * L,
+               flash_prefill=L, qmm_smallm=1 + steps, fused_norm_qkv=L * steps,
                fused_attn_out=L * steps, ffn_fused_normed=L * steps)
-        print(f"path (h) {kind}: cli.main -{kind} --ckpt (q4 .gten) --tokenizer: "
+        flags = f"-{kind}" + (f" --kv {kv}" if kv else "")
+        print(f"path (h) {policy_name}: cli.main {flags} --ckpt (q4 .gten) "
+              "--tokenizer: "
               f"load {stats.load_s:.3f} s, prefill {stats.prefill_s * 1e3:.3f} "
               f"ms ({n_prompt} tokens, bucket 128, first launches of the "
               f"{kind} kernels included), decode {stats.ms_per_token:.4f} "
@@ -950,7 +1095,8 @@ def main() -> int:
         tok = torch.tensor([5], dtype=torch.int32, device="cuda")
         pos = torch.tensor([n_prompt], dtype=torch.int32, device="cuda")
         step_ms = time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
-        print(f"path (h) {kind}: one decode step at pos {n_prompt} replayed as "
+        print(f"path (h) {policy_name}: one decode step at pos {n_prompt} "
+              "replayed as "
               f"a CUDA graph: {step_ms:.4f} ms device time; eager "
               f"{stats.ms_per_token:.4f} ms/token, so the device is busy "
               f"{step_ms / stats.ms_per_token:.3f} of an eager step", flush=True)
@@ -972,9 +1118,10 @@ def main() -> int:
             eng4 = cli_path(kind, ckpt, vocab, n_prompt)
             chat_path(eng4, f"(i) {kind} chat", kind)
             batch_path(eng4, f"(i) {kind} B={BATCH}", kind)
-            rows += phase_kernels(eng4, torch, (qm, fa, df, ffn, ao, fp, codec),
-                                  kind)
+            rows += phase_kernels(eng4, torch, ops, kind)
             del eng4
+        # the CLI's --kv i8 on the same file: q4-kvi8 on the card
+        cli_path("q4", ckpt, vocab, n_prompt, kv="i8")
 
     launch_names = {"K1 qmm_smallm": ["qmm_smallm"], "K2 qmm_bigm": ["qmm_bigm"],
                     "K3 flash_prefill": ["flash_prefill"],
@@ -987,7 +1134,10 @@ def main() -> int:
                     "K10 flash_paged": ["flash_paged"],
                     "K11 flash_paged_staged": ["flash_paged_staged"]}
     for r in rows:
-        r["launches"] = sum(totals[r["kind"]][k] for k in launch_names[r["kernel"]])
+        names = launch_names[r["kernel"]]
+        if r["kind"].endswith("kvi8"):
+            names = [n + "_i8" for n in names]
+        r["launches"] = sum(totals[r["kind"]][k] for k in names)
         if not r["launches"]:
             return fail(f"{r['kernel']} ({r['kind']}) was not launched on any "
                         "path")
@@ -1061,6 +1211,39 @@ def main() -> int:
                 torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev))))
             traces.append([(n, t.float().cpu()) for n, t in trace])
         pairs += list(zip(*traces))
+    # the int8 KV cache (q8-kvi8): a long prefill (K2, K3), b1 steps (K8), a
+    # B = 4 step (K4), staged chunk steps (K9, K11) and a paged b1 step (K10)
+    traces = []
+    for eng in (Engine(cfg2, kvi8, p2, device=d) for d in ("cuda", "cpu")):
+        dev = eng.device
+        cache = eng.new_cache(1)
+        logits, _ = eng.prefill(cache, [prompt])
+        trace = [("i8 long prefill", logits)]
+        pos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device=dev)
+        for i, t in enumerate(feed[:2]):
+            tok = torch.tensor([t], dtype=torch.int32, device=dev)
+            trace.append((f"i8 b1 decode {i}", eng.decode_step(cache, tok, pos)))
+            pos += 1
+        step_tok = torch.tensor(feed, dtype=torch.int32, device=dev)
+        step_pos = torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev)
+        cache = eng.new_cache(BATCH)
+        eng.prefill(cache, chats)
+        trace.append((f"i8 B={BATCH} decode", eng.decode_step(cache, step_tok,
+                                                              step_pos)))
+        for kind, cache in (("monolithic", eng.new_cache(BATCH)),
+                            ("paged", eng.new_paged_cache(BATCH))):
+            eng.prefill(cache, chats)
+            st = stage_cache(cache, step_pos, 32)
+            eng.decode_step(st, step_tok, step_pos)
+            trace.append((f"i8 B={BATCH} staged {kind} chunk step 2",
+                          eng.decode_step(st, step_tok + 1, step_pos + 1)))
+        cache = eng.new_paged_cache(1)
+        eng.prefill(cache, [prompt])
+        trace.append(("i8 paged b1 decode", eng.decode_step(
+            cache, step_tok[:1], torch.tensor([PROMPT_LEN], dtype=torch.int32,
+                                              device=dev))))
+        traces.append([(n, t.float().cpu()) for n, t in trace])
+    pairs += list(zip(*traces))
     for (name, a), (_, b) in pairs:
         if not (torch.isfinite(a).all() and a.shape[-1] == cfg2.n_vocab):
             return fail(f"parity {name}: logits not finite or misshapen")
@@ -1075,6 +1258,8 @@ def main() -> int:
 
     for r in rows:
         del r["kernel"], r["kind"]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the builds "
+          "included")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

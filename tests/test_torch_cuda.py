@@ -15,7 +15,10 @@ heads per kv head; for the fused kernels (K5-K8) M in {1, 3, 8, 9, 17,
 their wrappers' refusals; for the serving attention (K9-K11) pos and
 chunk bases 0, P - 1, P and 1500 with P = 256, B = 1, 4 and 32, 4 and 8
 query heads per kv head, staged tail fills 1 to C, a CUDA-graph replay,
-and the engine's staged and paged chunks against the plain path.
+and the engine's staged and paged chunks against the plain path; the
+int8 KV cache's kernels (K3 at T 16 to 512, K4 and K8 at pos 0 to 1500,
+K9-K11 at the same bases and batches, at TinyLlama's heads), their graph
+replay, refusals and an int8 engine against the plain path.
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -40,6 +43,7 @@ from tinyllama_tpu_torch.ops.kernels import (
     qmatmul,
 )
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize
+from tinyllama_tpu_torch.runtime import kvcache
 from tinyllama_tpu_torch.runtime.engine import Engine
 from tinyllama_tpu_torch.runtime.kvcache import KVCache
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache
@@ -613,6 +617,195 @@ def test_engine_4bit_on_the_card_matches_cpu(card, kind):
             trace.append(eng.decode_step(cache, _i32([t], eng.device), p)
                          .float().cpu())
             p += 1
+        traces.append(trace)
+    for a, b in zip(*traces):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
+
+
+# --- the int8 KV cache on the card ----------------------------------------------
+
+
+def _i8(cache):
+    """The same history quantized to int8 with its scales (quantize_kv),
+    for a KVCache, a PagedKVCache or a StagedKVCache over either."""
+    (k, ks), (v, vs) = kvcache.quantize_kv(cache.k), kvcache.quantize_kv(cache.v)
+    if isinstance(cache, PagedKVCache):
+        return PagedKVCache(k, v, cache.table, ks, vs)
+    return KVCache(k, v, ks, vs)
+
+
+def _i8_staged(st: StagedKVCache, pool) -> StagedKVCache:
+    (sk, sks), (sv, svs) = kvcache.quantize_kv(st.sk), kvcache.quantize_kv(st.sv)
+    return StagedKVCache(pool, sk, sv, st.base, sk_scale=sks, sv_scale=svs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,pos", [(16, 0), (128, 0), (512, 0), (1, 0),
+                                   (1, 127), (1, 1500)])
+def test_attention_i8_kernels_match_plain(card, T, pos):
+    """K3 (a prompt of T tokens) and K4 (T = 1, two rows at pos and pos
+    / 2) over an int8 cache at TinyLlama's heads (32 query, 4 kv) and
+    max_ctx 2048: each against its plain version, which dequantizes."""
+    rows = [pos] if T > 1 else [pos, pos // 2]
+    cache = _i8(_cache(len(rows), 4, 2048, [p + T for p in rows], seed=T + pos,
+                       device=card))
+    q = torch.randn(len(rows), T, 32, 64, device=card).to(torch.bfloat16)
+    layer, p = _i32([1], card), _i32(rows, card)
+    fn, name = ((flash_attention.flash_decode_heads_attention, "flash_decode_heads")
+                if T == 1 else (flash_attention.flash_prefill_attention,
+                                "flash_prefill"))
+    got = _counted(flash_attention, f"{name}_i8", lambda: fn(q, cache, layer, p))
+    want = flash_attention.attention_ref(q, cache, layer, p)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _attn_out_i8_inputs(device, pos, seed=0):
+    """K8's operands at TinyLlama's widths over an int8 cache, q8 wo."""
+    cache = _i8(_cache(1, 4, 2048, [pos + 1], seed=seed, device=device))
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(1, 1, 32, 64, generator=g).to(device, torch.bfloat16)
+    res = torch.randn(1, 1, 2048, generator=g).to(device, torch.bfloat16)
+    return q, cache, res, _weight(2, 2048, 2048, seed + 1, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 127, 1500])
+def test_fused_attn_out_i8_matches_plain(card, pos):
+    """K8 over an int8 cache at TinyLlama's widths (32 heads, 4 kv heads,
+    q8 wo)."""
+    q, cache, res, wo = _attn_out_i8_inputs(card, pos, seed=pos)
+    layer, p = _i32([1], card), _i32([pos], card)
+    got = _counted(attn_out_fused, "fused_attn_out_i8",
+                   lambda: attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
+    want = attn_out_fused.fused_attn_out_ref(q, cache, layer, p, res, wo)
+    torch.cuda.synchronize()
+    assert got.shape == res.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _serving_i8_inputs(B, base, seed, device):
+    """_serving_inputs at TinyLlama's heads (4 kv heads, 8 query heads
+    each), every plane quantized to int8."""
+    q, pos, pool, st_dense, st_paged = _serving_inputs(B, 8, base, seed, device,
+                                                       Kh=4)
+    pool, dense = _i8(pool), _i8(st_dense.pool)
+    return (q, pos, pool, _i8_staged(st_dense, dense),
+            _i8_staged(st_paged, pool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("base", [0, SERVE_P - 1, SERVE_P, 1500])
+def test_serving_attention_i8_kernels_match_plain(card, base, B):
+    """K9 and K11 over an int8 pool and tail, chunk bases on both sides of
+    a page and deep in the context, every tail fill at B = 32; K10 at pos
+    = base: each against its plain version."""
+    q, pos, pool, st_dense, st_paged = _serving_i8_inputs(B, base, base + B, card)
+    layer = _i32([1], card)
+    cases = [
+        ("flash_staged_i8", flash_attention,
+         lambda: flash_attention.flash_staged_attention(q, st_dense, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_dense, layer, pos)),
+        ("flash_paged_staged_i8", flash_paged,
+         lambda: flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_paged, layer, pos)),
+        ("flash_paged_i8", flash_paged,
+         lambda: flash_paged.flash_paged_attention(q, pool, layer, st_paged.base),
+         lambda: flash_paged.paged_attention_ref(q, pool, layer, st_paged.base)),
+    ]
+    for name, mod, kernel, plain in cases:
+        got = _counted(mod, name, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+@pytest.mark.cuda
+def test_i8_kernels_replay_in_a_graph(card):
+    """K8, K9, K10 and K11 over int8 caches captured in one CUDA graph
+    and replayed 3 times give the eager result every time."""
+    q, pos, pool, st_dense, st_paged = _serving_i8_inputs(32, 700, 11, card)
+    q8, cache8, res8, wo8 = _attn_out_i8_inputs(card, 700, seed=3)
+    layer, p8 = _i32([1], card), _i32([700], card)
+
+    def run():
+        return (attn_out_fused.fused_attn_out(q8, cache8, layer, p8, res8, wo8),
+                flash_attention.flash_staged_attention(q, st_dense, layer, pos),
+                flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos),
+                flash_paged.flash_paged_attention(q, pool, layer, pos))
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+def test_i8_wrappers_refuse_on_the_card(card):
+    """On the card, int8 data without scales, scales beside bf16 data, and
+    scales of the wrong shape or dtype are refused before a launch."""
+    q, cache, res, wo = _attn_out_i8_inputs(card, 5)
+    layer, p = _i32([0], card), _i32([5], card)
+    bf = _cache(1, 4, 2048, [6], seed=0, device=card)
+    bad = {
+        "int8 without scales": (KVCache(cache.k, cache.v), TypeError),
+        "scales with bf16": (KVCache(bf.k, bf.v, cache.k_scale, cache.v_scale),
+                             TypeError),
+        "f16 scales": (KVCache(cache.k, cache.v, cache.k_scale.half(),
+                               cache.v_scale), TypeError),
+        "scale shape": (KVCache(cache.k, cache.v, cache.k_scale[..., :1024],
+                                cache.v_scale), ValueError),
+    }
+    for name, (c, exc) in bad.items():
+        with pytest.raises(exc):
+            flash_attention.flash_decode_heads_attention(q, c, layer, p)
+        with pytest.raises(exc):
+            attn_out_fused.fused_attn_out(q, c, layer, p, res, wo)
+    _, pos, pool, _, st_paged = _serving_i8_inputs(2, 10, 1, card)
+    with pytest.raises(TypeError, match="scale"):
+        flash_paged.flash_paged_attention(
+            q.expand(2, 1, 32, 64).contiguous(),
+            PagedKVCache(pool.k, pool.v, pool.table), layer, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_i8_on_the_card_matches_cpu(card, paged):
+    """A small model with an int8 KV cache (q8-kvi8) through the kernels
+    and through the plain path: a prefill, a staged B = 3 chunk and a
+    B = 1 chunk (K8, or K10 when paged); the logits agree to 5% of their
+    largest magnitude."""
+    cfg = tiny_test_config(n_embd=256, n_heads=4, n_kv_heads=1, n_ffn=512,
+                           max_ctx=256)
+    policy = POLICIES["q8-kvi8"]
+    params = llama.init_quantized_params(cfg, policy,
+                                         torch.Generator().manual_seed(0))
+    gen = GenerationConfig(greedy=True, eos_token=-1)
+    prompts = [[1, 5, 9, 33, 70, 2, 8], [1, 4], [1] + list(range(2, 60))]
+    traces = []
+    for device in (card, "cpu"):
+        eng = Engine(cfg, policy, params, device=device, paged=paged)
+        trace = []
+        for rows in (prompts, prompts[:1]):
+            cache = eng.new_cache(len(rows))
+            assert cache.quantized
+            logits, lens = eng.prefill(cache, rows)
+            trace.append(logits.float().cpu())
+            pos = torch.from_numpy(lens.astype(np.int32)).to(eng.device)
+            _, _, logits, _ = eng.chunk(cache, logits, pos, 5, gen)
+            trace.append(logits.float().cpu())
         traces.append(trace)
     for a, b in zip(*traces):
         assert torch.isfinite(a).all()

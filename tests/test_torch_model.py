@@ -250,9 +250,21 @@ def test_branch_choice_counts(both_params, kernel_calls):
     fused (K5, K3, K6, K7), a longer one is not (K2, K3); a b1 decode
     step runs K5, K8, K7 and no K4 or K6; a 2-row step K5, K4, K6, K7;
     the lm_head is one K1 each time."""
-    _, pp = both_params
+    _assert_branch_counts(both_params[1], POL, kernel_calls)
+
+
+def test_branch_choice_counts_i8(both_params, kernel_calls):
+    """The same counts over an int8 KV cache: the branch depends on
+    shapes and weight types, not on the cache's dtype (as in the JAX
+    ``_block``)."""
+    _assert_branch_counts(both_params[1], pconfig.DtypePolicy("q8", "f32", "i8"),
+                          kernel_calls)
+
+
+def _assert_branch_counts(pp, policy, kernel_calls):
     L = CFG.n_layers
-    eng = Engine(CFG, POL, pp, device="cpu")
+    eng = Engine(CFG, policy, pp, device="cpu")
+    assert eng.new_cache(1).quantized == (policy.kv_dtype == "i8")
 
     def run(fn):
         kernel_calls.clear()

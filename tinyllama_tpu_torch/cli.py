@@ -18,12 +18,16 @@ performance table to stdout.
 them; without a tokenizer the prompt then becomes token ids (BOS, then
 each character's code modulo the vocab) and the output prints as ids.
 Runs on the card unless ``--device cpu`` is given. ``--paged`` keeps the
-KV cache in a page pool (decode attention K10).
+KV cache in a page pool (decode attention K10). ``--kv`` sets the KV
+cache's dtype (default the policy's, bf16): ``--kv i8`` stores int8 with
+one f32 scale a (head, position), about half the bytes; on the card the
+kernels take bf16 or i8, and f32 / f16 raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -74,6 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode steps between host read-backs")
     p.add_argument("--paged", action="store_true",
                    help="paged KV cache (page pool + page table)")
+    p.add_argument("--kv", default=None, choices=("f32", "bf16", "f16", "i8"),
+                   help="KV-cache dtype: i8 is int8 with per-(head, position) "
+                        "scales. [default: the policy's]")
     p.add_argument("--ckpt", default=None,
                    help=".gten checkpoint, or a HuggingFace checkpoint file "
                         "or directory")
@@ -134,6 +141,8 @@ def main(argv=None) -> int:
 
     load_t0 = time.perf_counter()
     params, policy = load_params(args, cfg, device)
+    if args.kv:
+        policy = dataclasses.replace(policy, kv_dtype=args.kv)
     engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device,
                     paged=args.paged)
     load_s = time.perf_counter() - load_t0

@@ -1,16 +1,18 @@
 // Fused batch-1 decode attention + output projection + residual for
 // Hopper (sm_90a), one launch:
 //   out = residual + attention(q, cache layer, keys 0..pos) @ dequant(wo)
-// q [H, 64] bf16 of the one new token; the stacked bf16 cache
-// [L, 1, Kh, S, 64] with the token's k/v already written; wo the
+// q [H, 64] bf16 of the one new token; the stacked cache [L, 1, Kh, S,
+// 64], bf16 or int8 with f32 scales [L, 1, Kh, S] (kvkind.cuh), with the
+// token's k/v already written; wo the
 // layer-stacked "kn" weight [L, H*64, N] (q8, or q4 / q4g as [L, H*32, N]
 // nibble data; qkind.cuh); the layer index and pos read from device
 // memory.
 //
 // K8 replaces the kernel of _run_attn_out in
 //   tinyllama_tpu/ops/pallas/attn_out_fused.py. Bound: the bytes of wo
-//   (4.46 MB at TinyLlama's 2048 x 2048 in q8, 2.36 MB in q4) plus the 1,024 * (pos + 1) bytes
-//   of the visible keys and values, over the memory rate. Design: the TPU
+//   (4.46 MB at TinyLlama's 2048 x 2048 in q8, 2.36 MB in q4) plus the
+//   visible keys and values, 1,024 * (pos + 1) bytes in bf16 or 544 *
+//   (pos + 1) in int8 with its scales, over the memory rate. Design: the TPU
 //   kernel walks one sequential grid, the attention's online softmax into
 //   VMEM scratch first, then wo's tiles against that scratch. On Hopper
 //   the attention runs once per launch, not once per wo strip, and is
@@ -28,12 +30,15 @@
 //     TPU's m = 1 blockdot) stage that result through L2 (__ldcg: written
 //     by other SMs in this launch), and the residual joins the f32 sum.
 //   The grid is capped at the blocks the card holds at once, counted for
-//   each bits instantiation.
+//   each (bits, KV kind) instantiation. An int8 cache's rows are staged
+//   as exact bf16 and its scales folded into each tile's scores and
+//   probabilities (kvkind.cuh), so the merge and the wo phase are shared.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include <cooperative_groups.h>
 
+#include "kvkind.cuh"
 #include "online_softmax.cuh"
 #include "qstrip.cuh"
 
@@ -49,10 +54,11 @@ constexpr int K_LD = D + 2;            // padded K rows: a bank per key
 constexpr int MAX_G = THREADS / 32;    // query heads per kv head
 constexpr int PART = 2 + D;            // a tile's (max, sum, weighted V)
 
-template <int BITS>
+template <int BITS, class KV>
 __global__ void __launch_bounds__(THREADS)
-fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                      const bf16* __restrict__ vc, const int* __restrict__ layer,
+fused_attn_out_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
+                      const KV* __restrict__ vc, const float* __restrict__ ksc,
+                      const float* __restrict__ vsc, const int* __restrict__ layer,
                       const int* __restrict__ pos, const uint8_t* __restrict__ w,
                       const __half* __restrict__ s, const bf16* __restrict__ res,
                       float* part, float* attn, bf16* __restrict__ out, int H,
@@ -62,6 +68,8 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   __shared__ __align__(16) bf16 Vs[TILE * D];
   __shared__ float qs[MAX_G][D];
   __shared__ float ps[MAX_G][TILE];
+  __shared__ float kss[TILE], vss[TILE];  // int8: the tile's scales
+  constexpr bool I8 = kvkind::is_i8<KV>;
   auto grid = cooperative_groups::this_grid();
   const int li = layer[0], p = pos[0];
   const int G = H / Kh, n_tiles = p / TILE + 1, t_max = S / TILE;
@@ -75,14 +83,19 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     __syncthreads();
     for (int i = threadIdx.x; i < TILE * (D / 8); i += THREADS) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const uint4 kv = *reinterpret_cast<const uint4*>(kc + kv_off + r * D + c);
+      const uint4 kv = kvkind::load8(kc + kv_off + r * D + c);
       uint32_t* kd = reinterpret_cast<uint32_t*>(&Ks[r * K_LD + c]);
       kd[0] = kv.x;
       kd[1] = kv.y;
       kd[2] = kv.z;
       kd[3] = kv.w;
       *reinterpret_cast<uint4*>(&Vs[r * D + c]) =
-          *reinterpret_cast<const uint4*>(vc + kv_off + r * D + c);
+          kvkind::load8(vc + kv_off + r * D + c);
+    }
+    if constexpr (I8) {  // THREADS >= 2 * TILE
+      const int r = threadIdx.x % TILE;
+      if (threadIdx.x < TILE) kss[r] = ksc[kv_off / D + r];
+      else if (threadIdx.x < 2 * TILE) vss[r] = vsc[kv_off / D + r];
     }
     if (warp < G) {
       const bf16* qh = q + (size_t)(kh * G + warp) * D;
@@ -105,12 +118,17 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
           acc += qs[warp][2 * dd] * kf.x + qs[warp][2 * dd + 1] * kf.y;
         }
         sc[e] = acc * scale;
+        if constexpr (I8) sc[e] *= kss[key];
         ok[e] = t * TILE + key <= p;
       }
       float m = TL_NEG_INF, l = 0.f;
       online_softmax_update(sc, ok, m, l);
       ps[warp][lane] = qstrip::round_bf16(sc[0]);
       ps[warp][lane + 32] = qstrip::round_bf16(sc[1]);
+      if constexpr (I8) {  // after l has summed them (kvkind.cuh)
+        ps[warp][lane] *= vss[lane];
+        ps[warp][lane + 32] *= vss[lane + 32];
+      }
       __syncwarp();
       float a0 = 0.f, a1 = 0.f;
       const __nv_bfloat162* vcol = reinterpret_cast<const __nv_bfloat162*>(Vs) + lane;
@@ -175,16 +193,18 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 
 extern "C" {
 
-// q: [H, 64] bf16; k, v: [L, 1, Kh, S, 64] bf16; layer, pos: [1] int32;
-// kind: 0 q8, 1 q4, 2 q4g; w, s: [L, H*64, N] int8 (or [L, H*32, N] uint8)
+// q: [H, 64] bf16; k, v: [L, 1, Kh, S, 64] of kv_kind (0 bf16, 1 int8);
+// ks, vs: [L, 1, Kh, S] f32 scales (int8; null for bf16); layer, pos: [1]
+// int32; kind: 0 q8, 1 q4, 2 q4g; w, s: [L, H*64, N] int8 (or [L, H*32, N] uint8)
 // and [L, H*64/32 (or /128), N] fp16; res, out: [N] bf16; part:
 // [H * S/64 * 66] f32 and attn: [H * 64] f32 workspaces. Requires
 // H / Kh <= 8, S % 64 == 0, N % 32 == 0 and pos < S.
-int fused_attn_out(const void* q, const void* k, const void* v, const void* layer,
-                   const void* pos, const void* w, const void* s, const void* res,
-                   void* part, void* attn, void* out, int kind, int H, int Kh,
+int fused_attn_out(const void* q, const void* k, const void* v, const void* ks,
+                   const void* vs, const void* layer, const void* pos,
+                   const void* w, const void* s, const void* res, void* part,
+                   void* attn, void* out, int kind, int kv_kind, int H, int Kh,
                    int S, int N, void* stream) {
-  if (!qkind::valid(kind) || Kh < 1 || H % Kh || H / Kh > MAX_G || S < TILE ||
+  if (!qkind::valid(kind) || !kvkind::valid(kv_kind) || Kh < 1 || H % Kh || H / Kh > MAX_G || S < TILE ||
       S % TILE || N < COLS || N % COLS || (H * D) % qkind::scale_rows(kind))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
@@ -193,21 +213,26 @@ int fused_attn_out(const void* q, const void* k, const void* v, const void* laye
   if (N / COLS > want) want = N / COLS;
   if ((H + MAX_G - 1) / MAX_G > want) want = (H + MAX_G - 1) / MAX_G;
   return qkind::with_bits(kind, [&](auto bits) {
-    auto kernel = fused_attn_out_kernel<decltype(bits)::value>;
-    static int resident = 0;
-    static const cudaError_t occ = qstrip::resident_blocks(kernel, bytes, &resident);
-    if (occ) return (int)occ;
-    const int grid = want < resident ? want : resident;
-    const cudaError_t err = qstrip::launch_cooperative(
-        kernel, grid, bytes, st, static_cast<const bf16*>(q),
-        static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const int*>(layer), static_cast<const int*>(pos),
-        static_cast<const uint8_t*>(w), static_cast<const __half*>(s),
-        static_cast<const bf16*>(res), static_cast<float*>(part),
-        static_cast<float*>(attn), static_cast<bf16*>(out), H, Kh, S, N,
-        qkind::scale_shift(kind));
-    cudaError_t last = cudaGetLastError();
-    return (int)(err ? err : last);
+    return kvkind::with_type(kv_kind, [&](auto tag) {
+      using KV = decltype(tag);
+      auto kernel = fused_attn_out_kernel<decltype(bits)::value, KV>;
+      static int resident = 0;
+      static const cudaError_t occ =
+          qstrip::resident_blocks(kernel, bytes, &resident);
+      if (occ) return (int)occ;
+      const int grid = want < resident ? want : resident;
+      const cudaError_t err = qstrip::launch_cooperative(
+          kernel, grid, bytes, st, static_cast<const bf16*>(q),
+          static_cast<const KV*>(k), static_cast<const KV*>(v),
+          static_cast<const float*>(ks), static_cast<const float*>(vs),
+          static_cast<const int*>(layer), static_cast<const int*>(pos),
+          static_cast<const uint8_t*>(w), static_cast<const __half*>(s),
+          static_cast<const bf16*>(res), static_cast<float*>(part),
+          static_cast<float*>(attn), static_cast<bf16*>(out), H, Kh, S, N,
+          qkind::scale_shift(kind));
+      cudaError_t last = cudaGetLastError();
+      return (int)(err ? err : last);
+    });
   });
 }
 

@@ -1,5 +1,6 @@
 // Causal grouped-query attention over the stacked KV cache for Hopper
-// (sm_90a), bf16 queries and cache, f32 softmax and accumulation.
+// (sm_90a), bf16 queries, a bf16 or int8 cache (kvkind.cuh: int8 with f32
+// scales [L, B, Kh, S]), f32 softmax and accumulation.
 //
 // The cache is [L, B, Kh, S, d] with the new tokens' k/v already written;
 // the layer and the positions are read from device memory, so no layer
@@ -20,7 +21,9 @@
 //   the causal frontier of its last row: tiles above the diagonal are
 //   neither loaded nor computed. Both products run on nvcuda::wmma bf16
 //   tensor cores; each warp owns 16 rows through scores, softmax and PV,
-//   so only the tile loads synchronize the block.
+//   so only the tile loads synchronize the block. An int8 cache is
+//   dequantized as each tile is staged, (k * ks) rounded to bf16, as the
+//   TPU kernel does; the products then run unchanged.
 //
 // K4 flash_decode_heads replaces _decode_heads_kernel (same file). Bound:
 //   the bytes of the pos+1 cached keys and values over the memory rate.
@@ -29,7 +32,9 @@
 //   stops there. Scores and PV are warp-level f32 dot products from
 //   shared memory (K rows padded so a lane per key hits its own bank).
 //   At batch 1 this fills Kh blocks of the 132 SMs: splitting the key
-//   walk across blocks is the kernel's later work.
+//   walk across blocks is the kernel's later work. An int8 cache halves
+//   the bytes: its rows are staged as exact bf16 and the scales folded
+//   into scores and probabilities (kvkind.cuh).
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -38,6 +43,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "kvkind.cuh"
 #include "online_softmax.cuh"
 
 namespace {
@@ -59,9 +65,11 @@ constexpr int S_LD = PF_BS + 4;    // f32 row stride of scores and PV rows
 constexpr int P_LD = 2 * S_LD;     // bf16 probabilities over the score rows
 static_assert(S_LD >= D + 4, "PV rows reuse the score rows");
 
+template <class KV>
 __global__ void __launch_bounds__(PF_THREADS)
-flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                     const bf16* __restrict__ vc, const int* __restrict__ layer,
+flash_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
+                     const KV* __restrict__ vc, const float* __restrict__ ksc,
+                     const float* __restrict__ vsc, const int* __restrict__ layer,
                      const int* __restrict__ pos, bf16* __restrict__ out,
                      int T, int H, int Kh, int S, size_t layer_stride) {
   using namespace nvcuda;
@@ -76,8 +84,8 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const int p0 = pos[b];
   const size_t kv_off =
       (size_t)layer[0] * layer_stride + ((size_t)b * Kh + kh) * S * D;
-  const bf16* kb = kc + kv_off;
-  const bf16* vb = vc + kv_off;
+  const KV* kb = kc + kv_off;
+  const KV* vb = vc + kv_off;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // query row r -> token r / G, head kh * G + r % G; rows past TG are 0
@@ -111,10 +119,17 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     for (int i = threadIdx.x; i < PF_BS * (D / 8); i += PF_THREADS) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8;
       const size_t g = (size_t)(j * PF_BS + r) * D + c;
-      *reinterpret_cast<uint4*>(&Ks[r * T_LD + c]) =
-          *reinterpret_cast<const uint4*>(kb + g);
-      *reinterpret_cast<uint4*>(&Vs[r * T_LD + c]) =
-          *reinterpret_cast<const uint4*>(vb + g);
+      uint4 kv, vv;
+      if constexpr (kvkind::is_i8<KV>) {
+        const size_t si = kv_off / D + j * PF_BS + r;  // the row's scales
+        kv = kvkind::load8_scaled(kb + g, ksc[si]);
+        vv = kvkind::load8_scaled(vb + g, vsc[si]);
+      } else {
+        kv = kvkind::load8(kb + g);
+        vv = kvkind::load8(vb + g);
+      }
+      *reinterpret_cast<uint4*>(&Ks[r * T_LD + c]) = kv;
+      *reinterpret_cast<uint4*>(&Vs[r * T_LD + c]) = vv;
     }
     __syncthreads();
 
@@ -214,24 +229,28 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 constexpr int DEC_BS = 64;     // keys per tile
 constexpr int K_LD = D + 2;    // padded K rows: 33 words, a bank per key
 
-template <int G>
+template <int G, class KV>
 __global__ void __launch_bounds__(G * 32)
-flash_decode_heads_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                          const bf16* __restrict__ vc,
+flash_decode_heads_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
+                          const KV* __restrict__ vc,
+                          const float* __restrict__ ksc,
+                          const float* __restrict__ vsc,
                           const int* __restrict__ layer,
                           const int* __restrict__ pos, bf16* __restrict__ out,
                           int Kh, int S, size_t layer_stride) {
+  constexpr bool I8 = kvkind::is_i8<KV>;
   __shared__ __align__(16) bf16 Ks[DEC_BS * K_LD];
   __shared__ __align__(16) bf16 Vs[DEC_BS * D];
   __shared__ float qs[G][D];
   __shared__ float ps[G][DEC_BS];
+  __shared__ float kss[DEC_BS], vss[DEC_BS];  // int8: the tile's scales
   const int b = blockIdx.y, kh = blockIdx.x, H = Kh * G;
   const int g = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int p = pos[b];
   const size_t kv_off =
       (size_t)layer[0] * layer_stride + ((size_t)b * Kh + kh) * S * D;
-  const bf16* kb = kc + kv_off;
-  const bf16* vb = vc + kv_off;
+  const KV* kb = kc + kv_off;
+  const KV* vb = vc + kv_off;
   const size_t qo = ((size_t)b * H + kh * G + g) * D;
   qs[g][lane] = __bfloat162float(q[qo + lane]);
   qs[g][lane + 32] = __bfloat162float(q[qo + lane + 32]);
@@ -244,14 +263,19 @@ flash_decode_heads_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int i = threadIdx.x; i < DEC_BS * (D / 8); i += G * 32) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8;
       const size_t gi = (size_t)(t * DEC_BS + r) * D + c;
-      const uint4 kv = *reinterpret_cast<const uint4*>(kb + gi);
+      const uint4 kv = kvkind::load8(kb + gi);
       uint32_t* kd = reinterpret_cast<uint32_t*>(&Ks[r * K_LD + c]);
       kd[0] = kv.x;
       kd[1] = kv.y;
       kd[2] = kv.z;
       kd[3] = kv.w;
-      *reinterpret_cast<uint4*>(&Vs[r * D + c]) =
-          *reinterpret_cast<const uint4*>(vb + gi);
+      *reinterpret_cast<uint4*>(&Vs[r * D + c]) = kvkind::load8(vb + gi);
+    }
+    if constexpr (I8) {  // G * 32 >= 2 * DEC_BS threads
+      const size_t si = kv_off / D + t * DEC_BS;
+      const int r = threadIdx.x % DEC_BS;
+      if (threadIdx.x < DEC_BS) kss[r] = ksc[si + r];
+      else if (threadIdx.x < 2 * DEC_BS) vss[r] = vsc[si + r];
     }
     __syncthreads();
 
@@ -269,11 +293,16 @@ flash_decode_heads_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         acc += qs[g][2 * dd] * kf.x + qs[g][2 * dd + 1] * kf.y;
       }
       s[e] = acc * scale;
+      if constexpr (I8) s[e] *= kss[key];
       ok[e] = t * DEC_BS + key <= p;
     }
     const float alpha = online_softmax_update(s, ok, m, l);
     ps[g][lane] = round_bf16(s[0]);
     ps[g][lane + 32] = round_bf16(s[1]);
+    if constexpr (I8) {  // after l has summed them (kvkind.cuh)
+      ps[g][lane] *= vss[lane];
+      ps[g][lane + 32] *= vss[lane + 32];
+    }
     __syncwarp();
     float a0 = 0.f, a1 = 0.f;
     const __nv_bfloat162* vcol = reinterpret_cast<const __nv_bfloat162*>(Vs) + lane;
@@ -292,56 +321,85 @@ flash_decode_heads_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       __floats2bfloat162_rn(o0 / den, o1 / den);
 }
 
-}  // namespace
-
-extern "C" {
-
-// q, out: [B, T, H, d]; k, v: [L, B, Kh, S, d]; layer: [1]; pos: [B].
-// Requires d == 64, H % Kh == 0 and S % 64 == 0; pos[b] + T <= S.
-int flash_prefill(const void* q, const void* k, const void* v, const void* layer,
-                  const void* pos, void* out, int B, int T, int H, int Kh,
-                  int S, int d, void* stream) {
-  if (d != D || Kh < 1 || H % Kh || S % PF_BS || T < 1 || B < 1)
-    return (int)cudaErrorInvalidValue;
+template <class KV>
+int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
+                   const void* vs, const void* layer, const void* pos, void* out,
+                   int B, int T, int H, int Kh, int S, cudaStream_t st) {
   const int TG = T * (H / Kh);
   const dim3 grid((TG + PF_BR - 1) / PF_BR, Kh, B);
-  flash_prefill_kernel<<<grid, PF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(layer),
+  flash_prefill_kernel<KV><<<grid, PF_THREADS, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(layer),
       static_cast<const int*>(pos), static_cast<bf16*>(out), T, H, Kh, S,
       (size_t)B * Kh * S * D);
   return (int)cudaGetLastError();
 }
 
-// q, out: [B, 1, H, d]; k, v: [L, B, Kh, S, d]; layer: [1]; pos: [B].
-// Requires d == 64, H / Kh in {4, 8} and S % 64 == 0; pos[b] < S.
-int flash_decode_heads(const void* q, const void* k, const void* v,
-                       const void* layer, const void* pos, void* out, int B,
-                       int H, int Kh, int S, int d, void* stream) {
-  if (d != D || Kh < 1 || H % Kh || S % DEC_BS || B < 1)
-    return (int)cudaErrorInvalidValue;
+template <class KV>
+int launch_decode(const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, const void* layer, const void* pos, void* out,
+                  int B, int H, int Kh, int S, cudaStream_t st) {
   const dim3 grid(Kh, B);
-  auto st = static_cast<cudaStream_t>(stream);
   auto qb = static_cast<const bf16*>(q);
-  auto kb = static_cast<const bf16*>(k);
-  auto vb = static_cast<const bf16*>(v);
+  auto kb = static_cast<const KV*>(k);
+  auto vb = static_cast<const KV*>(v);
+  auto ksb = static_cast<const float*>(ks);
+  auto vsb = static_cast<const float*>(vs);
   auto lb = static_cast<const int*>(layer);
   auto pb = static_cast<const int*>(pos);
   auto ob = static_cast<bf16*>(out);
   const size_t layer_stride = (size_t)B * Kh * S * D;
   switch (H / Kh) {
     case 4:
-      flash_decode_heads_kernel<4><<<grid, 4 * 32, 0, st>>>(
-          qb, kb, vb, lb, pb, ob, Kh, S, layer_stride);
+      flash_decode_heads_kernel<4, KV><<<grid, 4 * 32, 0, st>>>(
+          qb, kb, vb, ksb, vsb, lb, pb, ob, Kh, S, layer_stride);
       break;
     case 8:
-      flash_decode_heads_kernel<8><<<grid, 8 * 32, 0, st>>>(
-          qb, kb, vb, lb, pb, ob, Kh, S, layer_stride);
+      flash_decode_heads_kernel<8, KV><<<grid, 8 * 32, 0, st>>>(
+          qb, kb, vb, ksb, vsb, lb, pb, ob, Kh, S, layer_stride);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, out: [B, T, H, d] bf16; k, v: [L, B, Kh, S, d] of the KV kind
+// (kvkind.cuh: 0 bf16, 1 int8); ks, vs: [L, B, Kh, S] f32 scales (int8;
+// null for bf16); layer: [1]; pos: [B]. Requires d == 64, H % Kh == 0
+// and S % 64 == 0; pos[b] + T <= S.
+int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, const void* layer, const void* pos, void* out,
+                  int kv_kind, int B, int T, int H, int Kh, int S, int d,
+                  void* stream) {
+  if (!kvkind::valid(kv_kind) || d != D || Kh < 1 || H % Kh || S % PF_BS ||
+      T < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  return kvkind::with_type(kv_kind, [&](auto tag) {
+    return launch_prefill<decltype(tag)>(q, k, v, ks, vs, layer, pos, out, B,
+                                         T, H, Kh, S,
+                                         static_cast<cudaStream_t>(stream));
+  });
+}
+
+// q, out: [B, 1, H, d]; k, v, ks, vs, layer, pos as for flash_prefill.
+// Requires d == 64, H / Kh in {4, 8} and S % 64 == 0; pos[b] < S.
+int flash_decode_heads(const void* q, const void* k, const void* v,
+                       const void* ks, const void* vs, const void* layer,
+                       const void* pos, void* out, int kv_kind, int B, int H,
+                       int Kh, int S, int d, void* stream) {
+  if (!kvkind::valid(kv_kind) || d != D || Kh < 1 || H % Kh || S % DEC_BS ||
+      B < 1)
+    return (int)cudaErrorInvalidValue;
+  return kvkind::with_type(kv_kind, [&](auto tag) {
+    return launch_decode<decltype(tag)>(q, k, v, ks, vs, layer, pos, out, B, H,
+                                        Kh, S, static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Single-token grouped-query attention of the serving path for Hopper
-// (sm_90a): bf16 queries and keys, f32 softmax and accumulation.
+// (sm_90a): bf16 queries, bf16 or int8 keys and values (kvkind.cuh), f32
+// softmax and accumulation.
 //
 // One kernel body walks a row's keys from one of two sources, then, in a
 // staged decode chunk, the chunk's staged tail:
@@ -27,7 +28,11 @@
 // the walk stops at each row's own fill. Nothing is allocated and
 // nothing synchronizes with the host, so the kernels capture in a CUDA
 // graph. At batch 1 the grid is Kh blocks: splitting the key walk over
-// blocks is later work.
+// blocks is later work. An int8 pool and tail halve the bytes a key
+// costs: rows are staged as exact bf16, each tile's scales beside them
+// (read through the same index as the data: the row's slab, the page
+// through the table, or the tail slot), and folded into the scores and
+// the probabilities as the TPU kernels fold them.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -35,6 +40,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kvkind.cuh"
 #include "online_softmax.cuh"
 
 namespace {
@@ -44,12 +50,20 @@ constexpr int D = 64;         // head dim
 constexpr int BS = 64;        // keys per tile
 constexpr int K_LD = D + 2;   // padded K rows: 33 words, a bank per key
 
+// KV: bf16 or int8_t. Every scale plane is its data plane's shape less D
+// (f32; int8 only, else null), so a tile's scales sit at its data offset
+// over D.
+template <class KV>
 struct Args {
   const bf16* q;      // [B, 1, H, D]
-  const bf16* k;      // dense [L, B, Kh, S, D] or pool [L, NP, Kh, P, D]
-  const bf16* v;
-  const bf16* sk;     // staged [L, B, Kh, Cs, D] (staged kernels only)
-  const bf16* sv;
+  const KV* k;        // dense [L, B, Kh, S, D] or pool [L, NP, Kh, P, D]
+  const KV* v;
+  const KV* sk;       // staged [L, B, Kh, Cs, D] (staged kernels only)
+  const KV* sv;
+  const float* ks;    // scales of k, v, sk, sv
+  const float* vs;
+  const float* sks;
+  const float* svs;
   const int* layer;   // [1]
   const int* pos;     // [B]
   const int* base;    // [B] (staged kernels only)
@@ -67,22 +81,31 @@ struct Smem {
   bf16 v[BS * D];
   float q[G][D];
   float p[G][BS];
+  float ks[BS];  // int8: the tile's key and value scales
+  float vs[BS];
 };
 
 __device__ inline float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Stage n <= BS rows of k and v ([n, D] row-major) in the tile; rows past
-// n are zero, so a masked key adds 0 * 0 to the weighted sum.
-template <int G>
-__device__ void load_tile(Smem<G>& sm, const bf16* kp, const bf16* vp, int n) {
+// Stage n <= BS rows of k and v ([n, D] row-major) in the tile, and for
+// int8 their scales (kps, vps: n floats); rows past n are zero, so a
+// masked key adds 0 * 0 to the weighted sum.
+template <int G, class KV>
+__device__ void load_tile(Smem<G>& sm, const KV* kp, const KV* vp,
+                          const float* kps, const float* vps, int n) {
+  if constexpr (kvkind::is_i8<KV>) {  // G * 32 >= 2 * BS threads
+    const int r = threadIdx.x % BS;
+    if (threadIdx.x < BS) sm.ks[r] = r < n ? kps[r] : 0.f;
+    else if (threadIdx.x < 2 * BS) sm.vs[r] = r < n ? vps[r] : 0.f;
+  }
   for (int i = threadIdx.x; i < BS * (D / 8); i += G * 32) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
     uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
     if (r < n) {
-      kv = *reinterpret_cast<const uint4*>(kp + (size_t)r * D + c);
-      vv = *reinterpret_cast<const uint4*>(vp + (size_t)r * D + c);
+      kv = kvkind::load8(kp + (size_t)r * D + c);
+      vv = kvkind::load8(vp + (size_t)r * D + c);
     }
     uint32_t* kd = reinterpret_cast<uint32_t*>(&sm.k[r * K_LD + c]);
     kd[0] = kv.x;
@@ -94,8 +117,10 @@ __device__ void load_tile(Smem<G>& sm, const bf16* kp, const bf16* vp, int n) {
 }
 
 // One warp's online-softmax step over the staged tile: keys < n_ok are
-// visible. o0, o1 accumulate dims 2 * lane and 2 * lane + 1.
-template <int G>
+// visible. o0, o1 accumulate dims 2 * lane and 2 * lane + 1. I8 folds the
+// tile's scales: k-scales into the scores, v-scales into the
+// probabilities after l has summed them.
+template <int G, bool I8>
 __device__ void attend_tile(Smem<G>& sm, int g, int lane, int n_ok, float& m,
                             float& l, float& o0, float& o1) {
   const float scale = 1.f / sqrtf((float)D);
@@ -113,11 +138,16 @@ __device__ void attend_tile(Smem<G>& sm, int g, int lane, int n_ok, float& m,
       acc += sm.q[g][2 * dd] * kf.x + sm.q[g][2 * dd + 1] * kf.y;
     }
     s[e] = acc * scale;
+    if (I8) s[e] *= sm.ks[key];
     ok[e] = key < n_ok;
   }
   const float alpha = online_softmax_update(s, ok, m, l);
   sm.p[g][lane] = round_bf16(s[0]);
   sm.p[g][lane + 32] = round_bf16(s[1]);
+  if (I8) {  // after l has summed them (kvkind.cuh)
+    sm.p[g][lane] *= sm.vs[lane];
+    sm.p[g][lane + 32] *= sm.vs[lane + 32];
+  }
   __syncwarp();
   float a0 = 0.f, a1 = 0.f;
   const __nv_bfloat162* vcol = reinterpret_cast<const __nv_bfloat162*>(sm.v) + lane;
@@ -132,8 +162,9 @@ __device__ void attend_tile(Smem<G>& sm, int g, int lane, int n_ok, float& m,
   o1 = o1 * alpha + a1;
 }
 
-template <int G, bool PAGED, bool STAGED>
-__global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args a) {
+template <int G, bool PAGED, bool STAGED, class KV>
+__global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args<KV> a) {
+  constexpr bool I8 = kvkind::is_i8<KV>;
   __shared__ __align__(16) Smem<G> sm;
   const int kh = blockIdx.x, b = blockIdx.y;
   const int g = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -158,19 +189,21 @@ __global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args a) {
       off = (((size_t)li * a.B + b) * a.Kh + kh) * a.S * D + (size_t)t * BS * D;
     }
     __syncthreads();
-    load_tile(sm, a.k + off, a.v + off, BS);
+    load_tile<G>(sm, a.k + off, a.v + off, I8 ? a.ks + off / D : nullptr,
+                 I8 ? a.vs + off / D : nullptr, BS);
     __syncthreads();
-    attend_tile(sm, g, lane, npool - t * BS, m, l, o0, o1);
+    attend_tile<G, I8>(sm, g, lane, npool - t * BS, m, l, o0, o1);
   }
   if (STAGED) {
     const int ntail = max(0, min(p - a.base[b] + 1, a.Cs));
     const size_t tail = (((size_t)li * a.B + b) * a.Kh + kh) * a.Cs * D;
     for (int t = 0; t * BS < ntail; ++t) {
+      const size_t off = tail + (size_t)t * BS * D;
       __syncthreads();
-      load_tile(sm, a.sk + tail + (size_t)t * BS * D,
-                a.sv + tail + (size_t)t * BS * D, min(BS, a.Cs - t * BS));
+      load_tile<G>(sm, a.sk + off, a.sv + off, I8 ? a.sks + off / D : nullptr,
+                   I8 ? a.svs + off / D : nullptr, min(BS, a.Cs - t * BS));
       __syncthreads();
-      attend_tile(sm, g, lane, ntail - t * BS, m, l, o0, o1);
+      attend_tile<G, I8>(sm, g, lane, ntail - t * BS, m, l, o0, o1);
     }
   }
   const float den = l > 0.f ? l : 1.f;
@@ -178,8 +211,8 @@ __global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args a) {
       __floats2bfloat162_rn(o0 / den, o1 / den);
 }
 
-template <bool PAGED, bool STAGED>
-int launch(const Args& a, int G, void* stream) {
+template <bool PAGED, bool STAGED, class KV>
+int launch(const Args<KV>& a, int G, void* stream) {
   if (a.B < 1 || a.Kh < 1 || a.S < BS || a.S % BS ||
       (STAGED && (a.Cs < 1 || a.Cs % 32)) || (PAGED && a.J < 1))
     return (int)cudaErrorInvalidValue;
@@ -187,10 +220,10 @@ int launch(const Args& a, int G, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (G) {
     case 4:
-      serve_attention_kernel<4, PAGED, STAGED><<<grid, 4 * 32, 0, st>>>(a);
+      serve_attention_kernel<4, PAGED, STAGED, KV><<<grid, 4 * 32, 0, st>>>(a);
       break;
     case 8:
-      serve_attention_kernel<8, PAGED, STAGED><<<grid, 8 * 32, 0, st>>>(a);
+      serve_attention_kernel<8, PAGED, STAGED, KV><<<grid, 8 * 32, 0, st>>>(a);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -198,55 +231,77 @@ int launch(const Args& a, int G, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The pointers of one call as Args of the kind's element type: k, v, sk,
+// sv as KV; ks, vs, sks, svs the f32 scales (null for bf16); nullptr
+// where a kernel takes no such operand.
+struct Ptrs {
+  const void *q, *k, *v, *sk, *sv, *ks, *vs, *sks, *svs, *layer, *pos, *base,
+      *table;
+  void* out;
+};
+
+template <bool PAGED, bool STAGED>
+int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int S,
+             int n_pages, int J, int Cs, int d, void* stream) {
+  if (!kvkind::valid(kv_kind) || d != D || Kh < 1 || H % Kh)
+    return (int)cudaErrorInvalidValue;
+  return kvkind::with_type(kv_kind, [&](auto tag) {
+    using KV = decltype(tag);
+    Args<KV> a{static_cast<const bf16*>(p.q), static_cast<const KV*>(p.k),
+               static_cast<const KV*>(p.v), static_cast<const KV*>(p.sk),
+               static_cast<const KV*>(p.sv), static_cast<const float*>(p.ks),
+               static_cast<const float*>(p.vs), static_cast<const float*>(p.sks),
+               static_cast<const float*>(p.svs), static_cast<const int*>(p.layer),
+               static_cast<const int*>(p.pos), static_cast<const int*>(p.base),
+               static_cast<const int*>(p.table), static_cast<bf16*>(p.out),
+               B, Kh, S, n_pages, J, Cs};
+    return launch<PAGED, STAGED>(a, H / Kh, stream);
+  });
+}
+
 }  // namespace
 
 extern "C" {
 
-// K9. q, out: [B, 1, H, d]; k, v: [L, B, Kh, S, d]; sk, sv: [L, B, Kh, Cs,
-// d]; layer [1]; pos, base [B]. Requires d == 64, H / Kh in {4, 8},
-// S % 64 == 0 and Cs % 32 == 0.
+// kv_kind (kvkind.cuh): 0 bf16 planes, null scales; 1 int8 planes with f32
+// scale planes of their shape less d.
+
+// K9. q, out: [B, 1, H, d] bf16; k, v: [L, B, Kh, S, d]; sk, sv: [L, B,
+// Kh, Cs, d]; ks, vs, sks, svs: their scales; layer [1]; pos, base [B].
+// Requires d == 64, H / Kh in {4, 8}, S % 64 == 0 and Cs % 32 == 0.
 int flash_staged(const void* q, const void* k, const void* v, const void* sk,
-                 const void* sv, const void* layer, const void* pos,
-                 const void* base, void* out, int B, int H, int Kh, int S,
-                 int Cs, int d, void* stream) {
-  if (d != D || Kh < 1 || H % Kh) return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<const bf16*>(sk),
-         static_cast<const bf16*>(sv), static_cast<const int*>(layer),
-         static_cast<const int*>(pos), static_cast<const int*>(base), nullptr,
-         static_cast<bf16*>(out), B, Kh, S, 0, 0, Cs};
-  return launch<false, true>(a, H / Kh, stream);
+                 const void* sv, const void* ks, const void* vs,
+                 const void* sks, const void* svs, const void* layer,
+                 const void* pos, const void* base, void* out, int kv_kind,
+                 int B, int H, int Kh, int S, int Cs, int d, void* stream) {
+  const Ptrs p{q, k, v, sk, sv, ks, vs, sks, svs, layer, pos, base, nullptr, out};
+  return dispatch<false, true>(kv_kind, p, B, H, Kh, S, 0, 0, Cs, d, stream);
 }
 
-// K10. q, out: [B, 1, H, d]; k, v: [L, NP, Kh, P, d]; table [B, J];
-// layer [1]; pos [B]. Requires d == 64, H / Kh in {4, 8}, P % 64 == 0.
-int flash_paged(const void* q, const void* k, const void* v, const void* layer,
-                const void* pos, const void* table, void* out, int B, int H,
+// K10. q, out: [B, 1, H, d]; k, v: [L, NP, Kh, P, d]; ks, vs: their
+// scales; table [B, J]; layer [1]; pos [B]. Requires d == 64, H / Kh in
+// {4, 8}, P % 64 == 0.
+int flash_paged(const void* q, const void* k, const void* v, const void* ks,
+                const void* vs, const void* layer, const void* pos,
+                const void* table, void* out, int kv_kind, int B, int H,
                 int Kh, int n_pages, int P, int J, int d, void* stream) {
-  if (d != D || Kh < 1 || H % Kh) return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), nullptr, nullptr,
-         static_cast<const int*>(layer), static_cast<const int*>(pos), nullptr,
-         static_cast<const int*>(table), static_cast<bf16*>(out), B, Kh, P,
-         n_pages, J, 0};
-  return launch<true, false>(a, H / Kh, stream);
+  const Ptrs p{q, k, v, nullptr, nullptr, ks, vs, nullptr, nullptr, layer, pos,
+               nullptr, table, out};
+  return dispatch<true, false>(kv_kind, p, B, H, Kh, P, n_pages, J, 0, d, stream);
 }
 
-// K11. K10's operands plus sk, sv: [L, B, Kh, Cs, d] and base [B].
-// Requires d == 64, H / Kh in {4, 8}, P % 64 == 0 and Cs % 32 == 0.
+// K11. K10's operands plus sk, sv: [L, B, Kh, Cs, d], their scales sks,
+// svs, and base [B]. Requires d == 64, H / Kh in {4, 8}, P % 64 == 0 and
+// Cs % 32 == 0.
 int flash_paged_staged(const void* q, const void* k, const void* v,
-                       const void* sk, const void* sv, const void* layer,
-                       const void* pos, const void* base, const void* table,
-                       void* out, int B, int H, int Kh, int n_pages, int P,
-                       int J, int Cs, int d, void* stream) {
-  if (d != D || Kh < 1 || H % Kh) return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<const bf16*>(sk),
-         static_cast<const bf16*>(sv), static_cast<const int*>(layer),
-         static_cast<const int*>(pos), static_cast<const int*>(base),
-         static_cast<const int*>(table), static_cast<bf16*>(out), B, Kh, P,
-         n_pages, J, Cs};
-  return launch<true, true>(a, H / Kh, stream);
+                       const void* sk, const void* sv, const void* ks,
+                       const void* vs, const void* sks, const void* svs,
+                       const void* layer, const void* pos, const void* base,
+                       const void* table, void* out, int kv_kind, int B, int H,
+                       int Kh, int n_pages, int P, int J, int Cs, int d,
+                       void* stream) {
+  const Ptrs p{q, k, v, sk, sv, ks, vs, sks, svs, layer, pos, base, table, out};
+  return dispatch<true, true>(kv_kind, p, B, H, Kh, P, n_pages, J, Cs, d, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,71 @@
+// The KV-cache kinds of the attention kernels (runtime/kvcache.py), as
+// qkind.cuh is for the weights:
+//   bf16 (kind 0): bf16 k/v planes, no scales;
+//   i8   (kind 1): int8 k/v planes, each (kv head, position) row with one
+//        f32 scale (absmax / 127) in a plane of the data's shape less d.
+// The attention kernels are templated on the element type. Either way
+// they stage keys and values into shared memory as bf16: an int8 value
+// converts to bf16 exactly, so an int8 row costs 64 bytes of device
+// memory instead of 128 and the tile code after the load is shared.
+// Where the scales go follows the TPU kernels: K4 and K8-K11 fold them
+// (a score times its key's scale after the 1/sqrt(d) scale; a
+// probability times its value's scale after the normalizer has summed
+// it, softmax_update.py), K3 dequantizes a tile as it stages it
+// (load8_scaled, flash_prefill.py's (k * ks).astype(bf16)). One rounding
+// moves: the TPU kernels round p * vs to bf16 for the MXU, the folded
+// kernels here round p to bf16 (as their bf16 instantiation does) and
+// multiply by vs in f32, since their PV sum is f32 FMAs. Rounding the
+// product puts one bf16 error of vs on every value of a key at once,
+// which at pos 0 (one key) moved K8's outputs past the bf16 tolerance
+// against the plain versions, which dequantize v (q * vs) first.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace kvkind {
+
+enum Kind { BF16 = 0, I8 = 1 };
+
+__host__ inline bool valid(int kind) { return kind == BF16 || kind == I8; }
+
+template <class KV>
+constexpr bool is_i8 = std::is_same<KV, int8_t>::value;
+
+__device__ inline uint32_t bf16x2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a at the lower address
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Byte i of w as a signed value.
+__device__ inline float byte_at(uint32_t w, int i) {
+  return (float)(int8_t)((w >> (8 * i)) & 0xffu);
+}
+
+// Eight consecutive int8 values times s, each rounded to bf16, as a uint4
+// of eight bf16 (one 8-byte load; 8-byte aligned).
+__device__ inline uint4 load8_scaled(const int8_t* p, float s) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_uint4(bf16x2(byte_at(raw.x, 0) * s, byte_at(raw.x, 1) * s),
+                    bf16x2(byte_at(raw.x, 2) * s, byte_at(raw.x, 3) * s),
+                    bf16x2(byte_at(raw.y, 0) * s, byte_at(raw.y, 1) * s),
+                    bf16x2(byte_at(raw.y, 2) * s, byte_at(raw.y, 3) * s));
+}
+
+// Eight consecutive values as eight bf16: a 16-byte load of bf16, or an
+// 8-byte load of int8 converted exactly.
+__device__ inline uint4 load8(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ inline uint4 load8(const int8_t* p) { return load8_scaled(p, 1.f); }
+
+// Call f(KV{}) with the kind's element type (int8_t or __nv_bfloat16).
+template <class F>
+__host__ inline int with_type(int kind, F f) {
+  if (kind == I8) return f(int8_t{});
+  return f(__nv_bfloat16{});
+}
+
+}  // namespace kvkind

@@ -20,9 +20,10 @@ unpacked to their values in numpy and repacked in the port's layout
 * "nk" data: the same planar groups along each row, unbiased, G =
   ``q4_group_size(K)`` for q4 and ``q4g_pack_group(K)`` for q4g.
 
-``cache_from_numpy`` does the same for a KV cache: the k/v planes (and a
-page pool's table) of a JAX cache, as numpy, become the port's KVCache or
-PagedKVCache, so that both packages can be given the same pool.
+``cache_from_numpy`` does the same for a KV cache: the k/v planes (an
+int8 cache's scale planes, a page pool's table) of a JAX cache, as
+numpy, become the port's KVCache or PagedKVCache, so that both packages
+can be given the same pool.
 """
 
 from __future__ import annotations
@@ -159,16 +160,25 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def cache_from_numpy(k, v, table=None, device="cpu") -> KVCache | PagedKVCache:
+def cache_from_numpy(k, v, table=None, k_scale=None, v_scale=None,
+                     device="cpu") -> KVCache | PagedKVCache:
     """The port's cache from a JAX cache's planes as numpy: a monolithic
     KVCache (k, v [L, B, Kh, S, d]) or, with a page table [B, J], a
-    PagedKVCache (k, v [L, n_pages, Kh, P, d]). The int8 cache is not
-    ported yet."""
+    PagedKVCache (k, v [L, n_pages, Kh, P, d]). Int8 planes come with
+    their f32 scales (k_scale, v_scale: the data's shape less d), other
+    dtypes without."""
     k, v = tensor_from_numpy(k, device), tensor_from_numpy(v, device)
-    if k.dtype == torch.int8:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP.md)")
+    int8 = k.dtype == torch.int8
+    if int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 planes need both scale planes, and only "
+                         f"int8 planes take them (data {k.dtype})")
+    scales = ()
+    if int8:
+        scales = tuple(tensor_from_numpy(np.asarray(s, np.float32), device)
+                       for s in (k_scale, v_scale))
+        if any(s.shape != k.shape[:-1] for s in scales):
+            raise ValueError(f"scale planes must be {tuple(k.shape[:-1])}")
     if table is None:
-        return KVCache(k, v)
+        return KVCache(k, v, *scales)
     return PagedKVCache(k, v, torch.from_numpy(
-        np.asarray(table, np.int32)).to(device))
+        np.asarray(table, np.int32)).to(device), *scales)

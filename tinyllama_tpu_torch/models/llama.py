@@ -27,7 +27,8 @@ tail and attends with K9 (monolithic pool) or K11 (page pool); a page
 pool (runtime/paged.py) takes K10 at T = 1, and at T > 1 a prefill from
 position 0, which attends only its own keys, so K3 reads them from a
 one-layer temporary cache; the monolithic cache keeps the branches
-above.
+above. An int8 cache (kv_dtype "i8") takes the same branches: the
+writes quantize, and each attention kernel runs its int8 instantiation.
 
 Norm weights reach the fused kernels as the stacked [L, D] table with
 the device layer index. The lm_head (K1) runs outside ``forward``, on the
@@ -73,7 +74,11 @@ from tinyllama_tpu_torch.ops.linear import (
 from tinyllama_tpu_torch.ops.norms import rms_norm
 from tinyllama_tpu_torch.ops.rope import apply_rope_gathered, gather_rope, rope_table
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize, stack
-from tinyllama_tpu_torch.runtime.kvcache import KVCache, update_cache_at_layer
+from tinyllama_tpu_torch.runtime.kvcache import (
+    KVCache,
+    quantize_kv,
+    update_cache_at_layer,
+)
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache, update_paged_at_layer
 from tinyllama_tpu_torch.runtime.staging import (
     StagedKVCache,
@@ -196,23 +201,31 @@ def pad_lm_head_vocab(params: Params, multiple: int = 2048) -> Params:
 # ----------------------------------------------------------------------------
 
 
-def _attend_paged_prefill(q, k, v, layer0, pos, from_zero):
+def _attend_paged_prefill(q, k, v, layer0, pos, from_zero, quantized):
     """The paged prefill's attention (K3): a prefill from position 0
     attends only its own keys, so K3 reads them from a one-layer
-    temporary cache instead of the pool. The temporary cache is padded
-    to whole 64-key tiles; the pad keys lie past every query, so the
-    causal mask hides them. Whether the prefill starts at 0 is the
-    caller's host fact, `from_zero`."""
+    temporary cache instead of the pool. For an int8 pool the temporary
+    cache holds the same quantized keys and scales the pool was just
+    given, so the prefill attends what the pool holds. The temporary
+    cache is padded to whole 64-key tiles; the pad keys lie past every
+    query, so the causal mask hides them. Whether the prefill starts at
+    0 is the caller's host fact, `from_zero`."""
     B, T, Kh, d = k.shape
     if not from_zero:
         raise ValueError(
             "a paged prefill attends only its own keys, so it must start at "
             "position 0: pass from_zero=True")
     S = -(-T // KEY_TILE) * KEY_TILE
-    tmp = [torch.zeros((1, B, Kh, S, d), dtype=k.dtype, device=k.device)
-           for _ in range(2)]
-    tmp[0][0, :, :, :T] = k.transpose(1, 2)
-    tmp[1][0, :, :, :T] = v.transpose(1, 2)
+    new = [k.transpose(1, 2), v.transpose(1, 2)]  # [B, Kh, T, d]
+    if quantized:
+        (kq, ks), (vq, vs) = quantize_kv(new[0]), quantize_kv(new[1])
+        new = [kq, vq, ks, vs]
+    tmp = []
+    for n in new:
+        t = torch.zeros((1, B, Kh, S, *n.shape[3:]), dtype=n.dtype,
+                        device=k.device)
+        t[0, :, :, :T] = n
+        tmp.append(t)
     return flash_prefill_attention(q, KVCache(*tmp), layer0, pos)
 
 
@@ -255,7 +268,8 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
         if T == 1:
             attn = flash_paged_attention(q, cache, layer, pos)
         else:
-            attn = _attend_paged_prefill(q, k, v, layer_ids[:1], pos, from_zero)
+            attn = _attend_paged_prefill(q, k, v, layer_ids[:1], pos,
+                                         from_zero, cache.quantized)
     else:
         update_cache_at_layer(cache, li, k, v, pos)
         if fused and T == 1 and B == 1 and d % 32 == 0:

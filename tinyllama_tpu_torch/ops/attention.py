@@ -27,9 +27,10 @@ def gqa_attention(
     Returns [B, T, H, d] in q.dtype.
 
     Products run on f32 copies of the operands (bf16 values are exact in
-    f32) with TF32 off. At bf16 the normalized probabilities round to
-    bf16 before the weighted sum of V, as the kernels feed bf16 to their
-    second product."""
+    f32) with TF32 off. At bf16 the probabilities round to bf16 before the
+    weighted sum of V, as the kernels feed bf16 to their second product,
+    and as there unnormalized (exp(s - max), so the largest is exactly 1):
+    the f32 sum of the unrounded ones divides after the sum."""
     B, T, H, d = q.shape
     Kh, S = k.shape[1], k.shape[2]
     G = H // Kh
@@ -44,8 +45,11 @@ def gqa_attention(
                              torch.full_like(scores, NEG_INF))
         m = scores.amax(dim=-1, keepdim=True)
         p = torch.exp(scores - m)
-        p = p / p.sum(dim=-1, keepdim=True)
+        l = p.sum(dim=-1, keepdim=True)  # [B, Kh, T, G, 1]
         if low:
-            p = p.to(torch.bfloat16).float()
-        out = torch.einsum("bktgs,bksd->btkgd", p, v.float())
+            out = torch.einsum("bktgs,bksd->btkgd",
+                               p.to(torch.bfloat16).float(), v.float())
+            out = out / l.permute(0, 2, 1, 3, 4)
+        else:
+            out = torch.einsum("bktgs,bksd->btkgd", p / l, v.float())
     return out.reshape(B, T, H, d).to(q.dtype)

@@ -14,9 +14,12 @@ merges the tiles after a grid-wide barrier into a 4 KB workspace, and
 runs wo's strips after a second one (a cooperative launch). The
 workspaces come from the wrapper.
 
-The layer index and pos are device tensors. CUDA tensors (bf16 q, cache
-and residual, d_head 64, at most 8 query heads per kv head) launch the
-kernel or raise; only CPU tensors go to the plain version.
+The layer index and pos are device tensors. The cache is bf16, or int8
+with f32 scale planes (read at half the bytes a key, the scales folded
+into scores and probabilities as the TPU kernel folds them). CUDA
+tensors (bf16 q and residual, d_head 64, at most 8 query heads per kv
+head) launch the kernel or raise; only CPU tensors go to the plain
+version.
 """
 
 from __future__ import annotations
@@ -28,11 +31,13 @@ import torch
 from tinyllama_tpu_torch.ops.attention import gqa_attention
 from tinyllama_tpu_torch.ops.kernels import build, flash_attention, qmatmul
 from tinyllama_tpu_torch.ops.kernels.decode_fused import STRIP, check_like
+from tinyllama_tpu_torch.ops.kernels.flash_paged import count, ptr
 from tinyllama_tpu_torch.quant.codec import QTensor
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
 
-#: launches since the count was last set to 0.
-launches = {"fused_attn_out": 0}
+#: launches since the count was last set to 0; with an int8 cache under
+#: "fused_attn_out_i8".
+launches = {"fused_attn_out": 0, "fused_attn_out_i8": 0}
 
 #: query heads per kv head the kernel takes at most (one warp each).
 MAX_GROUP = 8
@@ -46,7 +51,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("attn_out_fused")
     if lib.fused_attn_out.argtypes is None:
-        lib.fused_attn_out.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        lib.fused_attn_out.argtypes = [_P] * 13 + [_I] * 6 + [_P]
         lib.fused_attn_out.restype = _I
     return lib
 
@@ -75,7 +80,7 @@ def fused_attn_out(q: torch.Tensor, cache: KVCache, layer: torch.Tensor,
         raise ValueError("fused_attn_out is the batch-1 decode path (B = T = 1)")
     if not q.is_cuda:
         return fused_attn_out_ref(q, cache, layer, pos, residual, wo)
-    flash_attention._check(q, cache, layer, pos)
+    kv_kind = flash_attention._check(q, cache, layer, pos)
     Kh, S = cache.k.shape[2], cache.k.shape[3]
     if H // Kh > MAX_GROUP:
         raise ValueError(f"the kernel takes at most {MAX_GROUP} query heads "
@@ -92,10 +97,11 @@ def fused_attn_out(q: torch.Tensor, cache: KVCache, layer: torch.Tensor,
     attn = torch.empty(H * d, dtype=torch.float32, device=q.device)
     out = torch.empty_like(residual)
     err = _lib().fused_attn_out(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), layer.data_ptr(),
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
+        ptr(cache.k_scale), ptr(cache.v_scale), layer.data_ptr(),
         pos.data_ptr(), wo.data.data_ptr(), wo.scales.data_ptr(),
         residual.data_ptr(), part.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        qmatmul.KIND_CODE[wo.kind], H, Kh, S, N, build.stream_ptr(q))
+        qmatmul.KIND_CODE[wo.kind], kv_kind, H, Kh, S, N, build.stream_ptr(q))
     build.check(err, "fused_attn_out")
-    launches["fused_attn_out"] += 1
+    count(launches, "fused_attn_out", kv_kind)
     return out

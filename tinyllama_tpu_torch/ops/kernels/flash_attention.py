@@ -23,9 +23,12 @@ softmax_update.online_update_batch):
   whose input checks and plain version it shares.
 
 The layer index and the positions are device tensors, read inside the
-kernels. CUDA tensors (bf16 q and cache, d = 64) launch a kernel or
-raise; only CPU tensors go to the plain version, ``gqa_attention`` over
-the layer's cache.
+kernels. The cache is bf16, or int8 with f32 scale planes: K3 then
+dequantizes each tile as it stages it, K4 and K9 read half the bytes a
+key and fold the scales into scores and probabilities (as the TPU
+kernels do). CUDA tensors (bf16 q, d = 64) launch a kernel or raise;
+only CPU tensors go to the plain version, ``gqa_attention`` over the
+layer's cache, dequantized.
 """
 
 from __future__ import annotations
@@ -40,8 +43,11 @@ from tinyllama_tpu_torch.ops.kernels import flash_paged as fp
 from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
 
-#: launches of each kernel since the counts were last set to 0.
-launches = {"flash_prefill": 0, "flash_decode_heads": 0, "flash_staged": 0}
+#: launches of each kernel since the counts were last set to 0; the
+#: int8-cache instantiations count under "<name>_i8".
+launches = {"flash_prefill": 0, "flash_decode_heads": 0, "flash_staged": 0,
+            "flash_prefill_i8": 0, "flash_decode_heads_i8": 0,
+            "flash_staged_i8": 0}
 
 #: head dim the kernels take.
 HEAD_DIM = 64
@@ -55,8 +61,8 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if lib.flash_prefill.argtypes is None:
-        lib.flash_prefill.argtypes = [_P] * 6 + [_I] * 6 + [_P]
-        lib.flash_decode_heads.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+        lib.flash_prefill.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+        lib.flash_decode_heads.argtypes = [_P] * 8 + [_I] * 6 + [_P]
         lib.flash_prefill.restype = lib.flash_decode_heads.restype = _I
     return lib
 
@@ -72,12 +78,14 @@ def attention_ref(q: torch.Tensor, cache: KVCache, layer,
     return gqa_attention(q, k, v, q_positions)
 
 
-def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor) -> None:
+def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor) -> int:
+    """What K3, K4 and K8 take; returns the cache's KV kind."""
     B, T, H, d = q.shape
     L, Bc, Kh, S, dc = cache.k.shape
-    if q.dtype != torch.bfloat16 or cache.k.dtype != torch.bfloat16 \
-            or cache.v.dtype != torch.bfloat16:
-        raise TypeError("the CUDA attention takes bf16 queries and a bf16 cache")
+    if q.dtype != torch.bfloat16:
+        raise TypeError("the CUDA attention takes bf16 queries and a cache of "
+                        "bf16, or int8 with scales")
+    kind = fp.kv_kind([cache.k, cache.v], [cache.k_scale, cache.v_scale])
     if d != HEAD_DIM or dc != d or Bc != B or H % Kh:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
                          f"{tuple(cache.k.shape)} (d must be {HEAD_DIM})")
@@ -94,6 +102,7 @@ def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor) -> None:
                 and t.is_contiguous()):
             raise ValueError("layer and pos must be int32 CUDA tensors of "
                              "1 and B elements")
+    return kind
 
 
 def flash_prefill_attention(q: torch.Tensor, cache: KVCache, layer,
@@ -102,16 +111,17 @@ def flash_prefill_attention(q: torch.Tensor, cache: KVCache, layer,
     pos[b]) against cache layer `layer`. Returns [B, T, H, d] in q.dtype."""
     if not q.is_cuda:
         return attention_ref(q, cache, layer, pos)
-    _check(q, cache, layer, pos)
+    kind = _check(q, cache, layer, pos)
     B, T, H, d = q.shape
     Kh, S = cache.k.shape[2], cache.k.shape[3]
     out = torch.empty_like(q)
     err = _lib().flash_prefill(
         q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-        layer.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, T, H, Kh, S, d, build.stream_ptr(q))
+        fp.ptr(cache.k_scale), fp.ptr(cache.v_scale), layer.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), kind, B, T, H, Kh, S, d,
+        build.stream_ptr(q))
     build.check(err, "flash_prefill")
-    launches["flash_prefill"] += 1
+    fp.count(launches, "flash_prefill", kind)
     return out
 
 
@@ -124,7 +134,7 @@ def flash_decode_heads_attention(q: torch.Tensor, cache: KVCache, layer,
         raise ValueError("flash_decode_heads_attention is the T=1 decode path")
     if not q.is_cuda:
         return attention_ref(q, cache, layer, pos)
-    _check(q, cache, layer, pos)
+    kind = _check(q, cache, layer, pos)
     B, _, H, d = q.shape
     Kh, S = cache.k.shape[2], cache.k.shape[3]
     if H // Kh not in (4, 8):
@@ -133,10 +143,11 @@ def flash_decode_heads_attention(q: torch.Tensor, cache: KVCache, layer,
     out = torch.empty_like(q)
     err = _lib().flash_decode_heads(
         q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-        layer.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, H, Kh, S, d, build.stream_ptr(q))
+        fp.ptr(cache.k_scale), fp.ptr(cache.v_scale), layer.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), kind, B, H, Kh, S, d,
+        build.stream_ptr(q))
     build.check(err, "flash_decode_heads")
-    launches["flash_decode_heads"] += 1
+    fp.count(launches, "flash_decode_heads", kind)
     return out
 
 
@@ -158,15 +169,18 @@ def flash_staged_attention(q: torch.Tensor, st, layer,
         raise ValueError(f"{B} query rows against a cache of "
                          f"{cache.k.shape[1]} and a staged tail of "
                          f"{st.sk.shape[1]} rows")
-    fp.check_serving_inputs(
+    kind = fp.check_serving_inputs(
         q, [(cache.k, KEY_TILE), (cache.v, KEY_TILE), (st.sk, 32), (st.sv, 32)],
+        [cache.k_scale, cache.v_scale, st.sk_scale, st.sv_scale],
         {"layer": (layer, 1), "pos": (pos, B), "base": (st.base, B)})
     Kh, S = cache.k.shape[2], cache.k.shape[3]
     out = torch.empty_like(q)
     err = fp._lib().flash_staged(
         q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), st.sk.data_ptr(),
-        st.sv.data_ptr(), layer.data_ptr(), pos.data_ptr(), st.base.data_ptr(),
-        out.data_ptr(), B, H, Kh, S, st.sk.shape[3], d, build.stream_ptr(q))
+        st.sv.data_ptr(), fp.ptr(cache.k_scale), fp.ptr(cache.v_scale),
+        fp.ptr(st.sk_scale), fp.ptr(st.sv_scale), layer.data_ptr(),
+        pos.data_ptr(), st.base.data_ptr(), out.data_ptr(), kind,
+        B, H, Kh, S, st.sk.shape[3], d, build.stream_ptr(q))
     build.check(err, "flash_staged")
-    launches["flash_staged"] += 1
+    fp.count(launches, "flash_staged", kind)
     return out

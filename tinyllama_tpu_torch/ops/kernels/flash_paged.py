@@ -15,10 +15,12 @@ Both are bound by the bytes of the keys and values each row attends.
 One block per (row, kv head), one warp per query head, the group's G
 heads sharing each staged 64-key tile; the walk stops at each row's own
 fill. The layer, pos, base and the table are device tensors read inside
-the kernels. CUDA tensors (bf16 q and pool, d = 64, G in {4, 8}, pages a
-whole number of 64-key tiles) launch a kernel or raise; only CPU tensors
-go to the plain versions, ``gqa_attention`` over ``paged_layer_view`` or
-``staged_layer_view``.
+the kernels. The pool and the tail are bf16, or int8 with f32 scale
+planes (the kernels' int8 instantiation reads half the bytes a key and
+folds the scales, as the TPU kernels do). CUDA tensors (bf16 q, d = 64,
+G in {4, 8}, pages a whole number of 64-key tiles) launch a kernel or
+raise; only CPU tensors go to the plain versions, ``gqa_attention`` over
+``paged_layer_view`` or ``staged_layer_view``, which dequantize.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
 from tinyllama_tpu_torch.runtime.staging import StagedKVCache, staged_layer_view
 
-#: launches of each kernel since the counts were last set to 0.
-launches = {"flash_paged": 0, "flash_paged_staged": 0}
+#: launches of each kernel since the counts were last set to 0; the
+#: int8-cache instantiations count under "<name>_i8".
+launches = {"flash_paged": 0, "flash_paged_staged": 0, "flash_paged_i8": 0,
+            "flash_paged_staged_i8": 0}
 
 #: head dim the kernels take.
 HEAD_DIM = 64
@@ -50,9 +54,9 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_paged")
     if lib.flash_paged.argtypes is None:
-        lib.flash_staged.argtypes = [_P] * 9 + [_I] * 6 + [_P]
-        lib.flash_paged.argtypes = [_P] * 7 + [_I] * 7 + [_P]
-        lib.flash_paged_staged.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+        lib.flash_staged.argtypes = [_P] * 13 + [_I] * 7 + [_P]
+        lib.flash_paged.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+        lib.flash_paged_staged.argtypes = [_P] * 14 + [_I] * 9 + [_P]
         lib.flash_staged.restype = lib.flash_paged.restype = _I
         lib.flash_paged_staged.restype = _I
     return lib
@@ -74,19 +78,56 @@ def staged_attention_ref(q: torch.Tensor, st: StagedKVCache, layer,
     return gqa_attention(q, k, v, pos.reshape(-1, 1))
 
 
-def check_serving_inputs(q: torch.Tensor, planes, ints) -> None:
+#: the kernels' KV kinds (csrc/kvkind.cuh)
+KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
+
+
+def kv_kind(data, scales) -> int:
+    """The kernels' code for a cache's planes: 0 for bf16 data without
+    scales, 1 for int8 data with f32 contiguous scale planes of the
+    data's shape less d on its device. Anything else raises."""
+    dtypes = {t.dtype for t in data}
+    if len(dtypes) != 1 or not dtypes <= KV_KIND.keys():
+        raise TypeError("the CUDA attention takes a cache of bf16, or int8 "
+                        f"with scales, not {sorted(map(str, dtypes))}")
+    kind = KV_KIND[dtypes.pop()]
+    if kind == 0:
+        if any(s is not None for s in scales):
+            raise TypeError("a bf16 cache takes no scales")
+        return kind
+    if any(s is None for s in scales):
+        raise TypeError("an int8 cache needs its scale planes")
+    for t, s in zip(data, scales):
+        if s.dtype != torch.float32:
+            raise TypeError(f"int8 cache scales must be f32, got {s.dtype}")
+        if s.shape != t.shape[:-1] or not s.is_contiguous() \
+                or s.device != t.device:
+            raise ValueError(f"int8 cache scales must be contiguous "
+                             f"{tuple(t.shape[:-1])} on the data's device, got "
+                             f"{tuple(s.shape)}")
+    return kind
+
+
+def ptr(t) -> int | None:
+    """A tensor's device address for a launch, None (a null pointer) for
+    an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
+def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
     """What K9-K11 take: q [B, 1, H, d] bf16 with H / Kh in GROUPS and
-    d = 64; bf16 key planes [.., Kh, rows, d] whose rows are whole 64-key
-    tiles (32-slot multiples for a staged tail); contiguous, 16-byte
-    aligned tensors on q's device; int32 index tensors of the sizes in
-    `ints` ({name: (tensor, numel)})."""
+    d = 64; key planes [.., Kh, rows, d], bf16 or int8 with `scales` (one
+    per plane; kv_kind), whose rows are whole 64-key tiles (32-slot
+    multiples for a staged tail); contiguous, 16-byte aligned tensors on
+    q's device; int32 index tensors of the sizes in `ints` ({name:
+    (tensor, numel)}). Returns the KV kind."""
     B, T, H, d = q.shape
     if T != 1:
         raise ValueError("the serving attention kernels are the T=1 decode path")
-    if q.dtype != torch.bfloat16 or any(p.dtype != torch.bfloat16
-                                        for p, _ in planes):
-        raise TypeError("the serving attention kernels take bf16 queries "
-                        "and a bf16 cache")
+    if q.dtype != torch.bfloat16:
+        raise TypeError("the serving attention kernels take bf16 queries and "
+                        "a cache of bf16, or int8 with scales")
+    kind = kv_kind([p for p, _ in planes], scales)
     for plane, rows_quantum in planes:
         Kh, rows, dc = plane.shape[2:]
         if d != HEAD_DIM or dc != d or H % Kh or H // Kh not in GROUPS:
@@ -107,22 +148,32 @@ def check_serving_inputs(q: torch.Tensor, planes, ints) -> None:
                 and t.is_contiguous()):
             raise ValueError(f"{name} must be an int32 CUDA tensor of {n} "
                              "elements")
+    return kind
 
 
-def _check_paged(q, cache: PagedKVCache, layer, pos, staged=None) -> None:
+def _check_paged(q, cache: PagedKVCache, layer, pos, staged=None) -> int:
     B = q.shape[0]
     planes = [(cache.k, KEY_TILE), (cache.v, KEY_TILE)]
+    scales = [cache.k_scale, cache.v_scale]
     ints = {"layer": (layer, 1), "pos": (pos, B),
             "table": (cache.table, B * cache.table.shape[1])}
     if staged is not None:
         planes += [(staged.sk, 32), (staged.sv, 32)]
+        scales += [staged.sk_scale, staged.sv_scale]
         ints["base"] = (staged.base, B)
     rows = {cache.table.shape[0]} | (
         set() if staged is None else {staged.sk.shape[1]})
     if rows != {B}:
         raise ValueError(f"{B} query rows against a page table or staged "
                          f"tail of {sorted(rows)} rows")
-    check_serving_inputs(q, planes, ints)
+    return check_serving_inputs(q, planes, scales, ints)
+
+
+def count(table: dict, name: str, kind: int) -> None:
+    """One launch of kernel `name` with a cache of KV kind `kind`, in a
+    module's launch table: the int8 instantiation counts as
+    "<name>_i8"."""
+    table[name + ("_i8" if kind else "")] += 1
 
 
 def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,
@@ -134,16 +185,17 @@ def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,
         raise ValueError("flash_paged_attention is the T=1 decode path")
     if not q.is_cuda:
         return paged_attention_ref(q, cache, layer, pos)
-    _check_paged(q, cache, layer, pos)
+    kind = _check_paged(q, cache, layer, pos)
     B, _, H, d = q.shape
     _, NP, Kh, P, _ = cache.k.shape
     out = torch.empty_like(q)
     err = _lib().flash_paged(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), layer.data_ptr(),
-        pos.data_ptr(), cache.table.data_ptr(), out.data_ptr(),
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
+        ptr(cache.k_scale), ptr(cache.v_scale), layer.data_ptr(),
+        pos.data_ptr(), cache.table.data_ptr(), out.data_ptr(), kind,
         B, H, Kh, NP, P, cache.table.shape[1], d, build.stream_ptr(q))
     build.check(err, "flash_paged")
-    launches["flash_paged"] += 1
+    count(launches, "flash_paged", kind)
     return out
 
 
@@ -159,16 +211,18 @@ def flash_paged_staged_attention(q: torch.Tensor, st: StagedKVCache, layer,
     if not q.is_cuda:
         return staged_attention_ref(q, st, layer, pos)
     cache = st.pool
-    _check_paged(q, cache, layer, pos, st)
+    kind = _check_paged(q, cache, layer, pos, st)
     B, _, H, d = q.shape
     _, NP, Kh, P, _ = cache.k.shape
     out = torch.empty_like(q)
     err = _lib().flash_paged_staged(
         q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-        st.sk.data_ptr(), st.sv.data_ptr(), layer.data_ptr(), pos.data_ptr(),
-        st.base.data_ptr(), cache.table.data_ptr(), out.data_ptr(),
+        st.sk.data_ptr(), st.sv.data_ptr(), ptr(cache.k_scale),
+        ptr(cache.v_scale), ptr(st.sk_scale), ptr(st.sv_scale),
+        layer.data_ptr(), pos.data_ptr(), st.base.data_ptr(),
+        cache.table.data_ptr(), out.data_ptr(), kind,
         B, H, Kh, NP, P, cache.table.shape[1], st.sk.shape[3], d,
         build.stream_ptr(q))
     build.check(err, "flash_paged_staged")
-    launches["flash_paged_staged"] += 1
+    count(launches, "flash_paged_staged", kind)
     return out

@@ -15,8 +15,10 @@ The counterpart of the JAX package's runtime/engine.py:
   waits on the card once a chunk and not once a token.
 
 The cache is monolithic, or with ``paged=True`` a page pool
-(runtime/paged.py). Each step is dispatched eagerly from Python;
-capturing it in a CUDA graph is queued work (ROADMAP.md).
+(runtime/paged.py), in the policy's KV dtype: on the card bf16 or int8
+with scales (``"i8"``, the ``*-kvi8`` policies). Each step is
+dispatched eagerly from Python; capturing it in a CUDA graph is queued
+work (ROADMAP.md).
 
 The engine runs on the card unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain version. With no card and no
@@ -101,10 +103,11 @@ class Engine:
                  device=None, paged: bool = False):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and (
-                policy.adtype != "bf16" or policy.kv_dtype != "bf16"):
+                policy.adtype != "bf16" or policy.kv_dtype not in ("bf16", "i8")):
             raise NotImplementedError(
-                "the CUDA kernels take bf16 activations and a bf16 KV cache; "
-                "other dtypes are queued (ROADMAP.md)")
+                "the CUDA kernels take bf16 activations and a bf16 or int8 "
+                f"KV cache, not {policy.adtype} / {policy.kv_dtype}; f32 and "
+                "f16 are queued (ROADMAP.md)")
         self.cfg = cfg
         self.policy = policy
         self.max_ctx = max_ctx or cfg.max_ctx

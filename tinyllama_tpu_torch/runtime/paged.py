@@ -17,8 +17,9 @@ step reads nothing back to the host. The attention kernels (K10, K11 in
 ops/kernels/flash_paged.py) read the pool through the table;
 ``paged_layer_view`` gathers a dense view for their plain versions.
 
-Storage is f32, bf16 or f16; the int8 pool is not ported yet
-(ROADMAP.md).
+Storage is f32, bf16, f16 or int8; an int8 pool carries f32 scale planes
+``[L, n_pages, Kh, P]`` beside its data, written and read through the
+same page and offset indices (runtime/kvcache.py quantizes).
 """
 
 from __future__ import annotations
@@ -28,7 +29,13 @@ from dataclasses import dataclass
 import torch
 
 from tinyllama_tpu_torch.config import ModelConfig
-from tinyllama_tpu_torch.runtime.kvcache import KV_DTYPES
+from tinyllama_tpu_torch.runtime.kvcache import (
+    KV_DTYPES,
+    dequantize_kv,
+    kv_planes,
+    quantize_kv,
+    scale_planes,
+)
 
 #: Default page length (the JAX package's serving default).
 PAGE_SIZE = 256
@@ -47,11 +54,18 @@ def default_page_size(S: int) -> int:
 @dataclass(frozen=True)
 class PagedKVCache:
     """k/v: [L, n_pages, Kh, P, d] in the storage dtype; table: [B, J]
-    int32 physical page ids on the pool's device."""
+    int32 physical page ids on the pool's device; k_scale/v_scale: [L,
+    n_pages, Kh, P] f32 iff the storage is int8."""
 
     k: torch.Tensor
     v: torch.Tensor
     table: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def batch(self) -> int:
@@ -72,16 +86,13 @@ class PagedKVCache:
     def with_table(self, table) -> "PagedKVCache":
         """The same pool under another page table (another sequence set)."""
         table = torch.as_tensor(table, dtype=torch.int32, device=self.k.device)
-        return PagedKVCache(self.k, self.v, table)
+        return PagedKVCache(self.k, self.v, table, self.k_scale, self.v_scale)
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, batch: int,
                      kv_dtype: str = "bf16", max_ctx: int | None = None,
                      page_size: int | None = None,
                      device="cpu") -> PagedKVCache:
-    if kv_dtype not in KV_DTYPES:
-        raise NotImplementedError(
-            f"KV dtype {kv_dtype!r} is not ported yet (ROADMAP.md, Queue 1)")
     S = max_ctx or cfg.max_ctx
     page_size = page_size or default_page_size(S)
     if S % page_size:
@@ -90,10 +101,10 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, batch: int,
     shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.d_head)
     dt = KV_DTYPES[kv_dtype]
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dt, device=device),
-        v=torch.zeros(shape, dtype=dt, device=device),
-        table=torch.zeros((batch, S // page_size), dtype=torch.int32,
-                          device=device))
+        torch.zeros(shape, dtype=dt, device=device),
+        torch.zeros(shape, dtype=dt, device=device),
+        torch.zeros((batch, S // page_size), dtype=torch.int32, device=device),
+        *scale_planes(shape, kv_dtype, device))
 
 
 def page_slots(cache: PagedKVCache, positions: torch.Tensor):
@@ -116,14 +127,19 @@ def update_paged_at_layer(
     """Write T new positions of each row into its pages, in place: row b's
     token t lands at position pos[b] + t, in page table[b, (pos[b] + t) //
     P]. T == 1 is decode; a T > 1 prefill starts on a page boundary, as
-    the scheduler's admissions (pos 0) do. One index_put_ a plane."""
+    the scheduler's admissions (pos 0) do. An int8 pool takes the
+    quantized data and its scales. One index_put_ a plane."""
     B, T, Kh = k_new.shape[:3]
     positions = pos.long()[:, None] + torch.arange(T, device=pos.device)
     page, off = page_slots(cache, positions)
     heads = torch.arange(Kh, device=pos.device)
     idx = (page[..., None], heads, off[..., None])  # -> [B, T, Kh]
-    for plane, new in ((cache.k, k_new), (cache.v, v_new)):
-        plane[li].index_put_(idx, new.to(plane.dtype))
+    new = [k_new, v_new]
+    if cache.quantized:
+        (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
+        new = [kq, vq, ks, vs]
+    for plane, n in zip(kv_planes(cache), new):
+        plane[li].index_put_(idx, n.to(plane.dtype))
     return cache
 
 
@@ -131,19 +147,23 @@ def paged_layer_view(cache: PagedKVCache, li: int, dtype,
                      ctx_bound: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Layer li's pages gathered into dense [B, Kh, J * P, d] k/v (the
-    plain read path). `ctx_bound` (every attended position < ctx_bound)
-    trims the gather to the pages that can hold live positions."""
+    plain read path; int8 dequantized in f32 first). `ctx_bound` (every
+    attended position < ctx_bound) trims the gather to the pages that can
+    hold live positions."""
     tbl = cache.table.long()
     if ctx_bound is not None:
         tbl = tbl[:, : max(1, -(-ctx_bound // cache.page_size))]
     B, J = tbl.shape
 
     def gather(plane):
-        g = plane[li][tbl]  # [B, J, Kh, P, d]
-        Kh, P, d = g.shape[2:]
-        return g.transpose(1, 2).reshape(B, Kh, J * P, d).to(dtype)
+        g = plane[li][tbl]  # [B, J, Kh, P(, d)]
+        return g.transpose(1, 2).reshape(B, g.shape[2], J * g.shape[3],
+                                         *g.shape[4:])
 
-    return gather(cache.k), gather(cache.v)
+    ks, vs = ((gather(cache.k_scale), gather(cache.v_scale))
+              if cache.quantized else (None, None))
+    return (dequantize_kv(gather(cache.k), ks, dtype),
+            dequantize_kv(gather(cache.v), vs, dtype))
 
 
 class PageAllocator:

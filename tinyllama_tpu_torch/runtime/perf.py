@@ -25,8 +25,9 @@ def tree_nbytes(tree) -> int:
         return tree_nbytes(tree.data) + tree_nbytes(tree.scales)
     if isinstance(tree, dict):
         return sum(tree_nbytes(v) for v in tree.values())
-    if hasattr(tree, "k") and hasattr(tree, "v"):
-        return tree_nbytes(tree.k) + tree_nbytes(tree.v)
+    if hasattr(tree, "k") and hasattr(tree, "v"):  # a cache: data and scales
+        return sum(tree_nbytes(getattr(tree, n, None))
+                   for n in ("k", "v", "k_scale", "v_scale"))
     return 0
 
 

@@ -7,7 +7,8 @@ package's runtime/scheduler.py.
 * Queued requests are admitted in one batched prefill whose batch is
   padded to a power-of-two bucket with BOS-only rows. Monolithic: the
   prefill fills a bucket cache, then the admitted rows are copied into
-  their slots (only the admitted rows, so no two writes hit one slot).
+  their slots (only the admitted rows, so no two writes hit one slot;
+  an int8 cache's scale planes with its data).
   Paged: each request reserves its worst-case page count, gets its
   prompt's pages, and is prefilled straight into the pool through an
   admission page table; only its logits row moves.
@@ -39,6 +40,7 @@ import torch
 
 from tinyllama_tpu_torch.config import GenerationConfig
 from tinyllama_tpu_torch.runtime.engine import Engine
+from tinyllama_tpu_torch.runtime.kvcache import kv_planes
 from tinyllama_tpu_torch.runtime.paged import (
     PageAllocator,
     default_page_size,
@@ -227,8 +229,8 @@ class ContinuousBatcher:
         idx = torch.tensor(slots, dtype=torch.long, device=self.logits.device)
         n = len(reqs)
         self.logits.index_copy_(0, idx, logits[:n])
-        if not self.paged:
-            for plane, rows in ((self.cache.k, extra.k), (self.cache.v, extra.v)):
+        if not self.paged:  # data and, int8, scale planes
+            for plane, rows in zip(kv_planes(self.cache), kv_planes(extra)):
                 plane.index_copy_(1, idx, rows[:, :n])
 
     # ------------------------------------------------------------------ decode
