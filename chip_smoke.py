@@ -23,13 +23,17 @@ Phases, each fatal on failure:
    int8-KV instantiations of K3, K4, K8-K11 at the same shapes over
    int8 caches (the same random values quantized; their bound counts
    int8 data and f32 scales, their yardstick is SDPA over the
-   dequantized bf16 K/V);
-4. paths: TinyLlama-1.1B, q8 weights from a fixed seed ((a)-(g), (j)),
+   dequantized bf16 K/V); K1's aq8 branch on the five decode matmuls at
+   M = 1 (its yardsticks torch.matmul on the dequantized bf16 weight and
+   torch._int_mm where it takes the shape); and the f16 and f32
+   instantiations of K3, K4, K8-K11 over the same values cast (bound at 2
+   and 4 bytes a value, yardstick SDPA over the cache cast to bf16);
+4. paths: TinyLlama-1.1B, q8 weights from a fixed seed ((a)-(g), (j)-(l)),
    then q4 and q4g weights from a file ((h), (i)), bf16 activations, a
-   bf16 cache except in (j) and (h)'s --kv i8 run; the launch counts of
-   every kernel (the int8-cache instantiations counted apart) are set to
-   0 just before each path and must come out exactly as the path
-   dictates:
+   bf16 cache except in (j), (l) and (h)'s --kv runs; the launch counts
+   of every kernel (the instantiations of other cache kinds, and K1's aq8
+   branch, counted apart) are set to 0 just before each path and must
+   come out exactly as the path dictates:
    (a) main path: a 100-token prompt (bucket 128, unfused prefill)
        through Engine.generate, greedy, 256 new tokens, each decode step
        on the fused branch (K5, K8, K7, then K1 for the lm_head);
@@ -57,7 +61,8 @@ Phases, each fatal on failure:
    (h) 4-bit weights from a file through the CLI: a full-depth q4 .gten
        of random N(0, 0.02) weights (written one tensor at a time) and a
        stand-in tokenizer.bin of 32,000 pieces go to a temporary
-       directory; cli.main(["-q4", "--ckpt", ..., "--tokenizer", ...,
+       directory, written by a child process (this script with
+       --write-checkpoint) that starts before the build; cli.main(["-q4", "--ckpt", ..., "--tokenizer", ...,
        "-p", P, "-greedy", "--npred", "256"]) runs it (P is 105 tokens in
        the chat template: the unfused prefill, then fused b1 decode K5,
        K8, K7 and K1 until the tokenizer's EOS or the budget), then the
@@ -76,9 +81,22 @@ Phases, each fatal on failure:
        requests through paged and monolithic batchers (int8 K11, K10 at
        bucket 1, K9), each printed beside the bf16 run's tok/s, TTFT and
        KV pool bytes;
+   (k) aq8 activations, POLICIES["q8a8"] on (a)'s weights (every block
+       unfused, K1's aq8 branch at M <= 8, K4 for b1 attention): (a)'s
+       prompt with 64 greedy tokens and its step replayed as a CUDA graph,
+       (c) at B = 4, a paged generate of 100 + 32 tokens, and (g)'s
+       requests through the monolithic batcher; then POLICIES["q4a8"] on
+       (h)'s q4 weights: (b) and (c);
+   (l) f16 and then f32 KV caches on (a)'s weights: (a)'s prompt with 64
+       tokens (K3, K8) and its graph step, (c) (K4), (d) for one chunk
+       (K9), a paged generate (K10; its prefill attends the step's own
+       bf16 keys), and (K11) for f16 (f)'s requests through the paged
+       batcher, with the pool bytes beside bf16's, for f32 one staged
+       chunk of a paged generate_batch; then the CLI on (h)'s file with
+       -q4 --kv f16;
    after each kind's (h) and (i), that kind's weight kernels (K1, K2 at
    M = 128, K5-K8) against their plain versions, as in phase 3, with
-   the launches of (h) and (i);
+   the launches of (h) and (i), and K1-aq8's q4 rows;
 5. parity: a 2-layer model at TinyLlama's full widths, the same weights
    on the card (kernels) and the CPU (plain versions): a long prefill
    and 4 teacher-forced decode steps, a short (fused) prefill, a B = 4
@@ -87,7 +105,9 @@ Phases, each fatal on failure:
    with q4g weights: a long and a short prefill, 2 b1 decode steps and a
    B = 4 step; and q8 weights with an int8 KV cache: a long prefill, 2
    b1 steps, a B = 4 step, staged monolithic and paged chunk steps and a
-   paged b1 step; the logits must agree.
+   paged b1 step; q8a8 and q4a8: a long prefill, 2 b1 steps and a B = 4
+   step; f16 and f32 caches: a long prefill, 2 b1 steps and a staged
+   paged chunk step; the logits must agree.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -101,6 +121,8 @@ the port's kernels' share of it, and the host's time a step.
 
 from __future__ import annotations
 
+import atexit
+import dataclasses
 import json
 import subprocess
 import sys
@@ -131,10 +153,12 @@ N_NEW = 256
 PROMPT_LEN = 100
 #: path (b): a chat-length prompt (bucket 32, fused prefill)
 CHAT_LEN, CHAT_NEW = 24, 32
-#: the attention kernels' launch counters; with an int8 cache they count
-#: under "<name>_i8"
+#: the attention kernels' launch counters; with an int8, f16 or f32 cache
+#: they count under "<name>_i8", "_f16" or "_f32"
 ATTENTION = ("flash_prefill", "flash_decode_heads", "flash_staged",
              "fused_attn_out", "flash_paged", "flash_paged_staged")
+#: the counter suffix of each policy label's KV cache
+KV_SUFFIX = {"kvi8": "_i8", "kvf16": "_f16", "kvf32": "_f32"}
 #: path (c): rows and decode steps of the batched decode
 BATCH, BATCH_STEPS = 4, 8
 #: path (h): the chat prompt (105 tokens in the chat template over the
@@ -143,6 +167,22 @@ CLI_PROMPT = ("Give three tips for staying healthier, and explain for each "
               "one why it helps, what it costs in time and money, and how a "
               "busy person can start on it this week.")
 CLI_NPRED = 256
+
+
+def counter_name(name: str, label: str) -> str:
+    """The launch counter of kernel `name` on a path of policy `label`
+    ("q8", "q4-kvi8", "q8-kvf16", "q8a8", ...): attention counters take
+    the cache's suffix; "flash_prefill_own" (a paged prefill's K3 over the
+    step's own keys, int8 when the pool is, bf16 otherwise) is
+    flash_prefill or flash_prefill_i8; K1 counts its aq8 branch apart."""
+    kv = label.split("-")[-1]
+    if name == "flash_prefill_own":
+        return "flash_prefill" + ("_i8" if kv == "kvi8" else "")
+    if name in ATTENTION:
+        return name + KV_SUFFIX.get(kv, "")
+    if name == "qmm_smallm" and label.endswith("a8"):
+        return "qmm_smallm_aq8"
+    return name
 
 
 class RandomWeights(Mapping):
@@ -265,6 +305,20 @@ REPLACES_4BIT = {
 }
 
 
+#: the TPU kernel lines that cast an f16 or f32 cache tile to the compute
+#: dtype, which each f16 and f32 attention row replaces: K3's own load,
+#: and the online-softmax helper of K4 and K8-K11
+REPLACES_KV16 = {"K3": "tinyllama_tpu/ops/pallas/flash_prefill.py:75"}
+REPLACES_KV16_HELPER = "tinyllama_tpu/ops/pallas/softmax_update.py:37"
+#: the aq8 branch of the small-M body each K1-aq8 row replaces, by kind
+REPLACES_AQ8 = {"q8": "tinyllama_tpu/ops/pallas/qmatmul.py:169",
+                "q4": "tinyllama_tpu/ops/pallas/qmatmul.py:199"}
+#: bytes of one cached key (or value) row of d values, by KV kind; int8
+#: with its f32 scale
+KV_ROW_BYTES = {"bf16": lambda d: 2 * d, "f16": lambda d: 2 * d,
+                "f32": lambda d: 4 * d, "i8": lambda d: d + 4}
+
+
 #: the TPU kernel bodies' int8-KV branches each int8 row replaces
 REPLACES_I8 = {
     "K3": "tinyllama_tpu/ops/pallas/flash_prefill.py:78",
@@ -276,13 +330,16 @@ REPLACES_I8 = {
 }
 
 
-def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
+def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
+                  aq8=False) -> list[dict]:
     """Every kernel against its plain version at main-path shapes, on the
     engine's weights of `kind`. For a 4-bit kind only the weight kernels
-    (K1, K2, K5-K8): the attention kernels take no weights. With kv="i8"
-    only the attention kernels (K3, K4, K8-K11), over int8 caches: the
-    same random values quantized, their bound counting int8 data and f32
-    scales, their library yardstick SDPA over the dequantized bf16 K/V."""
+    (K1, K2, K5-K8): the attention kernels take no weights. With kv="i8",
+    "f16" or "f32" only the attention kernels (K3, K4, K8-K11), over
+    caches of that kind: the same random values quantized (int8, with
+    f32 scales) or cast, their bound counting the kind's bytes, their
+    library yardstick SDPA over the cache as bf16. With aq8 only K1's
+    aq8 branch, on the five decode shapes at M = 1."""
     from tinyllama_tpu_torch.runtime.kvcache import (
         KVCache, layer_cache_view, quantize_kv,
     )
@@ -299,27 +356,42 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
     gen.manual_seed(7)
     rows = []
     i8 = kv == "i8"
-    label = "i8 " if i8 else "" if kind == "q8" else f"{kind} "
-    row_kind = "q8-kvi8" if i8 else kind
-    #: bytes a cached key or value row costs: d values, and int8's scale
-    kv_row = cfg.d_head + 4 if i8 else 2 * cfg.d_head
+    attn_only = kv != "bf16"
+    if aq8:
+        label, row_kind = f"aq8 {kind} ", f"{kind}a8"
+    elif attn_only:
+        label, row_kind = f"{kv} ", f"q8-kv{kv}"
+    else:
+        label, row_kind = ("" if kind == "q8" else f"{kind} "), kind
+    kv_row = KV_ROW_BYTES[kv](cfg.d_head)
+    yardstick = {"i8": " (SDPA over the dequantized bf16 K/V)",
+                 "f16": " (SDPA over the cache cast to bf16)",
+                 "f32": " (SDPA over the cache cast to bf16)"}.get(kv, "")
 
     def replaces(kernel, q8_line):
         if i8:
             return REPLACES_I8.get(kernel, q8_line)
+        if attn_only:
+            return REPLACES_KV16.get(kernel, REPLACES_KV16_HELPER)
         return q8_line if kind == "q8" else REPLACES_4BIT[kernel][kind]
 
     def quant(cache):
-        """`cache` as it is for kv="bf16"; quantized to int8 for "i8"."""
-        if not i8:
+        """`cache` as it is for kv="bf16"; quantized to int8 for "i8";
+        cast for "f16" and "f32"."""
+        if not attn_only:
             return cache
+        if not i8:
+            dt = {"f16": torch.float16, "f32": torch.float32}[kv]
+            if isinstance(cache, PagedKVCache):
+                return PagedKVCache(cache.k.to(dt), cache.v.to(dt), cache.table)
+            return KVCache(cache.k.to(dt), cache.v.to(dt))
         (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
         if isinstance(cache, PagedKVCache):
             return PagedKVCache(k, v, cache.table, ks, vs)
         return KVCache(k, v, ks, vs)
 
     def row(kernel, shape, route_src, replaces, err, ms, plain_ms, nbytes,
-            flops, library_ms):
+            flops, library_ms, note=""):
         t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / PEAK_BF16 * 1e3
         r = dict(name=f"{kernel} {label}{shape}", kernel=kernel, kind=row_kind,
                  route="cuda",
@@ -333,8 +405,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
               f"(rtol {RTOL}, atol {ATOL}) kernel_ms {ms:.5f} "
               f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
               f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f}"
-              + (" (SDPA over the dequantized bf16 K/V)" if i8 else ""),
-              flush=True)
+              + (note or yardstick), flush=True)
 
     # K1 / K2: the quantized matmuls
     lin = params["layers"]
@@ -371,7 +442,55 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
         row(kernel, f"{label} M={M} K={K} N={N}", src, rep, err, ms, plain,
             nbytes, 2 * M * K * N, lib)
 
-    if not i8:
+    def qmm_aq8_case(label, w, wd, layered, out_dtype):
+        """K1's aq8 branch at M = 1; yardsticks torch.matmul on the
+        dequantized bf16 weight, and torch._int_mm (int8 x int8 -> int32,
+        no scales) on x padded to the least M it takes, if it takes one."""
+        N, K = w.shape[-2:]
+        x = torch.randn((1, K), generator=gen, device=dev).to(torch.bfloat16)
+        lay = (lambda i: layers[i % L]) if layered else (lambda i: None)
+        wdl = (lambda i: wd[i % L]) if layered else (lambda i: wd)
+        err = check_close(f"K1 aq8 {label}",
+                          qm.qmatmul(x, w, out_dtype, lay(0), aq8=True),
+                          qm.qmatmul_ref(x, w, out_dtype, lay(0), aq8=True))
+        ms = time_ms(lambda i: qm.qmatmul(x, w, out_dtype, lay(i), aq8=True),
+                     200, True)
+        plain = time_ms(lambda i: qm.qmatmul_ref(x, w, out_dtype, lay(i),
+                                                 aq8=True), 10, False)
+        lib = time_ms(lambda i: torch.matmul(x, wdl(i)), 200, True)
+        planes = ([w.data[i] for i in range(L)] if layered else [w.data])
+        # int8 [K, N] weights, column-major as cuBLAS's int8 GEMM takes them
+        wi = [(p if kind == "q8" else qm.int_values(p, kind).to(torch.int8)
+               ).t().contiguous().t() for p in planes]
+        int_mm, int_m = None, None
+        for m in (1, 8, 16, 17, 32):
+            xi = torch.ones((m, K), dtype=torch.int8, device=dev)
+            try:
+                torch._int_mm(xi, wi[0])
+            except RuntimeError:
+                continue
+            int_mm = time_ms(lambda i: torch._int_mm(xi, wi[i % len(wi)]), 200,
+                             True)
+            int_m = m
+            break
+        del wi
+        out_b = 4 if out_dtype == torch.float32 else 2
+        nbytes = nbytes_of(w, layered) + K * 2 + N * out_b
+        note = (" (library: torch.matmul on the dequantized bf16 weight; "
+                + (f"torch._int_mm at M={int_m}, column-major int8 weight, "
+                   f"{int_mm:.5f} ms)" if int_mm
+                   else "torch._int_mm takes no M here)"))
+        row("K1 qmm_smallm", f"{label} M=1 K={K} N={N}",
+            "tinyllama_tpu_torch/csrc/qmatmul.cu", REPLACES_AQ8[kind], err, ms,
+            plain, nbytes, 2 * K * N, lib, note)
+        rows[-1]["int_mm_ms"] = int_mm
+
+    if aq8:
+        for n, w in mats.items():
+            qmm_aq8_case(n, w, dense[n], True, torch.bfloat16)
+        qmm_aq8_case("lm_head", lm, lm_dense, False, torch.float32)
+        return rows
+    if not attn_only:
         for n, w in mats.items():
             qmm_case(n, w, dense[n], 1, True, torch.bfloat16)
         qmm_case("lm_head", lm, lm_dense, 1, False, torch.float32)
@@ -400,7 +519,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
     src = "tinyllama_tpu_torch/csrc/decode_fused.cu"
     rep = "tinyllama_tpu/ops/pallas/decode_fused.py"
     norm_a, norm_f = lin["attn_norm"], lin["ffn_norm"]
-    for M in () if i8 else (1, 4, 32):
+    for M in () if attn_only else (1, 4, 32):
         x = rows_bf16(M, D)
         wq, N = lin["wqkv"], lin["wqkv"].data.shape[-1]
         fused_case(
@@ -411,7 +530,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
                                             inside),
             lambda i: torch.matmul(x.view(M, D), dense["wqkv"][i % L]),
             w_bytes["wqkv"] + M * D * 2 + D * 4 + M * N * 2, 2 * M * D * N)
-    for M in () if i8 else (4, 32):
+    for M in () if attn_only else (4, 32):
         a, r = rows_bf16(M, D), rows_bf16(M, D)
         fused_case(
             "K6 fused_out_residual", f"M={M} K={D} N={D}", src,
@@ -432,7 +551,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
             torch.matmul(x.view(M, D), dense["w_gateup"][i % L])[:, :F],
             dense["w_down"][i % L])
 
-    for M in () if i8 else (1, 4, 32):
+    for M in () if attn_only else (1, 4, 32):
         x = rows_bf16(M, D)
         fused_case(
             "K7 ffn_fused", f"normed M={M} D={D} F={F}", src, rep,
@@ -441,7 +560,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
                                         eps, inside),
             ffn_library(x, M), ffn_bytes + 2 * M * D * 2 + D * 4,
             2 * M * 3 * F * D, replay=True)
-    if not i8:
+    if not attn_only:
         x = rows_bf16(1, D)
         fused_case(
             "K7 ffn_fused", f"plain entry M=1 D={D} F={F}", src, rep,
@@ -455,7 +574,8 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16") -> list[dict]:
     cache = quant(KVCache(
         torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
         torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
-    # the library's K/V: layer 3, dequantized where the cache is int8
+    # the library's K/V: layer 3 as bf16 (int8 dequantized, f16 and f32
+    # cast)
     dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
 
     def sdpa(q, k, v, is_causal=False):
@@ -628,6 +748,10 @@ def profile_decode(engine, prompt, torch, steps: int = 4) -> None:
 
 def main() -> int:
     t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f"elapsed: {what} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     if not (ROOT / "tinyllama_tpu_torch" / "csrc").is_dir():
         return fail("the tinyllama_tpu_torch package is not beside this script")
     import torch
@@ -641,7 +765,7 @@ def main() -> int:
     from tinyllama_tpu_torch.config import (
         GenerationConfig, POLICIES, TINYLLAMA_1_1B,
     )
-    from tinyllama_tpu_torch.io import gten, tokenizer
+    from tinyllama_tpu_torch.io import tokenizer
     from tinyllama_tpu_torch.models import llama
     from tinyllama_tpu_torch.ops.kernels import attn_out_fused as ao
     from tinyllama_tpu_torch.ops.kernels import build
@@ -666,12 +790,24 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
 
+    # path (h)'s files, written by a child process while the kernels build
+    # and phase 3 runs (host numpy, ~40 s); stopped and removed at exit
+    files = tempfile.TemporaryDirectory()
+    ckpt = Path(files.name) / "tinyllama.q4.gten"
+    vocab = Path(files.name) / "tokenizer.bin"
+    writer = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--write-checkpoint", str(ckpt), str(vocab)],
+                              stdout=subprocess.PIPE, text=True)
+    atexit.register(files.cleanup)
+    atexit.register(lambda: writer.poll() is None and writer.kill())
+
     # 2. build
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"build: {len(logs)} sources built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
+    for name, (log, seconds) in logs.items():
+        print(f"  {name}: built in {seconds:.1f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
@@ -690,14 +826,21 @@ def main() -> int:
     ops = (qm, fa, df, ffn, ao, fp, codec)
     rows = phase_kernels(engine, torch, ops)
     rows += phase_kernels(engine, torch, ops, kv="i8")
+    rows += phase_kernels(engine, torch, ops, aq8=True)
+    for kv in ("f16", "f32"):
+        rows += phase_kernels(engine, torch, ops, kv=kv)
+
+    mark("phase 3")
 
     # 4. paths, each with exact launch counts
     counters = (qm.launches, fa.launches, df.launches, ffn.launches,
                 ao.launches, fp.launches)
     #: launches summed over the paths of each policy: (a)-(g) are q8, (h)
-    #: and (i) run q4 and q4g, (j) q8-kvi8, (h)'s third run q4-kvi8
+    #: and (i) run q4 and q4g, (j) q8-kvi8, (k) q8a8 and q4a8, (l)
+    #: q8-kvf16 and q8-kvf32, (h)'s last runs q4-kvi8 and q4-kvf16
     totals = {kind: {k: 0 for c in counters for k in c}
-              for kind in ("q8", "q4", "q4g", "q8-kvi8", "q4-kvi8")}
+              for kind in ("q8", "q4", "q4g", "q8-kvi8", "q4-kvi8", "q8a8",
+                           "q4a8", "q8-kvf16", "q8-kvf32", "q4-kvf16")}
 
     def reset():
         for c in counters:
@@ -706,16 +849,13 @@ def main() -> int:
 
     def expect(path, kind="q8", **want):
         """The launch counts of a path of policy `kind` must be `want`
-        (by the bf16 names: with an int8 cache the attention kernels'
-        counts move to their "_i8" names)."""
+        (by the bf16, weight-only names, moved by counter_name)."""
         got = {k: v for c in counters for k, v in c.items()}
-        if kind.endswith("kvi8"):
-            moved = {}
-            for k, v in want.items():
-                k = k + "_i8" if k in ATTENTION else k
-                moved[k] = moved.get(k, 0) + v
-            want = moved
-        want = {k: want.get(k, 0) for k in got}
+        moved = {}
+        for k, v in want.items():
+            k = counter_name(k, kind)
+            moved[k] = moved.get(k, 0) + v
+        want = {k: moved.get(k, 0) for k in got}
         print(f"path {path}: launches {json.dumps(got)}", flush=True)
         if got != want:
             raise AssertionError(f"path {path}: launch counts {got}, want {want}")
@@ -771,14 +911,21 @@ def main() -> int:
 
     def chat_path(eng, path, kind="q8"):
         """(b), and (i) at 4 bits: a chat-length prompt (bucket 32, fused
-        prefill: K5, K3, K6, K7), then fused b1 decode."""
+        prefill: K5, K3, K6, K7), then fused b1 decode; under aq8 (k) the
+        unfused branch throughout."""
         chat = prompt_of(CHAT_LEN)
         eng.generate(chat, GenerationConfig(n_predict=CHAT_LEN + 2, greedy=True,
                                             eos_token=-1))
         out, stats = generate(chat, CHAT_NEW, eng)
-        expect(path, kind, fused_norm_qkv=L * (1 + CHAT_NEW), flash_prefill=L,
-               fused_out_residual=L, ffn_fused_normed=L * (1 + CHAT_NEW),
-               fused_attn_out=L * CHAT_NEW, qmm_smallm=1 + CHAT_NEW)
+        if eng.policy.aq8:  # unfused: K2 at M = 32, then K1-aq8 and K4
+            expect(path, kind, qmm_bigm=4 * L, flash_prefill=L,
+                   qmm_smallm=1 + CHAT_NEW * (4 * L + 1),
+                   flash_decode_heads=L * CHAT_NEW)
+        else:
+            expect(path, kind, fused_norm_qkv=L * (1 + CHAT_NEW),
+                   flash_prefill=L, fused_out_residual=L,
+                   ffn_fused_normed=L * (1 + CHAT_NEW),
+                   fused_attn_out=L * CHAT_NEW, qmm_smallm=1 + CHAT_NEW)
         print(f"path {path}: prefill {stats.prefill_s * 1e3:.3f} ms "
               f"({stats.prompt_tokens} tokens, bucket 32); decode "
               f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
@@ -787,7 +934,8 @@ def main() -> int:
 
     def batch_path(eng, path, kind="q8"):
         """(c), and (i) at 4 bits: the unfused prefill of 4 rows, then
-        fused B = 4 decode steps (K5, K4, K6, K7)."""
+        fused B = 4 decode steps (K5, K4, K6, K7); under aq8 unfused steps
+        (K1-aq8 at M = 4, K4)."""
         prompts = [prompt_of(PROMPT_LEN) for _ in range(BATCH)]
         cache = eng.new_cache(BATCH)
         reset()
@@ -807,10 +955,14 @@ def main() -> int:
         if not (torch.isfinite(logits).all()
                 and logits.shape == (BATCH, cfg.n_vocab)):
             raise AssertionError(f"path {path}: logits not finite or misshapen")
-        expect(f"{path} decode", kind, fused_norm_qkv=L * BATCH_STEPS,
-               flash_decode_heads=L * BATCH_STEPS,
-               fused_out_residual=L * BATCH_STEPS,
-               ffn_fused_normed=L * BATCH_STEPS, qmm_smallm=BATCH_STEPS)
+        if eng.policy.aq8:
+            expect(f"{path} decode", kind, flash_decode_heads=L * BATCH_STEPS,
+                   qmm_smallm=(4 * L + 1) * BATCH_STEPS)
+        else:
+            expect(f"{path} decode", kind, fused_norm_qkv=L * BATCH_STEPS,
+                   flash_decode_heads=L * BATCH_STEPS,
+                   fused_out_residual=L * BATCH_STEPS,
+                   ffn_fused_normed=L * BATCH_STEPS, qmm_smallm=BATCH_STEPS)
         print(f"path {path}: {BATCH_STEPS} decode steps at B={BATCH}: "
               f"{batch_ms:.4f} ms a step (eager, host clock)", flush=True)
 
@@ -820,24 +972,35 @@ def main() -> int:
     batch_path(engine, "(c)")
 
     # the serving paths: exact counts from the shapes each path ran at
-    def prefill_counts(c, b, T):
-        if b * T <= 32:  # the fused branch
-            for k in ("fused_norm_qkv", "flash_prefill", "fused_out_residual",
+    def qmm(M):
+        return "qmm_smallm" if M <= qm.SMALL_M else "qmm_bigm"
+
+    def prefill_counts(c, b, T, paged, aq8):
+        """An admission of b rows at bucket T from position 0 (a paged
+        prefill attends its own keys: flash_prefill_own)."""
+        attend = "flash_prefill_own" if paged else "flash_prefill"
+        if b * T <= 32 and not aq8:  # the fused branch
+            for k in ("fused_norm_qkv", attend, "fused_out_residual",
                       "ffn_fused_normed"):
                 c[k] += L
         else:
-            c["qmm_bigm"] += 4 * L
-            c["flash_prefill"] += L
-        c["qmm_smallm" if b <= qm.SMALL_M else "qmm_bigm"] += 1
+            c[qmm(b * T)] += 4 * L
+            c[attend] += L
+        c[qmm(b)] += 1
 
-    def chunk_counts(c, B, C, paged):
+    def chunk_counts(c, B, C, paged, aq8):
         attend = ({True: "flash_paged_staged", False: "flash_staged"}[paged]
-                  if B > 1 else "flash_paged" if paged else "fused_attn_out")
-        for k in ("fused_norm_qkv", attend, "ffn_fused_normed"):
+                  if B > 1 else "flash_paged" if paged
+                  else "flash_decode_heads" if aq8 else "fused_attn_out")
+        c[attend] += C * L
+        if aq8:  # the unfused branch: four linears a layer and the lm_head
+            c[qmm(B)] += C * (4 * L + 1)
+            return
+        for k in ("fused_norm_qkv", "ffn_fused_normed"):
             c[k] += C * L
         if attend != "fused_attn_out":
             c["fused_out_residual"] += C * L
-        c["qmm_smallm" if B <= qm.SMALL_M else "qmm_bigm"] += C
+        c[qmm(B)] += C
 
     def recorded(eng, paged, run):
         """Run `run()` with eng.prefill and eng.chunk wrapped to record
@@ -863,10 +1026,11 @@ def main() -> int:
         finally:
             del eng.prefill, eng.chunk
         want = {k: 0 for c in counters for k in c}
+        want["flash_prefill_own"] = 0
         for b, T in record["prefill"]:
-            prefill_counts(want, b, T)
+            prefill_counts(want, b, T, paged, eng.policy.aq8)
         for B, C in record["chunk"]:
-            chunk_counts(want, B, C, paged)
+            chunk_counts(want, B, C, paged, eng.policy.aq8)
         return out, record, want
 
     def ids_ok(outs, n_new):
@@ -978,6 +1142,8 @@ def main() -> int:
               f"{graph_ms / eager_ms:.3f} of an eager step", flush=True)
         del cache, st
 
+    mark("paths (a)-(g)")
+
     # (j) the int8 KV cache, POLICIES["q8-kvi8"], on (a)'s weights through
     # every cache kind: the int8 instantiations of K3, K4, K8-K11
     kvi8 = POLICIES["q8-kvi8"]
@@ -1038,6 +1204,128 @@ def main() -> int:
               f"against {nb} B (bf16), {nb8 / nb:.4f}", flush=True)
     del eng8, paged8
 
+    def graph_step(eng, n_prompt=PROMPT_LEN):
+        """One b1 decode step at pos n_prompt replayed as a CUDA graph, ms."""
+        cache = eng.new_cache(1)
+        eng.prefill(cache, [prompt])
+        tok = torch.tensor([5], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([n_prompt], dtype=torch.int32, device="cuda")
+        return time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
+
+    mark("path (j)")
+
+    # (k) aq8 activations, POLICIES["q8a8"], on (a)'s weights (aq8 changes
+    # no weight): every block unfused, K1's aq8 branch at M <= 8
+    q8a8 = POLICIES["q8a8"]
+    enga = Engine(cfg, q8a8, engine.params, max_ctx=2048, device="cuda")
+    enga.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
+                                           greedy=True, eos_token=-1))
+    out, stats = generate(prompt, 64, enga)
+    expect("(k) b1", "q8a8", qmm_bigm=4 * L, flash_prefill=L,
+           qmm_smallm=1 + 64 * (4 * L + 1), flash_decode_heads=64 * L)
+    stepa_ms = graph_step(enga)
+    print(f"path (k) b1: prefill {stats.prefill_s * 1e3:.3f} ms "
+          f"({stats.prompt_tokens} tokens, bucket 128); decode "
+          f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
+          f"tokens; one decode step at pos {PROMPT_LEN} replayed as a CUDA "
+          f"graph {stepa_ms:.4f} ms against (a)'s {step_ms:.4f} ms (q8, fused "
+          f"branch); busy {stepa_ms / stats.ms_per_token:.3f} of an eager step",
+          flush=True)
+    batch_path(enga, f"(k) B={BATCH}", "q8a8")
+    paged_a = Engine(cfg, q8a8, engine.params, max_ctx=2048, device="cuda",
+                     paged=True)
+    gcfg = GenerationConfig(n_predict=PROMPT_LEN + 32, greedy=True,
+                            eos_token=-1, chunk_size=32)
+    (out, stats), record, want = recorded(
+        paged_a, True, lambda: paged_a.generate(prompt, gcfg))
+    if not ids_ok([out], [32]) or stats.decode_steps != 32:
+        return fail(f"path (k) paged: {len(out)} ids in {stats.decode_steps} "
+                    "steps, or ids out of range")
+    expect("(k) paged generate", "q8a8", **want)
+    print(f"path (k) paged generate: prefill {stats.prefill_s * 1e3:.3f} ms; "
+          f"decode {stats.ms_per_token:.4f} ms/token over 32 tokens", flush=True)
+    del paged_a
+    served["(k) monolithic batcher"] = serve("(k) monolithic batcher", enga, 8,
+                                             16, 6, "q8a8")
+    (tps, p50, p95, _), (tpsa, p50a, p95a, _) = (
+        served["(g)"], served["(k) monolithic batcher"])
+    print(f"path (k) monolithic batcher against (g), same requests, same call: "
+          f"{tpsa:.2f} tok/s against {tps:.2f}; TTFT p50 {p50a * 1e3:.3f} ms "
+          f"against {p50 * 1e3:.3f}, p95 {p95a * 1e3:.3f} ms against "
+          f"{p95 * 1e3:.3f}", flush=True)
+    del enga
+
+    mark("path (k)")
+
+    # (l) f16 and f32 KV caches on (a)'s weights: the bf16 path's kernels,
+    # their attention instantiations counted under _f16 / _f32
+    for kv in ("f16", "f32"):
+        label = f"q8-kv{kv}"
+        polk = dataclasses.replace(policy, kv_dtype=kv)
+        engk = Engine(cfg, polk, engine.params, max_ctx=2048, device="cuda")
+        engk.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
+                                               greedy=True, eos_token=-1))
+        out, stats = generate(prompt, 64, engk)
+        expect(f"(l) {kv} b1", label, qmm_bigm=4 * L, flash_prefill=L,
+               qmm_smallm=1 + 64, fused_norm_qkv=L * 64, fused_attn_out=L * 64,
+               ffn_fused_normed=L * 64)
+        stepk_ms = graph_step(engk)
+        print(f"path (l) {kv} b1: prefill {stats.prefill_s * 1e3:.3f} ms; decode "
+              f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
+              f"tokens; one decode step at pos {PROMPT_LEN} replayed as a CUDA "
+              f"graph {stepk_ms:.4f} ms against (a)'s {step_ms:.4f} ms (bf16 "
+              f"cache)", flush=True)
+        batch_path(engk, f"(l) {kv} B={BATCH}", label)
+        (outs, stats), record, want = recorded(
+            engk, False, lambda: engk.generate_batch(prompts, gcfg))
+        if record != {"prefill": [(BATCH, 128)], "chunk": [(BATCH, 32)]} \
+                or not ids_ok(outs, [32] * BATCH):
+            return fail(f"path (l) {kv} generate_batch: ran {record}, or ids "
+                        "out of range")
+        expect(f"(l) {kv} generate_batch", label, **want)
+        print(f"path (l) {kv} generate_batch: {BATCH} x {PROMPT_LEN}-token "
+              f"prompts, one staged 32-step chunk: "
+              f"{stats.decode_s * 1e3 / stats.decode_steps:.4f} ms a staged "
+              f"B={BATCH} step; cache {tree_nbytes(engk.new_cache(BATCH))} B "
+              f"against {tree_nbytes(engine.new_cache(BATCH))} B in bf16",
+              flush=True)
+        pagedk = Engine(cfg, polk, engine.params, max_ctx=2048, device="cuda",
+                        paged=True)
+        (out, stats), record, want = recorded(
+            pagedk, True, lambda: pagedk.generate(prompt, gcfg))
+        if not ids_ok([out], [32]) or stats.decode_steps != 32:
+            return fail(f"path (l) {kv} paged: {len(out)} ids in "
+                        f"{stats.decode_steps} steps, or ids out of range")
+        expect(f"(l) {kv} paged generate", label, **want)
+        print(f"path (l) {kv} paged generate: prefill "
+              f"{stats.prefill_s * 1e3:.3f} ms (K3 over the step's own bf16 "
+              f"keys); decode {stats.ms_per_token:.4f} ms/token over 32 tokens",
+              flush=True)
+        if kv == "f16":
+            path = "(l) f16 paged batcher"
+            served[path] = serve(path, pagedk, 32, 64, 5, label)
+            (tps, p50, p95, nb), (tpsk, p50k, p95k, nbk) = (served["(f)"],
+                                                           served[path])
+            print(f"path {path} against (f), same requests, same call: "
+                  f"{tpsk:.2f} tok/s against {tps:.2f}; TTFT p50 "
+                  f"{p50k * 1e3:.3f} ms against {p50 * 1e3:.3f}, p95 "
+                  f"{p95k * 1e3:.3f} ms against {p95 * 1e3:.3f}; KV pool {nbk} B "
+                  f"against {nb} B (bf16), {nbk / nb:.4f}", flush=True)
+        else:  # f32: one staged 32-step chunk over the pool at B = 4 (K11)
+            (outs, stats), record, want = recorded(
+                pagedk, True, lambda: pagedk.generate_batch(prompts, gcfg))
+            if record["chunk"] != [(BATCH, 32)] or not ids_ok(outs, [32] * BATCH):
+                return fail(f"path (l) {kv} paged generate_batch: ran {record}, "
+                            "or ids out of range")
+            expect(f"(l) {kv} paged generate_batch", label, **want)
+            print(f"path (l) {kv} paged generate_batch: {BATCH} x {PROMPT_LEN}"
+                  f"-token prompts, one staged 32-step chunk over the pool: "
+                  f"{stats.decode_s * 1e3 / stats.decode_steps:.4f} ms a staged "
+                  f"B={BATCH} step", flush=True)
+        del engk, pagedk
+
+    mark("path (l)")
+
     # (h) 4-bit weights from a file through the CLI: a full-depth q4 .gten
     # loaded as q4, then as q4g (requantized at load); (i) the chat and
     # batched paths on each of those engines; then the 4-bit kernel rows
@@ -1048,7 +1336,9 @@ def main() -> int:
         """cli.main on the file (with --kv `kv` when given); the engine it
         builds and its generate call are caught by wrapping
         Engine.generate."""
-        policy_name = f"{kind}-kvi8" if kv else kind
+        policy_name = f"{kind}-kv{kv}" if kv else kind
+        policy = (dataclasses.replace(POLICIES[kind], kv_dtype=kv) if kv
+                  else POLICIES[kind])
         seen = []
         real = Engine.generate
 
@@ -1072,7 +1362,7 @@ def main() -> int:
                                  f"{len(seen)} generate calls")
         eng, toks, out, stats = seen[0]
         steps = stats.decode_steps
-        if (len(toks) != n_prompt or eng.policy != POLICIES[policy_name]
+        if (len(toks) != n_prompt or eng.policy != policy
                 or eng.params["lm_head"].kind != kind
                 or not len(out) <= steps <= CLI_NPRED - n_prompt
                 or not all(0 <= t < cfg.n_vocab for t in out)):
@@ -1102,15 +1392,16 @@ def main() -> int:
               f"{step_ms / stats.ms_per_token:.3f} of an eager step", flush=True)
         return eng
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt, vocab = Path(tmp) / "tinyllama.q4.gten", Path(tmp) / "tokenizer.bin"
+    with files:
         t0 = time.perf_counter()
-        gten.write_gten(ckpt, cfg, RandomWeights(cfg, seed=4321), "q4")
-        tokenizer.stand_in_vocab(vocab)
+        out, _ = writer.communicate()
+        if writer.returncode:
+            return fail(f"path (h): writing the files failed ({writer.returncode})")
         print(f"path (h): wrote a {ckpt.stat().st_size / 1e6:.1f} MB q4 .gten "
               f"of TinyLlama-1.1B (random N(0, 0.02) weights, one tensor at a "
-              f"time) and a stand-in tokenizer.bin in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"time) and a stand-in tokenizer.bin in {out.strip()} s, in a "
+              "child process started before the build (waited here "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
         n_prompt = len(tokenizer.Tokenizer(vocab).encode(CLI_PROMPT))
         if not 33 <= n_prompt <= 128:
             return fail(f"path (h): the templated prompt has {n_prompt} tokens")
@@ -1119,9 +1410,19 @@ def main() -> int:
             chat_path(eng4, f"(i) {kind} chat", kind)
             batch_path(eng4, f"(i) {kind} B={BATCH}", kind)
             rows += phase_kernels(eng4, torch, ops, kind)
+            if kind == "q4":
+                # (k) q4a8 on the same q4 weights: (b) and (c)
+                enga = Engine(cfg, POLICIES["q4a8"], eng4.params, max_ctx=2048,
+                              device="cuda")
+                chat_path(enga, "(k) q4a8 chat", "q4a8")
+                batch_path(enga, f"(k) q4a8 B={BATCH}", "q4a8")
+                rows += phase_kernels(enga, torch, ops, "q4", aq8=True)
+                del enga
             del eng4
-        # the CLI's --kv i8 on the same file: q4-kvi8 on the card
+        # the CLI's --kv i8 and --kv f16 on the same file (q4-kvi8,
+        # q4-kvf16)
         cli_path("q4", ckpt, vocab, n_prompt, kv="i8")
+        cli_path("q4", ckpt, vocab, n_prompt, kv="f16")
 
     launch_names = {"K1 qmm_smallm": ["qmm_smallm"], "K2 qmm_bigm": ["qmm_bigm"],
                     "K3 flash_prefill": ["flash_prefill"],
@@ -1134,116 +1435,97 @@ def main() -> int:
                     "K10 flash_paged": ["flash_paged"],
                     "K11 flash_paged_staged": ["flash_paged_staged"]}
     for r in rows:
-        names = launch_names[r["kernel"]]
-        if r["kind"].endswith("kvi8"):
-            names = [n + "_i8" for n in names]
+        names = [counter_name(n, r["kind"]) for n in launch_names[r["kernel"]]]
         r["launches"] = sum(totals[r["kind"]][k] for k in names)
         if not r["launches"]:
             return fail(f"{r['kernel']} ({r['kind']}) was not launched on any "
                         "path")
 
+    mark("paths (h), (i)")
+
     # 5. parity: 2 layers at full width, the same weights on card and CPU
     cfg2 = TINYLLAMA_1_1B.replace(n_layers=2, max_ctx=256)
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(99)
-    p2 = llama.init_quantized_params(cfg2, policy, cpu_gen, "cpu")
-    gpu, cpu = (Engine(cfg2, policy, p2, device=d) for d in ("cuda", "cpu"))
     feed = rng.integers(2, cfg2.n_vocab, 4).tolist()
     chats = [prompt_of(CHAT_LEN) for _ in range(BATCH)]
     worst = 0.0
-    traces = []
-    for eng in (gpu, cpu):
+
+    def parity_trace(eng, tag, b1_steps, short=False, b4=False, staged=(),
+                     paged_b1=False):
+        """Last-token logits of one engine: a long prefill, b1_steps
+        teacher-forced decode steps, then as asked a short (fused) prefill,
+        a B = 4 decode step, staged chunk steps over a monolithic and/or a
+        paged cache, and a paged b1 step."""
         dev = eng.device
+
+        def i32(values):
+            return torch.tensor(values, dtype=torch.int32, device=dev)
+
         cache = eng.new_cache(1)
         logits, _ = eng.prefill(cache, [prompt])
-        trace = [("long prefill", logits)]
-        pos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device=dev)
-        for i, t in enumerate(feed):
-            tok = torch.tensor([t], dtype=torch.int32, device=dev)
-            trace.append((f"b1 decode {i}", eng.decode_step(cache, tok, pos)))
+        trace = [(f"{tag}long prefill", logits)]
+        pos = i32([PROMPT_LEN])
+        for i, t in enumerate(feed[:b1_steps]):
+            trace.append((f"{tag}b1 decode {i}", eng.decode_step(cache, i32([t]),
+                                                                 pos)))
             pos += 1
-        logits, _ = eng.prefill(eng.new_cache(1), [chat])
-        trace.append(("short prefill", logits))
-        cache = eng.new_cache(BATCH)
-        eng.prefill(cache, chats)
-        step_tok = torch.tensor(feed, dtype=torch.int32, device=dev)
-        step_pos = torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev)
-        trace.append((f"B={BATCH} decode", eng.decode_step(cache, step_tok,
-                                                           step_pos)))
-        # staged chunk steps (K9, K11) and a paged b1 step (K10)
-        for kind, cache in (("monolithic", eng.new_cache(BATCH)),
-                            ("paged", eng.new_paged_cache(BATCH))):
-            eng.prefill(cache, chats)
-            st = stage_cache(cache, step_pos, 32)
-            eng.decode_step(st, step_tok, step_pos)
-            trace.append((f"B={BATCH} staged {kind} chunk step 2",
-                          eng.decode_step(st, step_tok + 1, step_pos + 1)))
-        cache = eng.new_paged_cache(1)
-        eng.prefill(cache, [prompt])
-        trace.append(("paged b1 decode", eng.decode_step(
-            cache, step_tok[:1], torch.tensor([PROMPT_LEN], dtype=torch.int32,
-                                              device=dev))))
-        traces.append([(n, t.float().cpu()) for n, t in trace])
-    pairs = list(zip(*traces))
-    # the 4-bit weights: a long (K2) and a short (K5, K3, K6, K7) prefill,
-    # b1 decode steps (K5, K8, K7, K1) and a B = 4 step (K6)
-    for kind in ("q4", "q4g"):
-        policy4 = POLICIES[kind]
-        p4 = llama.init_quantized_params(cfg2, policy4, cpu_gen, "cpu")
-        traces = []
-        for eng in (Engine(cfg2, policy4, p4, device=d) for d in ("cuda", "cpu")):
-            dev = eng.device
-            cache = eng.new_cache(1)
-            logits, _ = eng.prefill(cache, [prompt])
-            trace = [(f"{kind} long prefill", logits)]
-            pos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device=dev)
-            for i, t in enumerate(feed[:2]):
-                tok = torch.tensor([t], dtype=torch.int32, device=dev)
-                trace.append((f"{kind} b1 decode {i}",
-                              eng.decode_step(cache, tok, pos)))
-                pos += 1
-            logits, _ = eng.prefill(eng.new_cache(1), [chat])
-            trace.append((f"{kind} short prefill", logits))
+        if short:
+            trace.append((f"{tag}short prefill",
+                          eng.prefill(eng.new_cache(1), [chat])[0]))
+        step_tok, step_pos = i32(feed), i32([CHAT_LEN] * BATCH)
+        if b4:
             cache = eng.new_cache(BATCH)
             eng.prefill(cache, chats)
-            trace.append((f"{kind} B={BATCH} decode", eng.decode_step(
-                cache, torch.tensor(feed, dtype=torch.int32, device=dev),
-                torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev))))
-            traces.append([(n, t.float().cpu()) for n, t in trace])
-        pairs += list(zip(*traces))
-    # the int8 KV cache (q8-kvi8): a long prefill (K2, K3), b1 steps (K8), a
-    # B = 4 step (K4), staged chunk steps (K9, K11) and a paged b1 step (K10)
-    traces = []
-    for eng in (Engine(cfg2, kvi8, p2, device=d) for d in ("cuda", "cpu")):
-        dev = eng.device
-        cache = eng.new_cache(1)
-        logits, _ = eng.prefill(cache, [prompt])
-        trace = [("i8 long prefill", logits)]
-        pos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device=dev)
-        for i, t in enumerate(feed[:2]):
-            tok = torch.tensor([t], dtype=torch.int32, device=dev)
-            trace.append((f"i8 b1 decode {i}", eng.decode_step(cache, tok, pos)))
-            pos += 1
-        step_tok = torch.tensor(feed, dtype=torch.int32, device=dev)
-        step_pos = torch.full((BATCH,), CHAT_LEN, dtype=torch.int32, device=dev)
-        cache = eng.new_cache(BATCH)
-        eng.prefill(cache, chats)
-        trace.append((f"i8 B={BATCH} decode", eng.decode_step(cache, step_tok,
-                                                              step_pos)))
-        for kind, cache in (("monolithic", eng.new_cache(BATCH)),
-                            ("paged", eng.new_paged_cache(BATCH))):
+            trace.append((f"{tag}B={BATCH} decode", eng.decode_step(
+                cache, step_tok, step_pos)))
+        for kind in staged:
+            cache = (eng.new_cache(BATCH) if kind == "monolithic"
+                     else eng.new_paged_cache(BATCH))
             eng.prefill(cache, chats)
             st = stage_cache(cache, step_pos, 32)
             eng.decode_step(st, step_tok, step_pos)
-            trace.append((f"i8 B={BATCH} staged {kind} chunk step 2",
+            trace.append((f"{tag}B={BATCH} staged {kind} chunk step 2",
                           eng.decode_step(st, step_tok + 1, step_pos + 1)))
-        cache = eng.new_paged_cache(1)
-        eng.prefill(cache, [prompt])
-        trace.append(("i8 paged b1 decode", eng.decode_step(
-            cache, step_tok[:1], torch.tensor([PROMPT_LEN], dtype=torch.int32,
-                                              device=dev))))
-        traces.append([(n, t.float().cpu()) for n, t in trace])
-    pairs += list(zip(*traces))
+        if paged_b1:
+            cache = eng.new_paged_cache(1)
+            eng.prefill(cache, [prompt])
+            trace.append((f"{tag}paged b1 decode", eng.decode_step(
+                cache, step_tok[:1], i32([PROMPT_LEN]))))
+        return [(n, t.float().cpu()) for n, t in trace]
+
+    def parity(pol, params_, *args, **kw):
+        """The pairs (card, CPU) of one policy's traces."""
+        pairs = list(zip(*(parity_trace(Engine(cfg2, pol, params_, device=d),
+                                        *args, **kw) for d in ("cuda", "cpu"))))
+        mark(f"parity {args[0] or 'q8 '}traces")
+        return pairs
+
+    p2 = llama.init_quantized_params(cfg2, policy, cpu_gen, "cpu")
+    # q8: long prefill and 4 decode steps, the short (fused) prefill, B = 4,
+    # staged chunk steps (K9, K11) and a paged b1 step (K10)
+    pairs = parity(policy, p2, "", 4, short=True, b4=True,
+                   staged=("monolithic", "paged"), paged_b1=True)
+    # the 4-bit weights: a long (K2) and a short (K5, K3, K6, K7) prefill,
+    # b1 decode steps (K5, K8, K7, K1) and a B = 4 step (K6)
+    p4 = {}
+    for kind in ("q4", "q4g"):
+        p4[kind] = llama.init_quantized_params(cfg2, POLICIES[kind], cpu_gen, "cpu")
+        pairs += parity(POLICIES[kind], p4[kind], f"{kind} ", 2, short=True,
+                        b4=True)
+    # the int8 KV cache (q8-kvi8): a long prefill (K2, K3), b1 steps (K8), a
+    # B = 4 step (K4), staged chunk steps (K9, K11) and a paged b1 step (K10)
+    pairs += parity(kvi8, p2, "i8 ", 2, b4=True, staged=("monolithic", "paged"),
+                    paged_b1=True)
+    # aq8 (q8a8, q4a8): a long prefill (K2, K3, the lm_head's K1-aq8), b1
+    # steps (K1-aq8, K4) and a B = 4 step (K1-aq8 at M = 4)
+    pairs += parity(POLICIES["q8a8"], p2, "q8a8 ", 2, b4=True)
+    pairs += parity(POLICIES["q4a8"], p4["q4"], "q4a8 ", 2, b4=True)
+    # f16 and f32 caches: a long prefill (K3), b1 steps (K8) and a staged
+    # paged chunk step (K11)
+    for kv in ("f16", "f32"):
+        pairs += parity(dataclasses.replace(policy, kv_dtype=kv), p2, f"{kv} ",
+                        2, staged=("paged",))
     for (name, a), (_, b) in pairs:
         if not (torch.isfinite(a).all() and a.shape[-1] == cfg2.n_vocab):
             return fail(f"parity {name}: logits not finite or misshapen")
@@ -1268,5 +1550,23 @@ def main() -> int:
     return 0
 
 
+def write_checkpoint(ckpt: str, vocab: str) -> int:
+    """The child process of path (h): a full-depth q4 .gten of TinyLlama
+    with random N(0, 0.02) weights (one tensor at a time) at `ckpt`, and a
+    stand-in tokenizer.bin at `vocab`; prints its seconds."""
+    sys.path.insert(0, str(ROOT))
+    from tinyllama_tpu_torch.config import TINYLLAMA_1_1B
+    from tinyllama_tpu_torch.io import gten, tokenizer
+
+    t0 = time.perf_counter()
+    gten.write_gten(ckpt, TINYLLAMA_1_1B, RandomWeights(TINYLLAMA_1_1B, seed=4321),
+                    "q4")
+    tokenizer.stand_in_vocab(vocab)
+    print(f"{time.perf_counter() - t0:.1f}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--write-checkpoint"]:
+        sys.exit(write_checkpoint(*sys.argv[2:4]))
     sys.exit(main())

@@ -18,7 +18,12 @@ query heads per kv head, staged tail fills 1 to C, a CUDA-graph replay,
 and the engine's staged and paged chunks against the plain path; the
 int8 KV cache's kernels (K3 at T 16 to 512, K4 and K8 at pos 0 to 1500,
 K9-K11 at the same bases and batches, at TinyLlama's heads), their graph
-replay, refusals and an int8 engine against the plain path.
+replay, refusals and an int8 engine against the plain path; K1's aq8
+branch (q8 and q4, M 1 to 8, every TinyLlama weight shape, bf16 and f32
+out) and the f16 and f32 instantiations of K3, K4, K8-K11 at the int8
+cases' shapes, their graph replay, refusals (q4g with aq8, planes of two
+dtypes, scales beside an f16 cache), and aq8, f16-KV and f32-KV engines
+against the plain path.
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -26,6 +31,8 @@ version on the same card and inputs.
 The rest run anywhere: the wrappers' input checks (run before any
 launch), and the builder's hashing and its refusal without nvcc.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -436,20 +443,20 @@ def test_engine_chunk_on_the_card_matches_cpu(card, paged):
 TINYLLAMA_SHAPES = {"wqkv": (2048, 2560), "wo": (2048, 2048),
                     "w_gateup": (2048, 11264), "w_down": (5632, 2048),
                     "lm_head": (2048, 32768)}
-_weights4: dict = {}
+_tl_weights: dict = {}
 
 
-def _weight4(kind, name, device):
-    """A TinyLlama-shaped 4-bit kn weight made and quantized on the card
+def _tl_weight(kind, name, device):
+    """A TinyLlama-shaped kn weight of `kind` made and quantized on the card
     (2 layers; the lm_head unstacked), kept for the module's tests."""
     key = (kind, name)
-    if key not in _weights4:
+    if key not in _tl_weights:
         K, N = TINYLLAMA_SHAPES[name]
-        g = torch.Generator(device).manual_seed(len(_weights4))
+        g = torch.Generator(device).manual_seed(len(_tl_weights))
         shape = (N, K) if name == "lm_head" else (2, N, K)
-        _weights4[key] = quantize(torch.randn(shape, generator=g, device=device)
+        _tl_weights[key] = quantize(torch.randn(shape, generator=g, device=device)
                                   * 0.02, kind, "kn")
-    return _weights4[key]
+    return _tl_weights[key]
 
 
 @pytest.mark.cuda
@@ -459,7 +466,7 @@ def _weight4(kind, name, device):
 def test_qmatmul_4bit_kernels_match_plain(card, kind, M, name):
     """K1 (M <= 8) and K2 (M = 16, 32) with q4 and q4g weights at every
     TinyLlama weight shape; f32 out for the lm_head, bf16 otherwise."""
-    w = _weight4(kind, name, card)
+    w = _tl_weight(kind, name, card)
     K = TINYLLAMA_SHAPES[name][0]
     layer = None if name == "lm_head" else _i32([1], card)
     out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
@@ -478,7 +485,7 @@ def _fused4_inputs(kind, M, device, seed=0):
     x = torch.randn(M, 1, 2048, generator=g).to(device, torch.bfloat16)
     a = torch.randn(M, 1, 2048, generator=g).to(device, torch.bfloat16)
     nw = (torch.rand(2, 2048, generator=g) + 0.5).to(device)
-    ws = {n: _weight4(kind, n, device) for n in ("wqkv", "wo", "w_gateup",
+    ws = {n: _tl_weight(kind, n, device) for n in ("wqkv", "wo", "w_gateup",
                                                  "w_down")}
     return x, a, nw, ws, cfg
 
@@ -524,7 +531,7 @@ def _attn_out4_inputs(kind, device, pos, seed=0):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(1, 1, 32, 64, generator=g).to(device, torch.bfloat16)
     res = torch.randn(1, 1, 2048, generator=g).to(device, torch.bfloat16)
-    return q, cache, res, _weight4(kind, "wo", device)
+    return q, cache, res, _tl_weight(kind, "wo", device)
 
 
 @pytest.mark.cuda
@@ -584,7 +591,7 @@ def test_4bit_wrappers_refuse_on_the_card(card):
         decode_fused.fused_norm_qkv(x, nw, QTensor(w.data, w.scales[:, ::4],
                                                    "q4", "kn"), layer, 1e-6, False)
     with pytest.raises(ValueError, match="one kind"):
-        ffn_fused.ffn_fused(a, ws["w_gateup"], _weight4("q4g", "w_down", card),
+        ffn_fused.ffn_fused(a, ws["w_gateup"], _tl_weight("q4g", "w_down", card),
                             layer, cfg)
     with pytest.raises(ValueError, match="K=2048"):
         attn_out_fused.fused_attn_out(
@@ -801,6 +808,218 @@ def test_engine_i8_on_the_card_matches_cpu(card, paged):
         for rows in (prompts, prompts[:1]):
             cache = eng.new_cache(len(rows))
             assert cache.quantized
+            logits, lens = eng.prefill(cache, rows)
+            trace.append(logits.float().cpu())
+            pos = torch.from_numpy(lens.astype(np.int32)).to(eng.device)
+            _, _, logits, _ = eng.chunk(cache, logits, pos, 5, gen)
+            trace.append(logits.float().cpu())
+        traces.append(trace)
+    for a, b in zip(*traces):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
+
+
+# --- aq8 activations on the card (q8a8, q4a8) --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(TINYLLAMA_SHAPES))
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("kind", ["q8", "q4"])
+def test_qmatmul_aq8_kernel_matches_plain(card, kind, M, name, out_dtype):
+    """K1's aq8 branch (x quantized to int8 per 32-block in the kernel,
+    int32 block dots) at every TinyLlama weight shape, layer-stacked but
+    the lm_head, against its plain version, which takes the same integer
+    dots in f64."""
+    w = _tl_weight(kind, name, card)
+    K = TINYLLAMA_SHAPES[name][0]
+    layer = None if name == "lm_head" else _i32([1], card)
+    x = torch.randn(M, K, device=card).to(torch.bfloat16)
+    got = _counted(qmatmul, "qmm_smallm_aq8",
+                   lambda: qmatmul.qmatmul(x, w, out_dtype, layer, aq8=True))
+    want = qmatmul.qmatmul_ref(x, w, out_dtype, layer, aq8=True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_aq8_refusals_on_the_card(card):
+    """q4g has no aq8 branch; above M = 8 aq8 is ignored and K2 runs."""
+    x = torch.randn(2, 2048, device=card).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="q4g"):
+        qmatmul.qmatmul(x, _tl_weight("q4g", "wo", card), layer=_i32([0], card),
+                        aq8=True)
+    x16 = torch.randn(16, 2048, device=card).to(torch.bfloat16)
+    w = _tl_weight("q8", "wo", card)
+    got = _counted(qmatmul, "qmm_bigm",
+                   lambda: qmatmul.qmatmul(x16, w, layer=_i32([0], card), aq8=True))
+    torch.testing.assert_close(got, qmatmul.qmatmul(x16, w, layer=_i32([0], card)),
+                               rtol=0, atol=0)
+
+
+# --- f16 and f32 KV caches on the card ----------------------------------------------
+
+
+def _float_kv(cache, kv):
+    """A bf16 KVCache or PagedKVCache with its values in f16 or f32."""
+    dt = {"f16": torch.float16, "f32": torch.float32}[kv]
+    if isinstance(cache, PagedKVCache):
+        return PagedKVCache(cache.k.to(dt), cache.v.to(dt), cache.table)
+    return KVCache(cache.k.to(dt), cache.v.to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f16", "f32"])
+@pytest.mark.parametrize("T,pos", [(16, 0), (128, 0), (512, 0), (1, 0),
+                                   (1, 127), (1, 1500)])
+def test_attention_kv16_kernels_match_plain(card, T, pos, kv):
+    """K3 and K4 over an f16 or f32 cache at TinyLlama's heads and max_ctx
+    2048, the values rounded to bf16 as a tile is staged."""
+    rows = [pos] if T > 1 else [pos, pos // 2]
+    cache = _float_kv(_cache(len(rows), 4, 2048, [p + T for p in rows],
+                             seed=T + pos, device=card), kv)
+    q = torch.randn(len(rows), T, 32, 64, device=card).to(torch.bfloat16)
+    layer, p = _i32([1], card), _i32(rows, card)
+    fn, name = ((flash_attention.flash_decode_heads_attention, "flash_decode_heads")
+                if T == 1 else (flash_attention.flash_prefill_attention,
+                                "flash_prefill"))
+    got = _counted(flash_attention, f"{name}_{kv}", lambda: fn(q, cache, layer, p))
+    want = flash_attention.attention_ref(q, cache, layer, p)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _attn_out_kv_inputs(device, pos, kv, seed=0):
+    """K8's operands at TinyLlama's widths over an f16 or f32 cache, q8 wo."""
+    q, cache, res, wo = _attn_out_i8_inputs(device, pos, seed)
+    return q, _float_kv(_cache(1, 4, 2048, [pos + 1], seed=seed, device=device),
+                        kv), res, wo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f16", "f32"])
+@pytest.mark.parametrize("pos", [0, 127, 1500])
+def test_fused_attn_out_kv16_matches_plain(card, pos, kv):
+    q, cache, res, wo = _attn_out_kv_inputs(card, pos, kv, seed=pos)
+    layer, p = _i32([1], card), _i32([pos], card)
+    got = _counted(attn_out_fused, f"fused_attn_out_{kv}",
+                   lambda: attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
+    want = attn_out_fused.fused_attn_out_ref(q, cache, layer, p, res, wo)
+    torch.cuda.synchronize()
+    assert got.shape == res.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _serving_kv_inputs(B, base, seed, device, kv):
+    """_serving_inputs at TinyLlama's heads, every plane in f16 or f32."""
+    q, pos, pool, st_dense, st_paged = _serving_inputs(B, 8, base, seed, device,
+                                                       Kh=4)
+    pool, dense = _float_kv(pool, kv), _float_kv(st_dense.pool, kv)
+    tail = _float_kv(KVCache(st_dense.sk, st_dense.sv), kv)
+    sk, sv = tail.k, tail.v
+    return (q, pos, pool, StagedKVCache(dense, sk, sv, st_dense.base),
+            StagedKVCache(pool, sk, sv, st_paged.base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f16", "f32"])
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("base", [0, SERVE_P - 1, SERVE_P, 1500])
+def test_serving_attention_kv16_kernels_match_plain(card, base, B, kv):
+    """K9 and K11 over an f16 or f32 pool and tail, K10 at pos = base."""
+    q, pos, pool, st_dense, st_paged = _serving_kv_inputs(B, base, base + B, card,
+                                                          kv)
+    layer = _i32([1], card)
+    cases = [
+        (f"flash_staged_{kv}", flash_attention,
+         lambda: flash_attention.flash_staged_attention(q, st_dense, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_dense, layer, pos)),
+        (f"flash_paged_staged_{kv}", flash_paged,
+         lambda: flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_paged, layer, pos)),
+        (f"flash_paged_{kv}", flash_paged,
+         lambda: flash_paged.flash_paged_attention(q, pool, layer, st_paged.base),
+         lambda: flash_paged.paged_attention_ref(q, pool, layer, st_paged.base)),
+    ]
+    for name, mod, kernel, plain in cases:
+        got = _counted(mod, name, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+@pytest.mark.cuda
+def test_aq8_and_kv16_kernels_replay_in_a_graph(card):
+    """K1-aq8 (q8 and q4, M = 1 and 4), K8 over an f16 cache and K11 over
+    an f32 pool captured in one CUDA graph and replayed 3 times give the
+    eager result every time."""
+    xs = [torch.randn(M, 2048, device=card).to(torch.bfloat16) for M in (1, 4)]
+    ws = [_tl_weight(kind, "wqkv", card) for kind in ("q8", "q4")]
+    q8_, cache8, res8, wo8 = _attn_out_kv_inputs(card, 700, "f16", seed=3)
+    q, pos, _, _, st_paged = _serving_kv_inputs(32, 700, 11, card, "f32")
+    layer, p8 = _i32([1], card), _i32([700], card)
+
+    def run():
+        outs = [qmatmul.qmatmul(x, w, layer=layer, aq8=True) for x in xs for w in ws]
+        return outs + [
+            attn_out_fused.fused_attn_out(q8_, cache8, layer, p8, res8, wo8),
+            flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos)]
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+def test_kv16_wrappers_refuse_on_the_card(card):
+    """Planes of two dtypes, and scales beside an f16 cache, are refused
+    before a launch."""
+    q, cache, res, wo = _attn_out_kv_inputs(card, 5, "f16")
+    layer, p = _i32([0], card), _i32([5], card)
+    scale = torch.ones(cache.k.shape[:-1], device=card)
+    bad = {"two dtypes": KVCache(cache.k, cache.v.float()),
+           "scales with f16": KVCache(cache.k, cache.v, scale, scale)}
+    for name, c in bad.items():
+        with pytest.raises(TypeError):
+            flash_attention.flash_decode_heads_attention(q, c, layer, p)
+        with pytest.raises(TypeError):
+            attn_out_fused.fused_attn_out(q, c, layer, p, res, wo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["q8a8", "q4a8", "q8-kvf16", "q8-kvf32"])
+def test_engine_aq8_and_kv16_on_the_card_matches_cpu(card, policy):
+    """A small model with aq8 activations, or an f16 or f32 cache, through
+    the kernels and the plain path: a long prefill (K2), a staged B = 3
+    chunk and a B = 1 chunk; the logits agree to 5% of their largest
+    magnitude."""
+    cfg = tiny_test_config(n_embd=256, n_heads=4, n_kv_heads=1, n_ffn=512,
+                           max_ctx=256)
+    kv = policy.split("kv")[-1] if "kv" in policy else None
+    pol = (POLICIES[policy] if kv is None else
+           dataclasses.replace(POLICIES["q8"], kv_dtype=kv))
+    params = llama.init_quantized_params(cfg, pol, torch.Generator().manual_seed(0))
+    gen = GenerationConfig(greedy=True, eos_token=-1)
+    prompts = [[1, 5, 9, 33, 70, 2, 8], [1, 4], [1] + list(range(2, 60))]
+    traces = []
+    for device in (card, "cpu"):
+        eng = Engine(cfg, pol, params, device=device)
+        trace = []
+        for rows in (prompts, prompts[:1]):
+            cache = eng.new_cache(len(rows))
             logits, lens = eng.prefill(cache, rows)
             trace.append(logits.float().cpu())
             pos = torch.from_numpy(lens.astype(np.int32)).to(eng.device)

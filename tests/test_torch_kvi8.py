@@ -364,8 +364,9 @@ def test_serving_attention_i8_matches_pallas(kernel, dtype, rows, G, pos):
 def test_wrappers_take_int8_on_cpu_and_refuse_bad_scales(monkeypatch):
     """An int8 cache on the CPU takes the plain versions (no build, no
     launch count); the kernels' input checks refuse int8 data without
-    scales, scales beside bf16 data, and scales of the wrong shape or
-    dtype, before any launch."""
+    scales, scales beside bf16 or f32 data, scales of the wrong shape or
+    dtype, planes of two dtypes and a dtype no kernel takes, before any
+    launch."""
     from tinyllama_tpu_torch.ops.kernels import build
 
     monkeypatch.setattr(build, "load", lambda name: pytest.fail(f"built {name}"))
@@ -385,14 +386,21 @@ def test_wrappers_take_int8_on_cpu_and_refuse_bad_scales(monkeypatch):
         "f16 scales": ([k, v], [pc.k_scale.half(), pc.v_scale], TypeError, "f32"),
         "scale shape": ([k, v], [pc.k_scale[..., :64], pc.v_scale], ValueError,
                         "contiguous"),
-        "f32 data": ([k.float(), v.float()], [None, None], TypeError,
-                     "bf16, or int8"),
+        "f32 data with scales": ([k.float(), v.float()],
+                                 [pc.k_scale, pc.v_scale], TypeError,
+                                 "no scales"),
+        "two dtypes": ([k.float(), v.half()], [None, None], TypeError,
+                       "one dtype"),
+        "f64 data": ([k.double(), v.double()], [None, None], TypeError,
+                     "bf16, f16, f32, or int8"),
     }
     for name, (data, scales, exc, match) in bad.items():
         with pytest.raises(exc, match=match):
             flash_paged.kv_kind(data, scales)
     assert flash_paged.kv_kind([k, v], [pc.k_scale, pc.v_scale]) == 1
     assert flash_paged.kv_kind([bf, bf], [None, None]) == 0
+    assert flash_paged.kv_kind([k.half(), v.half()], [None, None]) == 2
+    assert flash_paged.kv_kind([k.float(), v.float()], [None, None]) == 3
 
 
 # --- the model, the engine and the batcher --------------------------------------

@@ -212,8 +212,9 @@ def test_greedy_4bit_matches_jax_pallas(kind, width, mode):
 
 #: the plain version behind each kernel; a test spy counts their calls.
 SPIED = [
-    ("qmatmul", "qmatmul_ref", lambda x, *a, **k: "K1" if x.reshape(
-        -1, x.shape[-1]).shape[0] <= 8 else "K2"),
+    ("qmatmul", "qmatmul_ref", lambda x, *a, aq8=False, **k: (
+        ("K1 aq8" if aq8 else "K1") if x.reshape(-1, x.shape[-1]).shape[0] <= 8
+        else "K2")),
     ("flash_attention", "attention_ref",
      lambda q, *a, **k: "K4" if q.shape[1] == 1 else "K3"),
     ("decode_fused", "fused_norm_qkv_ref", lambda *a, **k: "K5"),
@@ -249,8 +250,27 @@ def test_branch_choice_counts(both_params, kernel_calls):
     """Exact kernel counts of each path at L = 2: a 16-bucket prefill is
     fused (K5, K3, K6, K7), a longer one is not (K2, K3); a b1 decode
     step runs K5, K8, K7 and no K4 or K6; a 2-row step K5, K4, K6, K7;
-    the lm_head is one K1 each time."""
+    the lm_head is one K1 each time. With aq8 (q8a8) no block is fused
+    and none reaches K7 (the JAX rule): every linear and the lm_head go
+    through qmatmul with aq8, K1's aq8 branch at M <= 8, K2 above."""
     _assert_branch_counts(both_params[1], POL, kernel_calls)
+    L = CFG.n_layers
+    eng = Engine(CFG, pconfig.DtypePolicy("q8", "f32", "f32", aq8=True),
+                 both_params[1], device="cpu")
+    cache = eng.new_cache(1)
+    kernel_calls.clear()
+    eng.prefill(cache, [[1, 5, 9, 33, 70]])
+    assert dict(kernel_calls) == {"K2": 4 * L, "K3": L, "K1 aq8": 1}
+    kernel_calls.clear()
+    eng.decode_step(cache, torch.tensor([7], dtype=torch.int32),
+                    torch.tensor([5], dtype=torch.int32))
+    assert dict(kernel_calls) == {"K1 aq8": 4 * L + 1, "K4": L}
+    cache2 = eng.new_cache(2)
+    eng.prefill(cache2, [[1, 2, 3], [4, 5, 6, 7]])
+    kernel_calls.clear()
+    eng.decode_step(cache2, torch.tensor([8, 9], dtype=torch.int32),
+                    torch.tensor([3, 4], dtype=torch.int32))
+    assert dict(kernel_calls) == {"K1 aq8": 4 * L + 1, "K4": L}
 
 
 def test_branch_choice_counts_i8(both_params, kernel_calls):

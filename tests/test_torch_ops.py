@@ -99,8 +99,9 @@ def test_q8_round_half_to_even():
 
 
 def test_unported_quant_kinds_raise():
-    """Every quantized kind is ported; an unknown kind raises, and so do
-    aq8 activations and dense weights, which are not ported yet."""
+    """Every quantized kind is ported, and aq8 activations with q8 and q4
+    weights (q8a8, q4a8); an unknown kind raises, and so do dense weights,
+    which are not ported yet, and q4g with aq8, which has no aq8 branch."""
     from tinyllama_tpu_torch.models import llama
 
     with pytest.raises(ValueError, match="unknown quant kind"):
@@ -108,10 +109,17 @@ def test_unported_quant_kinds_raise():
     with pytest.raises(ValueError, match="unknown quant kind"):
         codec.block_size("q5")
     cfg = pconfig.tiny_test_config()
-    for name in ("q8a8", "q4a8", "bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            llama.init_quantized_params(cfg, pconfig.POLICIES[name],
-                                        torch.Generator())
+    for name in ("q8a8", "q4a8"):
+        params = llama.init_quantized_params(cfg, pconfig.POLICIES[name],
+                                             torch.Generator())
+        assert params["lm_head"].kind == pconfig.POLICIES[name].wdtype
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        llama.init_quantized_params(cfg, pconfig.POLICIES["bf16"],
+                                    torch.Generator())
+    with pytest.raises(ValueError, match="q4g"):
+        llama.init_quantized_params(
+            cfg, pconfig.DtypePolicy("q4g", "bf16", "bf16", aq8=True),
+            torch.Generator())
 
 
 def test_params_from_numpy_bit_equal():

@@ -14,14 +14,17 @@ in the working directory, when there is one). Without ``-p`` the CLI is a
 chat REPL. Generated text streams to stderr; a greedy run prints the
 performance table to stdout.
 
-``--random-weights`` makes the weights from ``--seed`` instead of loading
-them; without a tokenizer the prompt then becomes token ids (BOS, then
-each character's code modulo the vocab) and the output prints as ids.
-Runs on the card unless ``--device cpu`` is given. ``--paged`` keeps the
-KV cache in a page pool (decode attention K10). ``--kv`` sets the KV
-cache's dtype (default the policy's, bf16): ``--kv i8`` stores int8 with
-one f32 scale a (head, position), about half the bytes; on the card the
-kernels take bf16 or i8, and f32 / f16 raise.
+``--random-weights`` makes the weights from a fixed seed (0) instead of
+loading them; without a tokenizer the prompt then becomes token ids
+(BOS, then each character's code modulo the vocab) and the output prints
+as ids. ``--seed`` seeds top-k sampling only; without it the seed is
+time-based, as in the reference. Runs on the card unless ``--device
+cpu`` is given. ``--paged`` keeps the KV cache in a page pool (decode
+attention K10). ``--kv`` sets the KV cache's dtype (default the
+policy's, bf16): ``--kv i8`` stores int8 with one f32 scale a (head,
+position), about half the bytes; ``f16`` and ``f32`` store the values
+in that type. The performance table's load time covers reading (or
+making) the weights, not building the engine.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.runtime.engine import Engine, resolve_device
 from tinyllama_tpu_torch.runtime.perf import perf_report
 
+#: the seed of --random-weights, whatever --seed is (sampling's seed)
+WEIGHTS_SEED = 0
 #: suffixes of a HuggingFace checkpoint file (a directory is one too)
 HF_SUFFIXES = (".safetensors", ".bin", ".pt")
 
@@ -88,10 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tokenizer.bin or tokenizer.json "
                         "(default: ./tokenizer.bin)")
     p.add_argument("--random-weights", action="store_true",
-                   help="random weights made from --seed (no checkpoint)")
+                   help="random weights from a fixed seed (no checkpoint)")
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="run device. [default=cuda]")
-    p.add_argument("--seed", type=int, default=0, help="weights and sampling seed")
+    p.add_argument("--seed", type=int, default=None,
+                   help="sampling seed (default: time-based)")
     p.add_argument("--no-perf", action="store_true",
                    help="suppress the performance table")
     return p
@@ -119,7 +125,7 @@ def load_params(args, cfg, device):
     if args.random_weights:
         policy = POLICIES[args.dtype or "q8"]
         generator = torch.Generator(device)
-        generator.manual_seed(args.seed)
+        generator.manual_seed(WEIGHTS_SEED)
         return llama.init_quantized_params(cfg, policy, generator, device), policy
     ckpt = Path(args.ckpt)
     if ckpt.is_dir() or ckpt.suffix in HF_SUFFIXES:
@@ -141,11 +147,11 @@ def main(argv=None) -> int:
 
     load_t0 = time.perf_counter()
     params, policy = load_params(args, cfg, device)
+    load_s = time.perf_counter() - load_t0
     if args.kv:
         policy = dataclasses.replace(policy, kv_dtype=args.kv)
     engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device,
                     paged=args.paged)
-    load_s = time.perf_counter() - load_t0
 
     tok_path = args.tokenizer or ("tokenizer.bin" if Path("tokenizer.bin").exists()
                                   else None)
@@ -155,7 +161,8 @@ def main(argv=None) -> int:
 
     gen = GenerationConfig(
         n_predict=args.npred, temperature=args.temp, top_k=args.topk,
-        greedy=args.greedy, seed=args.seed, chunk_size=args.chunk,
+        greedy=args.greedy, chunk_size=args.chunk,
+        seed=args.seed if args.seed is not None else time.time_ns() % 2**31,
         eos_token=tokenizer.eos if tokenizer else -1,
     )
 

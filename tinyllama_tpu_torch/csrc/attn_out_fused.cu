@@ -2,8 +2,8 @@
 // Hopper (sm_90a), one launch:
 //   out = residual + attention(q, cache layer, keys 0..pos) @ dequant(wo)
 // q [H, 64] bf16 of the one new token; the stacked cache [L, 1, Kh, S,
-// 64], bf16 or int8 with f32 scales [L, 1, Kh, S] (kvkind.cuh), with the
-// token's k/v already written; wo the
+// 64], bf16, f16, f32, or int8 with f32 scales [L, 1, Kh, S]
+// (kvkind.cuh), with the token's k/v already written; wo the
 // layer-stacked "kn" weight [L, H*64, N] (q8, or q4 / q4g as [L, H*32, N]
 // nibble data; qkind.cuh); the layer index and pos read from device
 // memory.
@@ -11,8 +11,9 @@
 // K8 replaces the kernel of _run_attn_out in
 //   tinyllama_tpu/ops/pallas/attn_out_fused.py. Bound: the bytes of wo
 //   (4.46 MB at TinyLlama's 2048 x 2048 in q8, 2.36 MB in q4) plus the
-//   visible keys and values, 1,024 * (pos + 1) bytes in bf16 or 544 *
-//   (pos + 1) in int8 with its scales, over the memory rate. Design: the TPU
+//   visible keys and values, 1,024 * (pos + 1) bytes in bf16 and f16,
+//   2,048 * (pos + 1) in f32 or 544 * (pos + 1) in int8 with its scales,
+//   over the memory rate. Design: the TPU
 //   kernel walks one sequential grid, the attention's online softmax into
 //   VMEM scratch first, then wo's tiles against that scratch. On Hopper
 //   the attention runs once per launch, not once per wo strip, and is
@@ -193,8 +194,8 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
 
 extern "C" {
 
-// q: [H, 64] bf16; k, v: [L, 1, Kh, S, 64] of kv_kind (0 bf16, 1 int8);
-// ks, vs: [L, 1, Kh, S] f32 scales (int8; null for bf16); layer, pos: [1]
+// q: [H, 64] bf16; k, v: [L, 1, Kh, S, 64] of kv_kind (0 bf16, 1 int8,
+// 2 f16, 3 f32); ks, vs: [L, 1, Kh, S] f32 scales (int8; else null); layer, pos: [1]
 // int32; kind: 0 q8, 1 q4, 2 q4g; w, s: [L, H*64, N] int8 (or [L, H*32, N] uint8)
 // and [L, H*64/32 (or /128), N] fp16; res, out: [N] bf16; part:
 // [H * S/64 * 66] f32 and attn: [H * 64] f32 workspaces. Requires

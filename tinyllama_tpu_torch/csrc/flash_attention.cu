@@ -1,6 +1,7 @@
 // Causal grouped-query attention over the stacked KV cache for Hopper
-// (sm_90a), bf16 queries, a bf16 or int8 cache (kvkind.cuh: int8 with f32
-// scales [L, B, Kh, S]), f32 softmax and accumulation.
+// (sm_90a), bf16 queries, a bf16, f16, f32 or int8 cache (kvkind.cuh:
+// int8 with f32 scales [L, B, Kh, S]; f16 and f32 rounded to bf16 as a
+// tile is staged), f32 softmax and accumulation.
 //
 // The cache is [L, B, Kh, S, d] with the new tokens' k/v already written;
 // the layer and the positions are read from device memory, so no layer
@@ -370,8 +371,8 @@ int launch_decode(const void* q, const void* k, const void* v, const void* ks,
 extern "C" {
 
 // q, out: [B, T, H, d] bf16; k, v: [L, B, Kh, S, d] of the KV kind
-// (kvkind.cuh: 0 bf16, 1 int8); ks, vs: [L, B, Kh, S] f32 scales (int8;
-// null for bf16); layer: [1]; pos: [B]. Requires d == 64, H % Kh == 0
+// (kvkind.cuh: 0 bf16, 1 int8, 2 f16, 3 f32); ks, vs: [L, B, Kh, S] f32
+// scales (int8; null for the others); layer: [1]; pos: [B]. Requires d == 64, H % Kh == 0
 // and S % 64 == 0; pos[b] + T <= S.
 int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* layer, const void* pos, void* out,

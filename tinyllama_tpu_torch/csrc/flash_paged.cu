@@ -1,6 +1,6 @@
 // Single-token grouped-query attention of the serving path for Hopper
-// (sm_90a): bf16 queries, bf16 or int8 keys and values (kvkind.cuh), f32
-// softmax and accumulation.
+// (sm_90a): bf16 queries, bf16, f16, f32 or int8 keys and values
+// (kvkind.cuh), f32 softmax and accumulation.
 //
 // One kernel body walks a row's keys from one of two sources, then, in a
 // staged decode chunk, the chunk's staged tail:
@@ -50,9 +50,9 @@ constexpr int D = 64;         // head dim
 constexpr int BS = 64;        // keys per tile
 constexpr int K_LD = D + 2;   // padded K rows: 33 words, a bank per key
 
-// KV: bf16 or int8_t. Every scale plane is its data plane's shape less D
-// (f32; int8 only, else null), so a tile's scales sit at its data offset
-// over D.
+// KV: bf16, int8_t, __half or float. Every scale plane is its data
+// plane's shape less D (f32; int8 only, else null), so a tile's scales sit
+// at its data offset over D.
 template <class KV>
 struct Args {
   const bf16* q;      // [B, 1, H, D]
@@ -263,8 +263,8 @@ int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int S,
 
 extern "C" {
 
-// kv_kind (kvkind.cuh): 0 bf16 planes, null scales; 1 int8 planes with f32
-// scale planes of their shape less d.
+// kv_kind (kvkind.cuh): 0 bf16, 2 f16 or 3 f32 planes, null scales; 1 int8
+// planes with f32 scale planes of their shape less d.
 
 // K9. q, out: [B, 1, H, d] bf16; k, v: [L, B, Kh, S, d]; sk, sv: [L, B,
 // Kh, Cs, d]; ks, vs, sks, svs: their scales; layer [1]; pos, base [B].

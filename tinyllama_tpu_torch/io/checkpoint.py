@@ -35,7 +35,7 @@ import torch
 
 from tinyllama_tpu_torch.config import DtypePolicy, ModelConfig, POLICIES
 from tinyllama_tpu_torch.io import gten
-from tinyllama_tpu_torch.models.llama import Params, require_weight_only
+from tinyllama_tpu_torch.models.llama import Params, require_quantized
 from tinyllama_tpu_torch.quant.codec import (
     QTensor,
     dequantize,
@@ -73,7 +73,7 @@ def load_gten_checkpoint(path: str | Path, cfg: ModelConfig,
             canon is not None and not policy.is_quantized):
         raise ValueError(
             f"file dtype {file_dtype} incompatible with policy {policy.wdtype}")
-    require_weight_only(policy)
+    require_quantized(policy)
     kind = policy.wdtype
 
     def decode(key):
@@ -180,7 +180,7 @@ def load_hf_checkpoint(path: str | Path, cfg: ModelConfig, policy: DtypePolicy,
     """Load a HuggingFace Llama-family checkpoint into the port's
     parameters on `device`, quantized per the policy. A tied lm_head
     (cfg.tie_lm_head, or no lm_head.weight) is the embedding table."""
-    require_weight_only(policy)
+    require_quantized(policy)
     sd = load_hf_state_dict(Path(path))
 
     def f32(name) -> torch.Tensor:

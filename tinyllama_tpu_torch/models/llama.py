@@ -32,9 +32,12 @@ writes quantize, and each attention kernel runs its int8 instantiation.
 
 Norm weights reach the fused kernels as the stacked [L, D] table with
 the device layer index. The lm_head (K1) runs outside ``forward``, on the
-rows the caller picks. Weights are q8, q4 or q4g (weight-only: every
-kernel takes each kind); dense weights and aq8 activations come later
-(ROADMAP.md).
+rows the caller picks. Weights are q8, q4 or q4g (every kernel takes each
+kind); dense weights come later (ROADMAP.md). With aq8 activations (the
+q8a8 and q4a8 policies; q8 and q4 weights) every block takes the
+unfused branch, as the JAX rule dictates: each ``linear`` and the
+lm_head run K1's int8-activation branch at M <= 8 (K2 as it is above),
+and the FFN is two ``linear`` calls, never ``ffn_fused``.
 """
 
 from __future__ import annotations
@@ -104,14 +107,16 @@ def act_dtype(policy: DtypePolicy) -> torch.dtype:
     return ACT_DTYPES[policy.adtype]
 
 
-def require_weight_only(policy: DtypePolicy) -> None:
-    """The port runs quantized weights (q8, q4, q4g) with activations in
-    their own dtype; dense weights and aq8 are not ported yet."""
-    if not policy.is_quantized or policy.aq8:
+def require_quantized(policy: DtypePolicy) -> None:
+    """The port runs quantized weights (q8, q4, q4g), with aq8
+    activations for q8 and q4; dense weights are not ported yet, and q4g
+    has no aq8 branch (the JAX kernel asserts so)."""
+    if not policy.is_quantized:
         raise NotImplementedError(
-            f"weights {policy.wdtype!r} (aq8={policy.aq8}) are not ported "
-            "yet: the port runs q8, q4 and q4g weight-only (ROADMAP.md, "
-            "Queue 1)")
+            f"weights {policy.wdtype!r} are not ported yet: the port runs "
+            "q8, q4 and q4g (ROADMAP.md, Queue 1)")
+    if policy.aq8 and policy.wdtype == "q4g":
+        raise ValueError("q4g has no aq8 variant")
 
 
 # ----------------------------------------------------------------------------
@@ -126,7 +131,7 @@ def init_quantized_params(cfg: ModelConfig, policy: DtypePolicy,
     quantization) built on `device` one f32 tensor at a time, so the peak
     extra memory is one layer's tensor plus the quantized layers and the
     embedding tables. `generator` lives on `device`."""
-    require_weight_only(policy)
+    require_quantized(policy)
     kind = policy.wdtype
 
     def rand(shape):
@@ -152,7 +157,7 @@ def convert_params(dense: Params, policy: DtypePolicy) -> Params:
     """Block-quantize dense f32 params ([L, d_out, d_in] per layer linear)
     into the policy's kind. Norm weights stay f32; the embedding table is
     "nk", every matmul weight "kn"."""
-    require_weight_only(policy)
+    require_quantized(policy)
 
     def conv(name: str, w: torch.Tensor):
         if name.endswith("norm"):
@@ -232,23 +237,23 @@ def _attend_paged_prefill(q, k, v, layer0, pos, from_zero, quantized):
 def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
            li: int, layer_ids: torch.Tensor, pos: torch.Tensor,
            cos: torch.Tensor, sin: torch.Tensor,
-           from_zero: bool = False) -> torch.Tensor:
+           from_zero: bool = False, aq8: bool = False) -> torch.Tensor:
     """One pre-norm transformer block over x [B, T, D]; writes the
     block's K/V into the cache (monolithic, paged, or a staged chunk's
     tail) in place. The branch follows the JAX ``_block`` and depends on
-    shapes, weight types and the cache's kind only."""
+    shapes, weight types, aq8 and the cache's kind only."""
     B, T, _ = x.shape
     H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
     layer = layer_ids[li:li + 1]
-    fused = decode_fused_eligible(cfg, lp, B * T)
+    fused = decode_fused_eligible(cfg, lp, B * T, aq8)
     ffn_eligible = ffn_fused_eligible(cfg, lp["w_gateup"], lp["w_down"], B * T)
 
     if fused:
         qkv = fused_norm_qkv(x, lp["attn_norm"], lp["wqkv"], layer, eps, inside)
     else:
         qkv = linear(rms_norm(x, lp["attn_norm"][li], eps, inside), lp["wqkv"],
-                     layer)
+                     layer, aq8)
     q = qkv[..., : H * d].reshape(B, T, H, d)
     k = qkv[..., H * d: (H + Kh) * d].reshape(B, T, Kh, d)
     v = qkv[..., (H + Kh) * d:].reshape(B, T, Kh, d)
@@ -283,18 +288,18 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
         if fused:
             x = fused_out_residual(attn, x, lp["wo"], layer)
         else:
-            x = x + linear(attn, lp["wo"], layer)
+            x = x + linear(attn, lp["wo"], layer, aq8)
     if fused and ffn_eligible:
         return ffn_fused_normed(x, lp["ffn_norm"], lp["w_gateup"],
                                 lp["w_down"], layer, cfg)
 
     h = rms_norm(x, lp["ffn_norm"][li], eps, inside)
-    if ffn_eligible:  # the JAX branch for an unfused block; kn weights only
+    if ffn_eligible and not aq8:  # the JAX branch for an unfused block
         return x + ffn_fused(h, lp["w_gateup"], lp["w_down"], layer, cfg)
-    gate_up = linear(h, lp["w_gateup"], layer)
+    gate_up = linear(h, lp["w_gateup"], layer, aq8)
     gate, up = gate_up[..., : cfg.n_ffn], gate_up[..., cfg.n_ffn:]
     inner = F.silu(gate.float()).to(x.dtype) * up
-    return x + linear(inner, lp["w_down"], layer)
+    return x + linear(inner, lp["w_down"], layer, aq8)
 
 
 def forward(
@@ -314,7 +319,7 @@ def forward(
     prefill needs from_zero (it starts at position 0). Rope rows of
     positions past max_ctx (the discarded overhang of a last chunk) read
     the table's last row, as the JAX package's clamped gather does."""
-    require_weight_only(policy)
+    require_quantized(policy)
     B, T = tokens.shape
     device = tokens.device
     cos, sin = rope_tables if rope_tables is not None else rope_table(
@@ -329,12 +334,14 @@ def forward(
     x = embedding_lookup(tokens, params["embed"], act_dtype(policy))
     for li in range(cfg.n_layers):
         x = _block(cfg, x, params["layers"], cache, li, layer_ids, pos,
-                   cos_g, sin_g, from_zero)
+                   cos_g, sin_g, from_zero, policy.aq8)
     return rms_norm(x, params["norm"], cfg.norm_eps, cfg.norm_eps_inside_sqrt)
 
 
-def lm_head_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """Hidden rows [B, D] -> f32 logits [B, n_vocab]; a vocab-padded
-    lm_head is sliced back to the embedding table's vocab."""
-    logits = linear_f32_out(hidden.contiguous(), params["lm_head"])
+def lm_head_logits(params: Params, hidden: torch.Tensor,
+                   aq8: bool = False) -> torch.Tensor:
+    """Hidden rows [B, D] -> f32 logits [B, n_vocab] (with `aq8`, K1's
+    int8-activation branch at B <= 8); a vocab-padded lm_head is sliced
+    back to the embedding table's vocab."""
+    logits = linear_f32_out(hidden.contiguous(), params["lm_head"], aq8)
     return logits[..., : params["embed"].data.shape[0]]

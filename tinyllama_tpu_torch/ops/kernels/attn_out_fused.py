@@ -14,9 +14,10 @@ merges the tiles after a grid-wide barrier into a 4 KB workspace, and
 runs wo's strips after a second one (a cooperative launch). The
 workspaces come from the wrapper.
 
-The layer index and pos are device tensors. The cache is bf16, or int8
-with f32 scale planes (read at half the bytes a key, the scales folded
-into scores and probabilities as the TPU kernel folds them). CUDA
+The layer index and pos are device tensors. The cache is bf16, f16, f32,
+or int8 with f32 scale planes (read at half the bytes a key, the scales
+folded into scores and probabilities as the TPU kernel folds them; f16
+and f32 values rounded to bf16 as they are staged). CUDA
 tensors (bf16 q and residual, d_head 64, at most 8 query heads per kv
 head) launch the kernel or raise; only CPU tensors go to the plain
 version.
@@ -31,13 +32,13 @@ import torch
 from tinyllama_tpu_torch.ops.attention import gqa_attention
 from tinyllama_tpu_torch.ops.kernels import build, flash_attention, qmatmul
 from tinyllama_tpu_torch.ops.kernels.decode_fused import STRIP, check_like
-from tinyllama_tpu_torch.ops.kernels.flash_paged import count, ptr
+from tinyllama_tpu_torch.ops.kernels.flash_paged import KV_SUFFIX, count, ptr
 from tinyllama_tpu_torch.quant.codec import QTensor
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
 
-#: launches since the count was last set to 0; with an int8 cache under
-#: "fused_attn_out_i8".
-launches = {"fused_attn_out": 0, "fused_attn_out_i8": 0}
+#: launches since the count was last set to 0; with a cache of another
+#: kind than bf16 under "fused_attn_out_i8", "_f16" or "_f32".
+launches = {"fused_attn_out" + sfx: 0 for sfx in KV_SUFFIX}
 
 #: query heads per kv head the kernel takes at most (one warp each).
 MAX_GROUP = 8

@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -78,13 +80,22 @@ def _finish(job) -> str:
     return log
 
 
-def build_all() -> dict[str, str]:
+def build_all() -> dict[str, tuple[str, float]]:
     """Build every kernel source at once, one nvcc per source, all started
-    together. Returns nvcc's output (registers, spills) per source that
-    was built; sources already built are skipped."""
+    together. Returns nvcc's output (registers, spills) and its seconds
+    per source that was built; sources already built are skipped."""
     with _lock:
-        jobs = {name: _start(name) for name in SOURCES}
-        return {name: _finish(job) for name, job in jobs.items() if job}
+        t0 = time.perf_counter()
+        jobs = {name: job for name in SOURCES if (job := _start(name))}
+
+        def finish(job):
+            log = _finish(job)
+            return log, time.perf_counter() - t0
+
+        # one waiting thread a job, so each source's seconds are its own
+        with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+            done = {name: pool.submit(finish, job) for name, job in jobs.items()}
+            return {name: f.result() for name, f in done.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -52,13 +52,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def decode_fused_eligible(cfg: ModelConfig, lp: dict, M: int) -> bool:
+def decode_fused_eligible(cfg: ModelConfig, lp: dict, M: int,
+                          aq8: bool = False) -> bool:
     """Whether a block of M = B * T rows takes the fused branch, by the
-    rule of the JAX package's ``decode_fused_eligible``: M <= 32, all four
+    rule of the JAX package's ``decode_fused_eligible``: M <= 32, no aq8
+    activations (the fused kernels take no int8 activations), all four
     linears kn QTensors, n_embd <= 2048. The port has no tensor
-    parallelism and no aq8 activations yet, so those two conditions of
-    the JAX rule never refuse here; its weights are always layer-stacked."""
-    if M > FUSED_M:
+    parallelism and its weights are always layer-stacked, so those two
+    conditions of the JAX rule never refuse here."""
+    if M > FUSED_M or aq8:
         return False
     for name in ("wqkv", "wo", "w_gateup", "w_down"):
         w = lp.get(name)

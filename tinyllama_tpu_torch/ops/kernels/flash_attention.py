@@ -23,12 +23,14 @@ softmax_update.online_update_batch):
   whose input checks and plain version it shares.
 
 The layer index and the positions are device tensors, read inside the
-kernels. The cache is bf16, or int8 with f32 scale planes: K3 then
-dequantizes each tile as it stages it, K4 and K9 read half the bytes a
-key and fold the scales into scores and probabilities (as the TPU
-kernels do). CUDA tensors (bf16 q, d = 64) launch a kernel or raise;
-only CPU tensors go to the plain version, ``gqa_attention`` over the
-layer's cache, dequantized.
+kernels. The cache is bf16, f16, f32, or int8 with f32 scale planes. An
+int8 tile is dequantized by K3 as it is staged; K4 and K9 read half the
+bytes a key and fold the scales into scores and probabilities (as the
+TPU kernels do). f16 and f32 values are rounded to bf16 as a tile is
+staged, as the TPU kernels cast a tile to the compute dtype. CUDA
+tensors (bf16 q, d = 64) launch a kernel or raise; only CPU tensors go
+to the plain version, ``gqa_attention`` over the layer's cache,
+dequantized.
 """
 
 from __future__ import annotations
@@ -43,11 +45,11 @@ from tinyllama_tpu_torch.ops.kernels import flash_paged as fp
 from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
 
-#: launches of each kernel since the counts were last set to 0; the
-#: int8-cache instantiations count under "<name>_i8".
-launches = {"flash_prefill": 0, "flash_decode_heads": 0, "flash_staged": 0,
-            "flash_prefill_i8": 0, "flash_decode_heads_i8": 0,
-            "flash_staged_i8": 0}
+#: launches of each kernel since the counts were last set to 0; a cache of
+#: another kind than bf16 counts under "<name>_i8", "_f16" or "_f32".
+launches = {name + sfx: 0
+            for name in ("flash_prefill", "flash_decode_heads", "flash_staged")
+            for sfx in fp.KV_SUFFIX}
 
 #: head dim the kernels take.
 HEAD_DIM = 64
@@ -83,8 +85,7 @@ def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor) -> int:
     B, T, H, d = q.shape
     L, Bc, Kh, S, dc = cache.k.shape
     if q.dtype != torch.bfloat16:
-        raise TypeError("the CUDA attention takes bf16 queries and a cache of "
-                        "bf16, or int8 with scales")
+        raise TypeError(f"the CUDA attention takes bf16 queries, not {q.dtype}")
     kind = fp.kv_kind([cache.k, cache.v], [cache.k_scale, cache.v_scale])
     if d != HEAD_DIM or dc != d or Bc != B or H % Kh:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "

@@ -15,9 +15,11 @@ Both are bound by the bytes of the keys and values each row attends.
 One block per (row, kv head), one warp per query head, the group's G
 heads sharing each staged 64-key tile; the walk stops at each row's own
 fill. The layer, pos, base and the table are device tensors read inside
-the kernels. The pool and the tail are bf16, or int8 with f32 scale
-planes (the kernels' int8 instantiation reads half the bytes a key and
-folds the scales, as the TPU kernels do). CUDA tensors (bf16 q, d = 64,
+the kernels. The pool and the tail are bf16, f16, f32, or int8 with f32
+scale planes (the kernels' int8 instantiation reads half the bytes a key
+and folds the scales, as the TPU kernels do; f16 and f32 values are
+rounded to bf16 as they are staged, as the TPU kernels cast a tile to
+the compute dtype). CUDA tensors (bf16 q, d = 64,
 G in {4, 8}, pages a whole number of 64-key tiles) launch a kernel or
 raise; only CPU tensors go to the plain versions, ``gqa_attention`` over
 ``paged_layer_view`` or ``staged_layer_view``, which dequantize.
@@ -35,10 +37,15 @@ from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
 from tinyllama_tpu_torch.runtime.staging import StagedKVCache, staged_layer_view
 
-#: launches of each kernel since the counts were last set to 0; the
-#: int8-cache instantiations count under "<name>_i8".
-launches = {"flash_paged": 0, "flash_paged_staged": 0, "flash_paged_i8": 0,
-            "flash_paged_staged_i8": 0}
+#: the kernels' KV kinds (csrc/kvkind.cuh), and the suffix each kind's
+#: launches count under
+KV_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float16: 2, torch.float32: 3}
+KV_SUFFIX = ("", "_i8", "_f16", "_f32")
+
+#: launches of each kernel since the counts were last set to 0; a cache
+#: of another kind than bf16 counts under "<name>_i8", "_f16" or "_f32".
+launches = {name + sfx: 0 for name in ("flash_paged", "flash_paged_staged")
+            for sfx in KV_SUFFIX}
 
 #: head dim the kernels take.
 HEAD_DIM = 64
@@ -78,22 +85,21 @@ def staged_attention_ref(q: torch.Tensor, st: StagedKVCache, layer,
     return gqa_attention(q, k, v, pos.reshape(-1, 1))
 
 
-#: the kernels' KV kinds (csrc/kvkind.cuh)
-KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
-
-
 def kv_kind(data, scales) -> int:
-    """The kernels' code for a cache's planes: 0 for bf16 data without
-    scales, 1 for int8 data with f32 contiguous scale planes of the
-    data's shape less d on its device. Anything else raises."""
+    """The kernels' code for a cache's planes (KV_KIND): 0 bf16, 2 f16 or
+    3 f32 data without scales, 1 int8 data with f32 contiguous scale
+    planes of the data's shape less d on its device. Planes of two dtypes
+    and anything else raise."""
     dtypes = {t.dtype for t in data}
     if len(dtypes) != 1 or not dtypes <= KV_KIND.keys():
-        raise TypeError("the CUDA attention takes a cache of bf16, or int8 "
-                        f"with scales, not {sorted(map(str, dtypes))}")
-    kind = KV_KIND[dtypes.pop()]
-    if kind == 0:
+        raise TypeError("the CUDA attention takes a cache of one dtype, "
+                        "bf16, f16, f32, or int8 with scales, not "
+                        f"{sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    kind = KV_KIND[dtype]
+    if kind != 1:
         if any(s is not None for s in scales):
-            raise TypeError("a bf16 cache takes no scales")
+            raise TypeError(f"a {dtype} cache takes no scales")
         return kind
     if any(s is None for s in scales):
         raise TypeError("an int8 cache needs its scale planes")
@@ -116,7 +122,7 @@ def ptr(t) -> int | None:
 
 def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
     """What K9-K11 take: q [B, 1, H, d] bf16 with H / Kh in GROUPS and
-    d = 64; key planes [.., Kh, rows, d], bf16 or int8 with `scales` (one
+    d = 64; key planes [.., Kh, rows, d] of one KV kind with `scales` (one
     per plane; kv_kind), whose rows are whole 64-key tiles (32-slot
     multiples for a staged tail); contiguous, 16-byte aligned tensors on
     q's device; int32 index tensors of the sizes in `ints` ({name:
@@ -125,8 +131,8 @@ def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
     if T != 1:
         raise ValueError("the serving attention kernels are the T=1 decode path")
     if q.dtype != torch.bfloat16:
-        raise TypeError("the serving attention kernels take bf16 queries and "
-                        "a cache of bf16, or int8 with scales")
+        raise TypeError("the serving attention kernels take bf16 queries, "
+                        f"not {q.dtype}")
     kind = kv_kind([p for p, _ in planes], scales)
     for plane, rows_quantum in planes:
         Kh, rows, dc = plane.shape[2:]
@@ -171,9 +177,8 @@ def _check_paged(q, cache: PagedKVCache, layer, pos, staged=None) -> int:
 
 def count(table: dict, name: str, kind: int) -> None:
     """One launch of kernel `name` with a cache of KV kind `kind`, in a
-    module's launch table: the int8 instantiation counts as
-    "<name>_i8"."""
-    table[name + ("_i8" if kind else "")] += 1
+    module's launch table, under "<name>" plus the kind's KV_SUFFIX."""
+    table[name + KV_SUFFIX[kind]] += 1
 
 
 def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,

@@ -15,6 +15,14 @@ tinyllama_tpu/ops/pallas/qmatmul.py with hand-written Hopper kernels
   bf16 once in shared memory and multiplied on the tensor cores with f32
   accumulation.
 
+With ``aq8`` (the q8a8 and q4a8 policies) K1 runs its int8-activation
+branch, the counterpart of ``block_x`` and the integer dots of
+``_qmm_kernel_smallm``: each row's 32-value blocks of x are quantized to
+int8 in the kernel (``quantize_x``), each block's dot is an exact int32
+sum, scaled by the block's x scale and then its weight scale. At M > 8
+aq8 is ignored and K2 runs unchanged, as the TPU's big-M kernel has no
+aq8 branch; q4g has none at all and raises.
+
 Both take the layer-stacked weight (``[L, K, N]`` int8, or ``[L, K/2,
 N]`` uint8 nibbles, with ``[L, K/bs, N]`` fp16 scales) with a device
 layer index, so nothing is sliced or copied per layer and the launch
@@ -35,16 +43,21 @@ from tinyllama_tpu_torch.ops.kernels import build
 from tinyllama_tpu_torch.ops.precision import exact_f32
 from tinyllama_tpu_torch.quant.codec import (
     BLOCK_SIZE,
+    Q4_OFFSET,
     QTensor,
     block_size,
     dequantize,
+    unpack_q4,
 )
 
 #: largest M that takes the decode kernel (K1); larger M takes K2.
 SMALL_M = 8
 
 #: launches of each kernel since the counts were last set to 0.
-launches = {"qmm_smallm": 0, "qmm_bigm": 0}
+launches = {"qmm_smallm": 0, "qmm_bigm": 0, "qmm_smallm_aq8": 0}
+
+#: 1/127 rounded once to f32, as the TPU body's ``absmax * (1.0 / 127.0)``
+INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
 
 #: the kernels' code for each weight kind (csrc/qkind.cuh)
 KIND_CODE = {"q8": 0, "q4": 1, "q4g": 2}
@@ -58,7 +71,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("qmatmul")
     if lib.qmm_smallm.argtypes is None:
-        for fn in (lib.qmm_smallm, lib.qmm_bigm):
+        for fn in (lib.qmm_smallm, lib.qmm_smallm_aq8, lib.qmm_bigm):
             fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
             fn.restype = _I
     return lib
@@ -77,13 +90,63 @@ def _layer_view(w: QTensor, layer) -> tuple[torch.Tensor, torch.Tensor]:
     return w.data[li], w.scales[li]
 
 
-def dot_ref(x2: torch.Tensor, w: QTensor, layer=None) -> torch.Tensor:
+def quantize_x(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x2 [M, K] -> (int8 [M, K], f32 scales [M, K/32]): the port's copy of
+    the TPU body's ``block_x``. In f32, each row's absmax over a 32-block,
+    inv = 127 / absmax (0 for an all-zero block), q = round(x * inv) half
+    to even, scale = absmax * (1/127)."""
+    M, K = x2.shape
+    xf = x2.float().reshape(M, K // BLOCK_SIZE, BLOCK_SIZE)
+    absmax = xf.abs().amax(dim=-1)
+    # a true division: a Python number over a tensor is its reciprocal
+    # times the number in PyTorch, which rounds twice
+    inv = torch.where(absmax > 0, torch.full_like(absmax, 127.0) / absmax, 0.0)
+    xq = torch.round(xf * inv[..., None]).to(torch.int8)
+    return xq.reshape(M, K), absmax * INV_127
+
+
+def int_values(data: torch.Tensor, kind: str) -> torch.Tensor:
+    """A kn data plane [K(/2), N] as its integer values [K, N] in f64: the
+    int8 itself (q8), or v - 7 (q4)."""
+    if kind == "q8":
+        return data.double()
+    return (unpack_q4(data.transpose(-1, -2)).double() - Q4_OFFSET
+            ).transpose(-1, -2)
+
+
+def check_aq8(w: QTensor) -> None:
+    if w.kind == "q4g":
+        raise ValueError("q4g has no aq8 variant (the TPU kernel asserts so)")
+
+
+def _aq8_dot(x2: torch.Tensor, w: QTensor, layer) -> torch.Tensor:
+    """K1's aq8 arithmetic: each 32-block's dot of int8 x with the integer
+    weight values is an exact integer (taken in f64), then (float(idot) *
+    sx) * s_w in f32, as the TPU body orders it; the blocks summed in f32."""
+    data, scales = _layer_view(w, layer)
+    M, K = x2.shape
+    nb = K // BLOCK_SIZE
+    xq, sx = quantize_x(x2)
+    wv = int_values(data, w.kind).reshape(nb, BLOCK_SIZE, -1)
+    idot = torch.matmul(xq.double().reshape(M, nb, BLOCK_SIZE).transpose(0, 1),
+                        wv)  # [nb, M, N], exact
+    return ((idot.float() * sx.t()[..., None])
+            * scales.float()[:, None, :]).sum(dim=0)
+
+
+def dot_ref(x2: torch.Tensor, w: QTensor, layer=None,
+            aq8: bool = False) -> torch.Tensor:
     """x2 [M, K] @ dequant(w) -> f32 [M, N], the arithmetic of every
     kernel's dot, for every kind. M <= 8 multiplies by the f32-dequantized
-    weight (int x fp16 is exact in f32, as a post-dot scaling is); larger
-    M first rounds the dequantized weight to x2.dtype, as K2 and the
-    TPU's tile-dequant bodies do. f32 accumulation either way, with TF32
-    off."""
+    weight (int x fp16 is exact in f32, as a post-dot scaling is), or with
+    `aq8` takes integer block dots of the int8-quantized x; larger M first
+    rounds the dequantized weight to x2.dtype, as K2 and the TPU's
+    tile-dequant bodies do (aq8 ignored). f32 accumulation either way,
+    with TF32 off."""
+    if aq8:
+        check_aq8(w)
+        if x2.shape[0] <= SMALL_M:
+            return _aq8_dot(x2, w, layer)
     data, scales = _layer_view(w, layer)
     wd = dequantize(QTensor(data, scales, w.kind, w.layout), torch.float32)
     if x2.shape[0] > SMALL_M:
@@ -93,10 +156,10 @@ def dot_ref(x2: torch.Tensor, w: QTensor, layer=None) -> torch.Tensor:
 
 
 def qmatmul_ref(x: torch.Tensor, w: QTensor, out_dtype=None,
-                layer=None) -> torch.Tensor:
+                layer=None, aq8: bool = False) -> torch.Tensor:
     """Plain version of both kernels, any device (see ``dot_ref``)."""
     *lead, K = x.shape
-    out = dot_ref(x.reshape(-1, K), w, layer)
+    out = dot_ref(x.reshape(-1, K), w, layer, aq8)
     return out.to(out_dtype or x.dtype).reshape(*lead, out.shape[-1])
 
 
@@ -150,20 +213,23 @@ def _check(x2: torch.Tensor, w: QTensor, layer, out_dtype) -> None:
 
 
 def qmatmul(x: torch.Tensor, w: QTensor, out_dtype=None,
-            layer: torch.Tensor | None = None) -> torch.Tensor:
+            layer: torch.Tensor | None = None, aq8: bool = False) -> torch.Tensor:
     """x [..., K] @ dequant(w) -> [..., N] in out_dtype (default x.dtype).
 
     `w` is a "kn" QTensor (q8, q4 or q4g), layer-stacked iff `layer` is
-    given; on CUDA `layer` is a one-element int32 device tensor."""
+    given; on CUDA `layer` is a one-element int32 device tensor. `aq8`
+    quantizes x to int8 per 32-block inside K1 (M <= 8; q8 and q4)."""
+    if aq8:
+        check_aq8(w)
     if not x.is_cuda:
-        return qmatmul_ref(x, w, out_dtype, layer)
+        return qmatmul_ref(x, w, out_dtype, layer, aq8=aq8)
     out_dtype = out_dtype or x.dtype
     *lead, K = x.shape
     x2 = x.reshape(-1, K)
     _check(x2, w, layer, out_dtype)
     M, N = x2.shape[0], w.data.shape[-1]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    name = "qmm_smallm" if M <= SMALL_M else "qmm_bigm"
+    name = "qmm_bigm" if M > SMALL_M else "qmm_smallm_aq8" if aq8 else "qmm_smallm"
     fn = getattr(_lib(), name)
     li = None if layer is None else layer.data_ptr()
     err = fn(x2.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), li,

@@ -15,8 +15,9 @@ The counterpart of the JAX package's runtime/engine.py:
   waits on the card once a chunk and not once a token.
 
 The cache is monolithic, or with ``paged=True`` a page pool
-(runtime/paged.py), in the policy's KV dtype: on the card bf16 or int8
-with scales (``"i8"``, the ``*-kvi8`` policies). Each step is
+(runtime/paged.py), in the policy's KV dtype: bf16, f16, f32, or int8
+with scales (``"i8"``, the ``*-kvi8`` policies). The policy's aq8 (q8a8,
+q4a8) reaches every linear and the lm_head. Each step is
 dispatched eagerly from Python; capturing it in a CUDA graph is queued
 work (ROADMAP.md).
 
@@ -102,12 +103,10 @@ class Engine:
                  params: llama.Params, max_ctx: int | None = None,
                  device=None, paged: bool = False):
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and (
-                policy.adtype != "bf16" or policy.kv_dtype not in ("bf16", "i8")):
+        if self.device.type == "cuda" and policy.adtype != "bf16":
             raise NotImplementedError(
-                "the CUDA kernels take bf16 activations and a bf16 or int8 "
-                f"KV cache, not {policy.adtype} / {policy.kv_dtype}; f32 and "
-                "f16 are queued (ROADMAP.md)")
+                f"the CUDA kernels take bf16 activations, not {policy.adtype}; "
+                "f32 and f16 compute are queued (ROADMAP.md)")
         self.cfg = cfg
         self.policy = policy
         self.max_ctx = max_ctx or cfg.max_ctx
@@ -147,10 +146,11 @@ class Engine:
         hidden = llama.forward(self.cfg, self.policy, self.params, tokens,
                                cache, pos, self.rope_tables, self.layer_ids,
                                from_zero)
+        aq8 = self.policy.aq8
         if last is None:
-            return llama.lm_head_logits(self.params, hidden[:, 0])
+            return llama.lm_head_logits(self.params, hidden[:, 0], aq8)
         rows = torch.arange(hidden.shape[0], device=self.device)
-        return llama.lm_head_logits(self.params, hidden[rows, last])
+        return llama.lm_head_logits(self.params, hidden[rows, last], aq8)
 
     def prefill(self, cache, prompts: list[list[int]]):
         """Prefill a batch of prompts from position 0, padded to one bucket
