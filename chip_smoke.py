@@ -28,6 +28,9 @@ Phases, each fatal on failure:
    torch._int_mm where it takes the shape); and the f16 and f32
    instantiations of K3, K4, K8-K11 over the same values cast (bound at 2
    and 4 bytes a value, yardstick SDPA over the cache cast to bf16);
+   then the microbench's entry point (tinyllama_tpu_torch.tools.kbench:
+   P1-P4, KF, KI, KS), which holds each of its kernels against the plain
+   version before it times it, with its launch counts read around it;
 4. paths: TinyLlama-1.1B, q8 weights from a fixed seed ((a)-(g), (j)-(l)),
    then q4 and q4g weights from a file ((h), (i)), bf16 activations, a
    bf16 cache except in (j), (l) and (h)'s --kv runs; the launch counts
@@ -122,6 +125,7 @@ the port's kernels' share of it, and the host's time a step.
 from __future__ import annotations
 
 import atexit
+import collections
 import dataclasses
 import json
 import subprocess
@@ -229,38 +233,6 @@ def fail(msg: str) -> int:
     return 1
 
 
-def time_ms(fn, reps: int, graph: bool) -> float:
-    """Mean ms per call by CUDA events over `reps` calls, after warm-up;
-    fn(i) gets the call index (to cycle layers past the 50 MB L2). With
-    graph=True the calls are captured in one CUDA graph and replayed, so
-    the time is the device's alone, free of Python dispatch; the plain
-    versions read the layer index back to the host and run eagerly."""
-    import torch
-
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for i in range(reps):
-                fn(i)
-        run = g.replay
-        run()
-    else:
-        def run():
-            for i in range(reps):
-                fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def replay_equals(name: str, fn) -> None:
     """fn() captured in a CUDA graph and replayed twice must give its
     eager result (the grid barriers of the cooperative kernels)."""
@@ -347,6 +319,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         PagedKVCache, default_page_size, paged_layer_view,
     )
     from tinyllama_tpu_torch.runtime.staging import StagedKVCache
+    from tinyllama_tpu_torch.tools.kbench import time_ms
 
     qm, fa, df, ffn, ao, fp, codec = ops
     cfg, params = engine.cfg, engine.params
@@ -707,6 +680,88 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     return rows
 
 
+#: the TPU kernel bodies the microbench's kernels replace (tools/kbench.py)
+KBENCH_REPLACES = {
+    "kbench_probe_int4": "tools/kbench.py:142",
+    "kbench_probe_bitcast": "tools/kbench.py:167",
+    "kbench_probe_i32dot": "tools/kbench.py:192",
+    "kbench_probe_i8dot": "tools/kbench.py:217",
+    "kbench_flash": "tools/kbench.py:273",
+    "kbench_flash_flipTpre": "tools/kbench.py:351",
+    "kbench_flash_flipT": "tools/kbench.py:405",
+    "kbench_i4": "tools/kbench.py:615",
+    "kbench_sweep": "tools/kbench.py:776",
+    "kbench_sweep_manual": "tools/kbench.py:1338",
+}
+
+
+def kbench_replaces(counter: str) -> str:
+    for key in sorted(KBENCH_REPLACES, key=len, reverse=True):
+        if counter.startswith(key):
+            return KBENCH_REPLACES[key]
+    raise KeyError(counter)
+
+
+def phase_kbench(torch) -> list[dict]:
+    """The microbench's entry point on the card (the main path of the
+    kbench kernels): P1-P4, KF's 11 variants at T = 2048, KI's two
+    bodies at the five shapes, KS's 26 variants at wqkv and cur, dq,
+    stream and manual at the other four shapes (manual but at lm_head,
+    which the JAX tool skips), with the launch counts read around it.
+    The entry point holds each kernel against its plain version (one
+    launch a case, not counted here) before it times it. Fails if a
+    kernel was not launched outside its check or a time is under its
+    bound."""
+    from tinyllama_tpu_torch.ops.kernels import kbench_flash as kf
+    from tinyllama_tpu_torch.ops.kernels import kbench_i4 as ki
+    from tinyllama_tpu_torch.ops.kernels import kbench_probe as kp
+    from tinyllama_tpu_torch.ops.kernels import kbench_sweep as ks
+    from tinyllama_tpu_torch.tools import kbench
+
+    counters = (kp.launches, kf.launches, ki.launches, ks.launches)
+    runs = [["--bench", "probe"], ["--bench", "flash", "--m", "2048"],
+            ["--bench", "i4"],
+            ["--bench", "sweep", "--shape", "wqkv", "--variants",
+             ",".join(ks.VARIANTS + ("manual",))]]
+    runs += [["--bench", "sweep", "--shape", n, "--variants", "cur,dq,stream,manual"]
+             for n in ("wo", "w_gateup", "w_down", "lm_head")]
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    timed = []
+    for argv in runs:
+        args = kbench.parse(argv + ["--iters", "20"])
+        timed += [(args.bench, r) for r in kbench.run(args)]
+    torch.cuda.synchronize()
+    counts = {k: v for c in counters for k, v in c.items()}
+    checks = collections.Counter(r["counter"] for _, r in timed)
+    launches = {k: v - checks[k] for k, v in counts.items()}
+    print(f"kbench: launches outside the checks {json.dumps(launches)}", flush=True)
+    rows = []
+    for bench, r in timed:
+        if r["ms"] < r["bound_ms"]:
+            raise AssertionError(f"kbench {r['name']}: {r['ms']} ms under its "
+                                 f"bound {r['bound_ms']} ms: L2 was measured")
+        if not launches[r["counter"]]:
+            raise AssertionError(f"kbench {r['name']}: {r['counter']} was not "
+                                 "launched by the microbench")
+        rows.append(dict(
+            name=f"{r['counter']} {' '.join(r['name'].split())}", route="cuda",
+            source=f"tinyllama_tpu_torch/csrc/kbench_{bench}.cu",
+            replaces=kbench_replaces(r["counter"]), launches=launches[r["counter"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
+        fin = (f", finiteness differs at {r['finite_mismatch']:.4%}"
+               if "finite_mismatch" in r else "")
+        print(f"kernel {rows[-1]['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['mode']}{fin}) kernel_ms {r['ms']:.5f} bound_ms "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}) plain_ms {r['plain_ms']:.5f} "
+              f"library_ms {r['library_ms']}"
+              + (f" ({r['library_note']})" if r["library_note"] else ""), flush=True)
+    return rows
+
+
 def profile_decode(engine, prompt, torch, steps: int = 4) -> None:
     """Where an eager decode step's time goes, from torch.profiler."""
     from torch.autograd import DeviceType
@@ -780,12 +835,11 @@ def main() -> int:
     from tinyllama_tpu_torch.runtime.perf import tree_nbytes
     from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
     from tinyllama_tpu_torch.runtime.staging import stage_cache
+    from tinyllama_tpu_torch.tools import kbench
+    from tinyllama_tpu_torch.tools.kbench import time_ms
 
     # 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()
-    card = smi[torch.cuda.current_device()]
+    card = kbench.card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
@@ -831,6 +885,8 @@ def main() -> int:
         rows += phase_kernels(engine, torch, ops, kv=kv)
 
     mark("phase 3")
+    kb_rows = phase_kbench(torch)
+    mark("kbench")
 
     # 4. paths, each with exact launch counts
     counters = (qm.launches, fa.launches, df.launches, ffn.launches,
@@ -1542,7 +1598,7 @@ def main() -> int:
         del r["kernel"], r["kind"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the builds "
           "included")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + kb_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

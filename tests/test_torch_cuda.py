@@ -1031,6 +1031,222 @@ def test_engine_aq8_and_kv16_on_the_card_matches_cpu(card, policy):
         assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
 
 
+# --- the kernel microbench (probes, flash ablations, i4, q4 sweep) -----------------
+
+
+def _kb_small_sweep(card, M=8, K=1024, N=256, idx=9):
+    from tinyllama_tpu_torch.tools import kbench
+
+    return kbench.sweep_operands(idx, K, N, M, card)
+
+
+def _kb_sweep_case(card, var, name, M, K, N, bn=0, bk=0):
+    """The sweep kernel of `var` against its plain version on port-made
+    operands (tiled for -t), max |err| <= 1e-4 max |plain|."""
+    from tinyllama_tpu_torch.ops.kernels import kbench_sweep as ks
+
+    x, data, scales, _ = _kb_small_sweep(card, M, K, N, idx=len(name))
+    bn = bn or ks.pick_bn(N)
+    bk = bk or ks.pick_bk(K, bn)
+    base, tiled, _, _ = ks.parse_variant(var)
+    if tiled:
+        data, scales = ks.tile(data, bn), ks.tile(scales, bn)
+    before = ks.launches[f"kbench_sweep_{base}"]
+    got = ks.sweep(x, data, scales, var, bn, bk)
+    assert ks.launches[f"kbench_sweep_{base}"] == before + 1
+    want = ks.sweep_ref(x, data, scales, var, bn, bk)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert torch.isfinite(got).all() and err <= 1e-4 * float(want.abs().max()), err
+
+
+KB_SWEEP_ALL = ("cur", "i8shift", "i16shift", "ilp4", "tree", "fullunpack", "dq",
+                "corrdot", "corrdotnm", "dot3", "dotsraw", "unpackonly", "biasand",
+                "nosum", "noand", "dotsonly", "g128", "g128d2", "g256", "g256presum",
+                "g256dots", "g256fma1", "dqbias", "overlap", "stream", "manual")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("var", KB_SWEEP_ALL)
+def test_kbench_sweep_small_matches_plain(card, var):
+    """Every sweep variant at K = 1024, N = 256 in two K steps of 512."""
+    _kb_sweep_case(card, var, "small", 8, 1024, 256, 256, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("var", KB_SWEEP_ALL)
+def test_kbench_sweep_wqkv_matches_plain(card, var):
+    """Every sweep variant at wqkv's full width, the JAX tiles (1280, 1024)."""
+    _kb_sweep_case(card, var, "wqkv", 8, 2048, 2560)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("var,name,M,K,N,bn,bk", [
+    ("cur-t", "wqkv", 8, 2048, 2560, 0, 0),
+    ("cur-x", "wqkv", 8, 2048, 2560, 0, 0),
+    ("cur-t-x", "wo", 8, 2048, 2048, 0, 256),
+    ("cur-x-v", "w_down", 8, 5632, 2048, 0, 0),
+    ("manual", "w_down", 8, 5632, 2048, 0, 0),
+    ("manual", "w_gateup", 3, 2048, 11264, 0, 0),
+    ("cur", "lm_head", 8, 2048, 32003, 0, 0),
+    ("dq", "lm_head", 8, 2048, 32003, 0, 0),
+    ("stream", "lm_head", 8, 2048, 32003, 0, 0),
+    ("cur", "ragged", 1, 512, 200, 0, 0),
+    ("g256", "ragged", 5, 512, 200, 0, 256),
+    ("cur", "wo", 3, 2048, 2048, 512, 512),
+])
+def test_kbench_sweep_flags_and_shapes_match_plain(card, var, name, M, K, N, bn, bk):
+    """The -t / -x / -v flags, manual at two shapes, the ragged lm_head and
+    a ragged small N, M below 8, other tiles."""
+    _kb_sweep_case(card, var, name, M, K, N, bn, bk)
+
+
+@pytest.mark.cuda
+def test_kbench_sweep_refuses_on_the_card(card):
+    from tinyllama_tpu_torch.ops.kernels import kbench_sweep as ks
+
+    x, data, scales, _ = _kb_small_sweep(card, K=5632, N=256)
+    with pytest.raises(ValueError, match="-v"):
+        ks.sweep(x, data, scales, "cur-x", 256, 512)
+    with pytest.raises(ValueError, match="M = 8"):
+        ks.sweep(x[:4].contiguous(), data, scales, "unpackonly", 256, 512)
+    with pytest.raises(TypeError):
+        ks.sweep(x.float(), data, scales, "cur", 256, 512)
+    with pytest.raises(ValueError, match="bk"):
+        ks.sweep(x, data, scales, "cur", 256, 96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1024, 2048])
+@pytest.mark.parametrize("var", ["full", "noexp", "nomask", "nomax", "nosum", "dots",
+                                 "stream", "flipT", "flipTtr", "flipTnoscale",
+                                 "flipTpre"])
+def test_kbench_flash_matches_plain(card, var, T):
+    """Every flash ablation at T = 1024 (two key tiles) and 2048, held as
+    the microbench holds it (noexp: where both are finite, and finite or
+    overflowing on both sides wherever the order of the sums cannot
+    change it)."""
+    from tinyllama_tpu_torch.ops.kernels import kbench_flash as kf
+    from tinyllama_tpu_torch.tools import kbench
+
+    case = next(c for c in kbench.flash_cases(
+        kbench.parse(["--bench", "flash", "--m", str(T), "--variants", var]), card))
+    before = kf.launches[f"kbench_flash_{var}"]
+    kbench.check_case(case)
+    assert kf.launches[f"kbench_flash_{var}"] == before + 1
+
+
+@pytest.mark.cuda
+def test_kbench_flash_at_a_later_position(card):
+    """pos > 0 and B = 2: the frontier moves with each row's position."""
+    from tinyllama_tpu_torch.ops.kernels import kbench_flash as kf
+
+    g = torch.Generator(card).manual_seed(3)
+    B, Kh, T, S = 2, 2, 512, 1536
+    q = (torch.randn((B, Kh, T * 8, 64), generator=g, device=card) * 0.3).to(torch.bfloat16)
+    k = torch.randint(-127, 127, (B, Kh, S, 64), generator=g, device=card).to(torch.int8)
+    v = torch.randint(-127, 127, (B, Kh, S, 64), generator=g, device=card).to(torch.int8)
+    sk = torch.rand((B, Kh, S), generator=g, device=card) * 0.02 + 0.001
+    sv = torch.rand((B, Kh, S), generator=g, device=card) * 0.02 + 0.001
+    pos = _i32([300, 1000], card)
+    for var in ("full", "flipT", "nomask"):
+        got = kf.flash(q, k, v, sk, sv, pos, var)
+        want = kf.flash_ref(q, k, v, sk, sv, pos, var)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["blockdot", "tiledeq"])
+@pytest.mark.parametrize("M,K,N", [(8, 256, 98), (1, 512, 64), (5, 768, 2),
+                                   (8, 2048, 2560), (8, 2048, 2048), (8, 2048, 11264),
+                                   (8, 5632, 2048), (8, 2048, 32004)])
+def test_kbench_i4_matches_plain(card, body, M, K, N):
+    from tinyllama_tpu_torch.ops.kernels import kbench_i4 as ki
+    from tinyllama_tpu_torch.tools import kbench
+
+    x, packed, s, _ = kbench._i4_operands(N, K, N, M, card)
+    before = ki.launches[f"kbench_i4_{body}"]
+    got = ki.i4_matmul(x, packed, s, body)
+    assert ki.launches[f"kbench_i4_{body}"] == before + 1
+    want = ki.i4_ref(x, packed, s, body)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 256), (64, 32), (3, 512)])
+def test_kbench_probes_match_plain_exactly(card, shape):
+    """The four probes, exact, at the JAX probes' shapes and others."""
+    from tinyllama_tpu_torch.ops.kernels import kbench_i4 as ki
+    from tinyllama_tpu_torch.ops.kernels import kbench_probe as kp
+
+    R, C = shape
+    g = torch.Generator(card).manual_seed(R)
+    vals = torch.randint(-8, 8, (R, 2 * C), generator=g, device=card)
+    if C % 8 == 0:
+        packed = ki.pack_nibbles(vals)
+        assert torch.equal(kp.int4(packed), kp.int4_ref(packed))
+        assert torch.equal(kp.int4(packed).float(), 2.0 * vals.float())
+    w8 = torch.randint(-128, 128, (4 * R, C), generator=g, device=card).to(torch.int8)
+    assert torch.equal(kp.bitcast(w8), kp.bitcast_ref(w8))
+    M, K, N = min(R, 16), 512, 8 * C
+    x = torch.randint(-128, 128, (M, K), generator=g, device=card).to(torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=card).to(torch.int8)
+    before = dict(kp.launches)
+    assert torch.equal(kp.i32dot(x, w), kp.dot_ref(x, w))
+    assert torch.equal(kp.i8dot(x, w), kp.dot_ref(x, w))
+    assert kp.launches["kbench_probe_i8dot"] == before["kbench_probe_i8dot"] + 1
+
+
+@pytest.mark.cuda
+def test_kbench_kernels_replay_in_a_graph(card):
+    """A flash ablation and a sweep variant captured in a CUDA graph give
+    their eager result again."""
+    from tinyllama_tpu_torch.ops.kernels import kbench_flash as kf
+    from tinyllama_tpu_torch.ops.kernels import kbench_sweep as ks
+    from tinyllama_tpu_torch.tools import kbench
+
+    q, k, v, sk, sv, pos = kbench._flash_operands(1024, card)
+    x, data, scales, _ = _kb_small_sweep(card, K=2048, N=2560)
+    for name, fn in (("flash full", lambda: kf.flash(q, k, v, sk, sv, pos, "full")),
+                     ("sweep manual", lambda: ks.sweep(x, data, scales, "manual",
+                                                        1280, 1024)),
+                     ("sweep cur", lambda: ks.sweep(x, data, scales, "cur", 1280, 1024))):
+        eager = fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [
+    ["--bench", "probe"],
+    ["--bench", "flash", "--m", "1024", "--variants", "full,stream,flipTpre"],
+    ["--bench", "i4", "--shape", "wo"],
+    ["--bench", "sweep", "--shape", "wqkv", "--variants", "cur,dq,manual,cur-t"],
+    ["--bench", "qmatmul", "--shape", "wo", "--kind", "q8"],
+])
+def test_kbench_cli_on_the_card(card, argv, capsys):
+    """The microbench's entry point checks and times on the card: each
+    kernel held against its plain version (one launch) before its timed
+    calls, each line a time over its bound, never under it."""
+    from tinyllama_tpu_torch.tools import kbench
+
+    rows = kbench.run(kbench.parse(argv + ["--iters", "5"]))
+    assert rows and all(r["ms"] > 0 and r["ms"] >= r["bound_ms"] for r in rows)
+    assert all(r["max_abs_err"] >= 0 and r["plain_ms"] > 0 for r in rows)
+    assert "x bound" in capsys.readouterr().out
+
+
 # --- anywhere -------------------------------------------------------------------
 
 
