@@ -12,11 +12,13 @@ Phases, each fatal on failure:
    at once, into build/kernels;
 3. kernels: each kernel against its plain PyTorch version on the card,
    in bf16, at TinyLlama-1.1B's shapes (K1 on the five decode matmuls,
-   K2 at M=128 and 512, K3 at T=128 and 512, K4 at pos 127 and 1500, K5
-   at M=1, 4, 32, K6 at M=4, 32, K7 at M=1, 4, 32 and its plain entry at
-   M=1, K8 at pos 127 and 1500, K9 at B=8 over a fill of 256 and a
-   32-slot staged tail, K10 at pos 127 and 1500, K11 at B=32 over a fill
-   of 256 and a 32-slot tail), with its time, its bound, the plain
+   K2 at M=128 and 512, K3 at T=128 and 512, K4 at pos 127, 1500 and 2047
+   and at B=4 (path (c)'s batch) at pos 1500, K4 and K10 also captured in
+   a CUDA graph at pos 127 and replayed at 1500, 5 and 2047, K5 at M=1, 4, 32, K6 at
+   M=4, 32, K7 at M=1, 4, 32 and its plain entry at M=1, K8 at pos 127
+   and 1500, K9 at B=8 over a fill of 256 and a 32-slot staged tail, K10
+   at pos 127, 1500 and 2047, K11 at B=32 over a fill of 256 and a
+   32-slot tail), with its time, its bound, the plain
    version's time and a PyTorch library call's time (for attention, SDPA
    with enable_gqa over the same un-repeated keys); K7 and K8 must give
    their eager result again when replayed from a CUDA graph; then the
@@ -49,6 +51,8 @@ Phases, each fatal on failure:
    (e) Engine(paged=True).generate: a 100-token prompt with 64 new
        tokens and a 24-token one with 16 (its prefill attends a 32-key
        temporary cache, padded to 64), each step K5, K10, K6, K7, no K8;
+       then a 1,450-token prompt with 64 new tokens, and one step at pos
+       1500 replayed as a CUDA graph (the long-context b1 step);
    (f) ContinuousBatcher(Engine(paged=True), max_batch=32): 64
        requests, prompts of 8-200 tokens and 32-96 new tokens from a
        fixed seed, chunk 32;
@@ -87,6 +91,8 @@ Phases, each fatal on failure:
    (k) aq8 activations, POLICIES["q8a8"] on (a)'s weights (every block
        unfused, K1's aq8 branch at M <= 8, K4 for b1 attention): (a)'s
        prompt with 64 greedy tokens and its step replayed as a CUDA graph,
+       then (e)'s 1,450-token prompt with 64 tokens and a graph-replayed
+       step at pos 1500,
        (c) at B = 4, a paged generate of 100 + 32 tokens, and (g)'s
        requests through the monolithic batcher; then POLICIES["q4a8"] on
        (h)'s q4 weights: (b) and (c);
@@ -155,6 +161,9 @@ PARITY_REL = 0.05
 
 N_NEW = 256
 PROMPT_LEN = 100
+#: the long-context b1 steps of (e) and (k): a prompt of LONG_PROMPT
+#: tokens, 64 new ones, and one step at pos LONG_POS replayed as a graph
+LONG_PROMPT, LONG_POS = 1450, 1500
 #: path (b): a chat-length prompt (bucket 32, fused prefill)
 CHAT_LEN, CHAT_NEW = 24, 32
 #: the attention kernels' launch counters; with an int8, f16 or f32 cache
@@ -249,6 +258,34 @@ def replay_equals(name: str, fn) -> None:
         torch.cuda.synchronize()
         if not torch.equal(out, eager):
             raise AssertionError(f"{name}: graph replay differs from eager")
+
+
+def replay_at(name: str, fn, pos, capture_at: int, positions) -> None:
+    """fn() captured in a CUDA graph with pos (a device tensor it reads)
+    at capture_at, then replayed with pos written in place at each of
+    `positions`, must give what an eager call gives there: what the key
+    walk is split into may not follow the position it was captured at.
+    pos is restored after."""
+    import torch
+
+    keep = pos.clone()
+    pos.fill_(capture_at)
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    for p in positions:
+        pos.fill_(p)
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, fn()):
+            raise AssertionError(f"{name}: graph captured at pos {capture_at} "
+                                 f"and replayed at pos {p} differs from eager")
+    pos.copy_(keep)
+    print(f"replay {name}: captured at pos {capture_at}, replayed at pos "
+          f"{', '.join(map(str, positions))}: equal to eager", flush=True)
 
 
 def check_close(name: str, got, want) -> float:
@@ -583,36 +620,48 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
 
     src = "tinyllama_tpu_torch/csrc/flash_attention.cu"
 
-    def attn_case(kernel, T, p):
-        q = torch.randn((1, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
-        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+    def attn_case(kernel, T, p, B=1, c=cache, dk=dense_k, dv=dense_v):
+        q = torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.full((B,), p, dtype=torch.int32, device=dev)
         fn = (fa.flash_decode_heads_attention if T == 1
               else fa.flash_prefill_attention)
-        got = fn(q, cache, layers[3], pos)
-        want = fa.attention_ref(q, cache, layers[3], pos)
-        err = check_close(f"{kernel} T={T} pos={p}", got, want)
-        ms = time_ms(lambda i: fn(q, cache, layers[i % L], pos), 100, True)
-        plain = time_ms(lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
+        got = fn(q, c, layers[3], pos)
+        want = fa.attention_ref(q, c, layers[3], pos)
+        err = check_close(f"{kernel} T={T} pos={p} B={B}", got, want)
+        if T == 1 and p == S - 1:  # a full cache: any position is valid
+            replay_at(f"{kernel} {row_kind} B={B}",
+                      lambda: fn(q, c, layers[3], pos), pos, 127,
+                      (1500, 5, S - 1))
+        ms = time_ms(lambda i: fn(q, c, layers[i % L], pos), 100, True)
+        plain = time_ms(lambda i: fa.attention_ref(q, c, layers[i % L], pos),
                         5, False)
         # library yardstick: SDPA over the visible keys
         n_keys = p + T
-        kx, vx = dense_k[:, :, :n_keys], dense_v[:, :, :n_keys]
+        kx, vx = dk[:, :, :n_keys], dv[:, :, :n_keys]
         qh = q.transpose(1, 2)
         causal = T > 1
         lib = time_ms(lambda i: sdpa(qh, kx, vx, is_causal=causal), 100, True)
-        pairs = H * sum(p + t + 1 for t in range(T))
-        nbytes = 2 * T * H * d * 2 + 2 * Kh * n_keys * kv_row
+        pairs = B * H * sum(p + t + 1 for t in range(T))
+        nbytes = B * (2 * T * H * d * 2 + 2 * Kh * n_keys * kv_row)
         rep = replaces(kernel.split()[0],
                        "tinyllama_tpu/ops/pallas/flash_prefill.py:201" if T == 1
                        else "tinyllama_tpu/ops/pallas/flash_prefill.py:35")
-        row(kernel, f"T={T} pos={p} S={S}", src, rep, err, ms, plain, nbytes,
-            4 * d * pairs, lib)
+        row(kernel, f"T={T} pos={p} S={S}" + (f" B={B}" if B > 1 else ""),
+            src, rep, err, ms, plain, nbytes, 4 * d * pairs, lib)
 
     for T in (128, 512):
         attn_case("K3 flash_prefill", T, 0)
-    for p in (127, 1500):
+    for p in (127, 1500, 2047):
         attn_case("K4 flash_decode_heads", 1, p)
-    del cache
+    del cache, dense_k, dense_v
+    # K4 at path (c)'s batch: 4 rows at pos 1500
+    shape = (L, BATCH, Kh, S, d)
+    cache = quant(KVCache(
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
+    dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
+    attn_case("K4 flash_decode_heads", 1, 1500, BATCH, cache, dense_k, dense_v)
+    del cache, dense_k, dense_v
 
     # K9-K11: the serving attention at the shapes of paths (d)-(g)
     src = "tinyllama_tpu_torch/csrc/flash_paged.cu"
@@ -662,6 +711,10 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
                  else f"B={B} fill={fill} tail={tail} S={S}")
         if not tail:
             label = f"B={B} pos={fill - 1} P={P}"
+        if not tail and fill == S:  # every page of the row: any position
+            replay_at(f"{kernel} {row_kind} {label}",
+                      lambda: fn(q, cache_arg, layers[3], pos), pos, 127,
+                      (1500, 5, S - 1))
         fused_case(
             kernel, label, src, rep,
             lambda i: fn(q, cache_arg, layers[i % L], pos),
@@ -672,7 +725,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
 
     serving_case("K9 flash_staged", 8, 256, 32, False,
                  replaces("K9", "tinyllama_tpu/ops/pallas/flash_prefill.py:375"))
-    for p in (127, 1500):
+    for p in (127, 1500, 2047):
         serving_case("K10 flash_paged", 1, p + 1, 0, True,
                      replaces("K10", "tinyllama_tpu/ops/pallas/flash_paged.py:38"))
     serving_case("K11 flash_paged_staged", 32, 256, 32, True,
@@ -937,6 +990,35 @@ def main() -> int:
                                  "steps, or ids out of range")
         return out, stats
 
+    def graph_step(eng, prompt_, at):
+        """One b1 decode step at pos `at` after prefilling prompt_,
+        replayed as a CUDA graph, ms."""
+        cache = eng.new_cache(1)
+        eng.prefill(cache, [prompt_])
+        tok = torch.tensor([5], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([at], dtype=torch.int32, device="cuda")
+        return time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
+
+    long_prompt = prompt_of(LONG_PROMPT)
+
+    def long_step(path, eng, kind):
+        """The long-context b1 step: a LONG_PROMPT-token prompt and 64
+        greedy tokens with exact launch counts (eager ms/token), then one
+        step at pos LONG_POS replayed as a CUDA graph."""
+        gcfg = GenerationConfig(n_predict=LONG_PROMPT + 64, greedy=True,
+                                eos_token=-1, chunk_size=32)
+        (out, stats), record, want = recorded(
+            eng, eng.paged, lambda: eng.generate(long_prompt, gcfg))
+        if not ids_ok([out], [64]) or stats.decode_steps != 64:
+            raise AssertionError(f"path {path} long: {len(out)} ids in "
+                                 f"{stats.decode_steps} steps")
+        expect(f"{path} {LONG_PROMPT}-token prompt", kind, **want)
+        ms = graph_step(eng, long_prompt, LONG_POS)
+        print(f"path {path}: b1 decode after a {LONG_PROMPT}-token prompt: "
+              f"eager {stats.ms_per_token:.4f} ms/token over 64 tokens (pos "
+              f"{LONG_PROMPT}-{LONG_PROMPT + 63}); one step at pos {LONG_POS} "
+              f"replayed as a CUDA graph {ms:.4f} ms; card {card}", flush=True)
+
     # (a) main path: unfused prefill (bucket 128), fused b1 decode
     prompt = prompt_of(PROMPT_LEN)
     engine.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
@@ -1132,6 +1214,7 @@ def main() -> int:
               f"prefill {stats.prefill_s * 1e3:.3f} ms; decode "
               f"{stats.ms_per_token:.4f} ms/token over {n_new} tokens",
               flush=True)
+    long_step("(e)", paged_engine, "q8")
 
     # (f), (g) continuous batching: the batcher's cache is its engine's kind
     def serve(path, eng, max_batch, n_requests, seed, kind="q8"):
@@ -1260,14 +1343,6 @@ def main() -> int:
               f"against {nb} B (bf16), {nb8 / nb:.4f}", flush=True)
     del eng8, paged8
 
-    def graph_step(eng, n_prompt=PROMPT_LEN):
-        """One b1 decode step at pos n_prompt replayed as a CUDA graph, ms."""
-        cache = eng.new_cache(1)
-        eng.prefill(cache, [prompt])
-        tok = torch.tensor([5], dtype=torch.int32, device="cuda")
-        pos = torch.tensor([n_prompt], dtype=torch.int32, device="cuda")
-        return time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
-
     mark("path (j)")
 
     # (k) aq8 activations, POLICIES["q8a8"], on (a)'s weights (aq8 changes
@@ -1279,7 +1354,7 @@ def main() -> int:
     out, stats = generate(prompt, 64, enga)
     expect("(k) b1", "q8a8", qmm_bigm=4 * L, flash_prefill=L,
            qmm_smallm=1 + 64 * (4 * L + 1), flash_decode_heads=64 * L)
-    stepa_ms = graph_step(enga)
+    stepa_ms = graph_step(enga, prompt, PROMPT_LEN)
     print(f"path (k) b1: prefill {stats.prefill_s * 1e3:.3f} ms "
           f"({stats.prompt_tokens} tokens, bucket 128); decode "
           f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
@@ -1287,6 +1362,7 @@ def main() -> int:
           f"graph {stepa_ms:.4f} ms against (a)'s {step_ms:.4f} ms (q8, fused "
           f"branch); busy {stepa_ms / stats.ms_per_token:.3f} of an eager step",
           flush=True)
+    long_step("(k)", enga, "q8a8")
     batch_path(enga, f"(k) B={BATCH}", "q8a8")
     paged_a = Engine(cfg, q8a8, engine.params, max_ctx=2048, device="cuda",
                      paged=True)
@@ -1325,7 +1401,7 @@ def main() -> int:
         expect(f"(l) {kv} b1", label, qmm_bigm=4 * L, flash_prefill=L,
                qmm_smallm=1 + 64, fused_norm_qkv=L * 64, fused_attn_out=L * 64,
                ffn_fused_normed=L * 64)
-        stepk_ms = graph_step(engk)
+        stepk_ms = graph_step(engk, prompt, PROMPT_LEN)
         print(f"path (l) {kv} b1: prefill {stats.prefill_s * 1e3:.3f} ms; decode "
               f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
               f"tokens; one decode step at pos {PROMPT_LEN} replayed as a CUDA "

@@ -23,7 +23,10 @@ branch (q8 and q4, M 1 to 8, every TinyLlama weight shape, bf16 and f32
 out) and the f16 and f32 instantiations of K3, K4, K8-K11 at the int8
 cases' shapes, their graph replay, refusals (q4g with aq8, planes of two
 dtypes, scales beside an f16 cache), and aq8, f16-KV and f32-KV engines
-against the plain path.
+against the plain path; and the split-key K4 and K10 over every KV kind
+at pos 0, 63, 64, 1500 and 2047 (B = 1, and B = 4 with a position a row),
+G = 4 and 8, and replayed from a CUDA graph captured at pos 127 at other
+positions.
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -362,7 +365,11 @@ def test_serving_attention_kernels_match_plain(card, base, B, G):
 @pytest.mark.cuda
 def test_serving_attention_replays_in_a_graph(card):
     """K9, K10 and K11 captured in one CUDA graph and replayed 3 times give
-    the eager result every time."""
+    the eager result every time. Then K4 and K10 over bf16 caches and K4
+    over an f32 cache, captured at pos 127 and replayed at 1500, 5 and
+    2047 with pos written in place between replays: each replay equals an
+    eager call at that pos (the split count does not follow pos, and each
+    group's arrival count is back at 0 after every launch)."""
     q, pos, pool, st_dense, st_paged = _serving_inputs(32, 8, 700, seed=11,
                                                        device=card)
     layer = _i32([1], card)
@@ -384,6 +391,32 @@ def test_serving_attention_replays_in_a_graph(card):
         torch.cuda.synchronize()
         for o, e in zip(outs, eager):
             assert torch.equal(o, e)
+
+    q1, dense, pool1 = _split_inputs(1, 8, "bf16", seed=12, device=card)
+    _, dense32, _ = _split_inputs(1, 8, "f32", seed=13, device=card)
+    p = _i32([127], card)
+
+    def run_split():
+        return (flash_attention.flash_decode_heads_attention(q1, dense, layer, p),
+                flash_paged.flash_paged_attention(q1, pool1, layer, p),
+                flash_attention.flash_decode_heads_attention(q1, dense32, layer,
+                                                             p))
+
+    run_split()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run_split()
+    for at in (1500, 5, 2047):
+        p.fill_(at)
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = run_split()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e), f"replay at pos {at}"
 
 
 @pytest.mark.cuda
@@ -997,6 +1030,74 @@ def test_kv16_wrappers_refuse_on_the_card(card):
             flash_attention.flash_decode_heads_attention(q, c, layer, p)
         with pytest.raises(TypeError):
             attn_out_fused.fused_attn_out(q, c, layer, p, res, wo)
+
+
+# --- the split-key decode attention (K4, K10) ---------------------------------
+
+
+def _split_inputs(B, G, kv, seed, device):
+    """K4's and K10's operands at TinyLlama's kv heads (4) and max_ctx
+    2048, every key random: q [B, 1, 4 G, 64]; a monolithic cache and a
+    page pool (256-key pages under a shuffled table) of the same values,
+    in the KV kind `kv`."""
+    g = torch.Generator().manual_seed(seed)
+    J = SERVE_S // SERVE_P
+    dense = _cache(B, 4, SERVE_S, [SERVE_S] * B, seed=seed, device=device)
+    # row b's logical page j is physical page table[b, j] of the pool
+    table = 1 + torch.randperm(B * J, generator=g).reshape(B, J)
+    pool_k = torch.zeros((2, 1 + B * J, 4, SERVE_P, 64), dtype=torch.bfloat16,
+                         device=device)
+    pool_v = torch.zeros_like(pool_k)
+    for b in range(B):
+        for j in range(J):
+            keys = slice(j * SERVE_P, (j + 1) * SERVE_P)
+            pool_k[:, table[b, j]] = dense.k[:, b, :, keys]
+            pool_v[:, table[b, j]] = dense.v[:, b, :, keys]
+    pool = PagedKVCache(pool_k, pool_v, table.to(device, torch.int32))
+    if kv == "i8":
+        dense, pool = _i8(dense), _i8(pool)
+    elif kv != "bf16":
+        dense, pool = _float_kv(dense, kv), _float_kv(pool, kv)
+    q = torch.randn(B, 1, 4 * G, 64, generator=g).to(device, torch.bfloat16)
+    return q, dense, pool
+
+
+#: positions of the split kernels' card tests: both sides of the first
+#: tile, deep in the context and the last key of a 2,048-key cache; at
+#: B = 4 every row at its own position
+SPLIT_POS = {1: [[0], [63], [64], [1500], [2047]],
+             4: [[0, 63, 64, 1500], [2047, 1500, 64, 0]]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("B", [1, 4])
+def test_split_decode_kernels_match_plain(card, B, G, kv):
+    """K4 over the monolithic cache and K10 over the page pool, the key
+    walk split across blocks: each against its plain version at every
+    position of SPLIT_POS, one launch counted a call."""
+    q, dense, pool = _split_inputs(B, G, kv, seed=B * 10 + G, device=card)
+    layer = _i32([1], card)
+    sfx = "" if kv == "bf16" else f"_{kv}"
+    for rows in SPLIT_POS[B]:
+        p = _i32(rows, card)
+        cases = [
+            (flash_attention, "flash_decode_heads",
+             lambda: flash_attention.flash_decode_heads_attention(q, dense,
+                                                                  layer, p),
+             lambda: flash_attention.attention_ref(q, dense, layer, p)),
+            (flash_paged, "flash_paged",
+             lambda: flash_paged.flash_paged_attention(q, pool, layer, p),
+             lambda: flash_paged.paged_attention_ref(q, pool, layer, p)),
+        ]
+        for mod, name, kernel, plain in cases:
+            got = _counted(mod, name + sfx, kernel)
+            want = plain()
+            torch.cuda.synchronize()
+            assert got.shape == q.shape and got.dtype == torch.bfloat16, name
+            torch.testing.assert_close(got.float(), want.float(), **TOL,
+                                       msg=f"{name} at {rows}")
 
 
 @pytest.mark.cuda

@@ -304,6 +304,22 @@ def test_library_call_wherever_it_computes_the_function(bench, shape):
     assert sum(c.library is not None for c in cases) >= 2
 
 
+def test_flash_library_call_wherever_it_computes_the_function():
+    """full and the flips that compute its function (flipT, flipTtr,
+    flipTpre) carry the SDPA yardstick over the dequantized K/V; the
+    ablations and flipTnoscale carry none."""
+    args = kbench.parse(["--bench", "flash", "--m", "128", "--device", "cpu"])
+    cases = kbench.CASES["flash"](args, torch.device("cpu"))
+    assert {c.label.split()[-1] for c in cases} == set(kf.VARIANTS)
+    for case in cases:
+        var = case.label.split()[-1]
+        assert (case.library is not None) == (var in kf.SAME_AS_FULL), var
+        if case.library is not None:
+            q, k, v = case.make_library(0)
+            assert case.library(q, k, v).shape == q.shape
+    assert set(kf.SAME_AS_FULL) == {"full", "flipT", "flipTtr", "flipTpre"}
+
+
 @pytest.mark.parametrize("variant", ["cur", "dq", "ilp4", "manual"])
 def test_sweep_on_port_operands_is_the_q4_product(variant):
     x, data, scales, wd = kbench.sweep_operands(0, 2048, 2560, 8, "cpu")

@@ -1,7 +1,7 @@
-// Causal grouped-query attention over the stacked KV cache for Hopper
-// (sm_90a), bf16 queries, a bf16, f16, f32 or int8 cache (kvkind.cuh:
-// int8 with f32 scales [L, B, Kh, S]; f16 and f32 rounded to bf16 as a
-// tile is staged), f32 softmax and accumulation.
+// Causal grouped-query attention of new tokens over the stacked KV cache
+// for Hopper (sm_90a), bf16 queries, a bf16, f16, f32 or int8 cache
+// (kvkind.cuh: int8 with f32 scales [L, B, Kh, S]; f16 and f32 rounded to
+// bf16 as a tile is staged), f32 softmax and accumulation.
 //
 // The cache is [L, B, Kh, S, d] with the new tokens' k/v already written;
 // the layer and the positions are read from device memory, so no layer
@@ -26,16 +26,9 @@
 //   dequantized as each tile is staged, (k * ks) rounded to bf16, as the
 //   TPU kernel does; the products then run unchanged.
 //
-// K4 flash_decode_heads replaces _decode_heads_kernel (same file). Bound:
-//   the bytes of the pos+1 cached keys and values over the memory rate.
-//   Design: one block per (batch row, kv head) with one warp per query
-//   head of the group; the block walks ceil((pos+1)/64) key tiles and
-//   stops there. Scores and PV are warp-level f32 dot products from
-//   shared memory (K rows padded so a lane per key hits its own bank).
-//   At batch 1 this fills Kh blocks of the 132 SMs: splitting the key
-//   walk across blocks is the kernel's later work. An int8 cache halves
-//   the bytes: its rows are staged as exact bf16 and the scales folded
-//   into scores and probabilities (kvkind.cuh).
+// K4 flash_decode_heads (T = 1), which replaces _decode_heads_kernel of
+//   the same file, shares one split-key template with K10 in
+//   decode_split.cu.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -50,13 +43,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64;  // head dim taken by both kernels
-
-__device__ inline float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// ---------------------------------------------------------------- K3 ----
+constexpr int D = 64;  // head dim
 
 constexpr int PF_THREADS = 128;    // 4 warps x 16 query rows
 constexpr int PF_BR = 64;          // query rows per block
@@ -225,103 +212,6 @@ flash_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
   }
 }
 
-// ---------------------------------------------------------------- K4 ----
-
-constexpr int DEC_BS = 64;     // keys per tile
-constexpr int K_LD = D + 2;    // padded K rows: 33 words, a bank per key
-
-template <int G, class KV>
-__global__ void __launch_bounds__(G * 32)
-flash_decode_heads_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
-                          const KV* __restrict__ vc,
-                          const float* __restrict__ ksc,
-                          const float* __restrict__ vsc,
-                          const int* __restrict__ layer,
-                          const int* __restrict__ pos, bf16* __restrict__ out,
-                          int Kh, int S, size_t layer_stride) {
-  constexpr bool I8 = kvkind::is_i8<KV>;
-  __shared__ __align__(16) bf16 Ks[DEC_BS * K_LD];
-  __shared__ __align__(16) bf16 Vs[DEC_BS * D];
-  __shared__ float qs[G][D];
-  __shared__ float ps[G][DEC_BS];
-  __shared__ float kss[DEC_BS], vss[DEC_BS];  // int8: the tile's scales
-  const int b = blockIdx.y, kh = blockIdx.x, H = Kh * G;
-  const int g = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p = pos[b];
-  const size_t kv_off =
-      (size_t)layer[0] * layer_stride + ((size_t)b * Kh + kh) * S * D;
-  const KV* kb = kc + kv_off;
-  const KV* vb = vc + kv_off;
-  const size_t qo = ((size_t)b * H + kh * G + g) * D;
-  qs[g][lane] = __bfloat162float(q[qo + lane]);
-  qs[g][lane + 32] = __bfloat162float(q[qo + lane + 32]);
-
-  float m = TL_NEG_INF, l = 0.f, o0 = 0.f, o1 = 0.f;  // dims 2*lane, 2*lane+1
-  const float scale = 1.f / sqrtf((float)D);
-  const int n_tiles = p / DEC_BS + 1;
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < DEC_BS * (D / 8); i += G * 32) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const size_t gi = (size_t)(t * DEC_BS + r) * D + c;
-      const uint4 kv = kvkind::load8(kb + gi);
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&Ks[r * K_LD + c]);
-      kd[0] = kv.x;
-      kd[1] = kv.y;
-      kd[2] = kv.z;
-      kd[3] = kv.w;
-      *reinterpret_cast<uint4*>(&Vs[r * D + c]) = kvkind::load8(vb + gi);
-    }
-    if constexpr (I8) {  // G * 32 >= 2 * DEC_BS threads
-      const size_t si = kv_off / D + t * DEC_BS;
-      const int r = threadIdx.x % DEC_BS;
-      if (threadIdx.x < DEC_BS) kss[r] = ksc[si + r];
-      else if (threadIdx.x < 2 * DEC_BS) vss[r] = vsc[si + r];
-    }
-    __syncthreads();
-
-    float s[2];
-    bool ok[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = lane + 32 * e;
-      const __nv_bfloat162* kr =
-          reinterpret_cast<const __nv_bfloat162*>(&Ks[key * K_LD]);
-      float acc = 0.f;
-#pragma unroll
-      for (int dd = 0; dd < D / 2; ++dd) {
-        const float2 kf = __bfloat1622float2(kr[dd]);
-        acc += qs[g][2 * dd] * kf.x + qs[g][2 * dd + 1] * kf.y;
-      }
-      s[e] = acc * scale;
-      if constexpr (I8) s[e] *= kss[key];
-      ok[e] = t * DEC_BS + key <= p;
-    }
-    const float alpha = online_softmax_update(s, ok, m, l);
-    ps[g][lane] = round_bf16(s[0]);
-    ps[g][lane + 32] = round_bf16(s[1]);
-    if constexpr (I8) {  // after l has summed them (kvkind.cuh)
-      ps[g][lane] *= vss[lane];
-      ps[g][lane + 32] *= vss[lane + 32];
-    }
-    __syncwarp();
-    float a0 = 0.f, a1 = 0.f;
-    const __nv_bfloat162* vcol = reinterpret_cast<const __nv_bfloat162*>(Vs) + lane;
-#pragma unroll 8
-    for (int key = 0; key < DEC_BS; ++key) {
-      const float pk = ps[g][key];
-      const float2 vf = __bfloat1622float2(vcol[key * (D / 2)]);
-      a0 += pk * vf.x;
-      a1 += pk * vf.y;
-    }
-    o0 = o0 * alpha + a0;
-    o1 = o1 * alpha + a1;
-  }
-  const float den = l > 0.f ? l : 1.f;
-  reinterpret_cast<__nv_bfloat162*>(out + qo)[lane] =
-      __floats2bfloat162_rn(o0 / den, o1 / den);
-}
-
 template <class KV>
 int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* layer, const void* pos, void* out,
@@ -334,35 +224,6 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const float*>(vs), static_cast<const int*>(layer),
       static_cast<const int*>(pos), static_cast<bf16*>(out), T, H, Kh, S,
       (size_t)B * Kh * S * D);
-  return (int)cudaGetLastError();
-}
-
-template <class KV>
-int launch_decode(const void* q, const void* k, const void* v, const void* ks,
-                  const void* vs, const void* layer, const void* pos, void* out,
-                  int B, int H, int Kh, int S, cudaStream_t st) {
-  const dim3 grid(Kh, B);
-  auto qb = static_cast<const bf16*>(q);
-  auto kb = static_cast<const KV*>(k);
-  auto vb = static_cast<const KV*>(v);
-  auto ksb = static_cast<const float*>(ks);
-  auto vsb = static_cast<const float*>(vs);
-  auto lb = static_cast<const int*>(layer);
-  auto pb = static_cast<const int*>(pos);
-  auto ob = static_cast<bf16*>(out);
-  const size_t layer_stride = (size_t)B * Kh * S * D;
-  switch (H / Kh) {
-    case 4:
-      flash_decode_heads_kernel<4, KV><<<grid, 4 * 32, 0, st>>>(
-          qb, kb, vb, ksb, vsb, lb, pb, ob, Kh, S, layer_stride);
-      break;
-    case 8:
-      flash_decode_heads_kernel<8, KV><<<grid, 8 * 32, 0, st>>>(
-          qb, kb, vb, ksb, vsb, lb, pb, ob, Kh, S, layer_stride);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 
@@ -385,21 +246,6 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
     return launch_prefill<decltype(tag)>(q, k, v, ks, vs, layer, pos, out, B,
                                          T, H, Kh, S,
                                          static_cast<cudaStream_t>(stream));
-  });
-}
-
-// q, out: [B, 1, H, d]; k, v, ks, vs, layer, pos as for flash_prefill.
-// Requires d == 64, H / Kh in {4, 8} and S % 64 == 0; pos[b] < S.
-int flash_decode_heads(const void* q, const void* k, const void* v,
-                       const void* ks, const void* vs, const void* layer,
-                       const void* pos, void* out, int kv_kind, int B, int H,
-                       int Kh, int S, int d, void* stream) {
-  if (!kvkind::valid(kv_kind) || d != D || Kh < 1 || H % Kh || S % DEC_BS ||
-      B < 1)
-    return (int)cudaErrorInvalidValue;
-  return kvkind::with_type(kv_kind, [&](auto tag) {
-    return launch_decode<decltype(tag)>(q, k, v, ks, vs, layer, pos, out, B, H,
-                                        Kh, S, static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -1,38 +1,38 @@
-// Single-token grouped-query attention of the serving path for Hopper
-// (sm_90a): bf16 queries, bf16, f16, f32 or int8 keys and values
+// Single-token grouped-query attention of a staged decode chunk for
+// Hopper (sm_90a): bf16 queries, bf16, f16, f32 or int8 keys and values
 // (kvkind.cuh), f32 softmax and accumulation.
 //
-// One kernel body walks a row's keys from one of two sources, then, in a
-// staged decode chunk, the chunk's staged tail:
+// One kernel body walks a row's keys below the chunk's base from one of
+// two sources, then the chunk's staged tail [L, B, Kh, Cs, d] at slots
+// < ntail = pos[b] - base[b] + 1:
 //
 // K9  flash_staged replaces _flash_staged_kernel in
 //     tinyllama_tpu/ops/pallas/flash_prefill.py: the monolithic cache
-//     [L, B, Kh, S, d] below npool = base[b], then the staged tail
-//     [L, B, Kh, Cs, d] at slots < ntail = pos[b] - base[b] + 1.
-// K10 flash_paged replaces _flash_paged_kernel in
+//     [L, B, Kh, S, d] below npool = base[b].
+// K11 flash_paged_staged replaces _flash_paged_staged_kernel in
 //     tinyllama_tpu/ops/pallas/flash_paged.py: the page pool
-//     [L, NP, Kh, P, d] through the row's page table [B, J], keys <= pos.
-// K11 flash_paged_staged replaces _flash_paged_staged_kernel (same file):
-//     K10's page walk below npool = base[b], then K9's staged tail.
+//     [L, NP, Kh, P, d] through the row's page table [B, J], below
+//     npool = base[b].
 //
 // Bound: the bytes of the keys and values a row attends (its fill, not
 // max_ctx) over the memory rate; the arithmetic is 4 * d operations a
 // (query head, key) pair. Design: one block per (batch row, kv head) with
-// one warp per query head of the group, as K4 (flash_attention.cu). The
-// block stages each 64-key tile of K and V in shared memory once, and the
-// G warps of the group share it; each warp computes its head's scores
-// (a lane per key) and its part of P V (a lane per two output dims) in
-// f32, through online_softmax_update. A page is a whole number of key
-// tiles, so a tile never straddles pages and its page comes from one
-// table read. The layer, pos, base and the table are read on the card;
-// the walk stops at each row's own fill. Nothing is allocated and
-// nothing synchronizes with the host, so the kernels capture in a CUDA
-// graph. At batch 1 the grid is Kh blocks: splitting the key walk over
-// blocks is later work. An int8 pool and tail halve the bytes a key
-// costs: rows are staged as exact bf16, each tile's scales beside them
-// (read through the same index as the data: the row's slab, the page
-// through the table, or the tail slot), and folded into the scores and
-// the probabilities as the TPU kernels fold them.
+// one warp per query head of the group. The block stages each 64-key
+// tile of K and V in shared memory once, and the G warps of the group
+// share it; each warp computes its head's scores (a lane per key) and its
+// part of P V (a lane per two output dims) in f32, through
+// online_softmax_update. A page is a whole number of key tiles, so a tile
+// never straddles pages and its page comes from one table read. The
+// layer, pos, base and the table are read on the card; the walk stops at
+// each row's own fill. Nothing is allocated and nothing synchronizes with
+// the host, so the kernels capture in a CUDA graph. At batch 1 the grid
+// is Kh blocks walking their tiles one after another; the split key walk
+// and tile ring of decode_split.cu (K4, K10) would take a tail source. An
+// int8 pool and tail halve the bytes a key costs: rows are staged as
+// exact bf16, each tile's scales beside them (read through the same index
+// as the data: the row's slab, the page through the table, or the tail
+// slot), and folded into the scores and the probabilities as the TPU
+// kernels fold them.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -58,7 +58,7 @@ struct Args {
   const bf16* q;      // [B, 1, H, D]
   const KV* k;        // dense [L, B, Kh, S, D] or pool [L, NP, Kh, P, D]
   const KV* v;
-  const KV* sk;       // staged [L, B, Kh, Cs, D] (staged kernels only)
+  const KV* sk;       // staged [L, B, Kh, Cs, D]
   const KV* sv;
   const float* ks;    // scales of k, v, sk, sv
   const float* vs;
@@ -66,8 +66,8 @@ struct Args {
   const float* svs;
   const int* layer;   // [1]
   const int* pos;     // [B]
-  const int* base;    // [B] (staged kernels only)
-  const int* table;   // [B, J] (paged kernels only)
+  const int* base;    // [B]
+  const int* table;   // [B, J] (K11 only)
   bf16* out;          // [B, 1, H, D]
   int B, Kh;
   int S;              // dense: positions a row; paged: page size P
@@ -162,7 +162,7 @@ __device__ void attend_tile(Smem<G>& sm, int g, int lane, int n_ok, float& m,
   o1 = o1 * alpha + a1;
 }
 
-template <int G, bool PAGED, bool STAGED, class KV>
+template <int G, bool PAGED, class KV>
 __global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args<KV> a) {
   constexpr bool I8 = kvkind::is_i8<KV>;
   __shared__ __align__(16) Smem<G> sm;
@@ -173,10 +173,10 @@ __global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args<KV> a) {
   sm.q[g][lane] = __bfloat162float(a.q[qo + lane]);
   sm.q[g][lane + 32] = __bfloat162float(a.q[qo + lane + 32]);
 
-  // pool keys [0, npool): below the chunk base when staged, else <= pos;
-  // never past the row's capacity (a chunk may run past max_ctx)
+  // pool keys [0, npool): below the chunk base, never past the row's
+  // capacity (a chunk may run past max_ctx)
   const int cap = PAGED ? a.J * a.S : a.S;
-  const int npool = max(0, min(STAGED ? a.base[b] : p + 1, cap));
+  const int npool = max(0, min(a.base[b], cap));
   float m = TL_NEG_INF, l = 0.f, o0 = 0.f, o1 = 0.f;
   for (int t = 0; t * BS < npool; ++t) {
     size_t off;
@@ -194,36 +194,34 @@ __global__ void __launch_bounds__(G * 32) serve_attention_kernel(Args<KV> a) {
     __syncthreads();
     attend_tile<G, I8>(sm, g, lane, npool - t * BS, m, l, o0, o1);
   }
-  if (STAGED) {
-    const int ntail = max(0, min(p - a.base[b] + 1, a.Cs));
-    const size_t tail = (((size_t)li * a.B + b) * a.Kh + kh) * a.Cs * D;
-    for (int t = 0; t * BS < ntail; ++t) {
-      const size_t off = tail + (size_t)t * BS * D;
-      __syncthreads();
-      load_tile<G>(sm, a.sk + off, a.sv + off, I8 ? a.sks + off / D : nullptr,
-                   I8 ? a.svs + off / D : nullptr, min(BS, a.Cs - t * BS));
-      __syncthreads();
-      attend_tile<G, I8>(sm, g, lane, ntail - t * BS, m, l, o0, o1);
-    }
+  const int ntail = max(0, min(p - a.base[b] + 1, a.Cs));
+  const size_t tail = (((size_t)li * a.B + b) * a.Kh + kh) * a.Cs * D;
+  for (int t = 0; t * BS < ntail; ++t) {
+    const size_t off = tail + (size_t)t * BS * D;
+    __syncthreads();
+    load_tile<G>(sm, a.sk + off, a.sv + off, I8 ? a.sks + off / D : nullptr,
+                 I8 ? a.svs + off / D : nullptr, min(BS, a.Cs - t * BS));
+    __syncthreads();
+    attend_tile<G, I8>(sm, g, lane, ntail - t * BS, m, l, o0, o1);
   }
   const float den = l > 0.f ? l : 1.f;
   reinterpret_cast<__nv_bfloat162*>(a.out + qo)[lane] =
       __floats2bfloat162_rn(o0 / den, o1 / den);
 }
 
-template <bool PAGED, bool STAGED, class KV>
+template <bool PAGED, class KV>
 int launch(const Args<KV>& a, int G, void* stream) {
-  if (a.B < 1 || a.Kh < 1 || a.S < BS || a.S % BS ||
-      (STAGED && (a.Cs < 1 || a.Cs % 32)) || (PAGED && a.J < 1))
+  if (a.B < 1 || a.Kh < 1 || a.S < BS || a.S % BS || a.Cs < 1 || a.Cs % 32 ||
+      (PAGED && a.J < 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.Kh, a.B);
   auto st = static_cast<cudaStream_t>(stream);
   switch (G) {
     case 4:
-      serve_attention_kernel<4, PAGED, STAGED, KV><<<grid, 4 * 32, 0, st>>>(a);
+      serve_attention_kernel<4, PAGED, KV><<<grid, 4 * 32, 0, st>>>(a);
       break;
     case 8:
-      serve_attention_kernel<8, PAGED, STAGED, KV><<<grid, 8 * 32, 0, st>>>(a);
+      serve_attention_kernel<8, PAGED, KV><<<grid, 8 * 32, 0, st>>>(a);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -240,7 +238,7 @@ struct Ptrs {
   void* out;
 };
 
-template <bool PAGED, bool STAGED>
+template <bool PAGED>
 int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int S,
              int n_pages, int J, int Cs, int d, void* stream) {
   if (!kvkind::valid(kv_kind) || d != D || Kh < 1 || H % Kh)
@@ -255,7 +253,7 @@ int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int S,
                static_cast<const int*>(p.pos), static_cast<const int*>(p.base),
                static_cast<const int*>(p.table), static_cast<bf16*>(p.out),
                B, Kh, S, n_pages, J, Cs};
-    return launch<PAGED, STAGED>(a, H / Kh, stream);
+    return launch<PAGED>(a, H / Kh, stream);
   });
 }
 
@@ -275,24 +273,13 @@ int flash_staged(const void* q, const void* k, const void* v, const void* sk,
                  const void* pos, const void* base, void* out, int kv_kind,
                  int B, int H, int Kh, int S, int Cs, int d, void* stream) {
   const Ptrs p{q, k, v, sk, sv, ks, vs, sks, svs, layer, pos, base, nullptr, out};
-  return dispatch<false, true>(kv_kind, p, B, H, Kh, S, 0, 0, Cs, d, stream);
+  return dispatch<false>(kv_kind, p, B, H, Kh, S, 0, 0, Cs, d, stream);
 }
 
-// K10. q, out: [B, 1, H, d]; k, v: [L, NP, Kh, P, d]; ks, vs: their
-// scales; table [B, J]; layer [1]; pos [B]. Requires d == 64, H / Kh in
-// {4, 8}, P % 64 == 0.
-int flash_paged(const void* q, const void* k, const void* v, const void* ks,
-                const void* vs, const void* layer, const void* pos,
-                const void* table, void* out, int kv_kind, int B, int H,
-                int Kh, int n_pages, int P, int J, int d, void* stream) {
-  const Ptrs p{q, k, v, nullptr, nullptr, ks, vs, nullptr, nullptr, layer, pos,
-               nullptr, table, out};
-  return dispatch<true, false>(kv_kind, p, B, H, Kh, P, n_pages, J, 0, d, stream);
-}
-
-// K11. K10's operands plus sk, sv: [L, B, Kh, Cs, d], their scales sks,
-// svs, and base [B]. Requires d == 64, H / Kh in {4, 8}, P % 64 == 0 and
-// Cs % 32 == 0.
+// K11. q, out: [B, 1, H, d]; k, v: [L, NP, Kh, P, d]; sk, sv: [L, B, Kh,
+// Cs, d]; ks, vs, sks, svs: their scales; table [B, J]; layer [1]; pos,
+// base [B]. Requires d == 64, H / Kh in {4, 8}, P % 64 == 0 and Cs % 32
+// == 0.
 int flash_paged_staged(const void* q, const void* k, const void* v,
                        const void* sk, const void* sv, const void* ks,
                        const void* vs, const void* sks, const void* svs,
@@ -301,7 +288,7 @@ int flash_paged_staged(const void* q, const void* k, const void* v,
                        int Kh, int n_pages, int P, int J, int Cs, int d,
                        void* stream) {
   const Ptrs p{q, k, v, sk, sv, ks, vs, sks, svs, layer, pos, base, table, out};
-  return dispatch<true, true>(kv_kind, p, B, H, Kh, P, n_pages, J, Cs, d, stream);
+  return dispatch<true>(kv_kind, p, B, H, Kh, P, n_pages, J, Cs, d, stream);
 }
 
 }  // extern "C"

@@ -1,36 +1,40 @@
 """Causal GQA attention of new tokens against layer `layer` of the stacked
 KV cache ([L, B, Kh, S, d], the new k/v already written).
 
-Replaces two kernels of tinyllama_tpu/ops/pallas/flash_prefill.py with
-hand-written Hopper kernels (csrc/flash_attention.cu), which share the
-online-softmax step of csrc/online_softmax.cuh (the counterpart of
+Replaces three kernels of tinyllama_tpu/ops/pallas/flash_prefill.py with
+hand-written Hopper kernels, which share the online-softmax step of
+csrc/online_softmax.cuh (the counterpart of
 softmax_update.online_update_batch):
 
 * K3 ``flash_prefill`` for ``_flash_attn_kernel`` (T new tokens at
   ``pos``): bound by the tensor-core rate of the QK^T and PV products.
-  One block per (row, kv head, 64 flattened (token, group) query rows),
-  so a token's G query heads share every K/V tile; key tiles above the
-  causal diagonal are neither loaded nor computed.
+  Its source is csrc/flash_attention.cu. One block per (row, kv head,
+  64 flattened (token, group) query rows), so a token's G query heads
+  share every K/V tile; key tiles above the causal diagonal are neither
+  loaded nor computed.
 * K4 ``flash_decode_heads`` for ``_decode_heads_kernel`` (T = 1): bound
-  by the bytes of the pos+1 cached keys and values. One block per
-  (row, kv head), one warp per query head; the key walk stops at pos.
-  At batch 1 that is Kh blocks on 132 SMs; a split-KV walk is later work.
+  by the bytes of the pos+1 cached keys and values. Its source is
+  csrc/decode_split.cu, one template with K10: the key walk split over
+  (n_split, Kh, B) blocks, each pipelining its share of the tiles
+  through a cp.async ring, then a merge of the partials
+  (ops/kernels/decode_split.py).
 * K9 ``flash_staged`` for ``_flash_staged_kernel`` (T = 1 in a staged
   decode chunk): the cache rows below the chunk's base, then the chunk's
   staged tail (runtime/staging.py). Bound by the bytes of the keys and
-  values each row attends. K4's design over two key sources; its source
-  is csrc/flash_paged.cu, beside K10 and K11 (ops/kernels/flash_paged.py),
-  whose input checks and plain version it shares.
+  values each row attends. One block per (row, kv head), one warp per
+  query head, over two key sources; its source is csrc/flash_paged.cu,
+  beside K11 (ops/kernels/flash_paged.py), whose input checks and plain
+  version it shares.
 
 The layer index and the positions are device tensors, read inside the
 kernels. The cache is bf16, f16, f32, or int8 with f32 scale planes. An
 int8 tile is dequantized by K3 as it is staged; K4 and K9 read half the
 bytes a key and fold the scales into scores and probabilities (as the
-TPU kernels do). f16 and f32 values are rounded to bf16 as a tile is
-staged, as the TPU kernels cast a tile to the compute dtype. CUDA
-tensors (bf16 q, d = 64) launch a kernel or raise; only CPU tensors go
-to the plain version, ``gqa_attention`` over the layer's cache,
-dequantized.
+TPU kernels do). f16 and f32 values are rounded to bf16 (K3 and K9 as a
+tile is staged, K4 once a tile after its raw bytes land), as the TPU
+kernels cast a tile to the compute dtype. CUDA tensors (bf16 q, d = 64)
+launch a kernel or raise; only CPU tensors go to the plain version,
+``gqa_attention`` over the layer's cache, dequantized.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 
 from tinyllama_tpu_torch.ops.attention import gqa_attention
 from tinyllama_tpu_torch.ops.kernels import build
+from tinyllama_tpu_torch.ops.kernels import decode_split as ds
 from tinyllama_tpu_torch.ops.kernels import flash_paged as fp
 from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
@@ -64,8 +69,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if lib.flash_prefill.argtypes is None:
         lib.flash_prefill.argtypes = [_P] * 8 + [_I] * 7 + [_P]
-        lib.flash_decode_heads.argtypes = [_P] * 8 + [_I] * 6 + [_P]
-        lib.flash_prefill.restype = lib.flash_decode_heads.restype = _I
+        lib.flash_prefill.restype = _I
     return lib
 
 
@@ -129,8 +133,8 @@ def flash_prefill_attention(q: torch.Tensor, cache: KVCache, layer,
 def flash_decode_heads_attention(q: torch.Tensor, cache: KVCache, layer,
                                  pos: torch.Tensor) -> torch.Tensor:
     """Single-token GQA attention (q [B, 1, H, d] at pos[b]) over cache
-    layer `layer`, all query heads of a kv head in one block. Returns
-    [B, 1, H, d] in q.dtype."""
+    layer `layer`, the key walk split across blocks (decode_split).
+    Returns [B, 1, H, d] in q.dtype."""
     if q.shape[1] != 1:
         raise ValueError("flash_decode_heads_attention is the T=1 decode path")
     if not q.is_cuda:
@@ -141,13 +145,9 @@ def flash_decode_heads_attention(q: torch.Tensor, cache: KVCache, layer,
     if H // Kh not in (4, 8):
         raise ValueError(f"the decode kernel takes 4 or 8 query heads per "
                          f"kv head, got {H // Kh}")
-    out = torch.empty_like(q)
-    err = _lib().flash_decode_heads(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-        fp.ptr(cache.k_scale), fp.ptr(cache.v_scale), layer.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), kind, B, H, Kh, S, d,
-        build.stream_ptr(q))
-    build.check(err, "flash_decode_heads")
+    out = ds.launch("flash_decode_heads", q, cache.k, cache.v,
+                    (cache.k_scale, cache.v_scale), (layer, pos), kind,
+                    (B, H, Kh, S, d), S // KEY_TILE)
     fp.count(launches, "flash_decode_heads", kind)
     return out
 

@@ -2,27 +2,32 @@
 the serving path's attention.
 
 Replaces two kernels of tinyllama_tpu/ops/pallas/flash_paged.py with
-hand-written Hopper kernels in csrc/flash_paged.cu, which also holds K9
-(ops/kernels/flash_attention.py):
+hand-written Hopper kernels:
 
 * K10 ``flash_paged`` for ``_flash_paged_kernel``: q [B, 1, H, d] at
   pos[b] against the pool through row b's page table, keys <= pos[b].
+  Its source is csrc/decode_split.cu, one template with K4: the key walk
+  split over (n_split, Kh, B) blocks, each pipelining its share of the
+  tiles through a cp.async ring, then a merge of the partials
+  (ops/kernels/decode_split.py).
 * K11 ``flash_paged_staged`` for ``_flash_paged_staged_kernel``: the
   pool's keys below the chunk's base, then the chunk's staged tail up to
-  the step (runtime/staging.py).
+  the step (runtime/staging.py). Its source is csrc/flash_paged.cu,
+  which also holds K9 (ops/kernels/flash_attention.py): one block per
+  (row, kv head), one warp per query head, the group's G heads sharing
+  each staged 64-key tile.
 
-Both are bound by the bytes of the keys and values each row attends.
-One block per (row, kv head), one warp per query head, the group's G
-heads sharing each staged 64-key tile; the walk stops at each row's own
-fill. The layer, pos, base and the table are device tensors read inside
-the kernels. The pool and the tail are bf16, f16, f32, or int8 with f32
-scale planes (the kernels' int8 instantiation reads half the bytes a key
-and folds the scales, as the TPU kernels do; f16 and f32 values are
-rounded to bf16 as they are staged, as the TPU kernels cast a tile to
-the compute dtype). CUDA tensors (bf16 q, d = 64,
-G in {4, 8}, pages a whole number of 64-key tiles) launch a kernel or
-raise; only CPU tensors go to the plain versions, ``gqa_attention`` over
-``paged_layer_view`` or ``staged_layer_view``, which dequantize.
+Both are bound by the bytes of the keys and values each row attends;
+the walk stops at each row's own fill. The layer, pos, base and the
+table are device tensors read inside the kernels. The pool and the tail
+are bf16, f16, f32, or int8 with f32 scale planes (the kernels' int8
+instantiation reads half the bytes a key and folds the scales, as the
+TPU kernels do; f16 and f32 values are rounded to bf16 as a tile is
+staged or converted, as the TPU kernels cast a tile to the compute
+dtype). CUDA tensors (bf16 q, d = 64, G in {4, 8}, pages a whole number
+of 64-key tiles) launch a kernel or raise; only CPU tensors go to the
+plain versions, ``gqa_attention`` over ``paged_layer_view`` or
+``staged_layer_view``, which dequantize.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from tinyllama_tpu_torch.ops.attention import gqa_attention
 from tinyllama_tpu_torch.ops.kernels import build
+from tinyllama_tpu_torch.ops.kernels import decode_split as ds
 from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
 from tinyllama_tpu_torch.runtime.staging import StagedKVCache, staged_layer_view
@@ -60,12 +66,10 @@ _I = ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_paged")
-    if lib.flash_paged.argtypes is None:
+    if lib.flash_staged.argtypes is None:
         lib.flash_staged.argtypes = [_P] * 13 + [_I] * 7 + [_P]
-        lib.flash_paged.argtypes = [_P] * 9 + [_I] * 8 + [_P]
         lib.flash_paged_staged.argtypes = [_P] * 14 + [_I] * 9 + [_P]
-        lib.flash_staged.restype = lib.flash_paged.restype = _I
-        lib.flash_paged_staged.restype = _I
+        lib.flash_staged.restype = lib.flash_paged_staged.restype = _I
     return lib
 
 
@@ -185,7 +189,8 @@ def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,
                           pos: torch.Tensor) -> torch.Tensor:
     """Single-token GQA attention (q [B, 1, H, d] at pos[b], its k/v
     already written) over the page pool. Returns [B, 1, H, d] in q.dtype.
-    The kernel stops at each row's own fill."""
+    The kernel stops at each row's own fill, its key walk split across
+    blocks (decode_split)."""
     if q.shape[1] != 1:
         raise ValueError("flash_paged_attention is the T=1 decode path")
     if not q.is_cuda:
@@ -193,13 +198,10 @@ def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,
     kind = _check_paged(q, cache, layer, pos)
     B, _, H, d = q.shape
     _, NP, Kh, P, _ = cache.k.shape
-    out = torch.empty_like(q)
-    err = _lib().flash_paged(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-        ptr(cache.k_scale), ptr(cache.v_scale), layer.data_ptr(),
-        pos.data_ptr(), cache.table.data_ptr(), out.data_ptr(), kind,
-        B, H, Kh, NP, P, cache.table.shape[1], d, build.stream_ptr(q))
-    build.check(err, "flash_paged")
+    J = cache.table.shape[1]
+    out = ds.launch("flash_paged", q, cache.k, cache.v,
+                    (cache.k_scale, cache.v_scale), (layer, pos, cache.table),
+                    kind, (B, H, Kh, NP, P, J, d), J * P // KEY_TILE)
     count(launches, "flash_paged", kind)
     return out
 

@@ -50,6 +50,8 @@ from tinyllama_tpu_torch.ops.precision import exact_f32
 
 VARIANTS = ("full", "noexp", "nomask", "nomax", "nosum", "dots", "stream",
             "flipT", "flipTtr", "flipTnoscale", "flipTpre")
+#: the variants whose function is full's (the flips transpose the output)
+SAME_AS_FULL = ("full", "flipT", "flipTtr", "flipTpre")
 G = 8          # query heads a kv head
 D = 64         # head dim
 BTG = 512      # query rows a TPU tile

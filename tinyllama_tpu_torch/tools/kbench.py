@@ -343,7 +343,7 @@ def flash_cases(args, dev) -> list[Case]:
             lambda *o, var=var: kf.flash(*o, var),
             lambda *o, var=var: kf.flash_ref(*o, var), make, base,
             4 * d * pairs, mode,
-            library=sdpa if var == "full" else None,
+            library=sdpa if var in kf.SAME_AS_FULL else None,
             make_library=lambda i: (qh.clone(), kd.clone(), vd.clone()),
             library_note="SDPA (causal, enable_gqa) over the K/V dequantized "
                          "to bf16",
