@@ -12,7 +12,9 @@ Phases, each fatal on failure:
    at once, into build/kernels;
 3. kernels: each kernel against its plain PyTorch version on the card,
    in bf16, at TinyLlama-1.1B's shapes (K1 on the five decode matmuls,
-   K2 at M=128 and 512, K3 at T=128 and 512, K4 at pos 127, 1500 and 2047
+   K2 at M=128, 512, 2048 and 8192 (q8; q4 and q4g to 2048 after (i)),
+   K3 at T=128, 512 and 2048 and at B=32, T=256 (an admission of (f)),
+   K4 at pos 127, 1500 and 2047
    and at B=4 (path (c)'s batch) at pos 1500, K4 and K10 also captured in
    a CUDA graph at pos 127 and replayed at 1500, 5 and 2047, K5 at M=1, 4, 32, K6 at
    M=4, 32, K7 at M=1, 4, 32 and its plain entry at M=1, K8 at pos 127
@@ -51,15 +53,19 @@ Phases, each fatal on failure:
    (e) Engine(paged=True).generate: a 100-token prompt with 64 new
        tokens and a 24-token one with 16 (its prefill attends a 32-key
        temporary cache, padded to 64), each step K5, K10, K6, K7, no K8;
-       then a 1,450-token prompt with 64 new tokens, and one step at pos
-       1500 replayed as a CUDA graph (the long-context b1 step);
+       then a 1,450-token prompt (bucket 2,048: its prefill ms printed)
+       with 64 new tokens, and one step at pos 1500 replayed as a CUDA
+       graph (the long-context b1 step);
    (f) ContinuousBatcher(Engine(paged=True), max_batch=32): 64
        requests, prompts of 8-200 tokens and 32-96 new tokens from a
        fixed seed, chunk 32;
        every chunk stages over the pool (K11) or, at a bucket of 1, runs
        K10; the counts follow from each chunk's batch and length and each
        admission's shape, recorded by wrapping the engine's methods; it
-       prints aggregate tok/s, TTFT p50/p95 and the wall time;
+       prints aggregate tok/s, TTFT p50/p95 and the wall time; then one
+       admission at full width, its first 32 prompts prefilled into a
+       page pool at once (bucket 256, M = 8,192 through K2), three times
+       on the host clock, each with its launch counts;
    (g) ContinuousBatcher(Engine(), max_batch=8): 16 requests through
        the monolithic admission and K9;
    then, for (f) and (g), one full-width staged step at a 100-token
@@ -104,7 +110,7 @@ Phases, each fatal on failure:
        chunk of a paged generate_batch; then the CLI on (h)'s file with
        -q4 --kv f16;
    after each kind's (h) and (i), that kind's weight kernels (K1, K2 at
-   M = 128, K5-K8) against their plain versions, as in phase 3, with
+   M = 128, 512 and 2048, K5-K8) against their plain versions, as in phase 3, with
    the launches of (h) and (i), and K1-aq8's q4 rows;
 5. parity: a 2-layer model at TinyLlama's full widths, the same weights
    on the card (kernels) and the CPU (plain versions): a long prefill
@@ -174,6 +180,8 @@ ATTENTION = ("flash_prefill", "flash_decode_heads", "flash_staged",
 KV_SUFFIX = {"kvi8": "_i8", "kvf16": "_f16", "kvf32": "_f32"}
 #: path (c): rows and decode steps of the batched decode
 BATCH, BATCH_STEPS = 4, 8
+#: path (f)'s slots: one admission prefills this many prompts at once
+ADMIT = 32
 #: path (h): the chat prompt (105 tokens in the chat template over the
 #: stand-in vocab: bucket 128, the unfused prefill) and --npred
 CLI_PROMPT = ("Give three tips for staying healthier, and explain for each "
@@ -504,7 +512,9 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         for n, w in mats.items():
             qmm_case(n, w, dense[n], 1, True, torch.bfloat16)
         qmm_case("lm_head", lm, lm_dense, 1, False, torch.float32)
-        for M in (128, 512) if kind == "q8" else (128,):
+        # K2 at prefill sizes: a chat prompt (128), longer prompts (512,
+        # 2,048: path (e)'s bucket) and, q8, a B = 32 admission (8,192)
+        for M in (128, 512, 2048, 8192) if kind == "q8" else (128, 512, 2048):
             for n, w in mats.items():
                 qmm_case(n, w, dense[n], M, True, torch.bfloat16)
 
@@ -649,7 +659,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         row(kernel, f"T={T} pos={p} S={S}" + (f" B={B}" if B > 1 else ""),
             src, rep, err, ms, plain, nbytes, 4 * d * pairs, lib)
 
-    for T in (128, 512):
+    for T in (128, 512, 2048):
         attn_case("K3 flash_prefill", T, 0)
     for p in (127, 1500, 2047):
         attn_case("K4 flash_decode_heads", 1, p)
@@ -661,6 +671,14 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
     dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
     attn_case("K4 flash_decode_heads", 1, 1500, BATCH, cache, dense_k, dense_v)
+    del cache, dense_k, dense_v
+    # K3 at an admission of path (f): 32 rows of 256 tokens from pos 0
+    shape = (L, ADMIT, Kh, S, d)
+    cache = quant(KVCache(
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
+    dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
+    attn_case("K3 flash_prefill", 256, 0, ADMIT, cache, dense_k, dense_v)
     del cache, dense_k, dense_v
 
     # K9-K11: the serving attention at the shapes of paths (d)-(g)
@@ -1014,7 +1032,10 @@ def main() -> int:
                                  f"{stats.decode_steps} steps")
         expect(f"{path} {LONG_PROMPT}-token prompt", kind, **want)
         ms = graph_step(eng, long_prompt, LONG_POS)
-        print(f"path {path}: b1 decode after a {LONG_PROMPT}-token prompt: "
+        print(f"path {path}: {LONG_PROMPT}-token prompt: prefill "
+              f"{stats.prefill_s * 1e3:.3f} ms (bucket "
+              f"{engine_bucket(LONG_PROMPT, eng.max_ctx)}, eager, host clock); "
+              f"b1 decode after it: "
               f"eager {stats.ms_per_token:.4f} ms/token over 64 tokens (pos "
               f"{LONG_PROMPT}-{LONG_PROMPT + 63}); one step at pos {LONG_POS} "
               f"replayed as a CUDA graph {ms:.4f} ms; card {card}", flush=True)
@@ -1253,9 +1274,31 @@ def main() -> int:
         return (sum(n_new) / wall, np.percentile(ttft, 50),
                 np.percentile(ttft, 95), tree_nbytes(pool))
 
-    served = {"(f)": serve("(f)", paged_engine, 32, 64, 5),
+    served = {"(f)": serve("(f)", paged_engine, ADMIT, 64, 5),
               "(g)": serve("(g)", engine, 8, 16, 6)}
-    del paged_engine
+
+    # one admission of (f) at full width: its first ADMIT prompts (seed 5)
+    # prefilled into a page pool at once, padded to one bucket, as the
+    # batcher admits them; eager, host clock, three times after a warm-up
+    srng = np.random.default_rng(5)
+    admit = [[1] + srng.integers(2, cfg.n_vocab, n - 1).tolist()
+             for n in srng.integers(8, 201, 64)][:ADMIT]
+    adm_cache = paged_engine.new_paged_cache(ADMIT)
+    paged_engine.prefill(adm_cache, admit)
+    adm_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, record, want = recorded(
+            paged_engine, True, lambda: paged_engine.prefill(adm_cache, admit))
+        adm_ms.append((time.perf_counter() - t0) * 1e3)
+        (rows_, bucket), = record["prefill"]
+        expect(f"(f) admission B={rows_}", **want)
+    print(f"path (f): one admission prefill of {rows_} prompts "
+          f"({min(map(len, admit))}-{max(map(len, admit))} tokens, bucket "
+          f"{bucket}, M = {rows_ * bucket}): "
+          f"{', '.join(f'{ms:.3f}' for ms in adm_ms)} ms (three calls, "
+          f"eager, host clock); card {card}", flush=True)
+    del paged_engine, adm_cache
 
     # the device's share of a full-width staged step of (f) and (g): 8
     # eager steps on the host clock against one step replayed as a CUDA

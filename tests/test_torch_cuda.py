@@ -1463,3 +1463,118 @@ def test_serving_checks_refuse(case):
         flash_paged._check_paged(q, pool, li, pos)
     with pytest.raises(exc):
         flash_paged._check_paged(q, pool, li, pos, st)
+
+
+# --- the prefill kernels redesigned for Hopper: K2 and K3 on wgmma ---------
+
+PREFILL_M = [9, 33, 128, 200, 512, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", PREFILL_M)
+@pytest.mark.parametrize("name", ["wqkv", "wo", "w_gateup", "w_down"])
+@pytest.mark.parametrize("kind", ["q8", "q4", "q4g"])
+def test_prefill_qmatmul_matches_plain(card, kind, name, M, out_dtype):
+    """K2 at TinyLlama's four layer shapes, ragged M (9, 33, 200) and the
+    split K walk (M <= 256), layer 1 of a stacked weight: one launch,
+    against its plain version."""
+    w = _tl_weight(kind, name, card)
+    K = TINYLLAMA_SHAPES[name][0]
+    x = torch.randn(M, K, device=card).to(torch.bfloat16)
+    layer = _i32([1], card)
+    got = _counted(qmatmul, "qmm_bigm",
+                   lambda: qmatmul.qmatmul(x, w, out_dtype, layer))
+    want = qmatmul.qmatmul_ref(x, w, out_dtype, layer)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(40, 256, 300), (33, 2048, 72), (2048, 256, 1064)])
+@pytest.mark.parametrize("kind", ["q8", "q4", "q4g"])
+def test_prefill_qmatmul_ragged_n_matches_plain(card, kind, M, K, N, out_dtype):
+    """K2 with N % 16 != 0 (the weight loaded a value at a time), its K
+    walk split (M = 40; M = 33 one tile in a cluster of the most splits)
+    or not (M = 2048)."""
+    g = torch.Generator(card).manual_seed(M + N)
+    w = quantize(torch.randn((2, N, K), generator=g, device=card) * 0.02, kind, "kn")
+    x = torch.randn(M, K, device=card).to(torch.bfloat16)
+    layer = _i32([1], card)
+    got = _counted(qmatmul, "qmm_bigm",
+                   lambda: qmatmul.qmatmul(x, w, out_dtype, layer))
+    want = qmatmul.qmatmul_ref(x, w, out_dtype, layer)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _prefill_inputs(kv, T, B, G, device, seed, Kh=2, L=2):
+    """q [B, T, Kh G, 64] at unequal positions pos[b] (B = 4: 0, 70, 3,
+    131, cut to the cache), the cache's history [0, pos[b] + T) random in
+    the KV kind `kv`; S = T + 192 rounded up to 64."""
+    S = -(-(T + 192) // 64) * 64
+    pos = [0] if B == 1 else [0, 70, 3, 131][:B]
+    cache = _cache(B, Kh, S, [p + T for p in pos], seed=seed, device=device, L=L)
+    if kv == "i8":
+        cache = _i8(cache)
+    elif kv != "bf16":
+        cache = _float_kv(cache, kv)
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, T, Kh * G, 64, generator=g).to(device, torch.bfloat16)
+    return q, cache, _i32(pos, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("T", [12, 128, 200, 512, 2048])
+def test_prefill_attention_matches_plain(card, T, B, G, kv):
+    """K3 over every KV kind: T new tokens a row at their own positions,
+    partial last row blocks (T G % 64 != 0 at T = 12, 200 with G = 4),
+    diagonal tiles at pos % 64 != 0; one launch, against its plain
+    version."""
+    q, cache, pos = _prefill_inputs(kv, T, B, G, card, seed=T + B + G)
+    layer = _i32([1], card)
+    sfx = "" if kv == "bf16" else f"_{kv}"
+    got = _counted(flash_attention, "flash_prefill" + sfx,
+                   lambda: flash_attention.flash_prefill_attention(q, cache, layer, pos))
+    want = flash_attention.attention_ref(q, cache, layer, pos)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_prefill_kernels_replay_in_a_graph(card):
+    """K2 (split K at M = 128 and 512, each tile's splits one cluster; one
+    split at M = 2048) and K3 (bf16 and int8 caches) captured in a CUDA
+    graph at layer 0 and replayed with the layer index written to 1 give
+    what eager calls at layer 1 give, three replays in a row."""
+    layer = _i32([0], card)
+    w = _tl_weight("q8", "wo", card)
+    xs = {M: torch.randn(M, 2048, device=card).to(torch.bfloat16)
+          for M in (128, 512, 2048)}
+    calls = {f"K2 M={M}": (lambda x=x: qmatmul.qmatmul(x, w, torch.bfloat16, layer))
+             for M, x in xs.items()}
+    for kv in ("bf16", "i8"):
+        q, cache, pos = _prefill_inputs(kv, 200, 4, 8, card, seed=5)
+        calls[f"K3 {kv}"] = (lambda q=q, c=cache, p=pos:
+                             flash_attention.flash_prefill_attention(q, c, layer, p))
+    for name, fn in calls.items():
+        layer.fill_(0)
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn()
+        layer.fill_(1)
+        want = fn()
+        for _ in range(3):
+            out.zero_()
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), name

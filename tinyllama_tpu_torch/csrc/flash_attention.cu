@@ -1,30 +1,45 @@
 // Causal grouped-query attention of new tokens over the stacked KV cache
 // for Hopper (sm_90a), bf16 queries, a bf16, f16, f32 or int8 cache
-// (kvkind.cuh: int8 with f32 scales [L, B, Kh, S]; f16 and f32 rounded to
-// bf16 as a tile is staged), f32 softmax and accumulation.
+// (kvkind.cuh: int8 with f32 scales [L, B, Kh, S]), f32 softmax and
+// accumulation.
 //
 // The cache is [L, B, Kh, S, d] with the new tokens' k/v already written;
 // the layer and the positions are read from device memory, so no layer
-// is sliced and a decode step stays capturable. Head h attends kv head
-// h / G (G = H / Kh). Scores are scaled by 1/sqrt(d); a key at cache
-// position s is visible to a query at absolute position p iff s <= p.
-// Probabilities feed the weighted sum of V as bf16, the normalizer sums
-// them in f32, and the output is acc / l, as in the TPU kernels. The
-// (m, l, acc) step is online_softmax_update (online_softmax.cuh).
+// is sliced and a prefill stays capturable. Head h attends kv head h / G
+// (G = H / Kh). Scores are scaled by 1/sqrt(d); a key at cache position s
+// is visible to a query at absolute position p iff s <= p. Probabilities
+// feed the weighted sum of V as bf16, the normalizer sums them in f32,
+// and the output is acc / l, as in the TPU kernels (online_softmax.cuh
+// holds the recurrence the other attention kernels share).
 //
 // K3 flash_prefill replaces _flash_attn_kernel in
-//   tinyllama_tpu/ops/pallas/flash_prefill.py. Bound: at prefill the
-//   QK^T and PV products (4*d operations per visible (query, key) pair)
-//   over the bf16 tensor-core rate. Design: one block per (batch row, kv
-//   head, 64 query rows), where query rows flatten (token, group member)
-//   so the G query heads of a token share every K/V tile, as the TPU
-//   kernel's flattened rows do. The block walks 64-key tiles only up to
-//   the causal frontier of its last row: tiles above the diagonal are
-//   neither loaded nor computed. Both products run on nvcuda::wmma bf16
-//   tensor cores; each warp owns 16 rows through scores, softmax and PV,
-//   so only the tile loads synchronize the block. An int8 cache is
-//   dequantized as each tile is staged, (k * ks) rounded to bf16, as the
-//   TPU kernel does; the products then run unchanged.
+//   tinyllama_tpu/ops/pallas/flash_prefill.py. Bound: the QK^T and PV
+//   products, 4 d operations a visible (query, key) pair, over the bf16
+//   tensor-core rate (at T = 512 about 100 operations a cache byte read,
+//   at T = 2,048 about 400). Design, FlashAttention-3 style:
+//   * one block, one warpgroup, per (batch row, kv head, 64 query rows),
+//     where rows flatten (token, group member) so a token's G heads share
+//     every K/V tile, as the TPU kernel's rows do; row blocks run in
+//     reverse, so the longest causal walks start first and the tail of
+//     the grid is short walks;
+//   * S = Q K^T as four wgmma.m64n64k16 from shared memory (Q loaded
+//     once; K rows [key, d] are 128 bytes, one 128-byte-swizzled row);
+//     the online softmax runs on the accumulator registers, each thread
+//     holding 16 scores of each of two rows, their max and sum two quad
+//     shuffles; the bf16 probabilities are the A operand of the P V
+//     wgmma from registers, V the MN-major B operand in shared memory;
+//   * an asynchronous ring of key tiles (3 stages; 2 for f32): 16-byte
+//     cp.async copies that arrive on the stage's mbarrier, so tiles j + 1
+//     and j + 2 land while tile j is computed. A bf16 tile lands swizzled
+//     and is used as it lands; an int8, f16 or f32 tile lands raw and the
+//     block converts it once into a bf16 K and V tile (int8 as (k * ks)
+//     rounded to bf16, as the TPU kernel dequantizes; f16 and f32 rounded
+//     to nearest even);
+//   * causal work only: tiles above the block's last row are neither
+//     loaded nor computed, and only tiles that cross the diagonal are
+//     masked.
+//   Shared memory: 57 KB (bf16), 52 KB (int8), 73 KB (f16), 89 KB (f32),
+//   so at least two blocks an SM.
 //
 // K4 flash_decode_heads (T = 1), which replaces _decode_heads_kernel of
 //   the same file, shares one split-key template with K10 in
@@ -34,196 +49,273 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
 #include "kvkind.cuh"
 #include "online_softmax.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64;  // head dim
+constexpr int D = 64;            // head dim
+constexpr int PF_THREADS = 128;  // one warpgroup
+constexpr int PF_BR = 64;        // query rows a block
+constexpr int PF_BS = 64;        // keys a tile
+constexpr int BF_TILE = PF_BS * D * 2;  // a bf16 K or V tile: 8 KB
 
-constexpr int PF_THREADS = 128;    // 4 warps x 16 query rows
-constexpr int PF_BR = 64;          // query rows per block
-constexpr int PF_BS = 64;          // keys per tile
-constexpr int T_LD = D + 8;        // bf16 row stride of the Q/K/V tiles
-constexpr int S_LD = PF_BS + 4;    // f32 row stride of scores and PV rows
-constexpr int P_LD = 2 * S_LD;     // bf16 probabilities over the score rows
-static_assert(S_LD >= D + 4, "PV rows reuse the score rows");
+// The ring for a KV element type: NS stages, each the K and V tiles of
+// PF_BS rows (bf16: swizzled, read by the products as they are; else
+// raw), then (int8) the tile's key and value scales.
+template <class KV>
+struct PfTile {
+  static constexpr bool I8 = kvkind::is_i8<KV>;
+  static constexpr bool RAW = !std::is_same<KV, bf16>::value;
+  static constexpr int ROW = D * (int)sizeof(KV);  // bytes of a raw row
+  static constexpr int BYTES = PF_BS * ROW;        // a raw K or V tile
+  static constexpr int STAGE = (2 * BYTES + (I8 ? 2 * PF_BS * 4 : 0) + 1023) / 1024 * 1024;
+  static constexpr int NS = sizeof(KV) == 4 ? 2 : 3;
+  // Q, the converted K and V (not bf16), the ring, its barriers, slack
+  // for the 1024-byte alignment
+  static constexpr int SMEM = BF_TILE + (RAW ? 2 * BF_TILE : 0) + NS * STAGE + 8 * NS + 1024;
+};
 
 template <class KV>
-__global__ void __launch_bounds__(PF_THREADS)
-flash_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
-                     const KV* __restrict__ vc, const float* __restrict__ ksc,
-                     const float* __restrict__ vsc, const int* __restrict__ layer,
-                     const int* __restrict__ pos, bf16* __restrict__ out,
-                     int T, int H, int Kh, int S, size_t layer_stride) {
-  using namespace nvcuda;
-  __shared__ __align__(32) bf16 Qs[PF_BR * T_LD];
-  __shared__ __align__(32) bf16 Ks[PF_BS * T_LD];
-  __shared__ __align__(32) bf16 Vs[PF_BS * T_LD];
-  __shared__ __align__(32) float Ss[PF_BR * S_LD];
-  __shared__ float m_s[PF_BR], l_s[PF_BR], a_s[PF_BR];
+struct PfArgs {
+  const bf16* q;
+  const KV* k;
+  const KV* v;
+  const float* ks;
+  const float* vs;
+  const int* layer;
+  const int* pos;
+  bf16* out;
+  int T, H, Kh, S, G;
+  size_t layer_stride;  // elements of one layer of a plane
+};
 
-  const int b = blockIdx.z, kh = blockIdx.y, r0 = blockIdx.x * PF_BR;
-  const int G = H / Kh, TG = T * G;
-  const int p0 = pos[b];
-  const size_t kv_off =
-      (size_t)layer[0] * layer_stride + ((size_t)b * Kh + kh) * S * D;
-  const KV* kb = kc + kv_off;
-  const KV* vb = vc + kv_off;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // query row r -> token r / G, head kh * G + r % G; rows past TG are 0
-  for (int i = threadIdx.x; i < PF_BR * (D / 8); i += PF_THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, rr = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (rr < TG) {
-      const int t = rr / G, h = kh * G + rr % G;
-      v = *reinterpret_cast<const uint4*>(q + (((size_t)b * T + t) * H + h) * D + c);
-    }
-    *reinterpret_cast<uint4*>(&Qs[r * T_LD + c]) = v;
+// Issue the copies of key tile jt of the slab at kv_off into a ring slot.
+template <class KV>
+__device__ inline void pf_issue(const PfArgs<KV>& a, size_t kv_off, int jt,
+                                unsigned char* slot) {
+  using T = PfTile<KV>;
+  const unsigned char* kg =
+      reinterpret_cast<const unsigned char*>(a.k + kv_off + (size_t)jt * PF_BS * D);
+  const unsigned char* vg =
+      reinterpret_cast<const unsigned char*>(a.v + kv_off + (size_t)jt * PF_BS * D);
+  constexpr int CHUNKS = T::BYTES / 16;  // of one plane
+#pragma unroll 4
+  for (int u = threadIdx.x; u < 2 * CHUNKS; u += PF_THREADS) {
+    const int plane = u / CHUNKS, o = u % CHUNKS;
+    const unsigned char* src = (plane ? vg : kg) + o * 16;
+    unsigned char* dst = slot + plane * T::BYTES;
+    hopper::cp_async16(T::RAW ? dst + o * 16 : dst + hopper::swz(o / 8, o % 8), src);
   }
-  if (threadIdx.x < PF_BR) {
-    m_s[threadIdx.x] = TL_NEG_INF;
-    l_s[threadIdx.x] = 0.f;
-  }
-
-  // each lane accumulates half of one output row
-  const int orow = warp * 16 + lane / 2, ocol = (lane % 2) * (D / 2);
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  const float scale = 1.f / sqrtf((float)D);
-  const int r_last = min(r0 + PF_BR, TG) - 1;
-  const int n_tiles = (p0 + r_last / G) / PF_BS + 1;  // causal frontier
-  float* Sw = Ss + warp * 16 * S_LD;
-  bf16* Pw = reinterpret_cast<bf16*>(Sw);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < PF_BS * (D / 8); i += PF_THREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const size_t g = (size_t)(j * PF_BS + r) * D + c;
-      uint4 kv, vv;
-      if constexpr (kvkind::is_i8<KV>) {
-        const size_t si = kv_off / D + j * PF_BS + r;  // the row's scales
-        kv = kvkind::load8_scaled(kb + g, ksc[si]);
-        vv = kvkind::load8_scaled(vb + g, vsc[si]);
-      } else {
-        kv = kvkind::load8(kb + g);
-        vv = kvkind::load8(vb + g);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * T_LD + c]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[r * T_LD + c]) = vv;
-    }
-    __syncthreads();
-
-    // scores of this warp's 16 rows against the 64 keys: Q K^T
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[D / 16];
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wmma::load_matrix_sync(a[kk], Qs + warp * 16 * T_LD + kk * 16, T_LD);
-#pragma unroll
-      for (int nt = 0; nt < PF_BS / 16; ++nt) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        wmma::fill_fragment(c, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, Ks + nt * 16 * T_LD + kk * 16, T_LD);
-          wmma::mma_sync(c, a[kk], kf, c);
-        }
-        wmma::store_matrix_sync(Sw + nt * 16, c, S_LD, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // online softmax row by row; bf16 probabilities overwrite the row
-    for (int i = 0; i < 16; ++i) {
-      const int row = warp * 16 + i;
-      const int qpos = p0 + min(r0 + row, TG - 1) / G;
-      float s[2];
-      bool ok[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = lane + 32 * e;
-        s[e] = Sw[i * S_LD + key] * scale;
-        ok[e] = j * PF_BS + key <= qpos;
-      }
-      float m = m_s[row], l = l_s[row];
-      __syncwarp();
-      const float alpha = online_softmax_update(s, ok, m, l);
-      Pw[i * P_LD + lane] = __float2bfloat16(s[0]);
-      Pw[i * P_LD + lane + 32] = __float2bfloat16(s[1]);
-      if (lane == 0) {
-        m_s[row] = m;
-        l_s[row] = l;
-        a_s[row] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // this tile's P V for the warp's rows, then acc = acc * alpha + P V
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[PF_BS / 16];
-#pragma unroll
-      for (int kk = 0; kk < PF_BS / 16; ++kk)
-        wmma::load_matrix_sync(pa[kk], Pw + kk * 16, P_LD);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[D / 16];
-#pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
-        wmma::fill_fragment(c[dt], 0.f);
-#pragma unroll
-        for (int kk = 0; kk < PF_BS / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, Vs + kk * 16 * T_LD + dt * 16, T_LD);
-          wmma::mma_sync(c[dt], pa[kk], vf, c[dt]);
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt)
-        wmma::store_matrix_sync(Sw + dt * 16, c[dt], S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-    const float alpha = a_s[orow];
-    const float* pv = Ss + orow * S_LD + ocol;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = o[i] * alpha + pv[i];
-  }
-
-  const int rr = r0 + orow;
-  if (rr < TG) {
-    const float l = l_s[orow];
-    const float den = l > 0.f ? l : 1.f;
-    const int t = rr / G, h = kh * G + rr % G;
-    bf16* op = out + (((size_t)b * T + t) * H + h) * D + ocol;
-#pragma unroll
-    for (int i = 0; i < D / 2; i += 8) {
-      alignas(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(o[i + e] / den);
-      *reinterpret_cast<uint4*>(op + i) = *reinterpret_cast<const uint4*>(v);
+  if constexpr (T::I8) {
+    if (threadIdx.x < 2 * PF_BS / 4) {  // 16 chunks of f32 scales a plane
+      const int plane = threadIdx.x / (PF_BS / 4), o = threadIdx.x % (PF_BS / 4);
+      const float* src = (plane ? a.vs : a.ks) + kv_off / D + (size_t)jt * PF_BS + o * 4;
+      hopper::cp_async16(slot + 2 * T::BYTES + plane * PF_BS * 4 + o * 16, src);
     }
   }
 }
 
+// A landed raw tile to the bf16 K and V tiles (swizzled), once a block.
 template <class KV>
-int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
-                   const void* vs, const void* layer, const void* pos, void* out,
-                   int B, int T, int H, int Kh, int S, cudaStream_t st) {
-  const int TG = T * (H / Kh);
-  const dim3 grid((TG + PF_BR - 1) / PF_BR, Kh, B);
-  flash_prefill_kernel<KV><<<grid, PF_THREADS, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(layer),
-      static_cast<const int*>(pos), static_cast<bf16*>(out), T, H, Kh, S,
-      (size_t)B * Kh * S * D);
+__device__ inline void pf_convert(const unsigned char* slot, unsigned char* kb,
+                                  unsigned char* vb) {
+  using T = PfTile<KV>;
+  const float* sc = reinterpret_cast<const float*>(slot + 2 * T::BYTES);
+#pragma unroll 4
+  for (int u = threadIdx.x; u < 2 * PF_BS * 8; u += PF_THREADS) {
+    const int plane = u / (PF_BS * 8), r = (u / 8) % PF_BS, c = u % 8;
+    const KV* src = reinterpret_cast<const KV*>(slot + plane * T::BYTES + r * T::ROW) + 8 * c;
+    uint4 val;
+    if constexpr (T::I8)
+      val = kvkind::load8_scaled(src, sc[plane * PF_BS + r]);
+    else
+      val = kvkind::load8(src);
+    *reinterpret_cast<uint4*>((plane ? vb : kb) + hopper::swz(r, c)) = val;
+  }
+}
+
+template <class KV>
+__global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfArgs<KV> a) {
+  using T = PfTile<KV>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  unsigned char* qs = smem;                                  // Q, swizzled
+  unsigned char* cvt = smem + BF_TILE;                       // bf16 K, V
+  unsigned char* ring = cvt + (T::RAW ? 2 * BF_TILE : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::NS * T::STAGE);
+
+  const int b = blockIdx.z, kh = blockIdx.y;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * PF_BR;  // longest walks first
+  const int G = a.G, TG = a.T * G;
+  const int p0 = a.pos[b];
+  const size_t kv_off = (size_t)a.layer[0] * a.layer_stride + ((size_t)b * a.Kh + kh) * a.S * D;
+  const int r_last = min(r0 + PF_BR, TG) - 1;
+  const int n_tiles = (p0 + r_last / G) / PF_BS + 1;  // causal frontier
+  const int q_first = p0 + r0 / G;                    // the block's first row
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < T::NS; ++i) hopper::mbar_init(&full[i], PF_THREADS);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Q rows r -> token (r0 + r) / G, head kh * G + (r0 + r) % G; rows past
+  // TG are zeros. Its copies arrive with tile 0's.
+#pragma unroll
+  for (int i = 0; i < PF_BR * 8 / PF_THREADS; ++i) {
+    const int u = threadIdx.x + i * PF_THREADS, r = u / 8, c = u % 8, rr = r0 + r;
+    const bool in = rr < TG;
+    const bf16* src = in ? a.q + (((size_t)b * a.T + rr / G) * a.H + kh * G + rr % G) * D + c * 8
+                         : a.q;
+    hopper::cp_async16(qs + hopper::swz(r, c), src, in ? 16 : 0);
+  }
+#pragma unroll
+  for (int i = 0; i < T::NS - 1; ++i) {
+    if (i < n_tiles) {
+      pf_issue(a, kv_off, i, ring + i * T::STAGE);
+      hopper::cp_async_arrive(&full[i]);
+    }
+  }
+
+  // Each thread: rows 16 w + l / 4 and that + 8 of the block, their query
+  // positions (padding rows take the last real row's)
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = p0 + min(r0 + 16 * w + lane / 4 + 8 * i, TG - 1) / G;
+  // scores in log2 units: exp(x / sqrt(d)) = 2^(x log2(e) / sqrt(d))
+  const float scale = 1.4426950408889634f / sqrtf((float)D);
+  float m[2] = {TL_NEG_INF, TL_NEG_INF}, l[2] = {0.f, 0.f};
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  const uint32_t q_addr = hopper::smem_u32(qs);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int nx = j + T::NS - 1;  // into the slot that tile j - 1 freed
+    if (nx < n_tiles) {
+      pf_issue(a, kv_off, nx, ring + (nx % T::NS) * T::STAGE);
+      hopper::cp_async_arrive(&full[nx % T::NS]);
+    }
+    unsigned char* slot = ring + (j % T::NS) * T::STAGE;
+    hopper::mbar_wait(&full[j % T::NS], (j / T::NS) & 1);
+    unsigned char *kt = slot, *vt = slot + BF_TILE;
+    if constexpr (T::RAW) {
+      pf_convert<KV>(slot, cvt, cvt + BF_TILE);
+      kt = cvt;
+      vt = cvt + BF_TILE;
+      hopper::fence_proxy_async();
+      __syncthreads();
+    } else {
+      hopper::fence_proxy_async();
+    }
+
+    // S = Q K^T over d = 64: four k16 steps of 32 bytes along the rows
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const uint32_t k_addr = hopper::smem_u32(kt);
+    hopper::reg_fence(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_m64n64_ss(s, hopper::desc_k(q_addr + kk * 32),
+                              hopper::desc_k(k_addr + kk * 32));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait0();
+    hopper::reg_fence(s);
+
+    // online softmax on the registers: s[4 c + 2 i + e] is row i's key
+    // j * 64 + 8 c + 2 (lane % 4) + e
+    const bool masked = j * PF_BS + PF_BS - 1 > q_first;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = TL_NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * c + 2 * i + e];
+          x *= scale;
+          if (masked && j * PF_BS + 8 * c + 2 * (lane % 4) + e > qpos[i]) x = -INFINITY;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * c + 2 * i + e];
+          x = exp2f(x - m_new);  // a masked key: exp2(-inf) = 0
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        o[4 * c + 2 * i] *= alpha;
+        o[4 * c + 2 * i + 1] *= alpha;
+      }
+    }
+    // the bf16 probabilities as the A operand: keys 16 kk .. 16 kk + 15
+    uint32_t p[PF_BS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < PF_BS / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        p[kk][h] = hopper::pack_bf16(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1]);
+
+    // O += P V, V MN-major: k16 steps of 16 key rows (2048 bytes)
+    const uint32_t v_addr = hopper::smem_u32(vt);
+    hopper::reg_fence(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PF_BS / 16; ++kk)
+      hopper::wgmma_m64n64_rs_mn(o, p[kk], hopper::desc_mn(v_addr + kk * 2048, BF_TILE));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait0();
+    hopper::reg_fence(o);
+    hopper::reg_fence(p);
+    __syncthreads();  // the slot (and converted tiles) are free
+  }
+
+  // o[4 c + 2 i + e]: row i, dim 8 c + 2 (lane % 4) + e
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = r0 + 16 * w + lane / 4 + 8 * i;
+    if (rr >= TG) continue;
+    const float den = l[i] > 0.f ? l[i] : 1.f;
+    bf16* op = a.out + (((size_t)b * a.T + rr / G) * a.H + kh * G + rr % G) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<uint32_t*>(op + 8 * c) =
+          hopper::pack_bf16(o[4 * c + 2 * i] / den, o[4 * c + 2 * i + 1] / den);
+  }
+}
+
+template <class KV>
+int launch_prefill(const PfArgs<KV>& a, int B, cudaStream_t st) {
+  constexpr int SMEM = PfTile<KV>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_prefill_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.T * a.G + PF_BR - 1) / PF_BR, a.Kh, B);
+  flash_prefill_kernel<KV><<<grid, PF_THREADS, SMEM, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -233,19 +325,23 @@ extern "C" {
 
 // q, out: [B, T, H, d] bf16; k, v: [L, B, Kh, S, d] of the KV kind
 // (kvkind.cuh: 0 bf16, 1 int8, 2 f16, 3 f32); ks, vs: [L, B, Kh, S] f32
-// scales (int8; null for the others); layer: [1]; pos: [B]. Requires d == 64, H % Kh == 0
-// and S % 64 == 0; pos[b] + T <= S.
+// scales (int8, 16-byte aligned; null for the others); layer: [1]; pos:
+// [B]. Requires d == 64, H % Kh == 0 and S % 64 == 0; pos[b] + T <= S.
 int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* layer, const void* pos, void* out,
                   int kv_kind, int B, int T, int H, int Kh, int S, int d,
                   void* stream) {
   if (!kvkind::valid(kv_kind) || d != D || Kh < 1 || H % Kh || S % PF_BS ||
-      T < 1 || B < 1)
+      T < 1 || B < 1 || B > 65535 || Kh > 65535)
     return (int)cudaErrorInvalidValue;
   return kvkind::with_type(kv_kind, [&](auto tag) {
-    return launch_prefill<decltype(tag)>(q, k, v, ks, vs, layer, pos, out, B,
-                                         T, H, Kh, S,
-                                         static_cast<cudaStream_t>(stream));
+    using KV = decltype(tag);
+    const PfArgs<KV> a{static_cast<const bf16*>(q), static_cast<const KV*>(k),
+                       static_cast<const KV*>(v), static_cast<const float*>(ks),
+                       static_cast<const float*>(vs), static_cast<const int*>(layer),
+                       static_cast<const int*>(pos), static_cast<bf16*>(out),
+                       T, H, Kh, S, H / Kh, (size_t)B * Kh * S * D};
+    return launch_prefill<KV>(a, B, static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -22,13 +22,12 @@ the process's first call.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from tinyllama_tpu_torch.ops.kernels import build
-from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
+from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index, sm_count
 from tinyllama_tpu_torch.ops.precision import exact_f32
 
 #: keys per tile of the walk
@@ -56,12 +55,6 @@ def decode_splits(B: int, Kh: int, cap_tiles: int, n_sm: int) -> int:
             raise TypeError(f"decode_splits takes positive ints, got {x!r}")
     most = min(cap_tiles, MAX_SPLITS)
     return max(1, min(most, -(-BLOCKS_PER_SM * n_sm // (B * Kh))))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (read once)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:

@@ -8,10 +8,14 @@ softmax_update.online_update_batch):
 
 * K3 ``flash_prefill`` for ``_flash_attn_kernel`` (T new tokens at
   ``pos``): bound by the tensor-core rate of the QK^T and PV products.
-  Its source is csrc/flash_attention.cu. One block per (row, kv head,
-  64 flattened (token, group) query rows), so a token's G query heads
-  share every K/V tile; key tiles above the causal diagonal are neither
-  loaded nor computed.
+  Its source is csrc/flash_attention.cu. One warpgroup a block, per
+  (row, kv head, 64 flattened (token, group) query rows), so a token's
+  G query heads share every K/V tile; the row blocks run in reverse
+  (``prefill_row_blocks``), longest causal walks first. Both products
+  are ``wgmma``: the scores' online softmax stays in the accumulator
+  registers, whose bf16 probabilities are the A operand of P V. Key
+  tiles come through a cp.async ring with mbarriers; tiles above the
+  causal diagonal are neither loaded nor computed.
 * K4 ``flash_decode_heads`` for ``_decode_heads_kernel`` (T = 1): bound
   by the bytes of the pos+1 cached keys and values. Its source is
   csrc/decode_split.cu, one template with K10: the key walk split over
@@ -28,11 +32,11 @@ softmax_update.online_update_batch):
 
 The layer index and the positions are device tensors, read inside the
 kernels. The cache is bf16, f16, f32, or int8 with f32 scale planes. An
-int8 tile is dequantized by K3 as it is staged; K4 and K9 read half the
-bytes a key and fold the scales into scores and probabilities (as the
-TPU kernels do). f16 and f32 values are rounded to bf16 (K3 and K9 as a
-tile is staged, K4 once a tile after its raw bytes land), as the TPU
-kernels cast a tile to the compute dtype. CUDA tensors (bf16 q, d = 64)
+int8 tile is dequantized by K3 once its raw bytes land; K4 and K9 read
+half the bytes a key and fold the scales into scores and probabilities
+(as the TPU kernels do). f16 and f32 values are rounded to bf16 (K9 as a
+tile is staged, K3 and K4 once a tile after its raw bytes land), as the
+TPU kernels cast a tile to the compute dtype. CUDA tensors (bf16 q, d = 64)
 launch a kernel or raise; only CPU tensors go to the plain version,
 ``gqa_attention`` over the layer's cache, dequantized.
 """
@@ -60,6 +64,8 @@ launches = {name + sfx: 0
 HEAD_DIM = 64
 #: keys per tile: the cache length must be a whole number of tiles.
 KEY_TILE = 64
+#: K3's flattened (token, group member) query rows a block
+QUERY_ROWS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,6 +88,17 @@ def attention_ref(q: torch.Tensor, cache: KVCache, layer,
                    + torch.arange(T, device=q.device)[None, :])
     k, v = layer_cache_view(cache, layer_index(layer), q.dtype)
     return gqa_attention(q, k, v, q_positions)
+
+
+def prefill_row_blocks(T: int, G: int) -> list[range]:
+    """K3's flattened query rows of each block, in launch order: block x
+    takes rows [r0, r0 + 64) with r0 = (n_blocks - 1 - x) * 64 (cut at
+    T * G), so the blocks whose rows reach furthest along the causal walk
+    start first. Row r is token r // G, head kh * G + r % G."""
+    rows = T * G
+    n = -(-rows // QUERY_ROWS)
+    return [range((n - 1 - x) * QUERY_ROWS, min((n - x) * QUERY_ROWS, rows))
+            for x in range(n)]
 
 
 def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor) -> int:
@@ -117,6 +134,10 @@ def flash_prefill_attention(q: torch.Tensor, cache: KVCache, layer,
     if not q.is_cuda:
         return attention_ref(q, cache, layer, pos)
     kind = _check(q, cache, layer, pos)
+    if any(s is not None and s.data_ptr() % 16
+           for s in (cache.k_scale, cache.v_scale)):
+        raise ValueError("int8 cache scales must lie on 16-byte boundaries "
+                         "(cp.async copies)")
     B, T, H, d = q.shape
     Kh, S = cache.k.shape[2], cache.k.shape[3]
     out = torch.empty_like(q)

@@ -11,9 +11,15 @@ tinyllama_tpu/ops/pallas/qmatmul.py with hand-written Hopper kernels
   bits, each 4-bit value dequantized to v - 7 exactly); each 32-block's
   dot is scaled by its fp16 scale after the dot.
 * K2 ``qmm_bigm`` (M > 8, prefill) for ``_qmm_kernel_bigm``: bound by
-  tensor-core operations at large M. Each weight tile is dequantized to
-  bf16 once in shared memory and multiplied on the tensor cores with f32
-  accumulation.
+  the weight bytes at M <= 256 and by tensor-core operations above. A
+  block owns a 128 x 128 output tile; each 64-deep K step's x tile and
+  raw weight land through a 4-stage cp.async ring with mbarriers, the
+  weight is dequantized once, straight into ``wgmma``'s A operand in
+  registers (the product taken transposed, out^T = W^T x^T), with f32
+  accumulation. Where the tiles alone do not fill the card, the K walk
+  is split (``bigm_splits``, shapes only), a tile's splits run as one
+  thread-block cluster and sum their f32 partials in split order through
+  distributed shared memory.
 
 With ``aq8`` (the q8a8 and q4a8 policies) K1 runs its int8-activation
 branch, the counterpart of ``block_x`` and the integer dots of
@@ -36,6 +42,7 @@ kernels do not take; only CPU tensors go to the plain version
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,6 +59,11 @@ from tinyllama_tpu_torch.quant.codec import (
 
 #: largest M that takes the decode kernel (K1); larger M takes K2.
 SMALL_M = 8
+
+#: K2's output tile (rows of x, columns of the weight) and K step
+BIGM_TILE_M, BIGM_TILE_N, BIGM_STEP = 128, 128, 64
+#: most splits of K2's K walk
+BIGM_MAX_SPLITS = 8
 
 #: launches of each kernel since the counts were last set to 0.
 launches = {"qmm_smallm": 0, "qmm_bigm": 0, "qmm_smallm_aq8": 0}
@@ -71,10 +83,47 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("qmatmul")
     if lib.qmm_smallm.argtypes is None:
-        for fn in (lib.qmm_smallm, lib.qmm_smallm_aq8, lib.qmm_bigm):
+        for fn in (lib.qmm_smallm, lib.qmm_smallm_aq8):
             fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
             fn.restype = _I
+        lib.qmm_bigm.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+        lib.qmm_bigm.restype = _I
     return lib
+
+
+def bigm_splits(M: int, N: int, K: int, n_sm: int) -> int:
+    """Splits of K2's K walk, one cluster of blocks a tile: the largest
+    power of two, at most BIGM_MAX_SPLITS and K's steps, that keeps tiles
+    x splits within 4/3 of the card's `n_sm` SMs (1 where the tiles alone
+    reach that). About one block an SM: on the card more splits than that
+    cost more in prologues and partials than they gained (PERF.md). Host
+    sizes only: a tensor raises."""
+    for v in (M, N, K, n_sm):
+        if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+            raise TypeError(f"bigm_splits takes positive ints, got {v!r}")
+    tiles = -(-M // BIGM_TILE_M) * -(-N // BIGM_TILE_N)
+    most = min(BIGM_MAX_SPLITS, K // BIGM_STEP)
+    splits = 1
+    while 2 * splits <= most and 3 * tiles * 2 * splits <= 4 * n_sm:
+        splits *= 2
+    return splits
+
+
+def bigm_blocks(M: int, N: int, K: int, splits: int):
+    """K2's grid as the kernel reads it: for block (x, y), its M tile, N
+    tile and K steps [s0, s1). x runs over the output tiles with the N
+    tiles of one M tile adjacent; y is the split."""
+    n_nt = -(-N // BIGM_TILE_N)
+    n_tiles = -(-M // BIGM_TILE_M) * n_nt
+    nk = K // BIGM_STEP
+    return {(x, y): (x // n_nt, x % n_nt, y * nk // splits, (y + 1) * nk // splits)
+            for x in range(n_tiles) for y in range(splits)}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def layer_index(layer) -> int:
@@ -232,9 +281,14 @@ def qmatmul(x: torch.Tensor, w: QTensor, out_dtype=None,
     name = "qmm_bigm" if M > SMALL_M else "qmm_smallm_aq8" if aq8 else "qmm_smallm"
     fn = getattr(_lib(), name)
     li = None if layer is None else layer.data_ptr()
-    err = fn(x2.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), li,
-             out.data_ptr(), int(out_dtype == torch.float32), KIND_CODE[w.kind],
-             M, K, N, build.stream_ptr(x))
+    ptrs = (x2.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), li,
+            out.data_ptr())
+    ints = (int(out_dtype == torch.float32), KIND_CODE[w.kind], M, K, N)
+    if M > SMALL_M:
+        err = fn(*ptrs, *ints, bigm_splits(M, N, K, sm_count(x.device)),
+                 build.stream_ptr(x))
+    else:
+        err = fn(*ptrs, *ints, build.stream_ptr(x))
     build.check(err, name)
     launches[name] += 1
     return out.reshape(*lead, N)
