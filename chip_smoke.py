@@ -47,7 +47,8 @@ Phases, each fatal on failure:
    (b) chat-length prompt: 24 tokens (bucket 32, fused prefill: K5, K3,
        K6, K7) through Engine.generate, 32 greedy tokens;
    (c) batched decode: Engine.prefill of 4 100-token prompts, then 8
-       Engine.decode_step calls at B = 4 (K5, K4, K6, K7);
+       Engine.decode_step calls at B = 4 (K5, K4, K6, K7), and one step
+       replayed as a CUDA graph;
    (d) Engine.generate_batch, monolithic: 4 prompts of 100 tokens, 64
        greedy tokens each in two staged 32-step chunks (K5, K9, K6, K7);
    (e) Engine(paged=True).generate: a 100-token prompt with 64 new
@@ -252,7 +253,8 @@ def fail(msg: str) -> int:
 
 def replay_equals(name: str, fn) -> None:
     """fn() captured in a CUDA graph and replayed twice must give its
-    eager result (the grid barriers of the cooperative kernels)."""
+    eager result (K7's dependent launch and cluster sums, K8's grid
+    barrier)."""
     import torch
 
     eager = fn()
@@ -1091,10 +1093,11 @@ def main() -> int:
               "tokens", flush=True)
         return chat
 
-    def batch_path(eng, path, kind="q8"):
+    def batch_path(eng, path, kind="q8", graph=False):
         """(c), and (i) at 4 bits: the unfused prefill of 4 rows, then
         fused B = 4 decode steps (K5, K4, K6, K7); under aq8 unfused steps
-        (K1-aq8 at M = 4, K4)."""
+        (K1-aq8 at M = 4, K4). With graph, one step replayed as a CUDA
+        graph after the counted steps."""
         prompts = [prompt_of(PROMPT_LEN) for _ in range(BATCH)]
         cache = eng.new_cache(BATCH)
         reset()
@@ -1124,11 +1127,15 @@ def main() -> int:
                    ffn_fused_normed=L * BATCH_STEPS, qmm_smallm=BATCH_STEPS)
         print(f"path {path}: {BATCH_STEPS} decode steps at B={BATCH}: "
               f"{batch_ms:.4f} ms a step (eager, host clock)", flush=True)
+        if graph:
+            step_ms = time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
+            print(f"path {path}: one step at B={BATCH} replayed as a CUDA "
+                  f"graph {step_ms:.4f} ms", flush=True)
 
     # (b) chat-length prompt: fused prefill (bucket 32), fused b1 decode
     chat = chat_path(engine, "(b)")
     # (c) batched decode steps: unfused prefill of 4 rows, fused B = 4 steps
-    batch_path(engine, "(c)")
+    batch_path(engine, "(c)", graph=True)
 
     # the serving paths: exact counts from the shapes each path ran at
     def qmm(M):

@@ -11,8 +11,10 @@ They cover shapes the main path of chip_smoke.py does not: M from 1 to 8
 and ragged M / N for the matmuls, batch 2 with a different position per
 row, prefill at pos > 0 with a partial last query tile, and 4 query
 heads per kv head; for the fused kernels (K5-K8) M in {1, 3, 8, 9, 17,
-32}, K8 at pos 0 to 1500, K7 and K8 replayed from a CUDA graph, and
-their wrappers' refusals; for the serving attention (K9-K11) pos and
+32}, K5 and K7 in q8 at TinyLlama's widths and at ragged widths (a half
+tile of output columns, a half step of K), K8 at pos 0 to 1500, K5, K7
+and K8 captured in a CUDA graph at one layer and replayed at another,
+and their wrappers' refusals; for the serving attention (K9-K11) pos and
 chunk bases 0, P - 1, P and 1500 with P = 256, B = 1, 4 and 32, 4 and 8
 query heads per kv head, staged tail fills 1 to C, a CUDA-graph replay,
 and the engine's staged and paged chunks against the plain path; the
@@ -35,6 +37,7 @@ The rest run anywhere: the wrappers' input checks (run before any
 launch), and the builder's hashing and its refusal without nvcc.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -50,6 +53,7 @@ from tinyllama_tpu_torch.ops.kernels import (
     ffn_fused,
     flash_attention,
     flash_paged,
+    fused_plan,
     qmatmul,
 )
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize
@@ -69,12 +73,12 @@ def card():
     return torch.device("cuda")
 
 
-def _weight(L, K, N, seed, device="cpu") -> QTensor:
+def _weight(L, K, N, seed, device="cpu", kind="q8") -> QTensor:
     g = torch.Generator().manual_seed(seed)
-    qts = [quantize(torch.randn(N, K, generator=g) * 0.05, "q8", "kn")
+    qts = [quantize(torch.randn(N, K, generator=g) * 0.05, kind, "kn")
            for _ in range(L)]
     return QTensor(torch.stack([q.data for q in qts]).to(device),
-                   torch.stack([q.scales for q in qts]).to(device), "q8", "kn")
+                   torch.stack([q.scales for q in qts]).to(device), kind, "kn")
 
 
 def _cache(B, Kh, S, fill, seed, device="cpu", L=2, d=64) -> KVCache:
@@ -136,17 +140,17 @@ def test_attention_kernels_match_plain(card, H, Kh, T, pos):
     torch.testing.assert_close(got.float(), want.float(), **TOL)
 
 
-def _fused_inputs(M, device, D=256, F=512, L=2, seed=0):
+def _fused_inputs(M, device, D=256, F=512, L=2, seed=0, kind="q8", n_qkv=None):
     """Activations, stacked [L, D] norm table and the four stacked
-    weights of a small fused layer (wqkv 256 -> 384)."""
+    weights of a small fused layer (wqkv D -> n_qkv, by default D + 128)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(M, 1, D, generator=g).to(device, torch.bfloat16)
     a = torch.randn(M, 1, D, generator=g).to(device, torch.bfloat16)
     nw = (torch.rand(L, D, generator=g) + 0.5).to(device)
-    ws = {"wqkv": _weight(L, D, D + 128, seed + 1, device),
-          "wo": _weight(L, D, D, seed + 2, device),
-          "w_gateup": _weight(L, D, 2 * F, seed + 3, device),
-          "w_down": _weight(L, F, D, seed + 4, device)}
+    ws = {"wqkv": _weight(L, D, n_qkv or D + 128, seed + 1, device, kind),
+          "wo": _weight(L, D, D, seed + 2, device, kind),
+          "w_gateup": _weight(L, D, 2 * F, seed + 3, device, kind),
+          "w_down": _weight(L, F, D, seed + 4, device, kind)}
     cfg = tiny_test_config(n_embd=D, n_ffn=F, n_heads=4, n_kv_heads=1)
     return x, a, nw, ws, cfg
 
@@ -219,24 +223,33 @@ def test_fused_attn_out_matches_plain(card, G, pos):
 
 
 @pytest.mark.cuda
-def test_cooperative_kernels_replay_in_a_graph(card):
-    """K7 and K8 (one cooperative launch each, with a grid barrier)
-    captured in one CUDA graph and replayed 3 times give the eager
-    result every time."""
-    x, _, nw, ws, cfg = _fused_inputs(4, card, seed=3)
+@pytest.mark.parametrize("M", [4, 32])
+def test_cooperative_kernels_replay_in_a_graph(card, M):
+    """K5 and both entries of K7 (the fused walk: split K summed in a
+    cluster; K7 two launches, the second a programmatic dependent launch)
+    and K8 (a cooperative launch with a grid barrier), captured in one
+    CUDA graph at layer 0 and replayed 3 times at layer 1, give the eager
+    result at layer 1 bit for bit every time."""
+    x, a, nw, ws, cfg = _fused_inputs(M, card, seed=3)
     q, cache, res, wo = _attn_out_inputs(card, 8, 700, seed=3)
-    layer, p = _i32([1], card), _i32([700], card)
+    layer, p = _i32([0], card), _i32([700], card)
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
 
     def run():
-        return (ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
+        return (decode_fused.fused_norm_qkv(x, nw, ws["wqkv"], layer, eps, inside),
+                ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
                                            layer, cfg),
+                ffn_fused.ffn_fused(a, ws["w_gateup"], ws["w_down"], layer, cfg),
                 attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
 
-    eager = run()
+    run()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         outs = run()
+    layer.fill_(1)
+    eager = run()
+    torch.cuda.synchronize()
     for _ in range(3):
         for o in outs:
             o.zero_()
@@ -244,6 +257,91 @@ def test_cooperative_kernels_replay_in_a_graph(card):
         torch.cuda.synchronize()
         for o, e in zip(outs, eager):
             assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 24, 32])
+@pytest.mark.parametrize("kind", ["q8", "q4"])
+def test_fused_walk_ragged_shapes_match_plain(card, kind, M):
+    """K5 and both entries of K7 where the output columns end in half a
+    64-column tile (wqkv N 480 or 416, and at M <= 8 F 480 and D 352) and,
+    at M <= 8, K in half a 64-row step (352 = 5.5 steps, 480 = 7.5; above
+    M = 8 the wrappers and the kernel refuse such a K, as qmatmul's tile
+    regime does: test_fused_walk_refuses_half_steps_above_8_rows), against
+    their plain versions."""
+    D, F, n_qkv = (352, 480, 480) if M <= 8 else (320, 512, 416)
+    x, a, nw, ws, cfg = _fused_inputs(M, card, D=D, F=F, seed=M, kind=kind,
+                                      n_qkv=n_qkv)
+    layer = _i32([1], card)
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    got = [decode_fused.fused_norm_qkv(x, nw, ws["wqkv"], layer, eps, inside),
+           ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"], layer, cfg),
+           ffn_fused.ffn_fused(a, ws["w_gateup"], ws["w_down"], layer, cfg)]
+    want = [decode_fused.fused_norm_qkv_ref(x, nw, ws["wqkv"], layer, eps, inside),
+            ffn_fused.ffn_fused_ref(x, nw, ws["w_gateup"], ws["w_down"], layer, cfg,
+                                    eps, inside),
+            ffn_fused.ffn_fused_ref(a, None, ws["w_gateup"], ws["w_down"], layer, cfg)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("kind", ["q8", "q4", "q4g"])
+def test_fused_walk_grid_is_resident_in_one_wave(card, kind, M):
+    """At TinyLlama's widths the wrappers' plans keep every cluster of K5's
+    launch and of K7's two launches resident at once (the occupancy the
+    libraries report for the launch shape), and give every SM a block but
+    a few: K7's down launch takes 16 tiles of 128 columns times 8 splits
+    (128 blocks) where 32 tiles of 64 (256 blocks) would run a second wave
+    of clusters."""
+    n_sm = qmatmul.sm_count(card)
+    code = qmatmul.KIND_CODE[kind]
+    k5, k7 = decode_fused._lib().fused_norm_qkv_resident, ffn_fused._lib().ffn_fused_resident
+    launches = [("K5", decode_fused.plan(code, M, 2048, 2560, n_sm), 2560,
+                 lambda w, s, n: k5(code, M, 2048, w, s, n)),
+                ("K7 gate/up", ffn_fused.plan(code, M, 2048, 5632, True, n_sm), 5632,
+                 lambda w, s, n: k7(code, M, 2048, w, s, 1, n)),
+                ("K7 down", ffn_fused.plan(code, M, 5632, 2048, False, n_sm), 2048,
+                 lambda w, s, n: k7(code, M, 5632, w, s, 0, n))]
+    for name, (width, splits), ncols, resident in launches:
+        clusters = ctypes.c_int(0)
+        build.check(resident(width, splits, ctypes.byref(clusters)), name)
+        blocks = -(-ncols // width) * splits
+        assert 1 <= splits <= 8 and n_sm - n_sm // 32 <= blocks, (name, width, splits)
+        assert blocks <= clusters.value * splits, (name, blocks, clusters.value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [9, 32])
+def test_fused_walk_refuses_half_steps_above_8_rows(card, M):
+    """Above 8 rows (the bf16 regime) K must be whole 64-row steps: the
+    three wrappers raise before a launch, and the libraries' entry points
+    refuse the shape themselves (cudaErrorInvalidValue) without launching."""
+    x, a, nw, ws, cfg = _fused_inputs(M, card, D=352, F=480, n_qkv=480)
+    layer = _i32([0], card)
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    with pytest.raises(ValueError, match="64 rows"):
+        decode_fused.fused_norm_qkv(x, nw, ws["wqkv"], layer, eps, inside)
+    with pytest.raises(ValueError, match="64 rows"):
+        ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"], layer, cfg)
+    with pytest.raises(ValueError, match="64 rows"):
+        ffn_fused.ffn_fused(a, ws["w_gateup"], ws["w_down"], layer, cfg)
+    out = torch.empty(M, 480, dtype=torch.bfloat16, device=card)
+    act = torch.empty(M, 480, dtype=torch.bfloat16, device=card)
+    w, gu, wd = ws["wqkv"], ws["w_gateup"], ws["w_down"]
+    code, stream = qmatmul.KIND_CODE["q8"], build.stream_ptr(x)
+    assert decode_fused._lib().fused_norm_qkv(
+        x.data_ptr(), nw.data_ptr(), layer.data_ptr(), w.data.data_ptr(),
+        w.scales.data_ptr(), out.data_ptr(), code, M, 352, 480, eps, int(inside), 64, 2,
+        stream) == 1
+    assert ffn_fused._lib().ffn_fused(
+        x.data_ptr(), nw.data_ptr(), layer.data_ptr(), gu.data.data_ptr(),
+        gu.scales.data_ptr(), wd.data.data_ptr(), wd.scales.data_ptr(), act.data_ptr(),
+        out.data_ptr(), code, M, 352, 480, eps, int(inside), 64, 2, 64, 2, stream) == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -541,6 +639,38 @@ def test_fused_4bit_kernels_match_plain(card, kind, M):
         (decode_fused, "fused_out_residual",
          lambda: decode_fused.fused_out_residual(a, x, ws["wo"], layer),
          lambda: decode_fused.fused_out_residual_ref(a, x, ws["wo"], layer)),
+        (ffn_fused, "ffn_fused_normed",
+         lambda: ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
+                                            layer, cfg),
+         lambda: ffn_fused.ffn_fused_ref(x, nw, ws["w_gateup"], ws["w_down"],
+                                         layer, cfg, eps, inside)),
+        (ffn_fused, "ffn_fused",
+         lambda: ffn_fused.ffn_fused(a, ws["w_gateup"], ws["w_down"], layer, cfg),
+         lambda: ffn_fused.ffn_fused_ref(a, None, ws["w_gateup"], ws["w_down"],
+                                         layer, cfg)),
+    ]
+    for mod, name, kernel, plain in cases:
+        got = _counted(mod, name, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 32])
+def test_fused_walk_q8_at_tinyllama_widths(card, M):
+    """K5 and both entries of K7 with q8 weights at TinyLlama's widths
+    (the splits of the plan at 2048 -> 2560, 2048 -> 2 x 5632 and 5632 ->
+    2048), across both rounding regimes."""
+    x, a, nw, ws, cfg = _fused4_inputs("q8", M, card, seed=M)
+    layer = _i32([1], card)
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    cases = [
+        (decode_fused, "fused_norm_qkv",
+         lambda: decode_fused.fused_norm_qkv(x, nw, ws["wqkv"], layer, eps, inside),
+         lambda: decode_fused.fused_norm_qkv_ref(x, nw, ws["wqkv"], layer, eps,
+                                                 inside)),
         (ffn_fused, "ffn_fused_normed",
          lambda: ffn_fused.ffn_fused_normed(x, nw, ws["w_gateup"], ws["w_down"],
                                             layer, cfg),

@@ -3,25 +3,35 @@
 // bf16 activations, f32 accumulation. Both walk layer-stacked "kn" weights
 // (q8 [L, K, N] int8 or q4/q4g [L, K/2, N] uint8, with fp16 scales
 // [L, K/32 or K/128, N]; qkind.cuh) with the layer index read from device
-// memory, through the strip walk of qstrip.cuh, a template on the bits.
+// memory.
 //
 // K5 fused_norm_qkv replaces _norm_qkv_kernel in
 //   tinyllama_tpu/ops/pallas/decode_fused.py: out = rms_norm(x) * w_norm
-//   @ dequant(wqkv). Bound: the weight bytes over the memory rate (5.57 MB
-//   at TinyLlama's 2048 x 2560 in q8, 2.95 MB in q4, 2.70 MB in q4g). Design: the TPU kernel normalizes x once
-//   into VMEM on its first grid step and reuses it on later steps; Hopper
-//   blocks share nothing, so every block recomputes the M row statistics
-//   from x (at most 128 KB, read from L2) and normalizes each staged chunk
-//   as it stages it, rounding to bf16 where the TPU kernel casts the
-//   normed slice to the compute dtype. No hand-off, one launch.
+//   @ dequant(wqkv). Bound: the weight bytes over the memory rate at every
+//   M <= 32 (5.57 MB at TinyLlama's 2048 x 2560 in q8, 2.95 MB in q4, 2.70
+//   MB in q4g). Design: the walk of fused_walk.cuh: 20 tiles of 128
+//   columns times K splits from ops/kernels/fused_plan.py (8 at
+//   TinyLlama's shape: 160 blocks), each split one block of a cluster that
+//   streams its weight rows through a cp.async ring, stages only its K
+//   slice of x, sums the squares of that slice and takes the row
+//   statistic from the sums its cluster's splits push to it (the TPU
+//   kernel normalizes x once into VMEM on its first grid step), and the
+//   products on mma.sync with the dequantized weight in registers; the
+//   splits' partials are pushed to the split that sums them, in split
+//   order, over distributed shared memory, and each output is cast to
+//   bf16 once. Each block reads x's slice once: at M = 32, 20 x 128 KB of
+//   L2 reads a call, where the strip walk read all of x twice in each of
+//   80 blocks (20 MB).
 //
 // K6 fused_out_residual replaces _out_res_kernel (same file): out =
 //   residual + attn @ dequant(wo). Bound: the weight bytes (4.46 MB at
-//   2048 x 2048 in q8, 2.36 MB in q4, 2.16 MB in q4g). Design: the same strip walk; the residual joins the f32
+//   2048 x 2048 in q8, 2.36 MB in q4, 2.16 MB in q4g). Design: the strip
+//   walk of qstrip.cuh, a template on the bits; the residual joins the f32
 //   sum once, in the epilogue, and the result is cast to bf16 once.
 //
-// Every entry point returns cudaGetLastError() after its launch.
+// The launch entry points return cudaGetLastError() after their launch.
 
+#include "fused_walk.cuh"
 #include "qstrip.cuh"
 
 namespace {
@@ -29,31 +39,6 @@ namespace {
 using qstrip::bf16;
 using qstrip::COLS;
 using qstrip::THREADS;
-
-template <int MT, int BITS>
-__global__ void __launch_bounds__(THREADS)
-fused_norm_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ nw,
-                      const int* __restrict__ layer, const uint8_t* __restrict__ w,
-                      const __half* __restrict__ s, bf16* __restrict__ out,
-                      int M, int K, int N, float eps, int inside, int sshift) {
-  extern __shared__ __align__(128) float buf[];
-  __shared__ float stat[qstrip::MAX_M];
-  const int li = layer[0];
-  w += (size_t)li * qkind::plane_bytes(BITS, K, N);
-  s += (size_t)li * (K >> sshift) * N;
-  nw += (size_t)li * K;
-  qstrip::row_rms(x, M, K, eps, inside, stat);
-  qstrip::strip_matmul<MT, BITS>(
-      buf, w, s, K, N, blockIdx.x * COLS, sshift,
-      [&](float* b, int k0, int kc) {
-        qstrip::stage_rows<MT>(b, M, k0, kc, [&](int m, int k, float(&v)[8]) {
-          qstrip::load_normed8(x, nw, K, stat, inside, m, k, v);
-        });
-      },
-      [&](int m, int n, float v) {
-        if (m < M) out[(size_t)m * N + n] = __float2bfloat16(v);
-      });
-}
 
 template <int MT, int BITS>
 __global__ void __launch_bounds__(THREADS)
@@ -92,29 +77,43 @@ extern "C" {
 
 // x, out: [M, K] / [M, N] bf16; nw: [L, K] f32; kind: 0 q8, 1 q4, 2 q4g;
 // w, s: the kind's [L, K, N] int8 or [L, K/2, N] uint8 data and
-// [L, K/32 or K/128, N] fp16 scales; layer: [1] int32. Requires
-// 1 <= M <= 32, K a multiple of the scale block and N % 32 == 0.
+// [L, K/32 or K/128, N] fp16 scales; layer: [1] int32; width, splits:
+// the tile width (64 or 128 columns) and the K splits of a tile
+// (ops/kernels/fused_plan.py). Requires 1 <= M <= 32, K a multiple of the
+// scale block, N % 32 == 0 and 1 <= splits <= min(8, ceil(K / 64)).
 int fused_norm_qkv(const void* x, const void* nw, const void* layer,
                    const void* w, const void* s, void* out, int kind, int M,
-                   int K, int N, float eps, int inside, void* stream) {
-  if (bad_shape(kind, M, K, N)) return (int)cudaErrorInvalidValue;
+                   int K, int N, float eps, int inside, int width, int splits,
+                   void* stream) {
+  if (fwalk::bad_shape(kind, M, K, N, splits)) return (int)cudaErrorInvalidValue;
+  fwalk::Args a = {};
+  a.x = static_cast<const bf16*>(x);
+  a.nw = static_cast<const float*>(nw);
+  a.layer = static_cast<const int*>(layer);
+  a.w = static_cast<const uint8_t*>(w);
+  a.s = static_cast<const __half*>(s);
+  a.out = static_cast<bf16*>(out);
+  a.M = M;
+  a.K = K;
+  a.N = a.ncols = N;
+  a.eps = eps;
+  a.inside = inside;
+  a.splits = splits;
   auto st = static_cast<cudaStream_t>(stream);
-  const int sh = qkind::scale_shift(kind);
-  return qstrip::with_row_tile(M, [&](auto mt) {
+  return fwalk::with_row_tile(M, [&](auto mt) {
     return qkind::with_bits(kind, [&](auto bits) {
-      constexpr int MT = decltype(mt)::value, BITS = decltype(bits)::value;
-      auto kernel = fused_norm_qkv_kernel<MT, BITS>;
-      const int bytes = qstrip::smem_floats(MT) * sizeof(float);
-      static const cudaError_t smem = qstrip::allow_smem(kernel, bytes);
-      if (smem) return (int)smem;
-      fused_norm_qkv_kernel<MT, BITS><<<N / COLS, THREADS, bytes, st>>>(
-          static_cast<const bf16*>(x), static_cast<const float*>(nw),
-          static_cast<const int*>(layer), static_cast<const uint8_t*>(w),
-          static_cast<const __half*>(s), static_cast<bf16*>(out), M, K, N, eps,
-          inside, sh);
-      return (int)cudaGetLastError();
+      return fwalk::with_width(width, [&](auto sw) {
+        return fwalk::launch<decltype(mt)::value, decltype(bits)::value, decltype(sw)::value,
+                             false>(a, kind, false, st);
+      });
     });
   });
+}
+
+// The clusters of a launch of fused_norm_qkv's shape (kind, M, K, width,
+// splits as above) that the card keeps resident at once, into *clusters.
+int fused_norm_qkv_resident(int kind, int M, int K, int width, int splits, int* clusters) {
+  return fwalk::resident<false>(kind, M, K, width, splits, clusters);
 }
 
 // a: [M, K] bf16; res, out: [M, N] bf16; kind, w, s, layer as above.

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the prefill kernels K2
-// (qmatmul.cu) and K3 (flash_attention.cu), written as inline PTX:
+// (qmatmul.cu) and K3 (flash_attention.cu) and the fused decode walk of
+// K5 and K7 (fused_walk.cuh), written as inline PTX:
 //
 // * the ring: 16-byte cp.async copies into shared memory, each thread's
 //   copies of a stage signalling the stage's mbarrier when they land
@@ -9,7 +10,11 @@
 //   accumulators in registers, A and B from shared memory (SS: K3's
 //   scores) or A from registers (RS: K3's P V, K2's dequantized weight),
 //   and the fence / commit / wait around them; ldmatrix.trans, which K2
-//   reads its raw weight bytes with;
+//   reads its raw weight bytes with; the warp product mma.sync.m16n8k16
+//   and plain ldmatrix, for the decode walk's narrow x tiles;
+// * programmatic dependent launch (griddepcontrol), K7's hand-off; the
+//   halves of a relaxed cluster barrier, and asynchronous stores into a
+//   cluster peer's shared memory counted on its mbarrier (st.async);
 // * the shared-memory matrix descriptor for the 128-byte swizzle: a
 //   bf16 tile of 128-byte rows (64 values), row r's 16-byte chunk c
 //   stored at chunk c ^ (r & 7) of the row, 1024-byte aligned. A K-major
@@ -199,6 +204,99 @@ __device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(row))
                : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit elements as they are: lanes 8 i .. 8 i + 7
+// give the addresses of matrix i's rows; lane l gets in r[i] the elements
+// (row l / 4, columns 2 (l % 4) and that + 1) of matrix i.
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// d[16 x 8] += A[16 x 16] B[16 x 8] on one warp, bf16 operands, f32
+// accumulators: a as wgmma's register A fragment of one warp (above), b0
+// the B elements (k 2 (l % 4) + {0, 1}, n l / 4) and b1 those at k + 8;
+// d[2 i + e] is row l / 4 + 8 i, column 2 (l % 4) + e.
+__device__ inline void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                 uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Programmatic dependent launch: let the next launch in the stream (made
+// with the programmatic-serialization attribute) start its blocks once
+// every block of this grid has called this or exited; and, in that next
+// launch, wait until the grid before it has completed and its writes are
+// visible (at once when it was not launched so).
+__device__ inline void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ inline void wait_prior_grid() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// The two halves of a cluster barrier (every thread of every block of the
+// cluster) that only says a point was reached: arrive without ordering
+// this thread's earlier memory accesses (a release may wait for its
+// cp.async copies in flight), then wait for every arrival.
+__device__ inline void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Distributed shared memory: the address of `p` (this block's shared
+// memory) in the shared memory of block `rank` of the cluster.
+__device__ inline uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// Store v at cluster address `dst` of a block of the cluster, its bytes
+// counted on that block's mbarrier at cluster address `bar` (which
+// expects them): no fence, no barrier.
+__device__ inline void st_async(uint32_t dst, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(dst),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+__device__ inline void st_async(uint32_t dst, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(dst),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+      "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+// Arrive on `bar` (initialized with a count of 1) and let its phase also
+// wait for `bytes` of asynchronous stores into this block.
+__device__ inline void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed, acquiring
+// at cluster scope what other blocks' asynchronous stores brought.
+__device__ inline void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 __device__ inline uint32_t pack_bf16(float lo, float hi) {

@@ -1,8 +1,10 @@
-// The weight strip walk shared by the fused decode-layer kernels (K5-K8):
+// The weight strip walk of K6 (fused_out_residual, decode_fused.cu) and
+// K8 (fused_attn_out, attn_out_fused.cu), its remaining users; K5 and K7
+// walk their weights on fused_walk.cuh:
 // out[m, n0:n0+32] = x[m, :] @ dequant(w)[:, n0:n0+32] for m < MT <= 32,
 // with x staged in shared memory by the caller and the result handed to
-// the caller's epilogue, so each kernel adds its own prologue (a norm)
-// and epilogue (a residual, SwiGLU) around the same weight stream.
+// the caller's epilogue, so each kernel adds its own epilogue (a
+// residual) around the same weight stream.
 //
 // The weight is the port's "kn" QTensor (qkind.cuh): q8 int8 [K, N], or
 // 4-bit (q4, q4g) uint8 [K/2, N] whose byte-rows each pack two K-rows of
@@ -188,42 +190,6 @@ __device__ inline void dequant_block(bf16* tile, const uint8_t* __restrict__ w,
       }
     }
   }
-}
-
-// Per row m < M of x [M, K]: the rms_norm statistic, rsqrt(ms + eps)
-// (eps inside the root, HF) or sqrt(ms) + eps (the reference's), ms the
-// f32 mean of squares. One warp a row; ends with __syncthreads().
-__device__ inline void row_rms(const bf16* __restrict__ x, int M, int K,
-                               float eps, bool inside, float* stat) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m = warp; m < M; m += THREADS / 32) {
-    float ss = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float v = __bfloat162float(x[(size_t)m * K + k]);
-      ss += v * v;
-    }
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      const float ms = ss / (float)K;
-      stat[m] = inside ? rsqrtf(ms + eps) : sqrtf(ms) + eps;
-    }
-  }
-  __syncthreads();
-}
-
-// Eight values of x row m, normalized by row_rms's statistic and
-// multiplied by the norm weight w[k .. k+8) in f32, then rounded to bf16
-// as the TPU kernels cast the normed slice to the compute dtype.
-__device__ inline void load_normed8(const bf16* x, const float* w, int K,
-                                    const float* stat, bool inside, int m, int k,
-                                    float (&v)[8]) {
-  load_bf16x8(x + (size_t)m * K + k, v);
-  const float4 w0 = *reinterpret_cast<const float4*>(w + k);
-  const float4 w1 = *reinterpret_cast<const float4*>(w + k + 4);
-  const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    v[j] = round_bf16((inside ? v[j] * stat[m] : v[j] / stat[m]) * wv[j]);
 }
 
 // The latency body (MT <= 8): f32 FMAs, post-dot block scales.

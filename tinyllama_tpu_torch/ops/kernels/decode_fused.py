@@ -2,16 +2,19 @@
 quantized weight stream (q8, q4 or q4g), for M <= 32 rows.
 
 Replaces two kernels of tinyllama_tpu/ops/pallas/decode_fused.py with
-hand-written Hopper kernels (csrc/decode_fused.cu, over the strip walk of
-csrc/qstrip.cuh that K7 and K8 share):
+hand-written Hopper kernels (csrc/decode_fused.cu):
 
 * K5 ``fused_norm_qkv`` for ``_norm_qkv_kernel``: rms_norm(x) * w_norm
-  @ dequant(wqkv). Bound by the weight bytes over the memory rate. Each
-  block recomputes the M row statistics from x (at most 128 KB, from L2)
-  and normalizes x as it stages it, so no block waits on another.
+  @ dequant(wqkv). Bound by the weight bytes over the memory rate. It
+  runs on the walk that K7 shares (csrc/fused_walk.cuh): column tiles
+  times K splits (``fused_plan.fused_plan``, shapes only), each split
+  one block of a cluster that streams its weight rows through a
+  ``cp.async`` ring and stages only its slice of x; the row statistic
+  comes from the splits' sums of squares, exchanged in the cluster, and
+  the splits' partial products are summed in split order there.
 * K6 ``fused_out_residual`` for ``_out_res_kernel``: residual + attn @
-  dequant(wo), the residual added to the f32 sum once. Bound by the
-  weight bytes.
+  dequant(wo), the residual added to the f32 sum once, on the strip walk
+  of csrc/qstrip.cuh that K8 shares. Bound by the weight bytes.
 
 The module also holds the gate of the fused branch
 (``decode_fused_eligible``) and the plain arithmetic of the fused kernels
@@ -24,11 +27,12 @@ launch a kernel or raise; only CPU tensors go to the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from tinyllama_tpu_torch.config import ModelConfig
-from tinyllama_tpu_torch.ops.kernels import build, qmatmul
+from tinyllama_tpu_torch.ops.kernels import build, fused_plan, qmatmul
 from tinyllama_tpu_torch.quant.codec import QTensor
 
 #: largest M (= B * T) of the fused branch; larger M takes the unfused one.
@@ -46,9 +50,11 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_fused")
     if lib.fused_norm_qkv.argtypes is None:
-        lib.fused_norm_qkv.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P]
+        lib.fused_norm_qkv.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P]
         lib.fused_out_residual.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+        lib.fused_norm_qkv_resident.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
         lib.fused_norm_qkv.restype = lib.fused_out_residual.restype = _I
+        lib.fused_norm_qkv_resident.restype = _I
     return lib
 
 
@@ -120,6 +126,19 @@ def check_norm(norm_w: torch.Tensor, w: QTensor, K: int, device) -> None:
                "the norm weight (the stacked [L, D] table)")
 
 
+@functools.lru_cache(maxsize=None)
+def plan(kind: int, M: int, K: int, N: int, n_sm: int) -> tuple[int, int]:
+    """K5's (tile width, K splits) for M rows of K -> N, kind code `kind`,
+    on the current card: ``fused_plan.fused_plan`` with the card's count
+    of the launch's clusters it keeps resident."""
+    def resident(width, splits):
+        n = ctypes.c_int(0)
+        build.check(_lib().fused_norm_qkv_resident(kind, M, K, width, splits,
+                                                   ctypes.byref(n)), "fused_norm_qkv")
+        return n.value
+    return fused_plan.fused_plan(K, N, n_sm, resident)
+
+
 def fused_norm_qkv(x: torch.Tensor, norm_w: torch.Tensor, w: QTensor,
                    layer: torch.Tensor, eps: float,
                    inside: bool) -> torch.Tensor:
@@ -133,10 +152,11 @@ def fused_norm_qkv(x: torch.Tensor, norm_w: torch.Tensor, w: QTensor,
     check_norm(norm_w, w, D, x.device)
     M, N = x2.shape[0], w.data.shape[-1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    width, splits = plan(qmatmul.KIND_CODE[w.kind], M, D, N, qmatmul.sm_count(x.device))
     err = _lib().fused_norm_qkv(
         x2.data_ptr(), norm_w.data_ptr(), layer.data_ptr(), w.data.data_ptr(),
         w.scales.data_ptr(), out.data_ptr(), qmatmul.KIND_CODE[w.kind], M, D, N,
-        float(eps), int(inside), build.stream_ptr(x))
+        float(eps), int(inside), width, splits, build.stream_ptr(x))
     build.check(err, "fused_norm_qkv")
     launches["fused_norm_qkv"] += 1
     return out.reshape(B, T, N)

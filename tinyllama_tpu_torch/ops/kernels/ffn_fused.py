@@ -1,9 +1,9 @@
-"""Fused SwiGLU FFN: gate/up matmul, SwiGLU and down matmul in one
-launch, for M <= 32 rows.
+"""Fused SwiGLU FFN: gate/up matmul, SwiGLU and down matmul, for M <= 32
+rows.
 
 Replaces ``_ffn_fused_kernel`` of tinyllama_tpu/ops/pallas/ffn_fused.py
-(K7) with a hand-written Hopper kernel (csrc/ffn_fused.cu), behind the
-TPU kernel's two entries:
+(K7) with a hand-written Hopper kernel (csrc/ffn_fused.cu, on the walk of
+csrc/fused_walk.cuh that K5 shares), behind the TPU kernel's two entries:
 
 * ``ffn_fused_normed``: x + down(silu(gate) * up) over rms_norm(x), the
   fused branch's FFN (norm weight as the stacked [L, D] table);
@@ -13,10 +13,14 @@ TPU kernel's two entries:
 Bound by the weight bytes over the memory rate (36.8 MB a layer at
 TinyLlama's widths in q8, 19.5 MB in q4, 17.8 MB in q4g). Both weights
 are of one kind. The TPU kernel keeps the [M, F] intermediate in VMEM
-across a sequential grid; Hopper blocks run in no order, so the kernel is
-one cooperative launch whose gate/up phase writes silu(gate) * up in f32
-to a workspace (L2-resident) and whose down phase starts after a
-grid-wide barrier. The workspace comes from the wrapper.
+across a sequential grid; here a call is two launches of the walk, each
+over column tiles times K splits (``fused_plan.fused_plan``, shapes
+only), each split one block of a cluster: the gate/up launch writes
+silu(gate) * up once as bf16 (the value the down product multiplies) to
+a workspace from the wrapper, and the down launch is a programmatic
+dependent launch that streams its first weight stages while the gate/up
+launch finishes and waits for it before it reads the workspace. One
+call counts one launch.
 
 ``ffn_fused_eligible`` is the JAX package's gate, with the port's own
 copy of ``_pick_bn``'s rule: it decides the same branch as the JAX
@@ -27,11 +31,12 @@ launch the kernel or raise; only CPU tensors go to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from tinyllama_tpu_torch.config import ModelConfig
-from tinyllama_tpu_torch.ops.kernels import build, qmatmul
+from tinyllama_tpu_torch.ops.kernels import build, fused_plan, qmatmul
 from tinyllama_tpu_torch.ops.kernels.decode_fused import (
     FUSED_M,
     STRIP,
@@ -51,8 +56,9 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("ffn_fused")
     if lib.ffn_fused.argtypes is None:
-        lib.ffn_fused.argtypes = [_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _P]
-        lib.ffn_fused.restype = _I
+        lib.ffn_fused.argtypes = [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_P]
+        lib.ffn_fused_resident.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+        lib.ffn_fused.restype = lib.ffn_fused_resident.restype = _I
     return lib
 
 
@@ -100,6 +106,20 @@ def ffn_fused_ref(x, norm_w, wgu, wdown, layer, cfg, eps=0.0,
     return out.to(x.dtype).reshape(B, T, D)
 
 
+@functools.lru_cache(maxsize=None)
+def plan(kind: int, M: int, K: int, ncols: int, pair: bool, n_sm: int) -> tuple[int, int]:
+    """(tile width, K splits) of K7's gate/up launch (pair: K = D, F
+    column pairs) or down launch (K = F, D columns) for M rows, kind code
+    `kind`, on the current card: ``fused_plan.fused_plan`` with the card's
+    count of the launch's clusters it keeps resident."""
+    def resident(width, splits):
+        n = ctypes.c_int(0)
+        build.check(_lib().ffn_fused_resident(kind, M, K, width, splits, int(pair),
+                                              ctypes.byref(n)), "ffn_fused")
+        return n.value
+    return fused_plan.fused_plan(K, ncols, n_sm, resident)
+
+
 def _launch(x, norm_w, wgu, wdown, layer, cfg, eps, inside, name):
     B, T, D = x.shape
     F = cfg.n_ffn
@@ -113,14 +133,16 @@ def _launch(x, norm_w, wgu, wdown, layer, cfg, eps, inside, name):
     if norm_w is not None:
         check_norm(norm_w, wgu, D, x.device)
     M = x2.shape[0]
-    act = torch.empty((M, F), dtype=torch.float32, device=x.device)
+    act = torch.empty((M, F), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x2)
+    code, n_sm = qmatmul.KIND_CODE[wgu.kind], qmatmul.sm_count(x.device)
     err = _lib().ffn_fused(
         x2.data_ptr(), None if norm_w is None else norm_w.data_ptr(),
         layer.data_ptr(), wgu.data.data_ptr(), wgu.scales.data_ptr(),
         wdown.data.data_ptr(), wdown.scales.data_ptr(), act.data_ptr(),
-        out.data_ptr(), qmatmul.KIND_CODE[wgu.kind], M, D, F, float(eps),
-        int(inside), build.stream_ptr(x))
+        out.data_ptr(), code, M, D, F, float(eps), int(inside),
+        *plan(code, M, D, F, True, n_sm), *plan(code, M, F, D, False, n_sm),
+        build.stream_ptr(x))
     build.check(err, name)
     launches[name] += 1
     return out.reshape(B, T, D)

@@ -1,0 +1,301 @@
+"""The fused decode-layer kernels and the decode steps on one card, for
+comparing two trees of the port.
+
+    python3 tinyllama_tpu_torch/tools/decode_ab.py [--root DIR] [--label NAME]
+        [--plan W:S,W:S,W:S] [--rows-only]
+
+Imports ``tinyllama_tpu_torch`` from the checkout at DIR (by default the
+one this file is in), builds its kernels there, and prints one JSON line
+a measurement, each with the label and the card's name and power limit
+(nvidia-smi):
+
+* the weight kernels of a fused decode layer at TinyLlama-1.1B's widths
+  over 22 layers of random weights (``llama.init_quantized_params``, seed
+  1234): K5 ``fused_norm_qkv`` and K7 ``ffn_fused_normed`` at M = 1, 4
+  and 32 in q8, q4 and q4g, K7's plain entry ``ffn_fused`` at M = 1 (q8),
+  K6 ``fused_out_residual`` at M = 4 and 32 and K8 ``fused_attn_out`` at
+  pos 127 over a bf16 cache (q8): microseconds a call by CUDA events over
+  a CUDA graph of 100 calls cycling the 22 layers past the 50 MB L2
+  (chip_smoke.py's method), each held against its plain version first,
+  with its bound (max(bytes once / 3.35 TB/s, operations / 989 TFLOP/s)),
+  its plain version's time (eager, 5 calls) and its library call's at
+  that M (``torch.matmul`` on the layer's weight dequantized to bf16;
+  for K7 the gate/up and the down products; K6 ``torch.addmm``);
+* the decode steps on random q8 weights (the same seed): path (a)'s b1
+  step (a 100-token prompt, 256 greedy tokens: eager ms/token on the
+  host clock; one step at pos 127 replayed as a CUDA graph), path (c)'s
+  B = 4 ``decode_step`` (8 eager steps on the host clock, and one
+  replayed), path (f)'s staged B = 32 step at a 100-token fill (8 eager
+  steps, and one replayed) and its ``ContinuousBatcher`` over a paged
+  engine, 32 slots, 64 requests (numpy seed 5: tok/s, TTFT p50 / p95),
+  and path (h)'s b1 step on q4 weights replayed as a CUDA graph.
+
+``--plan W:S,W:S,W:S`` sets the walk's tile width and K splits of K5, of
+K7's gate/up and of its down launch in place of ``fused_plan``'s (it
+needs a tree with the fused walk, csrc/fused_walk.cuh), and times K5 and
+K7 at M = 1 and 32 in q8 only, each checked against its plain version.
+``--rows-only`` skips the decode steps.
+
+It calls only entry points the package has had since its kernel
+microbench came (the fused wrappers, ``Engine``, ``ContinuousBatcher``,
+``stage_cache``, ``tools/kbench.py``'s ``time_ms`` and ``card_line``),
+so the same file measures an older tree: unpack one with ``git archive``
+into a directory that .gitignore lists, and run parent, change, change,
+parent in one call on one card. Without a card it exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+HBM_BW, PEAK_BF16 = 3.35e12, 989e12
+PROMPT, N_NEW, GRAPH_POS, BATCH, STEPS, SLOTS = 100, 256, 127, 4, 8, 32
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="checkout whose tinyllama_tpu_torch is measured")
+    ap.add_argument("--label", default="", help="name printed on every line")
+    ap.add_argument("--plan", default=None,
+                    help="tile width:K splits of K5, K7's gate/up and down, "
+                         "e.g. 128:8,128:4,64:8")
+    ap.add_argument("--rows-only", action="store_true",
+                    help="the kernel rows without the decode steps")
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("decode_ab: needs a CUDA device", file=sys.stderr)
+        return 1
+    import tinyllama_tpu_torch
+    from tinyllama_tpu_torch.config import (
+        GenerationConfig, POLICIES, TINYLLAMA_1_1B,
+    )
+    from tinyllama_tpu_torch.models import llama
+    from tinyllama_tpu_torch.ops.kernels import attn_out_fused as ao
+    from tinyllama_tpu_torch.ops.kernels import build
+    from tinyllama_tpu_torch.ops.kernels import decode_fused as df
+    from tinyllama_tpu_torch.ops.kernels import ffn_fused as ff
+    from tinyllama_tpu_torch.quant import codec
+    from tinyllama_tpu_torch.runtime.engine import Engine
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache
+    from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
+    from tinyllama_tpu_torch.runtime.staging import stage_cache
+    from tinyllama_tpu_torch.tools import kbench
+
+    pkg = Path(tinyllama_tpu_torch.__file__).resolve().parent
+    if pkg.parent != root:
+        print(f"decode_ab: imported {pkg}, not the one under {root}",
+              file=sys.stderr)
+        return 1
+    card = kbench.card_line()
+
+    def emit(**kw):
+        print(json.dumps({"label": args.label, **kw, "card": card}), flush=True)
+
+    def bound_us(nbytes, flops):
+        return max(nbytes / HBM_BW, flops / PEAK_BF16) * 1e6
+
+    quick = bool(args.plan)  # K5 and K7 in q8 at M = 1, 32
+    build.build_all()
+    cfg = TINYLLAMA_1_1B
+    L, D, F, dev = cfg.n_layers, cfg.n_embd, cfg.n_ffn, "cuda"
+    if args.plan:
+        from tinyllama_tpu_torch.ops.kernels import fused_plan
+
+        p_qkv, p_gu, p_down = (tuple(map(int, p.split(":")))
+                               for p in args.plan.split(","))
+        fused_plan.fused_plan = lambda K, ncols, n_sm, resident=None: (
+            p_down if K == F else p_gu if ncols == F else p_qkv)
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    layers = [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(L)]
+    gen = torch.Generator(dev)
+    gen.manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def params_of(kind):
+        wgen = torch.Generator(dev)
+        wgen.manual_seed(1234)
+        return llama.init_quantized_params(cfg, POLICIES[kind], wgen, dev)
+
+    def nbytes(w):
+        return w.data[0].numel() * w.data.element_size() + w.scales[0].numel() * 2
+
+    def dense(w, kind):
+        return [codec.dequantize(codec.QTensor(w.data[i], w.scales[i], kind, "kn"),
+                                 torch.bfloat16) for i in range(L)]
+
+    def row(kernel, kind, shape, fn, plain, lib, nb, flops):
+        # the kernel against its plain version first
+        got, want = fn(0).float(), plain(0).float()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all()
+                and ((got - want).abs() <= 5e-3 + 2e-2 * want.abs()).all()):
+            raise AssertionError(f"{kernel} {kind} {shape}: disagrees with "
+                                 "its plain version")
+        us = kbench.time_ms(fn, 100, True) * 1e3
+        rec = dict(kernel=kernel, kind=kind, shape=shape, us=us,
+                   bound_us=bound_us(nb, flops))
+        if args.plan:
+            rec.update(plan=args.plan)
+        else:
+            rec.update(plain_us=kbench.time_ms(plain, 5, False) * 1e3,
+                       library_us=kbench.time_ms(lib, 100, True) * 1e3)
+        emit(**rec)
+
+    for kind in ("q8",) if quick else ("q8", "q4", "q4g"):
+        lin = params_of(kind)["layers"]
+        wq, gu, wd, wo = lin["wqkv"], lin["w_gateup"], lin["w_down"], lin["wo"]
+        nq, nf = lin["attn_norm"], lin["ffn_norm"]
+        dq, dgu, dwd = dense(wq, kind), dense(gu, kind), dense(wd, kind)
+        N = wq.data.shape[-1]
+        for M in (1, 32) if quick else (1, 4, 32):
+            x = rand(M, 1, D)
+            row("K5 fused_norm_qkv", kind, f"M={M}",
+                lambda i: df.fused_norm_qkv(x, nq, wq, layers[i % L], eps, inside),
+                lambda i: df.fused_norm_qkv_ref(x, nq, wq, layers[i % L], eps, inside),
+                lambda i: torch.matmul(x.view(M, D), dq[i % L]),
+                nbytes(wq) + M * D * 2 + D * 4 + M * N * 2, 2 * M * D * N)
+            row("K7 ffn_fused_normed", kind, f"M={M}",
+                lambda i: ff.ffn_fused_normed(x, nf, gu, wd, layers[i % L], cfg),
+                lambda i: ff.ffn_fused_ref(x, nf, gu, wd, layers[i % L], cfg, eps,
+                                           inside),
+                lambda i: torch.matmul(torch.matmul(x.view(M, D), dgu[i % L])[:, :F],
+                                       dwd[i % L]),
+                nbytes(gu) + nbytes(wd) + 2 * M * D * 2 + D * 4, 6 * M * F * D)
+            if kind == "q8" and M == 1:
+                row("K7 ffn_fused (plain entry)", kind, "M=1",
+                    lambda i: ff.ffn_fused(x, gu, wd, layers[i % L], cfg),
+                    lambda i: ff.ffn_fused_ref(x, None, gu, wd, layers[i % L], cfg),
+                    lambda i: torch.matmul(torch.matmul(x.view(1, D), dgu[i % L])[:, :F],
+                                           dwd[i % L]),
+                    nbytes(gu) + nbytes(wd) + 2 * D * 2, 6 * F * D)
+        if kind == "q8" and not quick:
+            dwo = dense(wo, kind)
+            for M in (4, 32):
+                a, r = rand(M, 1, D), rand(M, 1, D)
+                row("K6 fused_out_residual", kind, f"M={M}",
+                    lambda i: df.fused_out_residual(a, r, wo, layers[i % L]),
+                    lambda i: df.fused_out_residual_ref(a, r, wo, layers[i % L]),
+                    lambda i: torch.addmm(r.view(M, D), a.view(M, D), dwo[i % L]),
+                    nbytes(wo) + 3 * M * D * 2, 2 * M * D * D)
+            H, Kh, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 2048
+            cache = KVCache(rand(L, 1, Kh, S, d), rand(L, 1, Kh, S, d))
+            q, res = rand(1, 1, H, d), rand(1, 1, D)
+            pos = torch.tensor([GRAPH_POS], dtype=torch.int32, device=dev)
+            n_keys = GRAPH_POS + 1
+
+            def sdpa_addmm(i):
+                att = torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), cache.k[i % L][:, :, :n_keys],
+                    cache.v[i % L][:, :, :n_keys], enable_gqa=True)
+                return torch.addmm(res.view(1, D), att.reshape(1, D), dwo[i % L])
+
+            row("K8 fused_attn_out", kind, f"pos={GRAPH_POS}",
+                lambda i: ao.fused_attn_out(q, cache, layers[i % L], pos, res, wo),
+                lambda i: ao.fused_attn_out_ref(q, cache, layers[i % L], pos, res, wo),
+                sdpa_addmm,
+                nbytes(wo) + 2 * Kh * n_keys * d * 2 + H * d * 2 + 2 * D * 2,
+                4 * H * n_keys * d + 2 * D * D)
+            del cache, dwo
+        del lin, dq, dgu, dwd
+        torch.cuda.empty_cache()
+    if quick or args.rows_only:
+        return 0
+
+    # the decode steps
+    rng = np.random.default_rng(0)
+
+    def prompt_of(n):
+        return [1] + rng.integers(2, cfg.n_vocab, n - 1).tolist()
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    params = params_of("q8")
+    engine = Engine(cfg, POLICIES["q8"], params, max_ctx=2048, device=dev)
+    prompt = prompt_of(PROMPT)
+    gcfg = GenerationConfig(n_predict=PROMPT + N_NEW, greedy=True, eos_token=-1,
+                            chunk_size=32)
+    engine.generate(prompt, GenerationConfig(n_predict=PROMPT + 8, greedy=True,
+                                             eos_token=-1))
+    out, stats = engine.generate(prompt, gcfg)
+    if len(out) != N_NEW:
+        raise AssertionError(f"(a): {len(out)} tokens, not {N_NEW}")
+
+    def graph_step(eng, prompts, pos):
+        cache = eng.new_cache(len(prompts))
+        eng.prefill(cache, prompts)
+        tok = i32([5] * len(prompts))
+        return kbench.time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
+
+    emit(step="(a) b1", eager_ms_per_token=stats.ms_per_token,
+         graph_ms=graph_step(engine, [prompt], i32([GRAPH_POS])), graph_pos=GRAPH_POS)
+
+    prompts = [prompt_of(PROMPT) for _ in range(BATCH)]
+    cache = engine.new_cache(BATCH)
+    logits, lens = engine.prefill(cache, prompts)
+    pos = i32(lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        logits = engine.decode_step(cache, logits.argmax(dim=-1).to(torch.int32), pos)
+        pos += 1
+    torch.cuda.synchronize()
+    emit(step="(c) B=4 decode_step",
+         eager_ms=(time.perf_counter() - t0) * 1e3 / STEPS,
+         graph_ms=graph_step(engine, prompts, i32([GRAPH_POS] * BATCH)))
+    del cache
+
+    cache = engine.new_paged_cache(SLOTS)
+    engine.prefill(cache, [prompt] * SLOTS)
+    pos = torch.full((SLOTS,), PROMPT, dtype=torch.int32, device=dev)
+    st = stage_cache(cache, pos, 32)
+    tok = torch.full((SLOTS,), 5, dtype=torch.int32, device=dev)
+    engine.decode_step(st, tok, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        engine.decode_step(st, tok, pos + i)
+    torch.cuda.synchronize()
+    emit(step="(f) staged B=32 step", eager_ms=(time.perf_counter() - t0) * 1e3 / STEPS,
+         graph_ms=kbench.time_ms(lambda i: engine.decode_step(st, tok, pos), 20, True))
+    del cache, st, engine
+
+    paged = Engine(cfg, POLICIES["q8"], params, max_ctx=2048, device=dev, paged=True)
+    srng = np.random.default_rng(5)
+    lens = srng.integers(8, 201, 64)
+    n_new = srng.integers(32, 97, 64).tolist()
+    reqs = [[1] + srng.integers(2, cfg.n_vocab, n - 1).tolist() for n in lens]
+    batcher = ContinuousBatcher(paged, GenerationConfig(greedy=True, eos_token=-1,
+                                                        chunk_size=32),
+                                max_batch=SLOTS)
+    ids = [batcher.submit(r, max_new=n) for r, n in zip(reqs, n_new)]
+    t0 = time.perf_counter()
+    res = batcher.run()
+    wall = time.perf_counter() - t0
+    ttft = np.array([res[i].first_token_s - res[i].submitted_s for i in ids])
+    emit(step="(f) ContinuousBatcher", requests=64, new_tokens=int(sum(n_new)),
+         tok_s=sum(n_new) / wall, ttft_p50_s=float(np.percentile(ttft, 50)),
+         ttft_p95_s=float(np.percentile(ttft, 95)))
+    del paged, batcher, params
+
+    engine = Engine(cfg, POLICIES["q4"], params_of("q4"), max_ctx=2048, device=dev)
+    emit(step="(h) q4 b1", graph_ms=graph_step(engine, [prompt], i32([GRAPH_POS])),
+         graph_pos=GRAPH_POS)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
