@@ -20,7 +20,9 @@ Phases, each fatal on failure:
    M=4, 32, K7 at M=1, 4, 32 and its plain entry at M=1, K8 at pos 127
    and 1500, K9 at B=8 over a fill of 256 and a 32-slot staged tail, K10
    at pos 127, 1500 and 2047, K11 at B=32 over a fill of 256 and a
-   32-slot tail), with its time, its bound, the plain
+   32-slot tail and at B=32 over path (f)'s first 32 prompt lengths
+   (8-200 keys a row, seed 5) and a 32-slot tail, its library call SDPA
+   under a key mask), with its time, its bound, the plain
    version's time and a PyTorch library call's time (for attention, SDPA
    with enable_gqa over the same un-repeated keys); K7 and K8 must give
    their eager result again when replayed from a CUDA graph; then the
@@ -359,6 +361,8 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     f32 scales) or cast, their bound counting the kind's bytes, their
     library yardstick SDPA over the cache as bf16. With aq8 only K1's
     aq8 branch, on the five decode shapes at M = 1."""
+    import numpy as np
+
     from tinyllama_tpu_torch.runtime.kvcache import (
         KVCache, layer_cache_view, quantize_kv,
     )
@@ -630,8 +634,6 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     if kind != "q8":
         return rows
 
-    src = "tinyllama_tpu_torch/csrc/flash_attention.cu"
-
     def attn_case(kernel, T, p, B=1, c=cache, dk=dense_k, dv=dense_v):
         q = torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
         pos = torch.full((B,), p, dtype=torch.int32, device=dev)
@@ -658,6 +660,9 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         rep = replaces(kernel.split()[0],
                        "tinyllama_tpu/ops/pallas/flash_prefill.py:201" if T == 1
                        else "tinyllama_tpu/ops/pallas/flash_prefill.py:35")
+        # K3's source is flash_attention.cu; K4's the split template
+        src = ("tinyllama_tpu_torch/csrc/decode_split.cu" if T == 1
+               else "tinyllama_tpu_torch/csrc/flash_attention.cu")
         row(kernel, f"T={T} pos={p} S={S}" + (f" B={B}" if B > 1 else ""),
             src, rep, err, ms, plain, nbytes, 4 * d * pairs, lib)
 
@@ -684,53 +689,68 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     del cache, dense_k, dense_v
 
     # K9-K11: the serving attention at the shapes of paths (d)-(g)
-    src = "tinyllama_tpu_torch/csrc/flash_paged.cu"
+    src = "tinyllama_tpu_torch/csrc/decode_split.cu"
     P = default_page_size(S)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def serving_case(kernel, B, fill, tail, paged, rep):
-        """B rows whose pool holds `fill` keys (below the chunk's base) and,
-        staged, a 32-slot tail filled to `tail`; K10 (tail 0) at pos
-        fill - 1."""
+    def serving_case(kernel, B, fill, tail, paged, rep, label=None):
+        """B rows whose pool holds `fill` keys (below the chunk's base; an
+        int, or one a row) and, staged, a 32-slot tail filled to `tail`;
+        K10 (tail 0) at pos fill - 1."""
+        fills = [fill] * B if isinstance(fill, int) else list(fill)
+        most = max(fills)
         q = rand(B, 1, H, d)
         if paged:
-            n = -(-fill // P)
+            n = -(-most // P)
             table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
             table[:, :n] = 1 + torch.arange(B * n, device=dev).reshape(B, n)
             pool = quant(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
                                       rand(L, 1 + B * n, Kh, P, d), table))
         else:
             pool = quant(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)))
+        base = torch.tensor(fills, dtype=torch.int32, device=dev)
         if tail:
             t = quant(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)))
-            st = StagedKVCache(pool, t.k, t.v,
-                               torch.full((B,), fill, dtype=torch.int32,
-                                          device=dev),
-                               sk_scale=t.k_scale, sv_scale=t.v_scale)
-            pos = torch.full((B,), fill + tail - 1, dtype=torch.int32, device=dev)
+            st = StagedKVCache(pool, t.k, t.v, base, sk_scale=t.k_scale,
+                               sv_scale=t.v_scale)
+            pos = base + (tail - 1)
             fn = (fp.flash_paged_staged_attention if paged
                   else fa.flash_staged_attention)
             cache_arg, plain = st, fp.staged_attention_ref
         else:
-            pos = torch.full((B,), fill - 1, dtype=torch.int32, device=dev)
+            pos = base - 1
             fn, cache_arg = fp.flash_paged_attention, pool
             plain = fp.paged_attention_ref
-        # library yardstick: SDPA over the same keys, gathered dense
+        # library yardstick: SDPA over the same keys, gathered dense (rows
+        # of other fills: the longest row's keys under a mask)
         kd, vd = (paged_layer_view(pool, 3, torch.bfloat16) if paged
                   else layer_cache_view(pool, 3, torch.bfloat16))
-        kx, vx = kd[:, :, :fill], vd[:, :, :fill]
+        kx, vx = kd[:, :, :most], vd[:, :, :most]
+        mask = (torch.arange(most + tail, device=dev)[None, :]
+                < base[:, None].long()) | (
+            torch.arange(most + tail, device=dev)[None, :] >= most)
         if tail:
             tk, tv = layer_cache_view(t, 3, torch.bfloat16)
             kx = torch.cat([kx, tk[:, :, :tail]], dim=2)
             vx = torch.cat([vx, tv[:, :, :tail]], dim=2)
         qh = q.transpose(1, 2)
-        n_keys = fill + tail
-        label = (f"B={B} fill={fill} tail={tail} P={P}" if paged
-                 else f"B={B} fill={fill} tail={tail} S={S}")
-        if not tail:
-            label = f"B={B} pos={fill - 1} P={P}"
+        ragged = min(fills) < most
+
+        def library(i):
+            if ragged:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kx, vx, attn_mask=mask[:, None, None, :],
+                    enable_gqa=True)
+            return sdpa(qh, kx, vx)
+
+        n_keys = sum(fills) + B * tail
+        if label is None:
+            label = (f"B={B} fill={fill} tail={tail} P={P}" if paged
+                     else f"B={B} fill={fill} tail={tail} S={S}")
+            if not tail:
+                label = f"B={B} pos={fill - 1} P={P}"
         if not tail and fill == S:  # every page of the row: any position
             replay_at(f"{kernel} {row_kind} {label}",
                       lambda: fn(q, cache_arg, layers[3], pos), pos, 127,
@@ -739,17 +759,23 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
             kernel, label, src, rep,
             lambda i: fn(q, cache_arg, layers[i % L], pos),
             lambda i: plain(q, cache_arg, layers[i % L], pos),
-            lambda i: sdpa(qh, kx, vx),
-            2 * B * Kh * n_keys * kv_row + 2 * B * H * d * 2,
-            4 * d * H * n_keys * B)
+            library,
+            2 * Kh * n_keys * kv_row + 2 * B * H * d * 2,
+            4 * d * H * n_keys)
 
     serving_case("K9 flash_staged", 8, 256, 32, False,
                  replaces("K9", "tinyllama_tpu/ops/pallas/flash_prefill.py:375"))
     for p in (127, 1500, 2047):
         serving_case("K10 flash_paged", 1, p + 1, 0, True,
                      replaces("K10", "tinyllama_tpu/ops/pallas/flash_paged.py:38"))
-    serving_case("K11 flash_paged_staged", 32, 256, 32, True,
-                 replaces("K11", "tinyllama_tpu/ops/pallas/flash_paged.py:171"))
+    rep11 = replaces("K11", "tinyllama_tpu/ops/pallas/flash_paged.py:171")
+    serving_case("K11 flash_paged_staged", 32, 256, 32, True, rep11)
+    # path (f)'s first 32 requests (seed 5) at a chunk's last step: each
+    # row's base its prompt's length, 8-200 keys
+    fills = np.random.default_rng(5).integers(8, 201, 64)[:ADMIT].tolist()
+    serving_case("K11 flash_paged_staged", ADMIT, fills, 32, True, rep11,
+                 f"B={ADMIT} fill=ragged {min(fills)}-{max(fills)} (seed 5) "
+                 f"tail=32 P={P}")
     return rows
 
 

@@ -9,9 +9,10 @@ the JAX package's ``flash_decode_heads_attention`` and
 ``flash_paged_attention`` (Pallas in interpret mode, as the JAX tests run
 them) and against the port's plain versions (``attention_ref``,
 ``paged_attention_ref``), for every KV kind (bf16, int8 with f32 scales,
-f16, f32), n_split in {1, 2, 3, 32} (3 and 32 leave shares of a 4-tile
-row empty), positions 0, 63, 64, 65 and S - 1 ragged across 3 rows, and
-for K10 a page table out of order.
+f16, f32), n_split in {1, 2, 3, 32} (32 leaves shares of the 8-tile row
+at S - 1 empty; a row of at most SOLO_TILES = 7 tiles is one share, as
+in the kernel), positions 0, 63, 64, 65 and S - 1 ragged across 3 rows,
+and for K10 a page table out of order.
 
 Tolerances: at f32 queries 1e-5 of max |out| (the model sums in another
 order than JAX and the plain version, and rescales each share by exp(m_i
@@ -42,7 +43,7 @@ from tinyllama_tpu_torch.ops.kernels import decode_split as ds
 from tinyllama_tpu_torch.ops.kernels import flash_attention, flash_paged
 
 L, B, KH, G, D = 2, 3, 2, 4, 64
-S, P = 256, 64  # 4 key tiles a row; K10 pages of one tile
+S, P = 512, 64  # 8 key tiles a row (one past SOLO_TILES); K10 pages of one tile
 #: each case runs both position sets: 0, 63, 64, 65 and S - 1 over 3 rows
 POS_SETS = ((0, 64, S - 1), (63, 65, 0))
 JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -134,22 +135,25 @@ def test_split_model_matches_pallas_and_plain(kernel, kv, adtype, n_split):
 
 
 def test_decode_splits_stays_in_range():
-    """About 2 blocks an SM, between 1 and the row's tiles (at most 32),
-    for any batch, kv heads, capacity and SM count."""
+    """About BLOCKS_PER_SM (1) blocks an SM, between 1 and the row's tiles
+    over MIN_SHARE (2; at most 32), for any batch, kv heads, capacity and
+    SM count."""
     assert list(inspect.signature(ds.decode_splits).parameters) == [
         "B", "Kh", "cap_tiles", "n_sm"]
-    assert ds.decode_splits(1, 4, 32, 132) == 32  # TinyLlama b1, max_ctx 2048
-    assert ds.decode_splits(4, 4, 32, 132) == 17
-    assert ds.decode_splits(32, 4, 32, 132) == 3
+    assert ds.BLOCKS_PER_SM == 1 and ds.MIN_SHARE == 2
+    assert ds.decode_splits(1, 4, 32, 132) == 16  # TinyLlama b1, max_ctx 2048
+    assert ds.decode_splits(4, 4, 32, 132) == 9
+    assert ds.decode_splits(8, 4, 33, 132) == 5  # K9 at (g)'s batch
+    assert ds.decode_splits(32, 4, 33, 132) == 2  # K11 at (f)'s batch
     assert ds.decode_splits(1, 1, 512, 132) == ds.MAX_SPLITS
     for b in (1, 2, 3, 4, 8, 32, 64):
         for kh in (1, 2, 4, 8):
             for cap in (1, 2, 3, 4, 32, 64, 512):
                 for n_sm in (1, 8, 132):
                     n = ds.decode_splits(b, kh, cap, n_sm)
-                    most = min(cap, ds.MAX_SPLITS)
+                    most = min(-(-cap // ds.MIN_SHARE), ds.MAX_SPLITS)
                     assert 1 <= n <= most
-                    assert n == most or n * b * kh >= 2 * n_sm
+                    assert n == most or n * b * kh >= ds.BLOCKS_PER_SM * n_sm
 
 
 @pytest.mark.parametrize("bad", [torch.tensor(4), 4.0, 0, True])

@@ -306,17 +306,22 @@ def test_library_call_wherever_it_computes_the_function(bench, shape):
 
 def test_flash_library_call_wherever_it_computes_the_function():
     """full and the flips that compute its function (flipT, flipTtr,
-    flipTpre) carry the SDPA yardstick over the dequantized K/V; the
-    ablations and flipTnoscale carry none."""
+    flipTpre) carry the SDPA yardstick over the dequantized K/V, and
+    flipTnoscale SDPA over the int8 K/V cast to bf16 (its function, the
+    scales dropped); the ablations carry none."""
     args = kbench.parse(["--bench", "flash", "--m", "128", "--device", "cpu"])
     cases = kbench.CASES["flash"](args, torch.device("cpu"))
     assert {c.label.split()[-1] for c in cases} == set(kf.VARIANTS)
     for case in cases:
         var = case.label.split()[-1]
-        assert (case.library is not None) == (var in kf.SAME_AS_FULL), var
+        timed = var in kf.SAME_AS_FULL + ("flipTnoscale",)
+        assert (case.library is not None) == timed, var
         if case.library is not None:
             q, k, v = case.make_library(0)
             assert case.library(q, k, v).shape == q.shape
+            if var == "flipTnoscale":
+                o = case.make(0)
+                assert torch.equal(k.float(), o[1].float())
     assert set(kf.SAME_AS_FULL) == {"full", "flipT", "flipTtr", "flipTpre"}
 
 

@@ -583,4 +583,4 @@ def test_serving_modules_import_no_jax(module):
     tops |= {node.module.split(".")[0] for node in ast.walk(tree)
              if isinstance(node, ast.ImportFrom) and node.module}
     assert not tops & {"jax", "jaxlib", "tinyllama_tpu"}, tops
-    assert (PKG / "csrc" / "flash_paged.cu").exists()
+    assert (PKG / "csrc" / "decode_split.cu").exists()

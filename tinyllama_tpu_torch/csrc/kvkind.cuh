@@ -12,17 +12,18 @@
 // value is rounded to bf16 to nearest even, as the TPU kernels cast a
 // tile to the compute dtype (astype(bf16); f16 -> f32 is exact, so going
 // through f32 rounds once). An f16 row costs 128 bytes, an f32 row 256.
-// Where the scales go follows the TPU kernels: K4 and K8-K11 fold them
-// (a score times its key's scale after the 1/sqrt(d) scale; a
-// probability times its value's scale after the normalizer has summed
-// it, softmax_update.py), K3 dequantizes a tile as it stages it
-// (load8_scaled, flash_prefill.py's (k * ks).astype(bf16)). One rounding
-// moves: the TPU kernels round p * vs to bf16 for the MXU, the folded
-// kernels here round p to bf16 (as their bf16 instantiation does) and
-// multiply by vs in f32, since their PV sum is f32 FMAs. Rounding the
-// product puts one bf16 error of vs on every value of a key at once,
-// which at pos 0 (one key) moved K8's outputs past the bf16 tolerance
-// against the plain versions, which dequantize v (q * vs) first.
+// Where the scales go: K8 folds a key's scale into its score after the
+// 1/sqrt(d) scale, as the TPU kernels do (softmax_update.py); K3, K4 and
+// K9-K11 dequantize a tile's keys as it lands (load8_scaled,
+// flash_prefill.py's (k * ks).astype(bf16)), as the plain versions do.
+// For the values one rounding moves: the TPU kernels round p * vs to
+// bf16 for the MXU; K8 rounds p to bf16 (as its bf16 instantiation does)
+// and multiplies by vs in f32, since its PV sum is f32 FMAs; K4 and
+// K9-K11, whose products run on the tensor cores, round p and v * vs
+// (load8_scaled) to bf16 apart, as the plain versions, which dequantize
+// v first. Rounding the product puts one bf16 error of vs on every value
+// of a key at once, which at pos 0 (one key) moved K8's outputs past the
+// bf16 tolerance against the plain versions.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -29,8 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("qmatmul", "flash_attention", "decode_split", "decode_fused",
-           "ffn_fused", "attn_out_fused", "flash_paged", "kbench_probe",
-           "kbench_flash", "kbench_i4", "kbench_sweep")
+           "ffn_fused", "attn_out_fused", "kbench_probe", "kbench_flash",
+           "kbench_i4", "kbench_sweep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -17,26 +17,27 @@ softmax_update.online_update_batch):
   tiles come through a cp.async ring with mbarriers; tiles above the
   causal diagonal are neither loaded nor computed.
 * K4 ``flash_decode_heads`` for ``_decode_heads_kernel`` (T = 1): bound
-  by the bytes of the pos+1 cached keys and values. Its source is
-  csrc/decode_split.cu, one template with K10: the key walk split over
-  (n_split, Kh, B) blocks, each pipelining its share of the tiles
-  through a cp.async ring, then a merge of the partials
-  (ops/kernels/decode_split.py).
+  by the bytes of the pos+1 cached keys and values.
 * K9 ``flash_staged`` for ``_flash_staged_kernel`` (T = 1 in a staged
-  decode chunk): the cache rows below the chunk's base, then the chunk's
-  staged tail (runtime/staging.py). Bound by the bytes of the keys and
-  values each row attends. One block per (row, kv head), one warp per
-  query head, over two key sources; its source is csrc/flash_paged.cu,
-  beside K11 (ops/kernels/flash_paged.py), whose input checks and plain
-  version it shares.
+  decode chunk): the cache's tiles below the chunk's base, then the
+  chunk's staged tail (runtime/staging.py) as the row's last tiles.
+  Bound by the bytes of the keys and values each row attends. It shares
+  K11's input checks and plain version (ops/kernels/flash_paged.py).
+
+K4 and K9 have one source, csrc/decode_split.cu, a template with K10 and
+K11: the key walk split over (Kh, B, n_split) blocks, each pipelining
+its share of the tiles through a cp.async ring, then a merge of the
+partials in the same launch (ops/kernels/decode_split.py).
 
 The layer index and the positions are device tensors, read inside the
 kernels. The cache is bf16, f16, f32, or int8 with f32 scale planes. An
 int8 tile is dequantized by K3 once its raw bytes land; K4 and K9 read
-half the bytes a key and fold the scales into scores and probabilities
-(as the TPU kernels do). f16 and f32 values are rounded to bf16 (K9 as a
-tile is staged, K3 and K4 once a tile after its raw bytes land), as the
-TPU kernels cast a tile to the compute dtype. CUDA tensors (bf16 q, d = 64)
+half the bytes a key and round each key and value times its scale to
+bf16 as a tile is converted (as the plain version dequantizes; the TPU
+kernels fold the key scales into the scores and the value scales into
+the probabilities). f16 and f32 values are rounded to bf16 once a
+tile after its raw bytes land, as the TPU kernels cast a tile to the
+compute dtype. CUDA tensors (bf16 q, d = 64)
 launch a kernel or raise; only CPU tensors go to the plain version,
 ``gqa_attention`` over the layer's cache, dequantized.
 """
@@ -196,13 +197,10 @@ def flash_staged_attention(q: torch.Tensor, st, layer,
         [cache.k_scale, cache.v_scale, st.sk_scale, st.sv_scale],
         {"layer": (layer, 1), "pos": (pos, B), "base": (st.base, B)})
     Kh, S = cache.k.shape[2], cache.k.shape[3]
-    out = torch.empty_like(q)
-    err = fp._lib().flash_staged(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), st.sk.data_ptr(),
-        st.sv.data_ptr(), fp.ptr(cache.k_scale), fp.ptr(cache.v_scale),
-        fp.ptr(st.sk_scale), fp.ptr(st.sv_scale), layer.data_ptr(),
-        pos.data_ptr(), st.base.data_ptr(), out.data_ptr(), kind,
-        B, H, Kh, S, st.sk.shape[3], d, build.stream_ptr(q))
-    build.check(err, "flash_staged")
+    Cs = st.sk.shape[3]
+    out = ds.launch("flash_staged", q, cache.k, cache.v,
+                    (cache.k_scale, cache.v_scale, st.sk_scale, st.sv_scale),
+                    (layer, pos, st.base), kind, (B, H, Kh, S, Cs, d),
+                    S // KEY_TILE + ds.tail_tiles(Cs), tail=(st.sk, st.sv))
     fp.count(launches, "flash_staged", kind)
     return out

@@ -2,42 +2,39 @@
 the serving path's attention.
 
 Replaces two kernels of tinyllama_tpu/ops/pallas/flash_paged.py with
-hand-written Hopper kernels:
+hand-written Hopper kernels, both in csrc/decode_split.cu, one split-key
+template with K4 and K9 (ops/kernels/flash_attention.py): the row's key
+walk split over (Kh, B, n_split) blocks, each pipelining its share of
+the 64-key tiles through a cp.async ring, then a merge of the partials in
+the same launch (ops/kernels/decode_split.py):
 
 * K10 ``flash_paged`` for ``_flash_paged_kernel``: q [B, 1, H, d] at
   pos[b] against the pool through row b's page table, keys <= pos[b].
-  Its source is csrc/decode_split.cu, one template with K4: the key walk
-  split over (n_split, Kh, B) blocks, each pipelining its share of the
-  tiles through a cp.async ring, then a merge of the partials
-  (ops/kernels/decode_split.py).
 * K11 ``flash_paged_staged`` for ``_flash_paged_staged_kernel``: the
-  pool's keys below the chunk's base, then the chunk's staged tail up to
-  the step (runtime/staging.py). Its source is csrc/flash_paged.cu,
-  which also holds K9 (ops/kernels/flash_attention.py): one block per
-  (row, kv head), one warp per query head, the group's G heads sharing
-  each staged 64-key tile.
+  pool's tiles below the chunk's base, then the chunk's staged tail up
+  to the step (runtime/staging.py) as the row's last tiles.
 
 Both are bound by the bytes of the keys and values each row attends;
 the walk stops at each row's own fill. The layer, pos, base and the
 table are device tensors read inside the kernels. The pool and the tail
 are bf16, f16, f32, or int8 with f32 scale planes (the kernels' int8
-instantiation reads half the bytes a key and folds the scales, as the
-TPU kernels do; f16 and f32 values are rounded to bf16 as a tile is
-staged or converted, as the TPU kernels cast a tile to the compute
-dtype). CUDA tensors (bf16 q, d = 64, G in {4, 8}, pages a whole number
-of 64-key tiles) launch a kernel or raise; only CPU tensors go to the
-plain versions, ``gqa_attention`` over ``paged_layer_view`` or
-``staged_layer_view``, which dequantize.
+instantiation reads half the bytes a key and rounds each key and value
+times its scale to bf16 as a tile is converted, as the plain version
+dequantizes, where the TPU kernels fold the key scales into the scores
+and the value scales into the probabilities; f16 and f32 values are rounded
+to bf16 as a tile is converted, as the TPU kernels cast a tile to the
+compute dtype). Each tile reads only its row's visible keys. CUDA
+tensors (bf16 q, d = 64, G in {4, 8}, pages a whole number of 64-key
+tiles, a tail a multiple of 32 slots) launch a kernel or raise; only CPU
+tensors go to the plain versions, ``gqa_attention`` over
+``paged_layer_view`` or ``staged_layer_view``, which dequantize.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tinyllama_tpu_torch.ops.attention import gqa_attention
-from tinyllama_tpu_torch.ops.kernels import build
 from tinyllama_tpu_torch.ops.kernels import decode_split as ds
 from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
@@ -59,19 +56,6 @@ HEAD_DIM = 64
 KEY_TILE = 64
 #: query heads per kv head the kernels take.
 GROUPS = (4, 8)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_paged")
-    if lib.flash_staged.argtypes is None:
-        lib.flash_staged.argtypes = [_P] * 13 + [_I] * 7 + [_P]
-        lib.flash_paged_staged.argtypes = [_P] * 14 + [_I] * 9 + [_P]
-        lib.flash_staged.restype = lib.flash_paged_staged.restype = _I
-    return lib
-
 
 def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer,
                         pos: torch.Tensor) -> torch.Tensor:
@@ -221,15 +205,11 @@ def flash_paged_staged_attention(q: torch.Tensor, st: StagedKVCache, layer,
     kind = _check_paged(q, cache, layer, pos, st)
     B, _, H, d = q.shape
     _, NP, Kh, P, _ = cache.k.shape
-    out = torch.empty_like(q)
-    err = _lib().flash_paged_staged(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-        st.sk.data_ptr(), st.sv.data_ptr(), ptr(cache.k_scale),
-        ptr(cache.v_scale), ptr(st.sk_scale), ptr(st.sv_scale),
-        layer.data_ptr(), pos.data_ptr(), st.base.data_ptr(),
-        cache.table.data_ptr(), out.data_ptr(), kind,
-        B, H, Kh, NP, P, cache.table.shape[1], st.sk.shape[3], d,
-        build.stream_ptr(q))
-    build.check(err, "flash_paged_staged")
+    J, Cs = cache.table.shape[1], st.sk.shape[3]
+    out = ds.launch("flash_paged_staged", q, cache.k, cache.v,
+                    (cache.k_scale, cache.v_scale, st.sk_scale, st.sv_scale),
+                    (layer, pos, st.base, cache.table), kind,
+                    (B, H, Kh, NP, P, J, Cs, d),
+                    J * P // KEY_TILE + ds.tail_tiles(Cs), tail=(st.sk, st.sv))
     count(launches, "flash_paged_staged", kind)
     return out

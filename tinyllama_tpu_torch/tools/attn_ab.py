@@ -11,14 +11,23 @@ a measurement, each with the label and the card's name and power limit
   heads, 32 query heads, d 64, max_ctx 2048, 22 layers) over each KV kind
   (bf16, i8, f16, f32): K4 at B = 1 and pos 127, 1500, 2047 and at B = 4,
   pos 1500; K10 at pos 127, 1500, 2047; K9 at B = 8 and K11 at B = 32
-  over a fill of 256 keys and a 32-slot tail filled to 32. Microseconds
-  a call: CUDA events over a CUDA graph of 100 calls cycling the 22
-  layers (chip_smoke.py's method); random values from a seeded
-  generator, int8 through ``quantize_kv``, f16 and f32 cast;
+  over a fill of 256 keys and a 32-slot tail filled to 32 or to 1, and
+  over fills of 384 and 1,536 and a tail filled to 32. Microseconds a call:
+  CUDA events over a CUDA graph of 100 calls cycling the 22 layers
+  (chip_smoke.py's method); random values from a seeded generator, int8
+  through ``quantize_kv``, f16 and f32 cast. K9's and K11's lines also
+  carry their bound (bytes once over 3.35 TB/s), the plain version's
+  time (5 eager calls) and SDPA's (with enable_gqa, over the same keys
+  gathered dense as bf16);
 * two long-context b1 decode steps on random q8 weights (chip_smoke.py's
   seed 1234): a paged q8 engine (K10) and a q8a8 engine (K4), each a
   1,450-token prompt and 64 greedy tokens (eager ms/token, host clock),
-  then one step at pos 1500 replayed as a CUDA graph (ms, CUDA events).
+  then one step at pos 1500 replayed as a CUDA graph (ms, CUDA events);
+* three staged decode steps on the same weights, each 8 eager steps
+  (ms a step, host clock) and one replayed as a CUDA graph: path (f)'s
+  B = 32 step over a page pool after 32 prompts of 100 tokens (K11), the
+  same after 32 prompts of 1,500 tokens, and path (g)'s B = 8 step over
+  a monolithic cache after 8 prompts of 100 tokens (K9).
 
 It calls only entry points the package has had since its kernel
 microbench came (``tools/kbench.py``'s ``time_ms`` and ``card_line``),
@@ -32,9 +41,17 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 LONG_PROMPT, LONG_POS, N_NEW = 1450, 1500, 64
+#: K9's and K11's (pool fill, tail fill) cases over a 32-slot tail: 5, 7
+#: and 25 key tiles a row
+STAGED_CASES = ((256, 32), (256, 1), (384, 32), (1536, 32))
+#: the staged steps: eager steps timed a step
+STEPS = 8
+#: bytes a second of the card's memory (H100 SXM data sheet)
+HBM_BW = 3.35e12
 
 
 def main(argv=None) -> int:
@@ -61,9 +78,13 @@ def main(argv=None) -> int:
     from tinyllama_tpu_torch.ops.kernels import flash_attention as fa
     from tinyllama_tpu_torch.ops.kernels import flash_paged as fp
     from tinyllama_tpu_torch.runtime.engine import Engine
-    from tinyllama_tpu_torch.runtime.kvcache import KVCache, quantize_kv
-    from tinyllama_tpu_torch.runtime.paged import PagedKVCache, default_page_size
-    from tinyllama_tpu_torch.runtime.staging import StagedKVCache
+    from tinyllama_tpu_torch.runtime.kvcache import (
+        KVCache, layer_cache_view, quantize_kv,
+    )
+    from tinyllama_tpu_torch.runtime.paged import (
+        PagedKVCache, default_page_size, paged_layer_view,
+    )
+    from tinyllama_tpu_torch.runtime.staging import StagedKVCache, stage_cache
     from tinyllama_tpu_torch.tools import kbench
 
     pkg = Path(tinyllama_tpu_torch.__file__).resolve().parent
@@ -108,12 +129,54 @@ def main(argv=None) -> int:
         return of_kind(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
                                     rand(L, 1 + B * n, Kh, P, d), table), kv)
 
-    def kernel(name, kv, shape, fn):
+    def kernel(name, kv, shape, fn, **extra):
         emit(kernel=name, kv=kv, shape=shape,
-             us=kbench.time_ms(fn, 100, True) * 1e3)
+             us=kbench.time_ms(fn, 100, True) * 1e3, **extra)
 
     def i32(B, value):
         return torch.full((B,), value, dtype=torch.int32, device=dev)
+
+    #: bytes of one cached key or value row of each kind (int8: its scale)
+    row_bytes = {"bf16": 2 * d, "f16": 2 * d, "f32": 4 * d, "i8": d + 4}
+
+    def staged_rows(kv):
+        """K9 at B = 8 and K11 at B = 32 over STAGED_CASES: time, bound,
+        plain and SDPA."""
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for name, B, paged in (("K9 flash_staged", 8, False),
+                               ("K11 flash_paged_staged", 32, True)):
+            for fill, tail in STAGED_CASES:
+                base = pool_of(B, fill, kv) if paged else of_kind(
+                    KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)), kv)
+                t = of_kind(KVCache(rand(L, B, Kh, 32, d),
+                                    rand(L, B, Kh, 32, d)), kv)
+                st = StagedKVCache(base, t.k, t.v, i32(B, fill),
+                                   sk_scale=t.k_scale, sv_scale=t.v_scale)
+                q, pos = rand(B, 1, H, d), i32(B, fill + tail - 1)
+                fn = (fp.flash_paged_staged_attention if paged
+                      else fa.flash_staged_attention)
+                shape = f"B={B} fill={fill} tail={tail}"
+
+                def call(i, fn=fn, q=q, st=st, pos=pos):
+                    return fn(q, st, layers[i % L], pos)
+
+                kd, vd = (paged_layer_view(base, 3, torch.bfloat16) if paged
+                          else layer_cache_view(base, 3, torch.bfloat16))
+                tk, tv = layer_cache_view(t, 3, torch.bfloat16)
+                kx = torch.cat([kd[:, :, :fill], tk[:, :, :tail]], dim=2)
+                vx = torch.cat([vd[:, :, :fill], tv[:, :, :tail]], dim=2)
+                qh = q.transpose(1, 2)
+                nbytes = (2 * B * Kh * (fill + tail) * row_bytes[kv]
+                          + 2 * B * H * d * 2)
+                kernel(name, kv, shape, call,
+                       bound_us=nbytes / HBM_BW * 1e6,
+                       plain_us=kbench.time_ms(
+                           lambda i: fp.staged_attention_ref(
+                               q, st, layers[i % L], pos), 5, False) * 1e3,
+                       sdpa_us=kbench.time_ms(
+                           lambda i: sdpa(qh, kx, vx, enable_gqa=True), 100,
+                           True) * 1e3)
+                del base, t, st
 
     for kv in ("bf16", "i8", "f16", "f32"):
         for B, positions in ((1, (127, 1500, 2047)), (4, (1500,))):
@@ -133,20 +196,7 @@ def main(argv=None) -> int:
                    lambda i: fp.flash_paged_attention(q, pool, layers[i % L],
                                                       pos))
             del pool
-        for name, B, paged in (("K9 flash_staged", 8, False),
-                               ("K11 flash_paged_staged", 32, True)):
-            fill = 256
-            base = pool_of(B, fill, kv) if paged else of_kind(
-                KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)), kv)
-            t = of_kind(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)), kv)
-            st = StagedKVCache(base, t.k, t.v, i32(B, fill), sk_scale=t.k_scale,
-                               sv_scale=t.v_scale)
-            q, pos = rand(B, 1, H, d), i32(B, fill + 31)
-            fn = (fp.flash_paged_staged_attention if paged
-                  else fa.flash_staged_attention)
-            kernel(name, kv, f"B={B} fill={fill} tail=32",
-                   lambda i: fn(q, st, layers[i % L], pos))
-            del base, t, st
+        staged_rows(kv)
 
     wgen = torch.Generator(dev)
     wgen.manual_seed(1234)
@@ -173,6 +223,29 @@ def main(argv=None) -> int:
              eager_ms_per_token=stats.ms_per_token, graph_pos=LONG_POS,
              graph_ms=graph_ms)
         del eng, cache
+
+    engine = Engine(cfg, POLICIES["q8"], params, max_ctx=S, device=dev)
+    prompt = [1] + rng.integers(2, cfg.n_vocab, 1499).tolist()
+    for step, B, fill, paged in (("(f) staged B=32 paged", 32, 100, True),
+                                 ("(f) staged B=32 paged", 32, 1500, True),
+                                 ("(g) staged B=8 monolithic", 8, 100, False)):
+        cache = (engine.new_paged_cache(B) if paged
+                 else engine.new_cache(B))
+        engine.prefill(cache, [prompt[:fill]] * B)
+        pos = i32(B, fill)
+        st = stage_cache(cache, pos, 32)
+        tok = i32(B, 5)
+        engine.decode_step(st, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(STEPS):
+            engine.decode_step(st, tok, pos + i)
+        torch.cuda.synchronize()
+        emit(step=step, fill=fill,
+             eager_ms=(time.perf_counter() - t0) * 1e3 / STEPS,
+             graph_ms=kbench.time_ms(lambda i: engine.decode_step(st, tok, pos),
+                                     20, True))
+        del cache, st
     return 0
 
 

@@ -316,6 +316,8 @@ def flash_cases(args, dev) -> list[Case]:
     qh = q.reshape(B, Kh, T, kf.G, d).transpose(2, 3).reshape(B, H, T, d)
     kd = (k.float() * sk[..., None]).to(torch.bfloat16)
     vd = (v8.float() * sv[..., None]).to(torch.bfloat16)
+    # flipTnoscale's function: the int8 values themselves, exact in bf16
+    kr, vr = k.to(torch.bfloat16), v8.to(torch.bfloat16)
     causal = H * T * (T + 1) // 2
     # keys of the visited 512-key tiles, every row
     t_max = ((torch.arange(TG) // kf.BTG) * kf.BTG + kf.BTG - 1) // kf.G
@@ -343,10 +345,14 @@ def flash_cases(args, dev) -> list[Case]:
             lambda *o, var=var: kf.flash(*o, var),
             lambda *o, var=var: kf.flash_ref(*o, var), make, base,
             4 * d * pairs, mode,
-            library=sdpa if var in kf.SAME_AS_FULL else None,
-            make_library=lambda i: (qh.clone(), kd.clone(), vd.clone()),
-            library_note="SDPA (causal, enable_gqa) over the K/V dequantized "
-                         "to bf16",
+            library=sdpa if var in kf.SAME_AS_FULL + ("flipTnoscale",)
+            else None,
+            make_library=(lambda i: (qh.clone(), kr.clone(), vr.clone()))
+            if var == "flipTnoscale"
+            else (lambda i: (qh.clone(), kd.clone(), vd.clone())),
+            library_note="SDPA (causal, enable_gqa) over the int8 K/V cast "
+                         "to bf16, scales dropped" if var == "flipTnoscale"
+            else "SDPA (causal, enable_gqa) over the K/V dequantized to bf16",
             determinate=(lambda o: kf.noexp_determinate(*o))
             if var == "noexp" else None))
     return cases
