@@ -13,7 +13,7 @@ Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version on the card,
    in bf16, at TinyLlama-1.1B's shapes (K1 on the five decode matmuls,
    K2 at M=128, 512, 2048 and 8192 (q8; q4 and q4g to 2048 after (i)),
-   K3 at T=128, 512 and 2048 and at B=32, T=256 (an admission of (f)),
+   K3 at T=32, 128, 512 and 2048 and at B=32, T=256 (an admission of (f)),
    K4 at pos 127, 1500 and 2047
    and at B=4 (path (c)'s batch) at pos 1500, K4 and K10 also captured in
    a CUDA graph at pos 127 and replayed at 1500, 5 and 2047, K5 at M=1, 4, 32, K6 at
@@ -666,7 +666,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         row(kernel, f"T={T} pos={p} S={S}" + (f" B={B}" if B > 1 else ""),
             src, rep, err, ms, plain, nbytes, 4 * d * pairs, lib)
 
-    for T in (128, 512, 2048):
+    for T in (32, 128, 512, 2048):
         attn_case("K3 flash_prefill", T, 0)
     for p in (127, 1500, 2047):
         attn_case("K4 flash_decode_heads", 1, p)

@@ -28,7 +28,10 @@ dtypes, scales beside an f16 cache), and aq8, f16-KV and f32-KV engines
 against the plain path; and the split-key K4 and K10 over every KV kind
 at pos 0, 63, 64, 1500 and 2047 (B = 1, and B = 4 with a position a row),
 G = 4 and 8, and replayed from a CUDA graph captured at pos 127 at other
-positions; and the split-key K9 and K11 over every KV kind at ragged
+positions; K1 and K6 on the fused walk (K1 at K = 14,336 and 28,672, at
+N = 32,004, unstacked, f32 and bf16 out, aq8 in q8 and q4; the card's
+residency for their plans; both replayed from a CUDA graph across
+layers; K1's refusals); and the split-key K9 and K11 over every KV kind at ragged
 chunk bases and tail fills (a 1-slot tail among them), tails of 32, 64
 and 96 slots, G = 4 and 8, a row with no visible key (zeros), and
 replayed from a CUDA graph at later slots and chunk bases; and K4, K9,
@@ -1944,3 +1947,151 @@ def test_prefill_kernels_replay_in_a_graph(card):
             g.replay()
             torch.cuda.synchronize()
             assert torch.equal(out, want), name
+
+
+# --- K1 and K6 on the fused walk ----------------------------------------------------
+
+#: K1 where the walk meets K1's own shape rules: K past the fused kernels'
+#: 8,192 rows (Llama-3-8B's w_down 14,336, 70B's 28,672; a split's x
+#: slice of 1,792 and 3,584 rows) and N = 32,004 (4-column groups, rows
+#: not 16-byte aligned), stacked and unstacked: (K, N, stacked)
+SMALLM_EDGES = {"K=14336": (14336, 4096, True), "K=28672": (28672, 1024, False),
+                "N=32004": (2048, 32004, False)}
+_edge_weights: dict = {}
+
+
+def _edge_weight(kind, name, device):
+    key = (kind, name)
+    if key not in _edge_weights:
+        K, N, stacked = SMALLM_EDGES[name]
+        g = torch.Generator(device).manual_seed(100 + len(_edge_weights))
+        shape = (2, N, K) if stacked else (N, K)
+        _edge_weights[key] = quantize(torch.randn(shape, generator=g, device=device)
+                                      * 0.02, kind, "kn")
+    return _edge_weights[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 5, 8])
+@pytest.mark.parametrize("name", list(SMALLM_EDGES))
+@pytest.mark.parametrize("kind,aq8", [("q8", False), ("q4", False), ("q4g", False),
+                                      ("q8", True), ("q4", True)])
+def test_smallm_walk_edges_match_plain(card, kind, aq8, name, M, out_dtype):
+    """K1 (and its aq8 branch) on the walk at long K, at N = 32,004 and on
+    an unstacked weight, in f32 and bf16 out, against its plain version."""
+    K, N, stacked = SMALLM_EDGES[name]
+    w = _edge_weight(kind, name, card)
+    layer = _i32([1], card) if stacked else None
+    x = torch.randn(M, K, device=card).to(torch.bfloat16)
+    counter = "qmm_smallm_aq8" if aq8 else "qmm_smallm"
+    got = _counted(qmatmul, counter,
+                   lambda: qmatmul.qmatmul(x, w, out_dtype, layer, aq8=aq8))
+    want = qmatmul.qmatmul_ref(x, w, out_dtype, layer, aq8=aq8)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aq8", [False, True])
+@pytest.mark.parametrize("kind", ["q8", "q4", "q4g"])
+def test_smallm_and_out_residual_plans_are_resident(card, kind, aq8):
+    """The card's answer for K1's launches at TinyLlama's five shapes, the
+    unpadded lm_head (N = 32,004: the 4-column copies' kernel, asked of
+    its own residency) and Llama-3-70B's w_down, and for K6's at M = 4
+    and 32: at TinyLlama's shapes K1's plan gives every SM a block but
+    n_sm / 32 with every cluster resident at once (w_down 16 tiles of 128
+    x 8 splits, the lm_head 256 tiles of 128 unsplit); 70B's w_down (64
+    tiles of 128 x 8 splits of 3,584-row slices) runs in waves; K6's plan
+    is one wave."""
+    if aq8 and kind == "q4g":
+        pytest.skip("q4g has no aq8 branch")
+    n_sm, code = qmatmul.sm_count(card), qmatmul.KIND_CODE[kind]
+    lib = qmatmul._lib()
+
+    def held(K, N, width, splits):  # blocks the card keeps at once
+        clusters = ctypes.c_int(0)
+        build.check(lib.qmm_smallm_resident(code, 1, K, N, width, splits, int(aq8),
+                                            ctypes.byref(clusters)), "K1")
+        return clusters.value * splits
+
+    shapes = dict(TINYLLAMA_SHAPES, **{"lm_head N=32004": (2048, 32004),
+                                       "70b w_down": (28672, 8192)})
+    for name, (K, N) in shapes.items():
+        width, splits = qmatmul.smallm_plan(code, 1, K, N, aq8, n_sm)
+        blocks = -(-N // width) * splits
+        if name == "70b w_down":  # 64 x 8 blocks of 3,584-row slices: waves
+            assert (width, splits) == (128, 8) and blocks > held(K, N, width, splits)
+        else:
+            assert n_sm - n_sm // 32 <= blocks <= held(K, N, width, splits), \
+                (name, width, splits)
+        if name in ("w_down", "lm_head"):
+            assert (width, splits) == ((128, 8) if name == "w_down" else (128, 1))
+    if aq8:
+        return
+    for M in (4, 32):
+        width, splits = decode_fused.plan(code, M, 2048, 2048, n_sm, "fused_out_residual")
+        clusters = ctypes.c_int(0)
+        build.check(decode_fused._lib().fused_out_residual_resident(
+            code, M, 2048, width, splits, ctypes.byref(clusters)), "K6")
+        assert -(-2048 // width) * splits <= clusters.value * splits
+
+
+@pytest.mark.cuda
+def test_smallm_and_out_residual_replay_in_a_graph(card):
+    """K1 (layer-stacked q8 at M = 1 and 4, aq8 in q8 and q4 at M = 1, the
+    unstacked lm_head with f32 logits: a cluster launch inside the step's
+    graph) and K6 (M = 4 and 32, q8 and q4) captured in one CUDA graph at
+    layer 0 and replayed 3 times with the layer index written to 1 give
+    the eager result at layer 1 bit for bit."""
+    layer = _i32([0], card)
+    xs = {M: torch.randn(M, 2048, device=card).to(torch.bfloat16) for M in (1, 4, 32)}
+    res = {M: torch.randn(M, 1, 2048, device=card).to(torch.bfloat16) for M in (4, 32)}
+    lm = _tl_weight("q8", "lm_head", card)
+
+    def run():
+        outs = [qmatmul.qmatmul(xs[M], _tl_weight("q8", "wqkv", card), layer=layer)
+                for M in (1, 4)]
+        outs += [qmatmul.qmatmul(xs[1], _tl_weight(k, "wo", card), layer=layer, aq8=True)
+                 for k in ("q8", "q4")]
+        outs.append(qmatmul.qmatmul(xs[1], lm, torch.float32))
+        outs += [decode_fused.fused_out_residual(xs[M].view(M, 1, 2048), res[M],
+                                                 _tl_weight(k, "wo", card), layer)
+                 for M in (4, 32) for k in ("q8", "q4")]
+        return outs
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    layer.fill_(1)
+    eager = run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+def test_smallm_refusals_on_the_card(card):
+    """K past K1's longest x slices raises before a launch; the library
+    refuses a split count its walk does not take, and a half step above
+    8 rows is K2's, not K1's, to refuse."""
+    K = qmatmul.SMALLM_MAX_K + 64
+    w = quantize(torch.zeros(64, K, device=card), "q8", "kn")
+    with pytest.raises(ValueError, match="past"):
+        qmatmul.qmatmul(torch.zeros(1, K, device=card, dtype=torch.bfloat16), w)
+    wo = _tl_weight("q8", "wo", card)
+    x = torch.randn(1, 2048, device=card).to(torch.bfloat16)
+    out = torch.empty(1, 2048, dtype=torch.bfloat16, device=card)
+    for width, splits in ((128, 0), (128, 9), (96, 2)):
+        assert qmatmul._lib().qmm_smallm(
+            x.data_ptr(), wo.data.data_ptr(), wo.scales.data_ptr(), None, out.data_ptr(),
+            0, 0, 1, 2048, 2048, width, splits, build.stream_ptr(x)) == 1
+    torch.cuda.synchronize()

@@ -27,7 +27,7 @@
 //   - barrier; one warp per head merges its tiles' partials (rescaled to
 //     the common max) and writes the head's result, rounded to bf16 as
 //     the TPU kernel casts its scratch, to a [H * 64] workspace (4 KB);
-//   - barrier; wo strips of qstrip.cuh at M = 1 (exact dequantization, the
+//   - barrier; wo strips of qstrip.cuh at one row (exact dequantization, the
 //     TPU's m = 1 blockdot) stage that result through L2 (__ldcg: written
 //     by other SMs in this launch), and the residual joins the f32 sum.
 //   The grid is capped at the blocks the card holds at once, counted for
@@ -177,16 +177,14 @@ fused_attn_out_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
   w += (size_t)li * qkind::plane_bytes(BITS, K, N);
   s += (size_t)li * (K >> sshift) * N;
   for (int j = blockIdx.x * COLS; j < N; j += gridDim.x * COLS) {
-    qstrip::strip_matmul<1, BITS>(
+    qstrip::strip_matmul<BITS>(
         buf, w, s, K, N, j, sshift,
         [&](float* b, int k0, int kc_) {
-          qstrip::stage_rows<1>(b, 1, k0, kc_, [&](int, int k, float(&v)[8]) {
+          qstrip::stage_row(b, k0, kc_, [&](int k, float(&v)[8]) {
             qstrip::load_l2_f32x8(attn + k, v);
           });
         },
-        [&](int m, int n, float v) {
-          if (m == 0) out[n] = __float2bfloat16(__bfloat162float(res[n]) + v);
-        });
+        [&](int n, float v) { out[n] = __float2bfloat16(__bfloat162float(res[n]) + v); });
   }
 }
 
@@ -209,7 +207,7 @@ int fused_attn_out(const void* q, const void* k, const void* v, const void* ks,
       S % TILE || N < COLS || N % COLS || (H * D) % qkind::scale_rows(kind))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  const int bytes = qstrip::smem_floats(1) * sizeof(float);
+  const int bytes = qstrip::SMEM_FLOATS * sizeof(float);
   int want = Kh * (S / TILE);
   if (N / COLS > want) want = N / COLS;
   if ((H + MAX_G - 1) / MAX_G > want) want = (H + MAX_G - 1) / MAX_G;

@@ -1,9 +1,9 @@
 // Fused decode-layer matmuls for Hopper (sm_90a): rms_norm and the
 // residual add folded into the quantized weight stream, M <= 32 rows of
-// bf16 activations, f32 accumulation. Both walk layer-stacked "kn" weights
-// (q8 [L, K, N] int8 or q4/q4g [L, K/2, N] uint8, with fp16 scales
-// [L, K/32 or K/128, N]; qkind.cuh) with the layer index read from device
-// memory.
+// bf16 activations, f32 accumulation, one launch each of the walk of
+// fused_walk.cuh over a layer-stacked "kn" weight (q8 [L, K, N] int8 or
+// q4/q4g [L, K/2, N] uint8, with fp16 scales [L, K/32 or K/128, N];
+// qkind.cuh), the layer index read from device memory.
 //
 // K5 fused_norm_qkv replaces _norm_qkv_kernel in
 //   tinyllama_tpu/ops/pallas/decode_fused.py: out = rms_norm(x) * w_norm
@@ -20,55 +20,37 @@
 //   splits' partials are pushed to the split that sums them, in split
 //   order, over distributed shared memory, and each output is cast to
 //   bf16 once. Each block reads x's slice once: at M = 32, 20 x 128 KB of
-//   L2 reads a call, where the strip walk read all of x twice in each of
-//   80 blocks (20 MB).
+//   L2 reads a call.
 //
 // K6 fused_out_residual replaces _out_res_kernel (same file): out =
 //   residual + attn @ dequant(wo). Bound: the weight bytes (4.46 MB at
-//   2048 x 2048 in q8, 2.36 MB in q4, 2.16 MB in q4g). Design: the strip
-//   walk of qstrip.cuh, a template on the bits; the residual joins the f32
-//   sum once, in the epilogue, and the result is cast to bf16 once.
+//   2048 x 2048 in q8, 2.36 MB in q4, 2.16 MB in q4g). Design: the same
+//   walk with x as given (no norm) and the residual epilogue of K7's down
+//   launch: each split streams its slice of wo, the partials are summed
+//   in split order in the cluster, the residual joins the f32 sum once and
+//   the result is cast to bf16 once (the TPU kernel starts its f32 sum
+//   from the residual instead: only the order of the f32 additions
+//   differs). Row tile 8 keeps the exact regime, 16 and 32 the tile regime.
 //
 // The launch entry points return cudaGetLastError() after their launch.
 
 #include "fused_walk.cuh"
-#include "qstrip.cuh"
 
 namespace {
 
-using qstrip::bf16;
-using qstrip::COLS;
-using qstrip::THREADS;
+using fwalk::bf16;
 
-template <int MT, int BITS>
-__global__ void __launch_bounds__(THREADS)
-fused_out_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ res,
-                          const int* __restrict__ layer,
-                          const uint8_t* __restrict__ w,
-                          const __half* __restrict__ s, bf16* __restrict__ out,
-                          int M, int K, int N, int sshift) {
-  extern __shared__ __align__(128) float buf[];
-  const int li = layer[0];
-  w += (size_t)li * qkind::plane_bytes(BITS, K, N);
-  s += (size_t)li * (K >> sshift) * N;
-  qstrip::strip_matmul<MT, BITS>(
-      buf, w, s, K, N, blockIdx.x * COLS, sshift,
-      [&](float* b, int k0, int kc) {
-        qstrip::stage_rows<MT>(b, M, k0, kc, [&](int m, int k, float(&v)[8]) {
-          qstrip::load_bf16x8(a + (size_t)m * K + k, v);
-        });
-      },
-      [&](int m, int n, float v) {
-        if (m < M) {
-          const size_t o = (size_t)m * N + n;
-          out[o] = __float2bfloat16(__bfloat162float(res[o]) + v);
-        }
+// One launch of the walk for K5 (nw set) or K6 (res set).
+int walk(const fwalk::Args& a, int kind, int width, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return fwalk::with_row_tile(a.M, [&](auto mt) {
+    return qkind::with_bits(kind, [&](auto bits) {
+      return fwalk::with_width(width, [&](auto sw) {
+        return fwalk::launch<decltype(mt)::value, decltype(bits)::value, decltype(sw)::value,
+                             false>(a, kind, false, st);
       });
-}
-
-bool bad_shape(int kind, int M, int K, int N) {
-  return !qkind::valid(kind) || M < 1 || M > qstrip::MAX_M || K < qstrip::QBLOCK ||
-         K % qkind::scale_rows(kind) || N < COLS || N % COLS;
+    });
+  });
 }
 
 }  // namespace
@@ -80,7 +62,8 @@ extern "C" {
 // [L, K/32 or K/128, N] fp16 scales; layer: [1] int32; width, splits:
 // the tile width (64 or 128 columns) and the K splits of a tile
 // (ops/kernels/fused_plan.py). Requires 1 <= M <= 32, K a multiple of the
-// scale block, N % 32 == 0 and 1 <= splits <= min(8, ceil(K / 64)).
+// scale block (above 8 rows, of 64), N % 16 == 0 and 1 <= splits <= min(8,
+// ceil(K / 64)).
 int fused_norm_qkv(const void* x, const void* nw, const void* layer,
                    const void* w, const void* s, void* out, int kind, int M,
                    int K, int N, float eps, int inside, int width, int splits,
@@ -92,22 +75,14 @@ int fused_norm_qkv(const void* x, const void* nw, const void* layer,
   a.layer = static_cast<const int*>(layer);
   a.w = static_cast<const uint8_t*>(w);
   a.s = static_cast<const __half*>(s);
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
   a.M = M;
   a.K = K;
   a.N = a.ncols = N;
   a.eps = eps;
   a.inside = inside;
   a.splits = splits;
-  auto st = static_cast<cudaStream_t>(stream);
-  return fwalk::with_row_tile(M, [&](auto mt) {
-    return qkind::with_bits(kind, [&](auto bits) {
-      return fwalk::with_width(width, [&](auto sw) {
-        return fwalk::launch<decltype(mt)::value, decltype(bits)::value, decltype(sw)::value,
-                             false>(a, kind, false, st);
-      });
-    });
-  });
+  return walk(a, kind, width, stream);
 }
 
 // The clusters of a launch of fused_norm_qkv's shape (kind, M, K, width,
@@ -116,28 +91,31 @@ int fused_norm_qkv_resident(int kind, int M, int K, int width, int splits, int* 
   return fwalk::resident<false>(kind, M, K, width, splits, clusters);
 }
 
-// a: [M, K] bf16; res, out: [M, N] bf16; kind, w, s, layer as above.
-// Same shape rules.
+// a: [M, K] bf16; res, out: [M, N] bf16; kind, w, s, layer, width,
+// splits as above. Same shape rules.
 int fused_out_residual(const void* a, const void* res, const void* layer,
                        const void* w, const void* s, void* out, int kind, int M,
-                       int K, int N, void* stream) {
-  if (bad_shape(kind, M, K, N)) return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const int sh = qkind::scale_shift(kind);
-  return qstrip::with_row_tile(M, [&](auto mt) {
-    return qkind::with_bits(kind, [&](auto bits) {
-      constexpr int MT = decltype(mt)::value, BITS = decltype(bits)::value;
-      auto kernel = fused_out_residual_kernel<MT, BITS>;
-      const int bytes = qstrip::smem_floats(MT) * sizeof(float);
-      static const cudaError_t smem = qstrip::allow_smem(kernel, bytes);
-      if (smem) return (int)smem;
-      fused_out_residual_kernel<MT, BITS><<<N / COLS, THREADS, bytes, st>>>(
-          static_cast<const bf16*>(a), static_cast<const bf16*>(res),
-          static_cast<const int*>(layer), static_cast<const uint8_t*>(w),
-          static_cast<const __half*>(s), static_cast<bf16*>(out), M, K, N, sh);
-      return (int)cudaGetLastError();
-    });
-  });
+                       int K, int N, int width, int splits, void* stream) {
+  if (fwalk::bad_shape(kind, M, K, N, splits)) return (int)cudaErrorInvalidValue;
+  fwalk::Args r = {};
+  r.x = static_cast<const bf16*>(a);
+  r.layer = static_cast<const int*>(layer);
+  r.w = static_cast<const uint8_t*>(w);
+  r.s = static_cast<const __half*>(s);
+  r.res = static_cast<const bf16*>(res);
+  r.out = out;
+  r.M = M;
+  r.K = K;
+  r.N = r.ncols = N;
+  r.splits = splits;
+  return walk(r, kind, width, stream);
+}
+
+// The clusters of a launch of fused_out_residual's shape (kind, M, K,
+// width, splits as above) that the card keeps resident at once.
+int fused_out_residual_resident(int kind, int M, int K, int width, int splits,
+                                int* clusters) {
+  return fwalk::resident<false>(kind, M, K, width, splits, clusters);
 }
 
 }  // extern "C"

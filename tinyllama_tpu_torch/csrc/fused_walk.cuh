@@ -1,28 +1,39 @@
-// The weight walk of the fused decode-layer kernels K5 (fused_norm_qkv,
-// decode_fused.cu) and K7 (ffn_fused, ffn_fused.cu), for Hopper (sm_90a):
+// The weight walk of the port's decode matmuls, for Hopper (sm_90a):
 //   out[m, n] = epilogue(sum_k xn[m, k] dequant(w)[k, n]),  m < M <= 32,
 // xn the rows of x rms-normed in the kernel (or x as given), w a "kn"
-// QTensor stacked over layers (qkind.cuh: q8 int8 [L, K, N], or q4 / q4g
-// uint8 [L, K/2, N] nibble byte-rows, fp16 scales [L, K/32 or K/128, N]),
-// the layer index read from device memory.
+// QTensor (qkind.cuh: q8 int8 [L, K, N], or q4 / q4g uint8 [L, K/2, N]
+// nibble byte-rows, fp16 scales [L, K/32 or K/128, N]) stacked over
+// layers, the layer index read from device memory, or one unstacked
+// layer (a null layer pointer). Its users:
+// * K5 fused_norm_qkv (decode_fused.cu): the norm, then x @ wqkv;
+// * K6 fused_out_residual (decode_fused.cu): x @ wo + the residual;
+// * K7 ffn_fused (ffn_fused.cu): the gate/up pair, whose epilogue writes
+//   silu(gate) * up, then down (+ the residual) as a dependent launch;
+// * K1 qmm_smallm (qmatmul.cu): x @ w at M <= 8 with a bf16 or f32
+//   output, for every linear of the unfused decode branch and the
+//   lm_head; with AQ8 (qmm_smallm_aq8) x quantized to int8 in the kernel.
 //
 // What bounds it on this card: the weight bytes at every M <= 32 (a q8
 // byte feeds 2 M <= 64 operations, far below the ~295 at which the tensor
 // cores bind), 5.57 MB a call for wqkv, 36.8 MB for the FFN's two weights
-// in q8. So every SM streams weight bytes, with enough of them in flight:
+// in q8, 67 MB for the lm_head. So every SM streams weight bytes, with
+// enough of them in flight:
 // * the grid: tiles of 64 or 128 output columns (a 64- or 128-byte strip
 //   of each byte-row in every kind; the gate/up pair of K7 takes gate
 //   columns [j, j + w) and up columns [F + j, F + j + w) as one tile) times
 //   K splits, from shapes and the card's residency only
 //   (ops/kernels/fused_plan.py: the widest tile, then the fewest splits, a
 //   power of two, that give every SM a block with every cluster resident
-//   at once; resident() below is the card's count);
-// * a ring of 8-17 KB stages a block (about 72 KB at row tile 8, 36 KB
-//   above): raw weight byte-rows (16-byte chunks XOR-swizzled so the
+//   at once, K1's from a sweep on the card; resident_of() below is the
+//   card's count);
+// * a ring of 8-17 KB stages a block (about 72 KB at row tile 8, 48 KB
+//   for K1, 36 KB above): raw weight byte-rows (16-byte chunks XOR-swizzled so the
 //   ldmatrix reads below hit distinct banks) and their fp16 scale rows,
 //   cp.async copies that arrive on the stage's mbarrier, issued ahead of
-//   the products; where a block's share fits the ring, all of it is in
-//   flight at once and the warps never wait for each other;
+//   the products (16-byte copies where the rows are 16-byte aligned, N %
+//   16 == 0; else 4-byte weight and 8-byte scale copies of 4 columns);
+//   where a block's share fits the ring, all of it is in flight at once
+//   and the warps never wait for each other;
 // * x staged once a block: only its split's K slice of the M rows (bf16)
 //   and of the norm weight, copied before the weights. With a norm, each
 //   split sums the squares of its own slice and pushes the sums to every
@@ -46,22 +57,35 @@
 //     blockdot body (only the order of the f32 additions differs);
 //   - row tiles 16, 32: A holds q * s, or (v - 7) * s, exact in f32 and
 //     rounded to bf16 once, as the tile-dequantizing body;
+// * AQ8 (K1's int8 activations, row tile 8; the aq8 branch of the TPU's
+//   small-M matmul, tinyllama_tpu/ops/pallas/qmatmul.py block_x): once
+//   its slice has landed, a split quantizes it in place, 8 lanes a (row,
+//   32-block): round(x * 127 / absmax) half to even (IEEE division), the
+//   block's scale absmax * (1 / 127) beside its 32 bytes, each byte at the
+//   k the A fragment below gives it. A block's absmax is its own, so no
+//   split needs another's. Each 32-row block is then one
+//   mma.sync.m16n8k32 s8 into an int32 accumulator of its own (exact:
+//   |dot| <= 32 * 127 * 128 < 2^24), its A the raw int8 bytes (or v - 7)
+//   of ldmatrix.trans regrouped by byte permutes into 4 K-rows of one
+//   column, and (float(dot) * x scale) * weight scale joins the f32 sum,
+//   in the TPU body's order;
 // * split K summed in the cluster: each split adds its warps' sums into
 //   an f32 partial tile (the idle ring), and, once every split of the
 //   cluster is done with its x slice (a relaxed cluster barrier, nothing
 //   in flight), pushes each 4-column vector of it to the split whose share
 //   of the outputs it is, into that split's x slice, counted on its
 //   mbarrier; each split adds its share over the splits in split order
-//   and runs the epilogue: deterministic, one launch, nothing in device
-//   memory.
+//   and runs the epilogue (bf16 or f32 out, silu(gate) * up, or the
+//   residual added to the f32 sum): deterministic, one launch, nothing in
+//   device memory.
 // On the card (PERF.md) K5 at M = 1 takes 7.3 us against a 1.7 us bound:
 // the layer index's load, the x slice and the norm's exchange come before
 // the products, and the weight stream alone takes about 4 us.
 // Ragged M (rows past M zero, never written), K (at M <= 8, a last half
 // step of 32 rows zero-filled; above, K is whole steps, as qmatmul's tile
-// regime takes it) and N (a tile's columns past N zero-filled, never
-// written). A launch allocates nothing and never synchronizes the card,
-// so a decode step stays capturable in a CUDA graph.
+// regime takes it) and N (whole 4-column groups; a tile's columns past N
+// zero-filled, never written). A launch allocates nothing and never
+// synchronizes the card, so a decode step stays capturable in a CUDA graph.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,10 +98,10 @@
 #include "hopper.cuh"
 #include "qkind.cuh"
 
-// Internal linkage: decode_fused.cu and ffn_fused.cu each instantiate the
-// kernel and its launcher into their own library, and the two libraries
-// live in one process; shared (weak) symbols would let one library's
-// launcher or kernel handle stand in for the other's.
+// Internal linkage: qmatmul.cu, decode_fused.cu and ffn_fused.cu each
+// instantiate the kernel and its launcher into their own library, and the
+// libraries live in one process; shared (weak) symbols would let one
+// library's launcher or kernel handle stand in for another's.
 namespace fwalk {
 namespace {
 
@@ -91,6 +115,8 @@ constexpr int MAX_M = 32;
 constexpr int XPAD = 8;          // bf16 pad of a staged x row (conflict-free ldmatrix)
 constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may have
 constexpr int BARRIERS = 128;    // bytes for the ring's and the x slice's mbarriers
+// 1 / 127 rounded once to f32, as the TPU body's absmax * (1.0 / 127.0)
+constexpr float INV_127 = (float)(1.0 / 127.0);
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
@@ -99,9 +125,15 @@ __host__ __device__ inline int slice_len(int nsteps, int splits) {
   return (nsteps + splits - 1) / splits * STEP;
 }
 
+// The ring of a K1 block (row tile 8, no norm): 48 KB, where K1's plan
+// sweep on the card (PERF.md §6) found 72 KB (K5's) 1-2 us slower at
+// the lm_head and aq8's w_gateup (fewer blocks resident an SM).
+constexpr int QMM_RING = 49152;
+
 // A block's geometry, for BITS-bit weights, row tile MT and tiles of NSEG
-// segments of SW columns (SW bytes of each byte-row).
-template <int MT, int BITS, int SW, int NSEG>
+// segments of SW columns (SW bytes of each byte-row); QMM: K1's launch
+// (no norm weight's slice, its own ring).
+template <int MT, int BITS, int SW, int NSEG, bool QMM = false>
 struct Geo {
   static constexpr int TW = SW * NSEG;      // bytes of a byte-row's strip = tile columns
   static constexpr int CH = TW / 16;        // its 16-byte chunks = 16-column groups
@@ -114,7 +146,7 @@ struct Geo {
   // ring stages: about 72 KB at row tile 8 (a block's whole share of a
   // weight in flight at once at TinyLlama's widths), 36 KB above, where
   // the x slice takes the room
-  static constexpr int NSTAGE = cmax(3, (MT <= 8 ? 73728 : 36864) / SLOT);
+  static constexpr int NSTAGE = cmax(3, (QMM ? QMM_RING : MT <= 8 ? 73728 : 36864) / SLOT);
   static constexpr int PLD = TW + 4;        // f32 row stride of a partial tile
   // the float4s of the partials pushed to a split (at most MT rows of
   // 4-column vectors of each segment, in a share of every split)
@@ -138,21 +170,23 @@ struct Geo {
 
   // Dynamic shared memory of a launch: 1 KB of alignment, the ring, the
   // barriers, the row statistic and every split's sums of squares, the x
-  // slice and the norm weight's slice (f32).
+  // slice and (but for K1) the norm weight's slice (f32).
   __host__ static int smem(int nsteps, int splits) {
     const int KL = slice_len(nsteps, splits);
-    return 1024 + NSTAGE * SLOT + BARRIERS + (1 + MAX_SPLITS) * MAX_M * 4 + xbytes(KL) + KL * 4;
+    return 1024 + NSTAGE * SLOT + BARRIERS + (1 + MAX_SPLITS) * MAX_M * 4 + xbytes(KL) +
+           (QMM ? 0 : KL * 4);
   }
 };
 
 struct Args {
   const bf16* x;      // [M, K] bf16 rows
   const float* nw;    // [L, K] f32 norm table, or null: x as given
-  const int* layer;   // [1]
+  const int* layer;   // [1], or null: an unstacked weight
   const uint8_t* w;   // the kind's data plane, [L, K, N] or [L, K/2, N]
   const __half* s;    // [L, K >> sshift, N]
   const bf16* res;    // [M, ncols] added to the sums, or null
-  bf16* out;          // [M, ncols]
+  void* out;          // [M, ncols], bf16 or f32
+  int out_f32;        // the output is f32 (else bf16)
   int M, K, N;        // N: the weight's columns
   int ncols;          // output columns: N, or N / 2 for a gate/up pair
   float eps;
@@ -263,12 +297,86 @@ __device__ inline void step_product(const unsigned char* slot, int rowb, int g, 
   }
 }
 
+// Four 4-bit values (one a byte, 0..15) -> four signed bytes v - 7: with
+// each byte biased by 128 the subtraction never borrows across bytes.
+__device__ inline uint32_t minus7(uint32_t v) {
+  return ((v | 0x80808080u) - 0x07070707u) ^ 0x80808080u;
+}
+
+// Where an AQ8 block keeps the int8 of its K-row p (0..31): at the k of
+// the s8 A fragment that step_product_aq8 gives that row. Its A bytes of
+// column col are K-rows (2 t, 2 t + 1, 2 t + 8, 2 t + 9) (+ 16) at k 4 t
+// .. 4 t + 3 (+ 16), t = lane % 4.
+__device__ inline int aq8_slot(int p) {
+  return (p & 16) + 4 * ((p >> 1) & 3) + 2 * ((p >> 3) & 1) + (p & 1);
+}
+
+// step_product's AQ8 twin (row tile 8): the step's two 32-row blocks,
+// each one s8 product of the raw weight bytes (q8) or their v - 7 (4
+// bits) with the quantized x rows (x as aq8_slot lays them out: 32 bytes
+// a block of 64, the block's f32 scale at byte 32), into a fresh int32
+// accumulator, scaled by the x scale of the row and then the weight
+// scale of the column, in that order, into acc.
+template <int BITS, class G>
+__device__ inline void step_product_aq8(const unsigned char* slot, int rowb, int g, int kb,
+                                        int sr0, int sshift, int col, const bf16* xr,
+                                        int xld, float (&acc)[1][4]) {
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  // as step_product's: q8 K-rows 32 x + 8 i + {2 t, 2 t + 1} in q[4 x +
+  // i]; 4 bits byte-rows 8 i + {2 t, 2 t + 1} in q[i]
+  uint32_t q[BITS == 8 ? 8 : 4];
+#pragma unroll
+  for (int x = 0; x < BITS / 4; ++x)
+    hopper::ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(q + 4 * x),
+                              slot + G::pos(rowb + 32 * x + lane, g));
+  const __half* sc = reinterpret_cast<const __half*>(slot + G::WBYTES);
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(xr);
+  const int row = 2 * xld;  // bytes of a staged row
+#pragma unroll
+  for (int blk = 0; blk < 2; ++blk) {
+    // K-rows {2 t, 2 t + 1} + 0, 8, 16, 24 of the block, 4 bytes each:
+    // (row, col), (row, col + 1), (row + 1, col), (row + 1, col + 1)
+    uint32_t r[4];
+    if constexpr (BITS == 8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = q[4 * blk + i];
+    } else {  // byte-row j: K-row j (high nibble) and j + 16 (low)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        r[i] = minus7((q[2 * blk + i] >> 4) & 0x0F0F0F0Fu);
+        r[2 + i] = minus7(q[2 * blk + i] & 0x0F0F0F0Fu);
+      }
+    }
+    // A rows l / 4 and l / 4 + 8: columns col and col + 1
+    const uint32_t A[4] = {__byte_perm(r[0], r[1], 0x6420), __byte_perm(r[0], r[1], 0x7531),
+                           __byte_perm(r[2], r[3], 0x6420), __byte_perm(r[2], r[3], 0x7531)};
+    const unsigned char* xk = xb + 64 * blk;
+    int d[4] = {0, 0, 0, 0};
+    hopper::mma_16832_s8(d, A, *reinterpret_cast<const uint32_t*>(xk + (lane / 4) * row + 4 * t),
+                         *reinterpret_cast<const uint32_t*>(xk + (lane / 4) * row + 16 + 4 * t));
+    const float sx0 = *reinterpret_cast<const float*>(xk + 2 * t * row + 32);
+    const float sx1 = *reinterpret_cast<const float*>(xk + (2 * t + 1) * row + 32);
+    const uint32_t sp =
+        *reinterpret_cast<const uint32_t*>(sc + ((((kb + 32 * blk) >> sshift) - sr0) * G::TW + col));
+    const float s0 = half_of(sp, 0), s1 = half_of(sp, 1);
+    acc[0][0] += __fmul_rn(__fmul_rn((float)d[0], sx0), s0);
+    acc[0][1] += __fmul_rn(__fmul_rn((float)d[1], sx1), s0);
+    acc[0][2] += __fmul_rn(__fmul_rn((float)d[2], sx0), s1);
+    acc[0][3] += __fmul_rn(__fmul_rn((float)d[3], sx1), s1);
+  }
+}
+
 // Block (tile, split) of a launch over grid (tiles, splits), cluster (1,
 // splits, 1), tiles of SW output columns. PAIR: the gate/up pair of K7,
-// whose epilogue writes silu(gate) * up; else out = sums (+ res).
-template <int MT, int BITS, int SW, bool PAIR>
+// whose epilogue writes silu(gate) * up; else out = sums (+ res). AQ8:
+// x quantized to int8 per 32-block, s8 products (row tile 8 only). VEC:
+// 16-byte copies (N and ncols % 16 == 0), else 4 columns a copy. QMM:
+// K1's launch, which may take an unstacked weight (a null layer) and an
+// f32 output; the fused kernels' instantiations go without them.
+template <int MT, int BITS, int SW, bool PAIR, bool AQ8, bool VEC, bool QMM>
 __global__ void __launch_bounds__(THREADS, 2) walk_kernel(const Args a) {
-  using G = Geo<MT, BITS, SW, PAIR ? 2 : 1>;
+  static_assert(!AQ8 || (MT == 8 && !PAIR), "aq8 runs at row tile 8, one weight");
+  using G = Geo<MT, BITS, SW, PAIR ? 2 : 1, QMM>;
   constexpr int NSTAGE = G::NSTAGE, SLOT = G::SLOT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = hopper::align1024(smem_raw);  // NSTAGE slots
@@ -286,7 +394,7 @@ __global__ void __launch_bounds__(THREADS, 2) walk_kernel(const Args a) {
   const int KL = slice_len(a.nsteps, a.splits), xld = KL + XPAD;
   // [KL] the norm weight's slice, after the x slice
   float* nws = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xs) + G::xbytes(KL));
-  const int li = a.layer[0];
+  const int li = QMM && !a.layer ? 0 : a.layer[0];
   const uint8_t* w = a.w + (size_t)li * qkind::plane_bytes(BITS, a.K, a.N);
   const __half* s = a.s + (size_t)li * (a.K >> a.sshift) * a.N;
   const int c0 = tile * SW;  // the tile's first output column
@@ -299,27 +407,50 @@ __global__ void __launch_bounds__(THREADS, 2) walk_kernel(const Args a) {
   const int nq = min(Q, (a.ncols - c0) / 4);  // vectors of a row within ncols
   auto valid_below = [&](int e) { return e / Q * nq + min(e % Q, nq); };
 
-  // the copies of stage t into its slot: raw byte-rows, then scale rows
+  // the copies of stage t into its slot: raw byte-rows, then scale rows;
+  // 16 columns a copy, or 4 where a row is not 16-byte aligned
   auto issue = [&](int t) {
     unsigned char* slot = ring + (t % NSTAGE) * SLOT;
     const int k0 = klo + t * G::RK;
-#pragma unroll
-    for (int i = 0; i < G::RB * G::CH / THREADS; ++i) {
-      const int u = threadIdx.x + i * THREADS, r = u / G::CH, c = u % G::CH;
-      const int col = c0 + (c % (SW / 16)) * 16;
-      // the first K-row that byte-row r holds (4 bits: rows of its 32-block)
-      const int krow = BITS == 8 ? k0 + r : k0 + 32 * (r / 16);
-      const bool in = krow < khi && col < a.ncols;
-      const uint8_t* src = w + (size_t)(k0 * BITS / 8 + r) * a.N + (c / (SW / 16)) * a.ncols + col;
-      hopper::cp_async16(slot + G::pos(r, c), in ? src : w, in ? 16 : 0);
-    }
+    // the first K-row that byte-row r holds (4 bits: rows of its 32-block)
+    auto krow = [&](int r) { return BITS == 8 ? k0 + r : k0 + 32 * (r / 16); };
     const int sr0 = k0 >> a.sshift, sr1 = (min(k0 + G::RK, khi) - 1) >> a.sshift;
-    if (threadIdx.x < G::NSR * G::TW / 8) {
-      const int r = threadIdx.x / (G::TW / 8), c = threadIdx.x % (G::TW / 8);
-      const int col = c0 + (c % (SW / 8)) * 8;
-      const bool in = sr0 + r <= sr1 && col < a.ncols;
-      const __half* src = s + (size_t)(sr0 + r) * a.N + (c / (SW / 8)) * a.ncols + col;
-      hopper::cp_async16(slot + G::WBYTES + (r * G::TW + c * 8) * 2, in ? src : s, in ? 16 : 0);
+    unsigned char* sdst = slot + G::WBYTES;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int i = 0; i < G::RB * G::CH / THREADS; ++i) {
+        const int u = threadIdx.x + i * THREADS, r = u / G::CH, c = u % G::CH;
+        const int col = c0 + (c % (SW / 16)) * 16;
+        const bool in = krow(r) < khi && col < a.ncols;
+        const uint8_t* src =
+            w + (size_t)(k0 * BITS / 8 + r) * a.N + (c / (SW / 16)) * a.ncols + col;
+        hopper::cp_async16(slot + G::pos(r, c), in ? src : w, in ? 16 : 0);
+      }
+      if (threadIdx.x < G::NSR * G::TW / 8) {
+        const int r = threadIdx.x / (G::TW / 8), c = threadIdx.x % (G::TW / 8);
+        const int col = c0 + (c % (SW / 8)) * 8;
+        const bool in = sr0 + r <= sr1 && col < a.ncols;
+        const __half* src = s + (size_t)(sr0 + r) * a.N + (c / (SW / 8)) * a.ncols + col;
+        hopper::cp_async16(sdst + (r * G::TW + c * 8) * 2, in ? src : s, in ? 16 : 0);
+      }
+    } else {
+      auto wsrc = [&](int r, int c) {  // byte-row r, tile column c (its pair half first)
+        return w + (size_t)(k0 * BITS / 8 + r) * a.N + (c / SW) * a.ncols + c0 + c % SW;
+      };
+      auto ssrc = [&](int r, int c) {
+        return s + (size_t)(sr0 + r) * a.N + (c / SW) * a.ncols + c0 + c % SW;
+      };
+#pragma unroll
+      for (int i = 0; i < G::RB * G::TW / 4 / THREADS; ++i) {
+        const int u = threadIdx.x + i * THREADS, r = u / (G::TW / 4), c = u % (G::TW / 4) * 4;
+        const bool in = krow(r) < khi && c0 + c % SW < a.ncols;
+        hopper::cp_async4(slot + G::pos(r, c / 16) + c % 16, in ? wsrc(r, c) : w, in ? 4 : 0);
+      }
+      for (int u = threadIdx.x; u < G::NSR * G::TW / 4; u += THREADS) {
+        const int r = u / (G::TW / 4), c = u % (G::TW / 4) * 4;
+        const bool in = sr0 + r <= sr1 && c0 + c % SW < a.ncols;
+        hopper::cp_async8(sdst + (r * G::TW + c) * 2, in ? ssrc(r, c) : s, in ? 8 : 0);
+      }
     }
   };
 
@@ -410,6 +541,37 @@ __global__ void __launch_bounds__(THREADS, 2) walk_kernel(const Args a) {
     }
     __syncthreads();
   }
+  if constexpr (AQ8) {
+    // the slice quantized in place, a (row, 32-block) to 8 lanes of 4
+    // values, 4 a warp: each value's int8 at aq8_slot in the block's
+    // first 32 bytes, the block's scale at byte 32 (rows past M and
+    // blocks past K stay zero)
+    const int nb = (khi - klo) / 32, j = lane % 8;
+    for (int i0 = 4 * warp; i0 < a.M * nb; i0 += 4 * WARPS) {
+      const int i = i0 + lane / 8;
+      const bool on = i < a.M * nb;
+      bf16* xv = xs + (on ? i / nb * xld + 32 * (i % nb) : 0);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (on) {
+        const uint2 u = *reinterpret_cast<const uint2*>(xv + 4 * j);
+        const float2 f0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 f1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        v[0] = f0.x, v[1] = f0.y, v[2] = f1.x, v[3] = f1.y;
+      }
+      float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
+#pragma unroll
+      for (int o = 4; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float inv = amax > 0.f ? 127.f / amax : 0.f;
+      __syncwarp();
+      if (on) {
+        unsigned char* xq = reinterpret_cast<unsigned char*>(xv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xq[aq8_slot(4 * j + e)] = (unsigned char)__float2int_rn(v[e] * inv);
+        if (j == 0) *reinterpret_cast<float*>(xq + 32) = amax * INV_127;
+      }
+    }
+    __syncthreads();
+  }
 
   // the walk: with CH <= 8 column groups, warp w takes group w % CH of
   // steps w / CH, w / CH + WARPS / CH, ... of every stage; with 16, groups
@@ -436,10 +598,16 @@ __global__ void __launch_bounds__(THREADS, 2) walk_kernel(const Args a) {
     const int k0 = klo + t * G::RK, here = min(G::SPS, st1 - st0 - t * G::SPS);
     for (int j = warp / GW; j < here; j += WPG)
 #pragma unroll
-      for (int gi = 0; gi < GPW; ++gi)
-        step_product<MT, BITS, G>(slot, j * STEP * BITS / 8, warp % GW + GW * gi,
-                                  k0 + STEP * j, k0 >> a.sshift, a.sshift, col_of(gi),
-                                  xs + k0 + STEP * j - klo, xld, acc[gi]);
+      for (int gi = 0; gi < GPW; ++gi) {
+        if constexpr (AQ8)
+          step_product_aq8<BITS, G>(slot, j * STEP * BITS / 8, warp % GW + GW * gi,
+                                    k0 + STEP * j, k0 >> a.sshift, a.sshift, col_of(gi),
+                                    xs + k0 + STEP * j - klo, xld, acc[gi]);
+        else
+          step_product<MT, BITS, G>(slot, j * STEP * BITS / 8, warp % GW + GW * gi,
+                                    k0 + STEP * j, k0 >> a.sshift, a.sshift, col_of(gi),
+                                    xs + k0 + STEP * j - klo, xld, acc[gi]);
+      }
     // every warp is done with the slot before it is filled again (where
     // the whole walk fits the ring, the warps never wait for each other)
     if (t + NSTAGE < nst) __syncthreads();
@@ -521,8 +689,11 @@ __global__ void __launch_bounds__(THREADS, 2) walk_kernel(const Args a) {
       v[2] += r23.x;
       v[3] += r23.y;
     }
-    *reinterpret_cast<uint2*>(a.out + o) =
-        make_uint2(hopper::pack_bf16(v[0], v[1]), hopper::pack_bf16(v[2], v[3]));
+    if (QMM && a.out_f32)
+      *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<uint2*>(static_cast<bf16*>(a.out) + o) =
+          make_uint2(hopper::pack_bf16(v[0], v[1]), hopper::pack_bf16(v[2], v[3]));
   }
 }
 
@@ -546,27 +717,23 @@ __host__ inline int with_width(int width, F f) {
 
 // Whether a launch of this shape is refused: kind, M, K (a multiple of the
 // scale block; above 8 rows, of a whole step, as qmatmul's tile regime
-// takes it), output columns (whole 32-column groups), splits.
+// takes it), output columns (whole 4-column groups; whole 16-column
+// groups, of N too, where the library has no 4-column copies), splits.
 __host__ inline bool bad_shape(int kind, int M, int K, int ncols, int splits) {
   const int nsteps = (K + STEP - 1) / STEP;
   return !qkind::valid(kind) || M < 1 || M > MAX_M || K < 32 ||
-         K % qkind::scale_rows(kind) || K % 32 || (M > 8 && K % STEP) || ncols < 32 ||
-         ncols % 32 ||
-         splits < 1 || splits > MAX_SPLITS || splits > nsteps;
+         K % qkind::scale_rows(kind) || K % 32 || (M > 8 && K % STEP) || ncols < 4 ||
+         ncols % 4 || splits < 1 || splits > MAX_SPLITS || splits > nsteps;
 }
 
-// One launch of walk_kernel<MT, BITS, SW, PAIR> over grid (ncols / SW
-// tiles, splits), each tile's splits one cluster; pdl: the launch may
-// start while the grid before it runs (programmatic stream serialization),
-// and its blocks wait for that grid before they read x.
-template <int MT, int BITS, int SW, bool PAIR>
-__host__ inline int launch(Args a, int kind, bool pdl, cudaStream_t st) {
-  auto kernel = walk_kernel<MT, BITS, SW, PAIR>;
-  a.sshift = qkind::scale_shift(kind);
-  a.nsteps = (a.K + STEP - 1) / STEP;
-  a.wait_prior = pdl;
-  const int bytes = Geo<MT, BITS, SW, PAIR ? 2 : 1>::smem(a.nsteps, a.splits);
-  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+// One launch of walk_kernel<MT, BITS, SW, PAIR, AQ8, VEC> over grid
+// (ncols / SW tiles, splits), each tile's splits one cluster, with
+// `bytes` of shared memory; pdl: the launch may start while the grid
+// before it runs (programmatic stream serialization), and its blocks
+// wait for that grid before they read x.
+template <int MT, int BITS, int SW, bool PAIR, bool AQ8, bool VEC, bool QMM>
+__host__ inline int launch_one(const Args& a, int bytes, bool pdl, cudaStream_t st) {
+  auto kernel = walk_kernel<MT, BITS, SW, PAIR, AQ8, VEC, QMM>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
@@ -588,34 +755,59 @@ __host__ inline int launch(Args a, int kind, bool pdl, cudaStream_t st) {
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// The clusters of a launch of this shape that the card keeps resident at
-// once, into *clusters: the grid runs in one wave when clusters * splits
-// reaches its blocks. PAIR: K7's gate/up launch.
+// A launch of the walk: VEC where N and ncols are whole 16-column
+// groups; else, for K1 (QMM), the 4-column copies; else refused.
+template <int MT, int BITS, int SW, bool PAIR, bool AQ8 = false, bool QMM = false>
+__host__ inline int launch(Args a, int kind, bool pdl, cudaStream_t st) {
+  a.sshift = qkind::scale_shift(kind);
+  a.nsteps = (a.K + STEP - 1) / STEP;
+  a.wait_prior = pdl;
+  const int bytes = Geo<MT, BITS, SW, PAIR ? 2 : 1, QMM>::smem(a.nsteps, a.splits);
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (a.N % 16 == 0 && a.ncols % 16 == 0)
+    return launch_one<MT, BITS, SW, PAIR, AQ8, true, QMM>(a, bytes, pdl, st);
+  if constexpr (QMM) return launch_one<MT, BITS, SW, PAIR, AQ8, false, QMM>(a, bytes, pdl, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of walk_kernel<MT, BITS, SW, PAIR, AQ8, VEC, QMM> over K
+// rows in `splits` splits that the card keeps resident at once, into
+// *clusters: the grid runs in one wave when clusters * splits reaches its
+// blocks. VEC as launch() chooses it: the two copy widths compile to
+// kernels of their own registers.
+template <int MT, int BITS, int SW, bool PAIR, bool AQ8 = false, bool QMM = false,
+          bool VEC = true>
+__host__ inline int resident_of(int K, int splits, int* clusters) {
+  auto kernel = walk_kernel<MT, BITS, SW, PAIR, AQ8, VEC, QMM>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.dynamicSmemBytes =
+      Geo<MT, BITS, SW, PAIR ? 2 : 1, QMM>::smem((K + STEP - 1) / STEP, splits);
+  if (cfg.dynamicSmemBytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (e != cudaSuccess) return (int)e;
+  cfg.gridDim = dim3(1, splits);
+  cfg.blockDim = dim3(THREADS);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = splits;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// resident_of for a launch of this shape at any M <= 32 (K5, K6, K7).
+// PAIR: K7's gate/up launch.
 template <bool PAIR>
 __host__ inline int resident(int kind, int M, int K, int width, int splits, int* clusters) {
   if (bad_shape(kind, M, K, 32, splits)) return (int)cudaErrorInvalidValue;
   return with_row_tile(M, [&](auto mt) {
     return qkind::with_bits(kind, [&](auto bits) {
       return with_width(width, [&](auto sw) {
-        constexpr int MT = decltype(mt)::value, BITS = decltype(bits)::value,
-                      SW = decltype(sw)::value;
-        auto kernel = walk_kernel<MT, BITS, SW, PAIR>;
-        cudaLaunchConfig_t cfg = {};
-        cfg.dynamicSmemBytes = Geo<MT, BITS, SW, PAIR ? 2 : 1>::smem((K + STEP - 1) / STEP, splits);
-        if (cfg.dynamicSmemBytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-        cudaError_t e =
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-        if (e != cudaSuccess) return (int)e;
-        cfg.gridDim = dim3(1, splits);
-        cfg.blockDim = dim3(THREADS);
-        cudaLaunchAttribute attr;
-        attr.id = cudaLaunchAttributeClusterDimension;
-        attr.val.clusterDim.x = 1;
-        attr.val.clusterDim.y = splits;
-        attr.val.clusterDim.z = 1;
-        cfg.attrs = &attr;
-        cfg.numAttrs = 1;
-        return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+        return resident_of<decltype(mt)::value, decltype(bits)::value, decltype(sw)::value,
+                           PAIR>(K, splits, clusters);
       });
     });
   });

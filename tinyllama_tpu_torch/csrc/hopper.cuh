@@ -10,8 +10,9 @@
 //   accumulators in registers, A and B from shared memory (SS: K3's
 //   scores) or A from registers (RS: K3's P V, K2's dequantized weight),
 //   and the fence / commit / wait around them; ldmatrix.trans, which K2
-//   reads its raw weight bytes with; the warp product mma.sync.m16n8k16
-//   and plain ldmatrix, for the decode walk's narrow x tiles;
+//   reads its raw weight bytes with; the warp products mma.sync.m16n8k16
+//   (bf16) and m16n8k32 (s8, int32 accumulators) and plain ldmatrix, for
+//   the decode walk's narrow x tiles;
 // * programmatic dependent launch (griddepcontrol), K7's hand-off; the
 //   halves of a relaxed cluster barrier, and asynchronous stores into a
 //   cluster peer's shared memory counted on its mbarrier (st.async);
@@ -57,6 +58,19 @@ __device__ inline int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4);
 // (0: all zeros, and src is not read).
 __device__ inline void cp_async16(void* dst, const void* src, int bytes = 16) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 or 8 bytes from global to shared (both aligned to their size), zero
+// where `bytes` is 0: the walk's copies where a row is not 16-byte aligned.
+__device__ inline void cp_async4(void* dst, const void* src, int bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ inline void cp_async8(void* dst, const void* src, int bytes = 8) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -226,6 +240,20 @@ __device__ inline void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[16 x 8] += A[16 x 32] B[32 x 8] on one warp, s8 operands, exact
+// int32 accumulators: a[0] the A bytes (row l / 4, k 4 (l % 4) + {0..3}),
+// a[1] those of row l / 4 + 8, a[2], a[3] the same at k + 16; b0 the B
+// bytes (k 4 (l % 4) + {0..3}, n l / 4) and b1 those at k + 16; d[2 i +
+// e] is row l / 4 + 8 i, column 2 (l % 4) + e.
+__device__ inline void mma_16832_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -11,31 +11,30 @@
 // only in the scale row a 32-row block reads.
 //
 // K1 qmm_smallm (M <= 8, decode) replaces _qmm_kernel_smallm in
-//   tinyllama_tpu/ops/pallas/qmatmul.py (its q8 and q4/q4g bodies). Bound:
-//   the weight bytes over the memory rate (2 * M flops per weight byte at
-//   q8, 4 * M at 4 bits, far below the ridge). Design: the weight streams
-//   exactly once. A block owns a strip of 32 columns; its 256 threads are
-//   8 column groups (4 columns each, read as one 4-byte word, so a row of
-//   the strip is one 32-byte sector) times 32 K slices that walk 32-row
-//   blocks: 32 word rows at q8, 16 at 4 bits, where each word holds two
-//   K-rows of 4 columns. x is staged in shared memory as f32, 1024 rows
-//   of K at a time. A 4-bit value is dequantized to (v - 7) in f32 before
-//   its FMA (exact, so no x-sum correction is needed, where the TPU body
-//   folds the offset into block sums of x after the dot); each 32-block's
-//   partial dot is then scaled by that block's fp16 scale after the dot,
-//   as the TPU kernel does; the 32 K slices are summed in shared memory in
-//   a fixed order.
+//   tinyllama_tpu/ops/pallas/qmatmul.py (its q8 and q4/q4g bodies): every
+//   linear of the unfused decode branch and the lm_head (f32 logits).
+//   Bound: the weight bytes over the memory rate (2 * M flops per weight
+//   byte at q8, 4 * M at 4 bits, far below the ridge). Design: the walk of
+//   fused_walk.cuh at row tile 8 with x as given (no norm, no residual):
+//   tiles of 64 or 128 columns times K splits from shapes and the card's
+//   residency (ops/kernels/qmatmul.py smallm_plan: w_down 16 tiles x 8
+//   splits, the lm_head 256 tiles of 128 unsplit), a cp.async ring of raw
+//   weight rows, products on mma.sync with the integer values q (or v - 7)
+//   in bf16 as A, each 32-row block's dot in a fresh f32 accumulator
+//   scaled by its fp16 scale after the dot, as the TPU kernel does; the
+//   splits' partials summed in split order in the cluster, and a bf16 or
+//   f32 output. A null layer pointer means an unstacked weight (the
+//   lm_head). x slices of up to 6,144 rows a split (K up to 49,152 rows:
+//   Llama-3-70B's w_down is 28,672), any N % 4 == 0 (rows not 16-byte
+//   aligned are copied 4 columns at a time).
 //   The AQ8 instantiation (qmm_smallm_aq8; the q8a8 and q4a8 policies)
 //   replaces the aq8 branch of the same body (block_x and its int8 dots):
-//   as a chunk of x is staged, one warp a (row, 32-block) quantizes it in
-//   shared memory to int8, round(x * 127 / absmax) half to even with the
-//   absmax a __shfl_xor_sync max (IEEE division: no fast math), and keeps
-//   the block's scale absmax / 127 beside it. Each thread's 32-row block
-//   is then an exact int32 dot per row and column (|dot| <= 32 * 127 * 128
-//   < 2^24): its four char4 weight rows transposed into column quads by
-//   __byte_perm, or its 4-bit values as bytes v - 7, through __dp4a; and
-//   (float(dot) * x scale) * weight scale joins the f32 sum, in the TPU
-//   body's order. q4g has no aq8 branch.
+//   each split quantizes its x slice to int8 per 32-block as it lands,
+//   round(x * 127 / absmax) half to even (IEEE division, no fast math),
+//   and each 32-row block is one mma.sync.m16n8k32 s8 product of those
+//   bytes with the int8 weight (or its v - 7) into an exact int32
+//   accumulator; (float(dot) * x scale) * weight scale joins the f32 sum,
+//   in the TPU body's order. q4g has no aq8 branch.
 //
 // K2 qmm_bigm (M > 8, prefill) replaces _qmm_kernel_bigm + _dequant_tile
 //   in tinyllama_tpu/ops/pallas/qmatmul.py (q8 and q4/q4g bodies). Bound:
@@ -92,6 +91,7 @@
 
 #include <type_traits>
 
+#include "fused_walk.cuh"
 #include "hopper.cuh"
 #include "qkind.cuh"
 
@@ -106,245 +106,6 @@ __device__ inline void store_out<float>(float* p, float v) { *p = v; }
 template <>
 __device__ inline void store_out<__nv_bfloat16>(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// ---------------------------------------------------------------- K1 ----
-
-constexpr int SM_THREADS = 256;
-constexpr int SM_COLS = 32;                   // output columns per block
-constexpr int SM_CG = SM_COLS / 4;            // column groups (4 bytes each)
-constexpr int SM_KS = SM_THREADS / SM_CG;     // K slices per block
-constexpr int SM_KCHUNK = SM_KS * QBLOCK;     // K rows of x staged per pass
-constexpr int SM_XLD = SM_KCHUNK + SM_KS;     // one pad float per 32-block
-
-// 1 / 127 rounded once to f32, as the TPU body's absmax * (1.0 / 127.0)
-constexpr float INV_127 = (float)(1.0 / 127.0);
-
-// Rows a, b, c, d of 4 byte columns -> the 4 columns as byte quads:
-// col[j] = (a_j, b_j, c_j, d_j), the first row in the low byte.
-__device__ inline void transpose4(uint32_t a, uint32_t b, uint32_t c,
-                                  uint32_t d, uint32_t (&col)[4]) {
-  const uint32_t ab_lo = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
-  const uint32_t ab_hi = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
-  const uint32_t cd_lo = __byte_perm(c, d, 0x5140);
-  const uint32_t cd_hi = __byte_perm(c, d, 0x7362);
-  col[0] = __byte_perm(ab_lo, cd_lo, 0x5410);
-  col[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
-  col[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
-  col[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
-}
-
-// Four 4-bit values (one a byte, 0..15) -> four signed bytes v - 7: with
-// each byte biased by 128 the subtraction never borrows across bytes.
-__device__ inline uint32_t minus7(uint32_t v) {
-  return ((v | 0x80808080u) - 0x07070707u) ^ 0x80808080u;
-}
-
-template <int M, typename OutT, int BITS, bool AQ8>
-__global__ void __launch_bounds__(SM_THREADS)
-qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,
-                  const uint8_t* __restrict__ w,
-                  const __half* __restrict__ s,
-                  const int* __restrict__ layer,
-                  OutT* __restrict__ out, int K, int N, int sshift) {
-  // x chunk [M][SM_XLD] during the K walk (AQ8: int8 [M][SM_KCHUNK] and
-  // the blocks' scales [M][SM_KS]), then the [SM_KS][M][SM_COLS] partial
-  // sums of the cross-slice reduction
-  __shared__ float buf[M * SM_XLD];
-  int8_t* xq = reinterpret_cast<int8_t*>(buf);
-  float* xsc = buf + M * SM_KCHUNK / 4;
-  const int li = layer ? layer[0] : 0;
-  w += (size_t)li * qkind::plane_bytes(BITS, K, N);
-  s += (size_t)li * (K >> sshift) * N;
-  const int tc = threadIdx.x % SM_CG;
-  const int ks = threadIdx.x / SM_CG;
-  const int n = blockIdx.x * SM_COLS + tc * 4;
-  const bool full = n + 3 < N;
-
-  float acc[M][4];
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += SM_KCHUNK) {
-    const int kc = min(SM_KCHUNK, K - k0);
-    __syncthreads();
-    if constexpr (AQ8) {
-      // one warp a (row, 32-block): the lanes are its values
-      const int nb = kc / QBLOCK, lane = threadIdx.x % 32;
-      for (int i = threadIdx.x / 32; i < M * nb; i += SM_THREADS / 32) {
-        const int m = i / nb, b = i % nb;
-        const float v = __bfloat162float(x[(size_t)m * K + k0 + b * QBLOCK + lane]);
-        float amax = fabsf(v);
-#pragma unroll
-        for (int o = 16; o; o >>= 1)
-          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-        const float inv = amax > 0.f ? 127.f / amax : 0.f;
-        xq[m * SM_KCHUNK + b * QBLOCK + lane] = (int8_t)__float2int_rn(v * inv);
-        if (lane == 0) xsc[m * SM_KS + b] = amax * INV_127;
-      }
-    } else {
-      for (int i = threadIdx.x; i < M * kc; i += SM_THREADS) {
-        const int m = i / kc, k = i % kc;
-        buf[m * SM_XLD + k + k / QBLOCK] =
-            __bfloat162float(x[(size_t)m * K + k0 + k]);
-      }
-    }
-    __syncthreads();
-    const int kb = ks * QBLOCK;
-    if (kb < kc && n < N) {
-      const float* xs = buf + ks * (QBLOCK + 1);
-      float part[M][4];
-      int idot[M][4];
-#pragma unroll
-      for (int m = 0; m < M; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          part[m][j] = 0.f;
-          idot[m][j] = 0;
-        }
-      if constexpr (BITS == 8) {
-        const int8_t* wp = reinterpret_cast<const int8_t*>(w) + (size_t)(k0 + kb) * N + n;
-        // all 32 rows' loads first, so they are in flight together
-        char4 q[QBLOCK];
-        if (full) {
-#pragma unroll
-          for (int r = 0; r < QBLOCK; ++r)
-            q[r] = *reinterpret_cast<const char4*>(wp + (size_t)r * N);
-        } else {
-#pragma unroll
-          for (int r = 0; r < QBLOCK; ++r) {
-            const int8_t* row = wp + (size_t)r * N;
-            q[r] = make_char4(row[0], n + 1 < N ? row[1] : 0,
-                              n + 2 < N ? row[2] : 0, 0);
-          }
-        }
-        if constexpr (AQ8) {
-          const uint32_t* qw = reinterpret_cast<const uint32_t*>(q);
-#pragma unroll
-          for (int r = 0; r < QBLOCK; r += 4) {
-            uint32_t col[4];
-            transpose4(qw[r], qw[r + 1], qw[r + 2], qw[r + 3], col);
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const int xw = *reinterpret_cast<const int*>(xq + m * SM_KCHUNK + kb + r);
-#pragma unroll
-              for (int c = 0; c < 4; ++c) idot[m][c] = __dp4a(xw, (int)col[c], idot[m][c]);
-            }
-          }
-        } else {
-#pragma unroll
-          for (int r = 0; r < QBLOCK; ++r) {
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const float xv = xs[m * SM_XLD + r];
-              part[m][0] += xv * (float)q[r].x;
-              part[m][1] += xv * (float)q[r].y;
-              part[m][2] += xv * (float)q[r].z;
-              part[m][3] += xv * (float)q[r].w;
-            }
-          }
-        }
-      } else {
-        // 16 byte-rows: word j holds K-rows j (high nibbles) and j + 16
-        // (low nibbles) of the block, for 4 columns (N % 4 == 0, so a
-        // strip's column group is whole or absent)
-        const uint8_t* wp = w + (size_t)((k0 + kb) / 2) * N + n;
-        uint32_t q[QBLOCK / 2];
-#pragma unroll
-        for (int j = 0; j < QBLOCK / 2; ++j)
-          q[j] = *reinterpret_cast<const uint32_t*>(wp + (size_t)j * N);
-        if constexpr (AQ8) {
-#pragma unroll
-          for (int j = 0; j < QBLOCK / 2; j += 4) {
-            uint32_t hc[4], lc[4];
-            transpose4(minus7((q[j] >> 4) & 0x0F0F0F0Fu),
-                       minus7((q[j + 1] >> 4) & 0x0F0F0F0Fu),
-                       minus7((q[j + 2] >> 4) & 0x0F0F0F0Fu),
-                       minus7((q[j + 3] >> 4) & 0x0F0F0F0Fu), hc);
-            transpose4(minus7(q[j] & 0x0F0F0F0Fu), minus7(q[j + 1] & 0x0F0F0F0Fu),
-                       minus7(q[j + 2] & 0x0F0F0F0Fu),
-                       minus7(q[j + 3] & 0x0F0F0F0Fu), lc);
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const int8_t* xr = xq + m * SM_KCHUNK + kb;
-              const int xh = *reinterpret_cast<const int*>(xr + j);
-              const int xl = *reinterpret_cast<const int*>(xr + j + QBLOCK / 2);
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                idot[m][c] = __dp4a(xl, (int)lc[c], __dp4a(xh, (int)hc[c], idot[m][c]));
-            }
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < QBLOCK / 2; ++j) {
-            float hv[4], lv[4];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              hv[c] = qkind::hi4(q[j] >> (8 * c));
-              lv[c] = qkind::lo4(q[j] >> (8 * c));
-            }
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const float xh = xs[m * SM_XLD + j];
-              const float xl = xs[m * SM_XLD + j + QBLOCK / 2];
-#pragma unroll
-              for (int c = 0; c < 4; ++c) part[m][c] += xh * hv[c] + xl * lv[c];
-            }
-          }
-        }
-      }
-      const __half* sp = s + (size_t)((k0 + kb) >> sshift) * N + n;
-      float sc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sc[j] = n + j < N ? __half2float(sp[j]) : 0.f;
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        if constexpr (AQ8) {
-          const float sx = xsc[m * SM_KS + ks];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[m][j] += __fmul_rn(__fmul_rn((float)idot[m][j], sx), sc[j]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] += part[m][j] * sc[j];
-        }
-      }
-    }
-  }
-
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      buf[(ks * M + m) * SM_COLS + tc * 4 + j] = acc[m][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < M * SM_COLS; i += SM_THREADS) {
-    const int m = i / SM_COLS, c = i % SM_COLS;
-    float v = 0.f;
-    for (int t = 0; t < SM_KS; ++t) v += buf[(t * M + m) * SM_COLS + c];
-    const int col = blockIdx.x * SM_COLS + c;
-    if (col < N) store_out(out + (size_t)m * N + col, v);
-  }
-}
-
-template <typename OutT, int BITS, bool AQ8>
-void launch_smallm(int M, dim3 grid, cudaStream_t st,
-                   const __nv_bfloat16* x, const uint8_t* w, const __half* s,
-                   const int* layer, OutT* out, int K, int N, int sshift) {
-#define TL_SMALLM(MM)                                                      \
-  case MM:                                                                 \
-    qmm_smallm_kernel<MM, OutT, BITS, AQ8><<<grid, SM_THREADS, 0, st>>>(   \
-        x, w, s, layer, out, K, N, sshift);                                \
-    break;
-  switch (M) {
-    TL_SMALLM(1) TL_SMALLM(2) TL_SMALLM(3) TL_SMALLM(4)
-    TL_SMALLM(5) TL_SMALLM(6) TL_SMALLM(7) TL_SMALLM(8)
-  }
-#undef TL_SMALLM
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -653,51 +414,79 @@ int launch_bigm(const BigmArgs<OutT>& a, int n_tiles, cudaStream_t st) {
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// K1: the walk at row tile 8 (M <= 8), one instantiation per bits, tile
+// width, AQ8 and copy width (16 columns, or 4 where N % 16 != 0).
 template <bool AQ8>
-int smallm(const void* x, const void* w, const void* s, const void* layer,
-           void* out, int out_f32, int kind, int M, int K, int N, void* stream) {
-  if (!qkind::valid(kind) || (AQ8 && kind == qkind::Q4G) || M < 1 || M > 8 ||
-      K < 1 || K % qkind::scale_rows(kind) || N % 4)
+int smallm(const void* x, const void* w, const void* s, const void* layer, void* out,
+           int out_f32, int kind, int M, int K, int N, int width, int splits, void* stream) {
+  if ((AQ8 && kind == qkind::Q4G) || M > 8 || fwalk::bad_shape(kind, M, K, N, splits))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + SM_COLS - 1) / SM_COLS);
+  fwalk::Args a = {};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.layer = static_cast<const int*>(layer);
+  a.w = static_cast<const uint8_t*>(w);
+  a.s = static_cast<const __half*>(s);
+  a.out = out;
+  a.out_f32 = out_f32;
+  a.M = M;
+  a.K = K;
+  a.N = a.ncols = N;
+  a.splits = splits;
   auto st = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto wb = static_cast<const uint8_t*>(w);
-  auto sb = static_cast<const __half*>(s);
-  auto lb = static_cast<const int*>(layer);
-  const int sh = qkind::scale_shift(kind);
-  qkind::with_bits(kind, [&](auto bits) {
-    constexpr int BITS = decltype(bits)::value;
-    if (out_f32)
-      launch_smallm<float, BITS, AQ8>(M, grid, st, xb, wb, sb, lb,
-                                      static_cast<float*>(out), K, N, sh);
-    else
-      launch_smallm<__nv_bfloat16, BITS, AQ8>(
-          M, grid, st, xb, wb, sb, lb, static_cast<__nv_bfloat16*>(out), K, N, sh);
-    return 0;
+  return qkind::with_bits(kind, [&](auto bits) {
+    return fwalk::with_width(width, [&](auto sw) {
+      return fwalk::launch<8, decltype(bits)::value, decltype(sw)::value, false, AQ8, true>(
+          a, kind, false, st);
+    });
   });
-  return (int)cudaGetLastError();
+}
+
+template <bool AQ8>
+int smallm_resident(int kind, int M, int K, int N, int width, int splits, int* clusters) {
+  if ((AQ8 && kind == qkind::Q4G) || M > 8 || fwalk::bad_shape(kind, M, K, N, splits))
+    return (int)cudaErrorInvalidValue;
+  return qkind::with_bits(kind, [&](auto bits) {
+    return fwalk::with_width(width, [&](auto sw) {
+      constexpr int B = decltype(bits)::value, SW = decltype(sw)::value;
+      if (N % 16 == 0)
+        return fwalk::resident_of<8, B, SW, false, AQ8, true, true>(K, splits, clusters);
+      return fwalk::resident_of<8, B, SW, false, AQ8, true, false>(K, splits, clusters);
+    });
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// kind: 0 q8, 1 q4, 2 q4g (qkind.cuh); out: [M, N] f32 (out_f32 != 0) or
-// bf16. Requires 1 <= M <= 8, K a multiple of the scale block (32, or 128
-// for q4g) and N % 4 == 0 (4-byte column groups).
+// kind: 0 q8, 1 q4, 2 q4g (qkind.cuh); layer: [1] int32 for a stacked
+// weight, or null; out: [M, N] f32 (out_f32 != 0) or bf16; width,
+// splits: the tile width (64 or 128 columns) and the K splits of a tile
+// (ops/kernels/qmatmul.py smallm_plan). Requires 1 <= M <= 8, K a
+// multiple of the scale block (32, or 128 for q4g), N % 4 == 0 (4-column
+// groups), 1 <= splits <= min(8, ceil(K / 64)) and the x slice within
+// shared memory.
 int qmm_smallm(const void* x, const void* w, const void* s, const void* layer,
-               void* out, int out_f32, int kind, int M, int K, int N,
-               void* stream) {
-  return smallm<false>(x, w, s, layer, out, out_f32, kind, M, K, N, stream);
+               void* out, int out_f32, int kind, int M, int K, int N, int width,
+               int splits, void* stream) {
+  return smallm<false>(x, w, s, layer, out, out_f32, kind, M, K, N, width, splits, stream);
 }
 
 // qmm_smallm with x quantized to int8 per 32-block in the kernel (aq8);
 // kind 0 (q8) or 1 (q4) only.
 int qmm_smallm_aq8(const void* x, const void* w, const void* s,
                    const void* layer, void* out, int out_f32, int kind, int M,
-                   int K, int N, void* stream) {
-  return smallm<true>(x, w, s, layer, out, out_f32, kind, M, K, N, stream);
+                   int K, int N, int width, int splits, void* stream) {
+  return smallm<true>(x, w, s, layer, out, out_f32, kind, M, K, N, width, splits, stream);
+}
+
+// The clusters of a launch of qmm_smallm's (aq8 != 0: qmm_smallm_aq8's)
+// shape (kind, M, K, N, width, splits as above; N picks the copy width's
+// kernel) that the card keeps resident at once, into *clusters.
+int qmm_smallm_resident(int kind, int M, int K, int N, int width, int splits, int aq8,
+                        int* clusters) {
+  return aq8 ? smallm_resident<true>(kind, M, K, N, width, splits, clusters)
+             : smallm_resident<false>(kind, M, K, N, width, splits, clusters);
 }
 
 // kind as above; out: [M, N] f32 (out_f32 != 0) or bf16. Requires K % 64

@@ -13,8 +13,9 @@ hand-written Hopper kernels (csrc/decode_fused.cu):
   comes from the splits' sums of squares, exchanged in the cluster, and
   the splits' partial products are summed in split order there.
 * K6 ``fused_out_residual`` for ``_out_res_kernel``: residual + attn @
-  dequant(wo), the residual added to the f32 sum once, on the strip walk
-  of csrc/qstrip.cuh that K8 shares. Bound by the weight bytes.
+  dequant(wo), one launch of the same walk with x as given and the
+  residual added to the f32 sum once, in the epilogue (the plan from
+  ``fused_plan.fused_plan`` as K5's). Bound by the weight bytes.
 
 The module also holds the gate of the fused branch
 (``decode_fused_eligible``) and the plain arithmetic of the fused kernels
@@ -37,7 +38,8 @@ from tinyllama_tpu_torch.quant.codec import QTensor
 
 #: largest M (= B * T) of the fused branch; larger M takes the unfused one.
 FUSED_M = 32
-#: output columns per block: N must be a whole number of strips.
+#: the fused kernels take output columns in whole strips of this many
+#: (the JAX package's rule; the walk itself takes 4-column groups)
 STRIP = 32
 
 #: launches of each kernel since the counts were last set to 0.
@@ -51,10 +53,11 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("decode_fused")
     if lib.fused_norm_qkv.argtypes is None:
         lib.fused_norm_qkv.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P]
-        lib.fused_out_residual.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.fused_norm_qkv_resident.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+        lib.fused_out_residual.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+        for fn in (lib.fused_norm_qkv_resident, lib.fused_out_residual_resident):
+            fn.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+            fn.restype = _I
         lib.fused_norm_qkv.restype = lib.fused_out_residual.restype = _I
-        lib.fused_norm_qkv_resident.restype = _I
     return lib
 
 
@@ -103,7 +106,7 @@ def fused_out_residual_ref(attn, residual, w, layer) -> torch.Tensor:
 
 
 def check_rows(x2: torch.Tensor, w: QTensor, layer) -> None:
-    """What the fused strip kernels take for x2 [M, K] against the
+    """What the fused kernels take for x2 [M, K] against the
     layer-stacked kn weight w (any kind): qmatmul's checks, M <= 32 and
     whole 32-column strips."""
     qmatmul._check(x2, w, layer, torch.bfloat16)
@@ -127,14 +130,16 @@ def check_norm(norm_w: torch.Tensor, w: QTensor, K: int, device) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(kind: int, M: int, K: int, N: int, n_sm: int) -> tuple[int, int]:
-    """K5's (tile width, K splits) for M rows of K -> N, kind code `kind`,
-    on the current card: ``fused_plan.fused_plan`` with the card's count
-    of the launch's clusters it keeps resident."""
+def plan(kind: int, M: int, K: int, N: int, n_sm: int,
+         entry: str = "fused_norm_qkv") -> tuple[int, int]:
+    """The (tile width, K splits) of K5 (or, with `entry`
+    "fused_out_residual", K6) for M rows of K -> N, kind code `kind`, on
+    the current card: ``fused_plan.fused_plan`` with the card's count of
+    the launch's clusters it keeps resident."""
     def resident(width, splits):
         n = ctypes.c_int(0)
-        build.check(_lib().fused_norm_qkv_resident(kind, M, K, width, splits,
-                                                   ctypes.byref(n)), "fused_norm_qkv")
+        build.check(getattr(_lib(), f"{entry}_resident")(kind, M, K, width, splits,
+                                                         ctypes.byref(n)), entry)
         return n.value
     return fused_plan.fused_plan(K, N, n_sm, resident)
 
@@ -174,10 +179,12 @@ def fused_out_residual(attn: torch.Tensor, residual: torch.Tensor, w: QTensor,
     check_like(residual, (B, T, w.data.shape[-1]), torch.bfloat16,
                attn.device, "the residual")
     out = torch.empty_like(residual)
+    code, M, K = qmatmul.KIND_CODE[w.kind], B * T, a2.shape[1]
     err = _lib().fused_out_residual(
         a2.data_ptr(), residual.data_ptr(), layer.data_ptr(), w.data.data_ptr(),
-        w.scales.data_ptr(), out.data_ptr(), qmatmul.KIND_CODE[w.kind], B * T,
-        a2.shape[1], D, build.stream_ptr(attn))
+        w.scales.data_ptr(), out.data_ptr(), code, M, K, D,
+        *plan(code, M, K, D, qmatmul.sm_count(attn.device), "fused_out_residual"),
+        build.stream_ptr(attn))
     build.check(err, "fused_out_residual")
     launches["fused_out_residual"] += 1
     return out

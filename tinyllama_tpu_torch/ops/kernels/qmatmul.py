@@ -6,10 +6,14 @@ tinyllama_tpu/ops/pallas/qmatmul.py with hand-written Hopper kernels
 (csrc/qmatmul.cu):
 
 * K1 ``qmm_smallm`` (M <= 8, decode) for ``_qmm_kernel_smallm``: bound
-  by the weight bytes over the memory rate. The weight streams once,
-  read as 4-byte words along N (one K-row of 4 columns at q8, two at 4
-  bits, each 4-bit value dequantized to v - 7 exactly); each 32-block's
-  dot is scaled by its fp16 scale after the dot.
+  by the weight bytes over the memory rate. It runs on the walk of the
+  fused decode kernels (csrc/fused_walk.cuh) at row tile 8: column tiles
+  times K splits (``smallm_plan``, shapes and the card's residency only),
+  each split one block of a cluster that streams its weight rows through
+  a ``cp.async`` ring and stages only its slice of x; products on
+  ``mma.sync`` with the integer values q (or v - 7) exact in bf16, each
+  32-block's dot scaled by its fp16 scale after the dot; the splits'
+  partials summed in split order in the cluster; bf16 or f32 out.
 * K2 ``qmm_bigm`` (M > 8, prefill) for ``_qmm_kernel_bigm``: bound by
   the weight bytes at M <= 256 and by tensor-core operations above. A
   block owns a 128 x 128 output tile; each 64-deep K step's x tile and
@@ -23,20 +27,21 @@ tinyllama_tpu/ops/pallas/qmatmul.py with hand-written Hopper kernels
 
 With ``aq8`` (the q8a8 and q4a8 policies) K1 runs its int8-activation
 branch, the counterpart of ``block_x`` and the integer dots of
-``_qmm_kernel_smallm``: each row's 32-value blocks of x are quantized to
-int8 in the kernel (``quantize_x``), each block's dot is an exact int32
-sum, scaled by the block's x scale and then its weight scale. At M > 8
-aq8 is ignored and K2 runs unchanged, as the TPU's big-M kernel has no
-aq8 branch; q4g has none at all and raises.
+``_qmm_kernel_smallm``: each split quantizes its slice of x to int8 per
+32-value block in the kernel (``quantize_x``), each block's dot is one
+exact int32 ``mma.sync`` s8 product, scaled by the block's x scale and
+then its weight scale. At M > 8 aq8 is ignored and K2 runs unchanged,
+as the TPU's big-M kernel has no aq8 branch; q4g has none at all and
+raises.
 
 Both take the layer-stacked weight (``[L, K, N]`` int8, or ``[L, K/2,
 N]`` uint8 nibbles, with ``[L, K/bs, N]`` fp16 scales) with a device
 layer index, so nothing is sliced or copied per layer and the launch
-stays capturable. Each kernel is a template on the bits; q4 and q4g
-differ only in the scale row a 32-row block reads. The wrapper launches
-a kernel for CUDA tensors (bf16 activations only) and raises on what the
-kernels do not take; only CPU tensors go to the plain version
-``qmatmul_ref``.
+stays capturable, or one unstacked weight (the lm_head). Each kernel is
+a template on the bits; q4 and q4g differ only in the scale row a 32-row
+block reads. The wrapper launches a kernel for CUDA tensors (bf16
+activations only) and raises on what the kernels do not take; only CPU
+tensors go to the plain version ``qmatmul_ref``.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ import functools
 
 import torch
 
-from tinyllama_tpu_torch.ops.kernels import build
+from tinyllama_tpu_torch.ops.kernels import build, fused_plan
 from tinyllama_tpu_torch.ops.precision import exact_f32
 from tinyllama_tpu_torch.quant.codec import (
     BLOCK_SIZE,
@@ -59,6 +64,10 @@ from tinyllama_tpu_torch.quant.codec import (
 
 #: largest M that takes the decode kernel (K1); larger M takes K2.
 SMALL_M = 8
+#: most 64-row steps of x a split of K1 stages, and the most rows of K
+#: that K1 takes
+SMALLM_SPLIT_STEPS = fused_plan.SMALLM_SPLIT_STEPS
+SMALLM_MAX_K = fused_plan.MAX_SPLITS * SMALLM_SPLIT_STEPS * fused_plan.STEP
 
 #: K2's output tile (rows of x, columns of the weight) and K step
 BIGM_TILE_M, BIGM_TILE_N, BIGM_STEP = 128, 128, 64
@@ -84,8 +93,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("qmatmul")
     if lib.qmm_smallm.argtypes is None:
         for fn in (lib.qmm_smallm, lib.qmm_smallm_aq8):
-            fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+            fn.argtypes = [_P] * 5 + [_I] * 7 + [_P]
             fn.restype = _I
+        lib.qmm_smallm_resident.argtypes = [_I] * 7 + [ctypes.POINTER(_I)]
+        lib.qmm_smallm_resident.restype = _I
         lib.qmm_bigm.argtypes = [_P] * 5 + [_I] * 6 + [_P]
         lib.qmm_bigm.restype = _I
     return lib
@@ -118,6 +129,24 @@ def bigm_blocks(M: int, N: int, K: int, splits: int):
     nk = K // BIGM_STEP
     return {(x, y): (x // n_nt, x % n_nt, y * nk // splits, (y + 1) * nk // splits)
             for x in range(n_tiles) for y in range(splits)}
+
+
+@functools.lru_cache(maxsize=None)
+def smallm_plan(kind: int, M: int, K: int, N: int, aq8: bool,
+                n_sm: int) -> tuple[int, int]:
+    """K1's (tile width, K splits) for M <= 8 rows of K -> N, kind code
+    `kind`, on the current card: ``fused_plan.fused_plan`` with K1's
+    slices of up to SMALLM_SPLIT_STEPS steps, n_sm / 32 SMs of slack and
+    aq8's doubled splits, and the card's count of the launch's clusters
+    it keeps resident. Shapes only, never a tensor, so a captured lm_head
+    launch replays. K past 8 slices of SMALLM_SPLIT_STEPS steps raises."""
+    def resident(width, splits):
+        n = ctypes.c_int(0)
+        build.check(_lib().qmm_smallm_resident(kind, M, K, N, width, splits, int(aq8),
+                                               ctypes.byref(n)), "qmm_smallm")
+        return n.value
+    return fused_plan.fused_plan(K, N, n_sm, resident, SMALLM_SPLIT_STEPS,
+                                 n_sm // 32, aq8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -253,7 +282,9 @@ def _check(x2: torch.Tensor, w: QTensor, layer, out_dtype) -> None:
     check_weight(w, x2.shape[1], layer, x2.device)
     K, N = x2.shape[1], w.data.shape[-1]
     if x2.shape[0] <= SMALL_M and N % 4:
-        raise ValueError(f"the decode kernel reads char4 rows: N % 4 != 0 ({N})")
+        raise ValueError(f"the decode kernel takes 4-column groups: N % 4 != 0 ({N})")
+    if x2.shape[0] <= SMALL_M and K > SMALLM_MAX_K:
+        raise ValueError(f"K = {K} is past the decode kernel's {SMALLM_MAX_K} rows")
     if x2.shape[0] > SMALL_M and K % (2 * BLOCK_SIZE):
         raise ValueError(f"the prefill kernel steps 64 rows of K: K={K}")
     if not x2.is_cuda or not x2.is_contiguous() or x2.data_ptr() % 16:
@@ -283,12 +314,14 @@ def qmatmul(x: torch.Tensor, w: QTensor, out_dtype=None,
     li = None if layer is None else layer.data_ptr()
     ptrs = (x2.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), li,
             out.data_ptr())
-    ints = (int(out_dtype == torch.float32), KIND_CODE[w.kind], M, K, N)
+    code = KIND_CODE[w.kind]
+    ints = (int(out_dtype == torch.float32), code, M, K, N)
     if M > SMALL_M:
         err = fn(*ptrs, *ints, bigm_splits(M, N, K, sm_count(x.device)),
                  build.stream_ptr(x))
     else:
-        err = fn(*ptrs, *ints, build.stream_ptr(x))
+        err = fn(*ptrs, *ints, *smallm_plan(code, M, K, N, aq8, sm_count(x.device)),
+                 build.stream_ptr(x))
     build.check(err, name)
     launches[name] += 1
     return out.reshape(*lead, N)

@@ -2,25 +2,31 @@
 comparing two trees of the port.
 
     python3 tinyllama_tpu_torch/tools/decode_ab.py [--root DIR] [--label NAME]
-        [--plan W:S,W:S,W:S] [--rows-only]
+        [--plan W:S,W:S,W:S] [--rows-only | --steps-only] [--step-reps R]
 
 Imports ``tinyllama_tpu_torch`` from the checkout at DIR (by default the
 one this file is in), builds its kernels there, and prints one JSON line
 a measurement, each with the label and the card's name and power limit
 (nvidia-smi):
 
-* the weight kernels of a fused decode layer at TinyLlama-1.1B's widths
+* the weight kernels of a decode layer at TinyLlama-1.1B's widths
   over 22 layers of random weights (``llama.init_quantized_params``, seed
   1234): K5 ``fused_norm_qkv`` and K7 ``ffn_fused_normed`` at M = 1, 4
   and 32 in q8, q4 and q4g, K7's plain entry ``ffn_fused`` at M = 1 (q8),
-  K6 ``fused_out_residual`` at M = 4 and 32 and K8 ``fused_attn_out`` at
-  pos 127 over a bf16 cache (q8): microseconds a call by CUDA events over
-  a CUDA graph of 100 calls cycling the 22 layers past the 50 MB L2
-  (chip_smoke.py's method), each held against its plain version first,
-  with its bound (max(bytes once / 3.35 TB/s, operations / 989 TFLOP/s)),
-  its plain version's time (eager, 5 calls) and its library call's at
-  that M (``torch.matmul`` on the layer's weight dequantized to bf16;
-  for K7 the gate/up and the down products; K6 ``torch.addmm``);
+  K6 ``fused_out_residual`` at M = 4 and 32 in q8, q4 and q4g, K8
+  ``fused_attn_out`` at pos 127 over a bf16 cache (q8), and K1
+  ``qmm_smallm`` (``qmatmul.qmatmul``) at wqkv, wo, w_gateup, w_down and
+  the lm_head (padded to 32,768 columns as the engine pads it; f32 out)
+  at M = 1, 4 and 8 in q8, q4, q4g, q8a8 and q4a8 (the aq8 branch on q8
+  and q4 weights): microseconds a call by CUDA events over a CUDA graph
+  of 100 calls cycling the 22 layers past the 50 MB L2 (chip_smoke.py's
+  method), each held against its plain version first, with its bound
+  (max(bytes once / 3.35 TB/s, operations / 989 TFLOP/s)), its plain
+  version's time (eager, 5 calls) and its library call's at that M
+  (``torch.matmul`` on the layer's weight dequantized to bf16; for K7 the
+  gate/up and the down products; K6 ``torch.addmm``; for aq8 also
+  ``torch._int_mm`` at M = 17, the least M it takes, on the int8 values
+  with no scales);
 * the decode steps on random q8 weights (the same seed): path (a)'s b1
   step (a 100-token prompt, 256 greedy tokens: eager ms/token on the
   host clock; one step at pos 127 replayed as a CUDA graph), path (c)'s
@@ -28,17 +34,23 @@ a measurement, each with the label and the card's name and power limit
   replayed), path (f)'s staged B = 32 step at a 100-token fill (8 eager
   steps, and one replayed) and its ``ContinuousBatcher`` over a paged
   engine, 32 slots, 64 requests (numpy seed 5: tok/s, TTFT p50 / p95),
-  and path (h)'s b1 step on q4 weights replayed as a CUDA graph.
+  path (h)'s b1 step on q4 weights and path (k)'s b1 step under q8a8
+  (every linear and the lm_head K1's aq8 branch) replayed as CUDA graphs.
 
 ``--plan W:S,W:S,W:S`` sets the walk's tile width and K splits of K5, of
 K7's gate/up and of its down launch in place of ``fused_plan``'s (it
 needs a tree with the fused walk, csrc/fused_walk.cuh), and times K5 and
 K7 at M = 1 and 32 in q8 only, each checked against its plain version.
-``--rows-only`` skips the decode steps.
+``--rows-only`` skips the decode steps; ``--steps-only`` the kernel
+rows. ``--step-reps R`` times each graph
+step R times in its process and prints the median (``graph_ms``) and
+all R (``graph_ms_all``): a step's graph time jumps by up to 0.4 ms
+between processes, so compare steps over several turns.
 
 It calls only entry points the package has had since its kernel
-microbench came (the fused wrappers, ``Engine``, ``ContinuousBatcher``,
-``stage_cache``, ``tools/kbench.py``'s ``time_ms`` and ``card_line``),
+microbench came (the fused wrappers, ``qmatmul.qmatmul``, ``Engine``,
+``ContinuousBatcher``, ``stage_cache``, ``tools/kbench.py``'s
+``time_ms`` and ``card_line``),
 so the same file measures an older tree: unpack one with ``git archive``
 into a directory that .gitignore lists, and run parent, change, change,
 parent in one call on one card. Without a card it exits with an error.
@@ -66,6 +78,10 @@ def main(argv=None) -> int:
                          "e.g. 128:8,128:4,64:8")
     ap.add_argument("--rows-only", action="store_true",
                     help="the kernel rows without the decode steps")
+    ap.add_argument("--steps-only", action="store_true",
+                    help="the decode steps without the kernel rows")
+    ap.add_argument("--step-reps", type=int, default=1,
+                    help="times each graph step is timed in the process")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -85,6 +101,7 @@ def main(argv=None) -> int:
     from tinyllama_tpu_torch.ops.kernels import build
     from tinyllama_tpu_torch.ops.kernels import decode_fused as df
     from tinyllama_tpu_torch.ops.kernels import ffn_fused as ff
+    from tinyllama_tpu_torch.ops.kernels import qmatmul as qm
     from tinyllama_tpu_torch.quant import codec
     from tinyllama_tpu_torch.runtime.engine import Engine
     from tinyllama_tpu_torch.runtime.kvcache import KVCache
@@ -114,7 +131,7 @@ def main(argv=None) -> int:
 
         p_qkv, p_gu, p_down = (tuple(map(int, p.split(":")))
                                for p in args.plan.split(","))
-        fused_plan.fused_plan = lambda K, ncols, n_sm, resident=None: (
+        fused_plan.fused_plan = lambda K, ncols, n_sm, *_, **__: (
             p_down if K == F else p_gu if ncols == F else p_qkv)
     eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
     layers = [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(L)]
@@ -136,7 +153,7 @@ def main(argv=None) -> int:
         return [codec.dequantize(codec.QTensor(w.data[i], w.scales[i], kind, "kn"),
                                  torch.bfloat16) for i in range(L)]
 
-    def row(kernel, kind, shape, fn, plain, lib, nb, flops):
+    def row(kernel, kind, shape, fn, plain, lib, nb, flops, **extra):
         # the kernel against its plain version first
         got, want = fn(0).float(), plain(0).float()
         torch.cuda.synchronize()
@@ -152,9 +169,10 @@ def main(argv=None) -> int:
         else:
             rec.update(plain_us=kbench.time_ms(plain, 5, False) * 1e3,
                        library_us=kbench.time_ms(lib, 100, True) * 1e3)
-        emit(**rec)
+        emit(**rec, **{k: f() for k, f in extra.items()})
 
-    for kind in ("q8",) if quick else ("q8", "q4", "q4g"):
+    for kind in () if args.steps_only else \
+            ("q8",) if quick else ("q8", "q4", "q4g"):
         lin = params_of(kind)["layers"]
         wq, gu, wd, wo = lin["wqkv"], lin["w_gateup"], lin["w_down"], lin["wo"]
         nq, nf = lin["attn_norm"], lin["ffn_norm"]
@@ -181,7 +199,7 @@ def main(argv=None) -> int:
                     lambda i: torch.matmul(torch.matmul(x.view(1, D), dgu[i % L])[:, :F],
                                            dwd[i % L]),
                     nbytes(gu) + nbytes(wd) + 2 * D * 2, 6 * F * D)
-        if kind == "q8" and not quick:
+        if not quick:
             dwo = dense(wo, kind)
             for M in (4, 32):
                 a, r = rand(M, 1, D), rand(M, 1, D)
@@ -190,6 +208,7 @@ def main(argv=None) -> int:
                     lambda i: df.fused_out_residual_ref(a, r, wo, layers[i % L]),
                     lambda i: torch.addmm(r.view(M, D), a.view(M, D), dwo[i % L]),
                     nbytes(wo) + 3 * M * D * 2, 2 * M * D * D)
+        if kind == "q8" and not quick:
             H, Kh, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 2048
             cache = KVCache(rand(L, 1, Kh, S, d), rand(L, 1, Kh, S, d))
             q, res = rand(1, 1, H, d), rand(1, 1, D)
@@ -210,6 +229,50 @@ def main(argv=None) -> int:
                 4 * H * n_keys * d + 2 * D * D)
             del cache, dwo
         del lin, dq, dgu, dwd
+        torch.cuda.empty_cache()
+
+    # K1: every linear of the unfused decode branch and the lm_head
+    def int_mm_us(w, K, layered):
+        """torch._int_mm at M = 17 on the int8 values (column-major, as
+        cuBLAS's int8 product takes them), no scales."""
+        planes = [w.data[i] for i in range(L)] if layered else [w.data]
+        wi = [(p if w.kind == "q8" else qm.int_values(p, w.kind).to(torch.int8)
+               ).t().contiguous().t() for p in planes]
+        xi = torch.ones((17, K), dtype=torch.int8, device=dev)
+        return kbench.time_ms(lambda i: torch._int_mm(xi, wi[i % len(wi)]), 100,
+                              True) * 1e3
+
+    def k1_rows(label, p, aq8):
+        mats = {n: p["layers"][n] for n in ("wqkv", "wo", "w_gateup", "w_down")}
+        mats["lm_head"] = llama.pad_lm_head_vocab(p)["lm_head"]
+        for n, w in mats.items():
+            layered = n != "lm_head"
+            N, K = w.shape[-2:]
+            out = torch.float32 if n == "lm_head" else torch.bfloat16
+            lay = (lambda i: layers[i % L]) if layered else (lambda i: None)
+            wd = (dense(w, w.kind) if layered else
+                  [codec.dequantize(w, torch.bfloat16)])
+            nb = nbytes(w) if layered else (w.data.numel() * w.data.element_size()
+                                            + w.scales.numel() * 2)
+            extra = {"int_mm_us": lambda w=w, K=K: int_mm_us(w, K, layered)} if aq8 else {}
+            for M in (1, 4, 8):
+                x = rand(M, K)
+                row("K1 qmm_smallm", label, f"{n} M={M} K={K} N={N}",
+                    lambda i: qm.qmatmul(x, w, out, lay(i), aq8=aq8),
+                    lambda i: qm.qmatmul_ref(x, w, out, lay(i), aq8=aq8),
+                    lambda i: torch.matmul(x, wd[i % len(wd)]),
+                    nb + M * K * 2 + M * N * (4 if n == "lm_head" else 2),
+                    2 * M * K * N, **(extra if M == 1 else {}))
+            del wd
+            torch.cuda.empty_cache()
+
+    if not quick and not args.steps_only:
+        for base in ("q8", "q4"):
+            p = params_of(base)
+            k1_rows(base, p, False)
+            k1_rows(f"{base}a8", p, True)
+            del p
+        k1_rows("q4g", params_of("q4g"), False)
         torch.cuda.empty_cache()
     if quick or args.rows_only:
         return 0
@@ -234,14 +297,23 @@ def main(argv=None) -> int:
     if len(out) != N_NEW:
         raise AssertionError(f"(a): {len(out)} tokens, not {N_NEW}")
 
+    def graph_times(fn):
+        """{graph_ms: the median of --step-reps timings of fn as a graph of
+        20 calls, graph_ms_all: each}"""
+        times = [kbench.time_ms(fn, 20, True) for _ in range(args.step_reps)]
+        out = {"graph_ms": float(np.median(times))}
+        if args.step_reps > 1:
+            out["graph_ms_all"] = times
+        return out
+
     def graph_step(eng, prompts, pos):
         cache = eng.new_cache(len(prompts))
         eng.prefill(cache, prompts)
         tok = i32([5] * len(prompts))
-        return kbench.time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
+        return graph_times(lambda i: eng.decode_step(cache, tok, pos))
 
     emit(step="(a) b1", eager_ms_per_token=stats.ms_per_token,
-         graph_ms=graph_step(engine, [prompt], i32([GRAPH_POS])), graph_pos=GRAPH_POS)
+         **graph_step(engine, [prompt], i32([GRAPH_POS])), graph_pos=GRAPH_POS)
 
     prompts = [prompt_of(PROMPT) for _ in range(BATCH)]
     cache = engine.new_cache(BATCH)
@@ -255,7 +327,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     emit(step="(c) B=4 decode_step",
          eager_ms=(time.perf_counter() - t0) * 1e3 / STEPS,
-         graph_ms=graph_step(engine, prompts, i32([GRAPH_POS] * BATCH)))
+         **graph_step(engine, prompts, i32([GRAPH_POS] * BATCH)))
     del cache
 
     cache = engine.new_paged_cache(SLOTS)
@@ -270,7 +342,7 @@ def main(argv=None) -> int:
         engine.decode_step(st, tok, pos + i)
     torch.cuda.synchronize()
     emit(step="(f) staged B=32 step", eager_ms=(time.perf_counter() - t0) * 1e3 / STEPS,
-         graph_ms=kbench.time_ms(lambda i: engine.decode_step(st, tok, pos), 20, True))
+         **graph_times(lambda i: engine.decode_step(st, tok, pos)))
     del cache, st, engine
 
     paged = Engine(cfg, POLICIES["q8"], params, max_ctx=2048, device=dev, paged=True)
@@ -292,7 +364,11 @@ def main(argv=None) -> int:
     del paged, batcher, params
 
     engine = Engine(cfg, POLICIES["q4"], params_of("q4"), max_ctx=2048, device=dev)
-    emit(step="(h) q4 b1", graph_ms=graph_step(engine, [prompt], i32([GRAPH_POS])),
+    emit(step="(h) q4 b1", **graph_step(engine, [prompt], i32([GRAPH_POS])),
+         graph_pos=GRAPH_POS)
+    del engine
+    engine = Engine(cfg, POLICIES["q8a8"], params_of("q8"), max_ctx=2048, device=dev)
+    emit(step="(k) q8a8 b1", **graph_step(engine, [prompt], i32([GRAPH_POS])),
          graph_pos=GRAPH_POS)
     return 0
 

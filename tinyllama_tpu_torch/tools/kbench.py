@@ -281,7 +281,9 @@ def probe_cases(args, dev) -> list[Case]:
              "exact"),
         Case("probe pallas-i32-dot", "kbench_probe_i32dot", kp.i32dot, kp.dot_ref,
              lambda i: (x.clone(), w.clone()), dot_bytes, 2 * 8 * 512 * 256,
-             "exact"),
+             "exact", library=torch._int_mm,
+             make_library=lambda i: (x17.clone(), w.clone()),
+             library_note="torch._int_mm at M = 17"),
         Case("probe pallas-i8-dot", "kbench_probe_i8dot", kp.i8dot, kp.dot_ref,
              lambda i: (x.clone(), w.clone()), dot_bytes, 2 * 8 * 512 * 256,
              "exact", library=torch._int_mm,
