@@ -18,7 +18,7 @@ Phases, each fatal on failure:
    and at B=4 (path (c)'s batch) at pos 1500, K4 and K10 also captured in
    a CUDA graph at pos 127 and replayed at 1500, 5 and 2047, K5 at M=1, 4, 32, K6 at
    M=4, 32, K7 at M=1, 4, 32 and its plain entry at M=1, K8 at pos 127
-   and 1500, K9 at B=8 over a fill of 256 and a 32-slot staged tail, K10
+   and 1500 (and captured at 127, replayed at 1500, 448, 5 and 2047), K9 at B=8 over a fill of 256 and a 32-slot staged tail, K10
    at pos 127, 1500 and 2047, K11 at B=32 over a fill of 256 and a
    32-slot tail and at B=32 over path (f)'s first 32 prompt lengths
    (8-200 keys a row, seed 5) and a 32-slot tail, its library call SDPA
@@ -125,7 +125,9 @@ Phases, each fatal on failure:
    b1 steps, a B = 4 step, staged monolithic and paged chunk steps and a
    paged b1 step; q8a8 and q4a8: a long prefill, 2 b1 steps and a B = 4
    step; f16 and f32 caches: a long prefill, 2 b1 steps and a staged
-   paged chunk step; the logits must agree.
+   paged chunk step; the logits must agree. Then a reading: 48 greedy
+   b1 steps with an int8 cache on the card, the CPU fed the card's
+   tokens, and how often its own pick is the card's.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -167,6 +169,8 @@ RTOL, ATOL = 2e-2, 5e-3
 #: or after normalization), each worth ~2^-8 relative, over ~10 rounding
 #: sites a layer. Logits here have |max| ~4: allow 5% of it.
 PARITY_REL = 0.05
+#: greedy b1 steps of the int8 cache's token reading after the parity
+GREEDY_STEPS = 48
 
 N_NEW = 256
 PROMPT_LEN = 100
@@ -255,8 +259,8 @@ def fail(msg: str) -> int:
 
 def replay_equals(name: str, fn) -> None:
     """fn() captured in a CUDA graph and replayed twice must give its
-    eager result (K7's dependent launch and cluster sums, K8's grid
-    barrier)."""
+    eager result (K7's and K8's dependent launches and cluster sums,
+    K8's merge tickets)."""
     import torch
 
     eager = fn()
@@ -630,6 +634,10 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
                                   dense["wo"][i % L]),
             w_bytes["wo"] + 2 * Kh * (p + 1) * kv_row + H * d * 2 + 2 * D * 2,
             4 * d * H * (p + 1) + 2 * D * D, replay=True)
+    # its attention's split count and its walk's plan follow sizes only
+    replay_at(f"K8 fused_attn_out {row_kind}",
+              lambda: ao.fused_attn_out(q, cache, layers[3], pos, res, lin["wo"]),
+              pos, 127, (1500, 448, 5, S - 1))
     del dense, lm_dense
     if kind != "q8":
         return rows
@@ -1745,6 +1753,34 @@ def main() -> int:
         if err > PARITY_REL * scale:
             return fail(f"parity {name}: {err} > {PARITY_REL} * {scale}")
     print(f"parity: worst relative max error {worst:.5f} (limit {PARITY_REL})")
+
+    # a reading, not a gate: the int8 cache's greedy tokens on the b1 path
+    # (K8 dequantizes keys and values to bf16 as the plain version does,
+    # which the JAX kernel does not), the CPU fed the card's tokens
+    def greedy_b1(eng, steps, forced=None):
+        """(tokens, logits) of `steps` greedy b1 decode steps after the
+        long prefill; with `forced`, each step takes forced's token."""
+        def i32(values):
+            return torch.tensor(values, dtype=torch.int32, device=eng.device)
+
+        cache = eng.new_cache(1)
+        logits = eng.prefill(cache, [prompt])[0]
+        toks, seen = [], []
+        for i in range(steps):
+            seen.append(logits.float().cpu()[0])
+            toks.append(int(seen[-1].argmax()) if forced is None else forced[i])
+            logits = eng.decode_step(cache, i32([toks[-1]]), i32([PROMPT_LEN + i]))
+        return toks, seen
+
+    card_toks, _ = greedy_b1(Engine(cfg2, kvi8, p2, device="cuda"), GREEDY_STEPS)
+    _, cpu_logits = greedy_b1(Engine(cfg2, kvi8, p2, device="cpu"), GREEDY_STEPS,
+                              card_toks)
+    margins = [float(x.max() - x[t]) for t, x in zip(card_toks, cpu_logits)]
+    print(f"i8 b1 greedy: the CPU picks the card's token at "
+          f"{sum(m == 0 for m in margins)} of {GREEDY_STEPS} steps (pos "
+          f"{PROMPT_LEN}-{PROMPT_LEN + GREEDY_STEPS - 1}); where not, its own "
+          f"pick beats the card's by at most {max(margins):.5f}")
+    mark("i8 greedy reading")
 
     for r in rows:
         del r["kernel"], r["kind"]

@@ -34,8 +34,14 @@ residency for their plans; both replayed from a CUDA graph across
 layers; K1's refusals); and the split-key K9 and K11 over every KV kind at ragged
 chunk bases and tail fills (a 1-slot tail among them), tails of 32, 64
 and 96 slots, G = 4 and 8, a row with no visible key (zeros), and
-replayed from a CUDA graph at later slots and chunk bases; and K4, K9,
-K10 and K11 over caches whose keys past each row's visible ones are NaN.
+replayed from a CUDA graph at later slots and chunk bases; K4, K9,
+K10 and K11 over caches whose keys past each row's visible ones are NaN;
+and K8 as two launches (the split attention, then the walk as a
+programmatic dependent launch) over every weight kind and KV kind at G =
+1, 2, 3, 4 and 8 and pos 0, 63, 64, 127, 447, 448 and 1500 (a second call
+bit-equal, K4's and K6's counts unmoved), replayed from a CUDA graph
+captured at layer 0 and pos 127 at another layer and positions, and its
+plan resident on the card.
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -46,6 +52,7 @@ launch), and the builder's hashing and its refusal without nvcc.
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -214,19 +221,51 @@ def _attn_out_inputs(device, G, pos, Kh=2, S=1536, seed=0):
     return q, cache, res, _weight(2, D, D, seed + 1, device)
 
 
+def _attn_out_kind_inputs(card, kind, kv, G, seed, Kh=2, S=1536):
+    """K8's operands over a cache of KV kind `kv` (every position random;
+    int8 quantized, f16 and f32 cast, from the same values) with a `kind`
+    wo mapping H * 64 to H * 64 columns."""
+    H = G * Kh
+    D = H * 64
+    cache = _cache(1, Kh, S, [S], seed=seed, device=card)
+    cache = cache if kv == "bf16" else _i8(cache) if kv == "i8" else _float_kv(cache, kv)
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(1, 1, H, 64, generator=g).to(card, torch.bfloat16)
+    res = torch.randn(1, 1, D, generator=g).to(card, torch.bfloat16)
+    return q, cache, res, _weight(2, D, D, seed + 1, card, kind)
+
+
+@functools.lru_cache(maxsize=1)
+def _attn_out_kind_case(card, kind, kv, G):
+    """_attn_out_kind_inputs for one weight kind, KV kind and G, shared by
+    the positions of test_fused_attn_out_matches_plain."""
+    return _attn_out_kind_inputs(card, kind, kv, G, seed=G)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [8, 4])
-@pytest.mark.parametrize("pos", [0, 63, 64, 127, 1500])
-def test_fused_attn_out_matches_plain(card, G, pos):
-    """K8 at fills on both sides of a key tile and deep in the cache, 8
-    and 4 query heads per kv head."""
-    q, cache, res, wo = _attn_out_inputs(card, G, pos, seed=pos)
+@pytest.mark.parametrize("pos", [0, 63, 64, 127, 447, 448, 1500])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+@pytest.mark.parametrize("kind", ["q8", "q4", "q4g"])
+def test_fused_attn_out_matches_plain(card, kind, kv, G, pos):
+    """K8's two launches over every weight kind and KV kind, G = 1 to 8
+    query heads a kv head (2 kv heads), at pos 0, 63, 64 (a key tile's
+    edges), 127, 447, 448 (the last row of SOLO_TILES tiles, one block's,
+    and the first split one) and 1500, every key past pos random: against
+    its plain version, counted once under its KV kind's key with K4's and
+    K6's counts unmoved, and a second call bit-equal to the first."""
+    q, cache, res, wo = _attn_out_kind_case(card, kind, kv, G)
     layer, p = _i32([1], card), _i32([pos], card)
-    got = _counted(attn_out_fused, "fused_attn_out",
+    key = "fused_attn_out" + ("" if kv == "bf16" else f"_{kv}")
+    k4, k6 = dict(flash_attention.launches), dict(decode_fused.launches)
+    got = _counted(attn_out_fused, key,
                    lambda: attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo))
+    again = attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo)
+    assert flash_attention.launches == k4 and decode_fused.launches == k6
     want = attn_out_fused.fused_attn_out_ref(q, cache, layer, p, res, wo)
     torch.cuda.synchronize()
     assert got.shape == res.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), **TOL)
 
 
@@ -235,8 +274,9 @@ def test_fused_attn_out_matches_plain(card, G, pos):
 def test_cooperative_kernels_replay_in_a_graph(card, M):
     """K5 and both entries of K7 (the fused walk: split K summed in a
     cluster; K7 two launches, the second a programmatic dependent launch)
-    and K8 (a cooperative launch with a grid barrier), captured in one
-    CUDA graph at layer 0 and replayed 3 times at layer 1, give the eager
+    and K8 (the split attention, then the walk as a programmatic dependent
+    launch, its merge's arrival counts wrapping), captured in one CUDA
+    graph at layer 0 and replayed 3 times at layer 1, give the eager
     result at layer 1 bit for bit every time."""
     x, a, nw, ws, cfg = _fused_inputs(M, card, seed=3)
     q, cache, res, wo = _attn_out_inputs(card, 8, 700, seed=3)
@@ -265,6 +305,53 @@ def test_cooperative_kernels_replay_in_a_graph(card, M):
         torch.cuda.synchronize()
         for o, e in zip(outs, eager):
             assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+def test_fused_attn_out_replays_at_other_layers_and_positions(card, kv):
+    """K8 at TinyLlama's heads (32 query heads, 4 kv heads, q8 wo
+    2048 -> 2048) captured in a CUDA graph at layer 0 and pos 127 (two
+    tiles, one block a kv head) and replayed at layer 1 and pos 1500,
+    448, 447, 5 and 2047 (split rows merged by a ticket, and solo rows):
+    each replay equal to an eager call there bit for bit; the attention's
+    split count and the walk's plan follow host sizes only."""
+    q, cache, res, wo = _attn_out_kind_inputs(card, "q8", kv, 8, seed=5, Kh=4, S=2048)
+    layer, p = _i32([0], card), _i32([127], card)
+
+    def run():
+        return attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo)
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    layer.fill_(1)
+    for pos in (1500, 448, 447, 5, 2047):
+        p.fill_(pos)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, run()), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["q8", "q4", "q4g"])
+def test_fused_attn_out_plan_is_resident(card, kind):
+    """K8's plan at TinyLlama's widths on the card: the attention splits
+    a row of max_ctx 2048 over 16 blocks (K4's count at B = 1), and the
+    wo walk (K1's rule at M = 1) gives every SM but n_sm / 32 a block
+    with every cluster resident at once: 16 tiles of 128 x 8 splits."""
+    n_sm, code = qmatmul.sm_count(card), qmatmul.KIND_CODE[kind]
+    n_split, width, splits = attn_out_fused.card_plan(code, 4, 2048, 2048, 2048, n_sm)
+    assert n_split == min(16, -(-n_sm // 4))
+    clusters = ctypes.c_int(0)
+    build.check(attn_out_fused._lib().fused_attn_out_resident(
+        code, 2048, width, splits, ctypes.byref(clusters)), "K8")
+    blocks = -(-2048 // width) * splits
+    assert n_sm - n_sm // 32 <= blocks <= clusters.value * splits, (width, splits)
+    assert (width, splits) == (128, 8)
 
 
 @pytest.mark.cuda

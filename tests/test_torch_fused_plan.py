@@ -25,7 +25,9 @@ ragged N, the split model against ``qmatmul_ref`` (bf16 and f32 out,
 stacked and unstacked, K past 8,192 rows) and ``fused_out_residual_ref``,
 and K1's aq8 branch by a model of its registers (the s8 fragments built
 by byte permutes) and of its per-split quantization, whose int32 block
-dots must equal the plain version's bit for bit.
+dots must equal the plain version's bit for bit. K8's wo launch is the
+same walk: tests/test_torch_attn_out_split.py models it with
+``split_model`` and a residual.
 """
 
 import collections
@@ -56,13 +58,15 @@ def fused_blocks(K, ncols, width, splits):
             for t in range(tiles) for s in range(splits)}
 
 
-def split_model(x2, norm_w, w, layer, splits, eps=0.0, inside=False):
+def split_model(x2, norm_w, w, layer, splits, eps=0.0, inside=False,
+                residual=None):
     """The kernel's split arithmetic on the plain path: x2 [M, K] (normed
     in the walk when norm_w, the [L, K] table, is given) against the
     layer's dequantized weight, its K walk cut as ``fused_blocks`` cuts
     it. With a norm each split's f32 sum of squares of its slice is added
     in split order into the rms statistic; each split's f32 partial
-    product is added in split order. Returns the f32 [M, N] sums."""
+    product is added in split order, and a residual [M, N] (the epilogue
+    of K6 and K8) to that sum once. Returns the f32 [M, N] sums."""
     K, M = x2.shape[1], x2.shape[0]
     steps = -(-K // fused_plan.STEP)
     cuts = [min(s * steps // splits * fused_plan.STEP, K) for s in range(splits + 1)]
@@ -80,7 +84,7 @@ def split_model(x2, norm_w, w, layer, splits, eps=0.0, inside=False):
     with exact_f32():
         for a, b in zip(cuts, cuts[1:]):
             out = out + xf[:, a:b] @ wd[a:b]
-    return out
+    return out if residual is None else out + residual.float()
 
 
 def _cover(K, ncols, width, splits):
@@ -546,6 +550,7 @@ def test_split_model_matches_fused_out_residual_ref(kind, M):
     layer = torch.tensor([1], dtype=torch.int32)
     want = decode_fused.fused_out_residual_ref(a, r, wo, layer)
     for splits in (1, 3, fused_plan.fused_plan(D, D, H100_SMS)[1]):
-        out = r.reshape(M, D).float() + split_model(a.reshape(M, D), None, wo, layer, splits)
+        out = split_model(a.reshape(M, D), None, wo, layer, splits,
+                          residual=r.reshape(M, D))
         torch.testing.assert_close(out.to(torch.bfloat16).float(),
                                    want.reshape(M, D).float(), **TOL)

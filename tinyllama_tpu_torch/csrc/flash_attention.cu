@@ -10,7 +10,7 @@
 // is visible to a query at absolute position p iff s <= p. Probabilities
 // feed the weighted sum of V as bf16, the normalizer sums them in f32,
 // and the output is acc / l, as in the TPU kernels (online_softmax.cuh
-// holds the recurrence the other attention kernels share).
+// holds what the attention kernels' recurrences share).
 //
 // K3 flash_prefill replaces _flash_attn_kernel in
 //   tinyllama_tpu/ops/pallas/flash_prefill.py. Bound: the QK^T and PV

@@ -11,7 +11,10 @@
 //   silu(gate) * up, then down (+ the residual) as a dependent launch;
 // * K1 qmm_smallm (qmatmul.cu): x @ w at M <= 8 with a bf16 or f32
 //   output, for every linear of the unfused decode branch and the
-//   lm_head; with AQ8 (qmm_smallm_aq8) x quantized to int8 in the kernel.
+//   lm_head; with AQ8 (qmm_smallm_aq8) x quantized to int8 in the kernel;
+// * K8 fused_attn_out (attn_out_fused.cu): attn @ wo + the residual at
+//   M = 1, as a dependent launch after the attention of
+//   decode_split.cuh, whose output is its x.
 //
 // What bounds it on this card: the weight bytes at every M <= 32 (a q8
 // byte feeds 2 M <= 64 operations, far below the ~295 at which the tensor
@@ -98,10 +101,11 @@
 #include "hopper.cuh"
 #include "qkind.cuh"
 
-// Internal linkage: qmatmul.cu, decode_fused.cu and ffn_fused.cu each
-// instantiate the kernel and its launcher into their own library, and the
-// libraries live in one process; shared (weak) symbols would let one
-// library's launcher or kernel handle stand in for another's.
+// Internal linkage: qmatmul.cu, decode_fused.cu, ffn_fused.cu and
+// attn_out_fused.cu each instantiate the kernel and its launcher into
+// their own library, and the libraries live in one process; shared (weak)
+// symbols would let one library's launcher or kernel handle stand in for
+// another's.
 namespace fwalk {
 namespace {
 

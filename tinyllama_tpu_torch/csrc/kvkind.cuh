@@ -7,23 +7,19 @@
 //   f32  (kind 3): f32 k/v planes, no scales.
 // The attention kernels are templated on the element type. Every kind
 // stages keys and values into shared memory as bf16, so the tile code
-// after the load is shared: an int8 value converts to bf16 exactly (an
-// int8 row costs 64 bytes of device memory instead of 128); an f16 or f32
+// after the load is shared: an int8 value times its row's scale is
+// rounded to bf16 (an int8 row costs 64 bytes of device memory and a
+// 4-byte scale instead of 128); an f16 or f32
 // value is rounded to bf16 to nearest even, as the TPU kernels cast a
 // tile to the compute dtype (astype(bf16); f16 -> f32 is exact, so going
 // through f32 rounds once). An f16 row costs 128 bytes, an f32 row 256.
-// Where the scales go: K8 folds a key's scale into its score after the
-// 1/sqrt(d) scale, as the TPU kernels do (softmax_update.py); K3, K4 and
-// K9-K11 dequantize a tile's keys as it lands (load8_scaled,
-// flash_prefill.py's (k * ks).astype(bf16)), as the plain versions do.
-// For the values one rounding moves: the TPU kernels round p * vs to
-// bf16 for the MXU; K8 rounds p to bf16 (as its bf16 instantiation does)
-// and multiplies by vs in f32, since its PV sum is f32 FMAs; K4 and
-// K9-K11, whose products run on the tensor cores, round p and v * vs
-// (load8_scaled) to bf16 apart, as the plain versions, which dequantize
-// v first. Rounding the product puts one bf16 error of vs on every value
-// of a key at once, which at pos 0 (one key) moved K8's outputs past the
-// bf16 tolerance against the plain versions.
+// Where the scales go: K3, K4 and K8-K11 dequantize a tile's keys and
+// values as it lands (load8_scaled, flash_prefill.py's
+// (k * ks).astype(bf16)), as the plain versions do; the TPU kernels fold a
+// key's scale into its score after the 1/sqrt(d) scale instead
+// (softmax_update.py) and round p * vs to bf16 for the MXU, where these
+// kernels, whose products run on the tensor cores, round p and v * vs to
+// bf16 apart (PERF.md, the int8 rounding against JAX).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,13 +57,12 @@ __device__ inline uint4 load8_scaled(const int8_t* p, float s) {
                     bf16x2(byte_at(raw.y, 2) * s, byte_at(raw.y, 3) * s));
 }
 
-// Eight consecutive values as eight bf16: a 16-byte load of bf16; an
-// 8-byte load of int8 converted exactly; a 16-byte load of f16, or two of
-// f32, rounded to nearest even. p is aligned to the load.
+// Eight consecutive values as eight bf16: a 16-byte load of bf16; a
+// 16-byte load of f16, or two of f32, rounded to nearest even. p is
+// aligned to the load.
 __device__ inline uint4 load8(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
-__device__ inline uint4 load8(const int8_t* p) { return load8_scaled(p, 1.f); }
 __device__ inline uint4 load8(const __half* p) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const __half2* h = reinterpret_cast<const __half2*>(&raw);

@@ -1,5 +1,5 @@
 // The weight kinds of the port's "kn" QTensor (quant/codec.py) as the
-// kernels see them, shared by qmatmul.cu, fused_walk.cuh and qstrip.cuh:
+// kernels see them, shared by qmatmul.cu and fused_walk.cuh:
 //   q8  (kind 0): int8 [K, N], one fp16 scale per 32 rows of K and column;
 //   q4  (kind 1): uint8 [K/2, N], one scale per 32 rows;
 //   q4g (kind 2): uint8 [K/2, N], one scale per 128 rows.

@@ -14,7 +14,10 @@ a measurement, each with the label and the card's name and power limit
   1234): K5 ``fused_norm_qkv`` and K7 ``ffn_fused_normed`` at M = 1, 4
   and 32 in q8, q4 and q4g, K7's plain entry ``ffn_fused`` at M = 1 (q8),
   K6 ``fused_out_residual`` at M = 4 and 32 in q8, q4 and q4g, K8
-  ``fused_attn_out`` at pos 127 over a bf16 cache (q8), and K1
+  ``fused_attn_out`` at pos 127 and 1500 over a bf16 cache in q8, q4 and
+  q4g and over int8, f16 and f32 caches in q8 (its library call SDPA
+  over the visible keys as bf16, then ``torch.addmm`` with the
+  residual), and K1
   ``qmm_smallm`` (``qmatmul.qmatmul``) at wqkv, wo, w_gateup, w_down and
   the lm_head (padded to 32,768 columns as the engine pads it; f32 out)
   at M = 1, 4 and 8 in q8, q4, q4g, q8a8 and q4a8 (the aq8 branch on q8
@@ -66,6 +69,8 @@ from pathlib import Path
 
 HBM_BW, PEAK_BF16 = 3.35e12, 989e12
 PROMPT, N_NEW, GRAPH_POS, BATCH, STEPS, SLOTS = 100, 256, 127, 4, 8, 32
+#: K8's positions: path (a)'s graph step and the long-context step's
+K8_POS = (GRAPH_POS, 1500)
 
 
 def main(argv=None) -> int:
@@ -104,7 +109,9 @@ def main(argv=None) -> int:
     from tinyllama_tpu_torch.ops.kernels import qmatmul as qm
     from tinyllama_tpu_torch.quant import codec
     from tinyllama_tpu_torch.runtime.engine import Engine
-    from tinyllama_tpu_torch.runtime.kvcache import KVCache
+    from tinyllama_tpu_torch.runtime.kvcache import (
+        KVCache, layer_cache_view, quantize_kv,
+    )
     from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
     from tinyllama_tpu_torch.runtime.staging import stage_cache
     from tinyllama_tpu_torch.tools import kbench
@@ -171,6 +178,53 @@ def main(argv=None) -> int:
                        library_us=kbench.time_ms(lib, 100, True) * 1e3)
         emit(**rec, **{k: f() for k, f in extra.items()})
 
+    H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    #: bytes of a cached key (or value) row by KV kind, int8 with its scale
+    kv_row = {"bf16": 2 * d, "f16": 2 * d, "f32": 4 * d, "i8": d + 4}
+
+    def kv_cache(base, kv):
+        """base (bf16) as a cache of KV kind kv: the same values quantized
+        to int8 with their scales, or cast."""
+        if kv == "bf16":
+            return base
+        if kv == "i8":
+            (k, ks), (v, vs) = quantize_kv(base.k), quantize_kv(base.v)
+            return KVCache(k, v, ks, vs)
+        dt = {"f16": torch.float16, "f32": torch.float32}[kv]
+        return KVCache(base.k.to(dt), base.v.to(dt))
+
+    def k8_rows(kind, wo, dwo):
+        """K8 at K8_POS over a bf16 cache and, for q8, int8, f16 and f32
+        ones (labels "q8-kvi8", ...); library: SDPA over the visible keys
+        as bf16 (int8 dequantized, f16 and f32 cast), then torch.addmm."""
+        base = KVCache(rand(L, 1, Kh, 2048, d), rand(L, 1, Kh, 2048, d))
+        for kv in ("bf16", "i8", "f16", "f32") if kind == "q8" else ("bf16",):
+            cache = kv_cache(base, kv)
+            views = [layer_cache_view(cache, li, torch.bfloat16) for li in range(L)]
+            q, res = rand(1, 1, H, d), rand(1, 1, D)
+            for p in K8_POS:
+                pos = torch.tensor([p], dtype=torch.int32, device=dev)
+                n_keys = p + 1
+
+                def sdpa_addmm(i, q=q, res=res, n_keys=n_keys):
+                    k, v = views[i % L]
+                    att = torch.nn.functional.scaled_dot_product_attention(
+                        q.transpose(1, 2), k[:, :, :n_keys], v[:, :, :n_keys],
+                        enable_gqa=True)
+                    return torch.addmm(res.view(1, D), att.reshape(1, D), dwo[i % L])
+
+                row("K8 fused_attn_out", kind if kv == "bf16" else f"{kind}-kv{kv}",
+                    f"pos={p}",
+                    lambda i, q=q, res=res, pos=pos, cache=cache:
+                        ao.fused_attn_out(q, cache, layers[i % L], pos, res, wo),
+                    lambda i, q=q, res=res, pos=pos, cache=cache:
+                        ao.fused_attn_out_ref(q, cache, layers[i % L], pos, res, wo),
+                    sdpa_addmm,
+                    nbytes(wo) + 2 * Kh * n_keys * kv_row[kv] + H * d * 2 + 2 * D * 2,
+                    4 * H * n_keys * d + 2 * D * D)
+            del cache, views
+        del base
+
     for kind in () if args.steps_only else \
             ("q8",) if quick else ("q8", "q4", "q4g"):
         lin = params_of(kind)["layers"]
@@ -208,26 +262,8 @@ def main(argv=None) -> int:
                     lambda i: df.fused_out_residual_ref(a, r, wo, layers[i % L]),
                     lambda i: torch.addmm(r.view(M, D), a.view(M, D), dwo[i % L]),
                     nbytes(wo) + 3 * M * D * 2, 2 * M * D * D)
-        if kind == "q8" and not quick:
-            H, Kh, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 2048
-            cache = KVCache(rand(L, 1, Kh, S, d), rand(L, 1, Kh, S, d))
-            q, res = rand(1, 1, H, d), rand(1, 1, D)
-            pos = torch.tensor([GRAPH_POS], dtype=torch.int32, device=dev)
-            n_keys = GRAPH_POS + 1
-
-            def sdpa_addmm(i):
-                att = torch.nn.functional.scaled_dot_product_attention(
-                    q.transpose(1, 2), cache.k[i % L][:, :, :n_keys],
-                    cache.v[i % L][:, :, :n_keys], enable_gqa=True)
-                return torch.addmm(res.view(1, D), att.reshape(1, D), dwo[i % L])
-
-            row("K8 fused_attn_out", kind, f"pos={GRAPH_POS}",
-                lambda i: ao.fused_attn_out(q, cache, layers[i % L], pos, res, wo),
-                lambda i: ao.fused_attn_out_ref(q, cache, layers[i % L], pos, res, wo),
-                sdpa_addmm,
-                nbytes(wo) + 2 * Kh * n_keys * d * 2 + H * d * 2 + 2 * D * 2,
-                4 * H * n_keys * d + 2 * D * D)
-            del cache, dwo
+            k8_rows(kind, wo, dwo)
+            del dwo
         del lin, dq, dgu, dwd
         torch.cuda.empty_cache()
 
