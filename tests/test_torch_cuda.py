@@ -2182,3 +2182,117 @@ def test_smallm_refusals_on_the_card(card):
             x.data_ptr(), wo.data.data_ptr(), wo.scales.data_ptr(), None, out.data_ptr(),
             0, 0, 1, 2048, 2048, width, splits, build.stream_ptr(x)) == 1
     torch.cuda.synchronize()
+
+
+# --- the dense policies on the card ---------------------------------------------
+
+#: every kernel wrapper's launch counts
+COUNTERS = (qmatmul.launches, flash_attention.launches, decode_fused.launches,
+            ffn_fused.launches, attn_out_fused.launches, flash_paged.launches)
+DENSE_CFG = tiny_test_config(n_embd=256, n_heads=4, n_kv_heads=1, n_ffn=512)
+
+
+def _zero_counts():
+    for c in COUNTERS:
+        for k in c:
+            c[k] = 0
+
+
+def _launched():
+    return {k: v for c in COUNTERS for k, v in c.items() if v}
+
+
+def _dense_traces(policy, device, params):
+    """Logits of a prefill and two b1 decode steps, then of a staged
+    2-step chunk at B = 2, over a monolithic and a paged engine."""
+    out = []
+    greedy = GenerationConfig(greedy=True, eos_token=-1)
+    for paged in (False, True):
+        eng = Engine(DENSE_CFG, policy, params, device=device, paged=paged)
+        cache = eng.new_cache(1)
+        logits, _ = eng.prefill(cache, [[1, 5, 9, 33, 70, 2, 8]])
+        out.append(logits)
+        p = _i32([7], eng.device)
+        for t in (11, 12):
+            out.append(eng.decode_step(cache, _i32([t], eng.device), p))
+            p += 1
+        cache = eng.new_cache(2)
+        logits, lens = eng.prefill(cache, [[1, 4], [1, 6, 7]])
+        out.append(eng.chunk(cache, logits, _i32(lens.tolist(), eng.device), 2,
+                             greedy)[2])
+    return [t.float().cpu() for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["f16", "bf16", "f32"])
+def test_dense_on_the_card_launches_no_kernel(card, name):
+    """Dense weights run the plain ops on the card, as the JAX package runs
+    them without Pallas: a prefill, b1 steps, a paged prefill and steps
+    and a staged chunk launch no port kernel; the logits agree with the
+    CPU's to 5% of their largest magnitude (bf16 activations) or 1e-4 of
+    it (f32)."""
+    policy = POLICIES[name]
+    dense = llama.init_dense_params(DENSE_CFG, torch.Generator().manual_seed(0))
+    params = llama.convert_params(dense, policy)
+    _zero_counts()
+    got = _dense_traces(policy, card, params)
+    torch.cuda.synchronize()
+    assert _launched() == {}
+    want = _dense_traces(policy, "cpu", params)
+    rel = 1e-4 if name == "f32" else 0.05
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= rel * float(b.abs().max())
+
+
+def _engine_chunk(eng):
+    cache = eng.new_cache(1)
+    logits, _ = eng.prefill(cache, [[1, 5, 9, 33, 70, 2, 8]])
+    return eng.chunk(cache, logits, _i32([7], eng.device), 2,
+                     GenerationConfig(greedy=True, eos_token=-1))
+
+
+@pytest.mark.cuda
+def test_quantized_policy_still_launches_or_raises(card, monkeypatch):
+    """A q8 engine on the card launches its kernels; with no kernel
+    library to load, it raises rather than run a plain product."""
+    params = llama.init_quantized_params(DENSE_CFG, POLICIES["q8"],
+                                         torch.Generator().manual_seed(0))
+    eng = Engine(DENSE_CFG, POLICIES["q8"], params, device=card)
+    _zero_counts()
+    _engine_chunk(eng)
+    torch.cuda.synchronize()
+    assert {"qmm_smallm", "fused_norm_qkv", "fused_attn_out",
+            "ffn_fused_normed"} <= set(_launched())
+
+    def no_library(name):
+        raise RuntimeError(f"no library {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    with pytest.raises(RuntimeError, match="no library"):
+        _engine_chunk(eng)
+
+
+@pytest.mark.cuda
+def test_f32_dense_on_the_card_runs_without_tf32(card):
+    """With TF32 allowed process-wide, the f32 dense product still runs at
+    full precision (TF32 keeps ~10 mantissa bits: errors near 1e-3 of the
+    scale) and leaves the setting as it found it."""
+    from tinyllama_tpu_torch.ops.linear import linear, linear_f32_out
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 7, 2048, generator=g)
+    w = torch.randn(2, 512, 2048, generator=g)
+    want = (x.double() @ w[1].double().t())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = linear(x.to(card), w.to(card), 1)
+        got32 = linear_f32_out(x.to(card), w[1].to(card))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    scale = float(want.abs().max())
+    for t in (got, got32):
+        assert t.dtype == torch.float32
+        assert float((t.cpu().double() - want).abs().max()) <= 1e-5 * scale

@@ -121,11 +121,12 @@ def test_load_gten_matches_jax(files, file_dtype, wdtype):
 
 @pytest.mark.parametrize("file_dtype,wdtype,exc", [
     ("q8", "q4", ValueError), ("q4", "q8", ValueError),
-    ("q4", "f16", ValueError), ("fp16", None, NotImplementedError),
+    ("q4", "f16", ValueError), ("q8", "f32", ValueError),
 ])
 def test_load_gten_refuses_pairs(files, file_dtype, wdtype, exc):
-    """Incompatible file / policy pairs raise as in the JAX package; a
-    dense policy (an fp16 file's own) is not ported."""
+    """Incompatible file / policy pairs raise as in the JAX package (a
+    quantized file under a dense policy among them; an fp16 file into a
+    dense policy loads: tests/test_torch_dense.py)."""
     pol = wdtype and pconfig.POLICIES[wdtype]
     if exc is ValueError:
         with pytest.raises(ValueError):

@@ -580,9 +580,9 @@ def test_cli_kv_i8_runs_on_cpu(capsys, monkeypatch):
             super().__init__(cfg, policy, *a, **k)
 
     monkeypatch.setattr(cli, "Engine", Spy)
-    assert cli.main(["--random-weights", "--model", "tiny-test", "-p", "hello",
-                     "-greedy", "--npred", "12", "--device", "cpu", "--kv",
-                     "i8"]) == 0
+    assert cli.main(["--random-weights", "--model", "tiny-test", "-q8", "-p",
+                     "hello", "-greedy", "--npred", "12", "--device", "cpu",
+                     "--kv", "i8"]) == 0
     assert [p.kv_dtype for p in seen] == ["i8"] and seen[0] == \
         pconfig.POLICIES["q8-kvi8"]
     out = capsys.readouterr()

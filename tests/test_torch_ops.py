@@ -100,8 +100,9 @@ def test_q8_round_half_to_even():
 
 def test_unported_quant_kinds_raise():
     """Every quantized kind is ported, and aq8 activations with q8 and q4
-    weights (q8a8, q4a8); an unknown kind raises, and so do dense weights,
-    which are not ported yet, and q4g with aq8, which has no aq8 branch."""
+    weights (q8a8, q4a8); an unknown kind raises, and so do dense weights
+    given to init_quantized_params (they take init_dense_params), and q4g
+    with aq8, which has no aq8 branch."""
     from tinyllama_tpu_torch.models import llama
 
     with pytest.raises(ValueError, match="unknown quant kind"):
@@ -113,7 +114,7 @@ def test_unported_quant_kinds_raise():
         params = llama.init_quantized_params(cfg, pconfig.POLICIES[name],
                                              torch.Generator())
         assert params["lm_head"].kind == pconfig.POLICIES[name].wdtype
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="init_dense_params"):
         llama.init_quantized_params(cfg, pconfig.POLICIES["bf16"],
                                     torch.Generator())
     with pytest.raises(ValueError, match="q4g"):

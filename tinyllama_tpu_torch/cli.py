@@ -5,9 +5,15 @@
     python -m tinyllama_tpu_torch.cli --random-weights -q8 -p "..." \\
         [--model tiny-test] [--device cuda|cpu] [--paged]
 
-Flags follow the reference CLI (``-q8 -q4 -p PROMPT -greedy --temp
+Flags follow the reference CLI (``-f16 -q8 -q4 -p PROMPT -greedy --temp
 --npred --topk``), plus ``-q4g`` (the group-128 4-bit format, requantized
-from the checkpoint at load). ``--ckpt`` takes a .gten file or a
+from the checkpoint at load) and the JAX CLI's ``--bf16`` and ``--f32``
+dense weights. ``-f16`` is the default, as in the reference and the JAX
+CLI: random weights and a HuggingFace checkpoint load as f16 unless
+another flag is given; a .gten file with no flag loads as its own dtype
+(f16 for the fp16 file). Dense weights run no kernel (the JAX package's
+choice: its dense path runs without Pallas), so ``-f16``, ``--bf16``
+and ``--f32`` run the plain PyTorch ops on the card. ``--ckpt`` takes a .gten file or a
 HuggingFace checkpoint (a .safetensors / .bin file or a directory);
 ``--tokenizer`` a tokenizer.bin or tokenizer.json (default: tokenizer.bin
 in the working directory, when there is one). Without ``-p`` the CLI is a
@@ -49,6 +55,8 @@ from tinyllama_tpu_torch.runtime.perf import perf_report
 
 #: the seed of --random-weights, whatever --seed is (sampling's seed)
 WEIGHTS_SEED = 0
+#: the weights' policy when no flag names one (a .gten file: its own)
+DEFAULT_DTYPE = "f16"
 #: suffixes of a HuggingFace checkpoint file (a directory is one too)
 HF_SUFFIXES = (".safetensors", ".bin", ".pt")
 
@@ -58,14 +66,20 @@ def build_parser() -> argparse.ArgumentParser:
         prog="tinyllama-tpu-torch",
         description="TinyLlama on an NVIDIA GPU (PyTorch + CUDA port).")
     g = p.add_mutually_exclusive_group()
+    g.add_argument("-f16", action="store_const", dest="dtype", const="f16",
+                   help="float-16 weights (2.2GB). [default; a .gten file "
+                        "without a flag loads as its own dtype]")
     g.add_argument("-q8", action="store_const", dest="dtype", const="q8",
-                   help="8-bit quantized weights (1.1GB). [default with "
-                        "--random-weights or an HF checkpoint]")
+                   help="8-bit quantized weights (1.1GB).")
     g.add_argument("-q4", action="store_const", dest="dtype", const="q4",
                    help="4-bit quantized weights (0.62GB).")
     g.add_argument("-q4g", action="store_const", dest="dtype", const="q4g",
                    help="4-bit weights with one scale per 128 (0.57GB; "
                         "requantized from the checkpoint at load).")
+    g.add_argument("--bf16", action="store_const", dest="dtype", const="bf16",
+                   help="bfloat16 weights (dense).")
+    g.add_argument("--f32", action="store_const", dest="dtype", const="f32",
+                   help="float32 weights and activations (parity/debug).")
     p.add_argument("-p", dest="prompt", default="", metavar="PROMPT",
                    help="single prompt (otherwise: chat REPL)")
     p.add_argument("-greedy", action="store_true", help="greedy sampling")
@@ -123,13 +137,18 @@ def load_params(args, cfg, device):
     """(params, policy) from the flags: random, an HF checkpoint, or a
     .gten file (whose own dtype serves when no dtype flag is given)."""
     if args.random_weights:
-        policy = POLICIES[args.dtype or "q8"]
+        policy = POLICIES[args.dtype or DEFAULT_DTYPE]
         generator = torch.Generator(device)
         generator.manual_seed(WEIGHTS_SEED)
-        return llama.init_quantized_params(cfg, policy, generator, device), policy
+        if policy.is_quantized:
+            return (llama.init_quantized_params(cfg, policy, generator, device),
+                    policy)
+        # as the JAX CLI: f32 weights, then cast per the policy
+        dense = llama.init_dense_params(cfg, generator, device=device)
+        return llama.convert_params(dense, policy), policy
     ckpt = Path(args.ckpt)
     if ckpt.is_dir() or ckpt.suffix in HF_SUFFIXES:
-        policy = POLICIES[args.dtype or "q8"]
+        policy = POLICIES[args.dtype or DEFAULT_DTYPE]
         return load_hf_checkpoint(ckpt, cfg, policy, device), policy
     return load_gten_checkpoint(ckpt, cfg, args.dtype and POLICIES[args.dtype],
                                 device)
@@ -147,6 +166,8 @@ def main(argv=None) -> int:
 
     load_t0 = time.perf_counter()
     params, policy = load_params(args, cfg, device)
+    if device.type == "cuda":  # weights made on the card are made async
+        torch.cuda.synchronize(device)
     load_s = time.perf_counter() - load_t0
     if args.kv:
         policy = dataclasses.replace(policy, kv_dtype=args.kv)

@@ -3,8 +3,9 @@
 The tests build parameters with the JAX package, turn every array into
 numpy and hand the tree here, so both packages run on the same weights.
 This module imports no JAX: a quantized tensor arrives as a tuple
-``(data, scales, kind, layout)``; dense arrays (the norm weights) arrive
-as they are. The JAX package ships "kn" scales as int16 fp16 bit
+``(data, scales, kind, layout)``; dense arrays (the norm weights, and
+every weight of a dense policy: f32, f16, or bf16 as numpy's ml_dtypes
+type) arrive as they are. The JAX package ships "kn" scales as int16 fp16 bit
 patterns; they are viewed back as float16, bits unchanged.
 
 The JAX package's 4-bit planes are laid out for Mosaic, so they are
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from tinyllama_tpu_torch.config import DtypePolicy, ModelConfig
-from tinyllama_tpu_torch.models.llama import LAYER_LINEARS, Params
+from tinyllama_tpu_torch.models.llama import DTYPES, LAYER_LINEARS, Params
 from tinyllama_tpu_torch.quant.codec import (
     BLOCK_SIZE,
     Q4G_BLOCK,
@@ -119,16 +120,33 @@ def qtensor_from_numpy(parts, device="cpu") -> QTensor:
 def params_from_numpy(tree: dict, cfg: ModelConfig, policy: DtypePolicy,
                       device="cpu") -> Params:
     """The port's parameters from the JAX tree in numpy form (see the
-    module docstring), checked against `cfg` and `policy`."""
+    module docstring), checked against `cfg` and `policy`: quantized
+    tuples of the policy's kind, or dense [L, d_out, d_in] arrays of its
+    wdtype, bits unchanged."""
     kind = policy.wdtype
-    if kind not in ("q8", "q4", "q4g"):
-        raise NotImplementedError(
-            f"weights {kind!r} are not ported yet (ROADMAP.md)")
-    bs = block_size(kind)
-    rows = 1 if kind == "q8" else 2
+    norms = ("attn_norm", "ffn_norm")
 
     def dense(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    if not policy.is_quantized:
+        want_dtype = DTYPES[kind]
+        shapes = {"embed": (cfg.n_vocab, cfg.n_embd),
+                  "lm_head": (cfg.n_vocab, cfg.n_embd),
+                  **{n: (cfg.n_layers, *f(cfg)) for n, f in LAYER_LINEARS.items()}}
+        out = {n: tensor_from_numpy(tree["layers"][n] if n in LAYER_LINEARS
+                                    else tree[n], device) for n in shapes}
+        for n, t in out.items():
+            if t.dtype != want_dtype or tuple(t.shape) != shapes[n]:
+                raise ValueError(f"{n}: expected {kind} {shapes[n]}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+        layers = {n: out[n] for n in LAYER_LINEARS}
+        layers.update({n: dense(tree["layers"][n]) for n in norms})
+        return {"embed": out["embed"], "layers": layers,
+                "norm": dense(tree["norm"]), "lm_head": out["lm_head"]}
+
+    bs = block_size(kind)
+    rows = 1 if kind == "q8" else 2
 
     layers = {}
     for name, shape_fn in LAYER_LINEARS.items():
@@ -141,7 +159,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, policy: DtypePolicy,
             raise ValueError(f"{name}: expected {kind} kn data {want}, got "
                              f"{qt.kind} {qt.layout} {tuple(qt.data.shape)}")
         layers[name] = qt
-    for name in ("attn_norm", "ffn_norm"):
+    for name in norms:
         layers[name] = dense(tree["layers"][name])
     embed = qtensor_from_numpy(tree["embed"], device)
     lm_head = qtensor_from_numpy(tree["lm_head"], device)

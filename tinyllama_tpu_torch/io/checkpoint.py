@@ -10,11 +10,12 @@ is per row, so concatenating quantized rows keeps every value), stacked
 over layers and laid out "kn"; the embedding table stays "nk".
 
 File and policy pair as in the JAX package: a q8 or q4 file loads into
-its own policy; an fp16 file, or a q4 or q8 file under q4g, is
-dequantized and requantized at load (``quantize`` of the file's values;
-q4 into q4g is one more 4-bit rounding); any other pair raises. The port
-runs quantized policies only, so a dense policy raises
-NotImplementedError.
+its own policy; an fp16 file loads into a dense policy (f16, bf16, f32:
+the values cast to its wdtype, fused and stacked as [L, d_out, d_in])
+or into a quantized one (``quantize`` of the file's values), and a q4
+or q8 file under q4g is dequantized and requantized (one more 4-bit
+rounding); any other pair, a q8 or q4 file under a dense policy
+included, raises ValueError.
 
 HuggingFace checkpoints are read without the ``safetensors`` package: a
 .safetensors file is an 8-byte little-endian header length, a JSON
@@ -35,7 +36,7 @@ import torch
 
 from tinyllama_tpu_torch.config import DtypePolicy, ModelConfig, POLICIES
 from tinyllama_tpu_torch.io import gten
-from tinyllama_tpu_torch.models.llama import Params, require_quantized
+from tinyllama_tpu_torch.models.llama import DTYPES, Params
 from tinyllama_tpu_torch.quant.codec import (
     QTensor,
     dequantize,
@@ -73,7 +74,6 @@ def load_gten_checkpoint(path: str | Path, cfg: ModelConfig,
             canon is not None and not policy.is_quantized):
         raise ValueError(
             f"file dtype {file_dtype} incompatible with policy {policy.wdtype}")
-    require_quantized(policy)
     kind = policy.wdtype
 
     def decode(key):
@@ -86,9 +86,12 @@ def load_gten_checkpoint(path: str | Path, cfg: ModelConfig,
             return decoded.float()
         return dequantize(QTensor(*decoded, file_dtype, "nk"))
 
-    def weight(parts, layout: str) -> QTensor:
-        """The records of `parts` fused along d_out, in the policy's kind."""
+    def weight(parts, layout: str) -> QTensor | torch.Tensor:
+        """The records of `parts` fused along d_out, in the policy's kind
+        (a dense policy: the fp16 values in its wdtype)."""
         decoded = [decode(p) for p in parts]
+        if not policy.is_quantized:
+            return torch.cat(decoded).to(DTYPES[kind])
         if requant:
             return quantize(torch.cat([dense(d) for d in decoded]), kind, layout)
         qt = QTensor(torch.cat([d for d, _ in decoded]),
@@ -101,8 +104,9 @@ def load_gten_checkpoint(path: str | Path, cfg: ModelConfig,
             layers[name] = torch.stack([decode(f"{name}.{i}").float()
                                         for i in range(cfg.n_layers)])
         else:
-            layers[name] = stack([weight([f"{p}.{i}" for p in parts], "kn")
-                                  for i in range(cfg.n_layers)])
+            ws = [weight([f"{p}.{i}" for p in parts], "kn")
+                  for i in range(cfg.n_layers)]
+            layers[name] = stack(ws) if policy.is_quantized else torch.stack(ws)
     params: Params = {
         "embed": weight(["embed"], "nk"),
         "layers": layers,
@@ -178,13 +182,18 @@ def load_hf_state_dict(path: Path) -> dict[str, torch.Tensor]:
 def load_hf_checkpoint(path: str | Path, cfg: ModelConfig, policy: DtypePolicy,
                        device="cpu") -> Params:
     """Load a HuggingFace Llama-family checkpoint into the port's
-    parameters on `device`, quantized per the policy. A tied lm_head
-    (cfg.tie_lm_head, or no lm_head.weight) is the embedding table."""
-    require_quantized(policy)
+    parameters on `device`, quantized or cast per the policy. A tied
+    lm_head (cfg.tie_lm_head, or no lm_head.weight) is the embedding
+    table."""
     sd = load_hf_state_dict(Path(path))
 
     def f32(name) -> torch.Tensor:
         return sd[name].to(device, torch.float32)
+
+    def conv(w: torch.Tensor, layout: str):
+        if policy.is_quantized:
+            return quantize(w, policy.wdtype, layout)
+        return w.to(DTYPES[policy.wdtype])
 
     layers: dict[str, object] = {}
     # one fused name at a time bounds the extra memory to one stack
@@ -193,16 +202,16 @@ def load_hf_checkpoint(path: str | Path, cfg: ModelConfig, policy: DtypePolicy,
             torch.cat([f32(f"model.layers.{i}.{_HF_SUFFIX[p]}") for p in parts])
             for i in range(cfg.n_layers)])
         layers[rname] = (stacked if rname.endswith("norm")
-                         else quantize(stacked, policy.wdtype, "kn"))
+                         else conv(stacked, "kn"))
         del stacked
     embed = f32("model.embed_tokens.weight")
     tied = cfg.tie_lm_head or "lm_head.weight" not in sd
     lm = embed if tied else f32("lm_head.weight")
     return {
-        "embed": quantize(embed, policy.wdtype, "nk"),
+        "embed": conv(embed, "nk"),
         "layers": layers,
         "norm": f32("model.norm.weight"),
-        "lm_head": quantize(lm, policy.wdtype, "kn"),
+        "lm_head": conv(lm, "kn"),
     }
 
 

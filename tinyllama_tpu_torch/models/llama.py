@@ -32,8 +32,14 @@ writes quantize, and each attention kernel runs its int8 instantiation.
 
 Norm weights reach the fused kernels as the stacked [L, D] table with
 the device layer index. The lm_head (K1) runs outside ``forward``, on the
-rows the caller picks. Weights are q8, q4 or q4g (every kernel takes each
-kind); dense weights come later (ROADMAP.md). With aq8 activations (the
+rows the caller picks. Quantized weights are q8, q4 or q4g (every kernel
+takes each kind). Dense weights (the f16, bf16 and f32 policies) take no
+kernel at all, as the JAX package runs them with ``use_pallas=False``:
+every block is unfused, each linear a plain f32-accumulated product of
+the layer's slice (ops/linear.py), and the attention on every cache kind
+is ``gqa_attention`` over the layer's keys gathered into a dense view
+(``_attend_plain``). The choice follows the weights' type alone, as the
+fused branch's does. With aq8 activations (the
 q8a8 and q4a8 policies; q8 and q4 weights) every block takes the
 unfused branch, as the JAX rule dictates: each ``linear`` and the
 lm_head run K1's int8-activation branch at M <= 8 (K2 as it is above),
@@ -48,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from tinyllama_tpu_torch.config import DtypePolicy, ModelConfig
+from tinyllama_tpu_torch.ops.attention import gqa_attention
 from tinyllama_tpu_torch.ops.kernels.attn_out_fused import fused_attn_out
 from tinyllama_tpu_torch.ops.kernels.decode_fused import (
     decode_fused_eligible,
@@ -79,18 +86,25 @@ from tinyllama_tpu_torch.ops.rope import apply_rope_gathered, gather_rope, rope_
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize, stack
 from tinyllama_tpu_torch.runtime.kvcache import (
     KVCache,
+    layer_cache_view,
     quantize_kv,
     update_cache_at_layer,
 )
-from tinyllama_tpu_torch.runtime.paged import PagedKVCache, update_paged_at_layer
+from tinyllama_tpu_torch.runtime.paged import (
+    PagedKVCache,
+    paged_layer_view,
+    update_paged_at_layer,
+)
 from tinyllama_tpu_torch.runtime.staging import (
     StagedKVCache,
+    staged_layer_view,
     update_staged_at_layer,
 )
 
 Params = dict[str, Any]
 
-ACT_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+#: the float dtypes of the policies' activations and dense weights
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
 #: per-layer linear weights and their [d_out, d_in] shapes: rows
 #: [q | k | v] and [gate | up] fused along d_out (block quantization is
@@ -104,17 +118,11 @@ LAYER_LINEARS = {
 
 
 def act_dtype(policy: DtypePolicy) -> torch.dtype:
-    return ACT_DTYPES[policy.adtype]
+    return DTYPES[policy.adtype]
 
 
-def require_quantized(policy: DtypePolicy) -> None:
-    """The port runs quantized weights (q8, q4, q4g), with aq8
-    activations for q8 and q4; dense weights are not ported yet, and q4g
-    has no aq8 branch (the JAX kernel asserts so)."""
-    if not policy.is_quantized:
-        raise NotImplementedError(
-            f"weights {policy.wdtype!r} are not ported yet: the port runs "
-            "q8, q4 and q4g (ROADMAP.md, Queue 1)")
+def check_policy(policy: DtypePolicy) -> None:
+    """q4g has no aq8 branch (the JAX kernel asserts so)."""
     if policy.aq8 and policy.wdtype == "q4g":
         raise ValueError("q4g has no aq8 variant")
 
@@ -124,6 +132,28 @@ def require_quantized(policy: DtypePolicy) -> None:
 # ----------------------------------------------------------------------------
 
 
+def init_dense_params(cfg: ModelConfig, generator: torch.Generator,
+                      device="cpu") -> Params:
+    """Random dense f32 parameters, N(0, 0.02), [L, d_out, d_in] per layer
+    linear, norm weights ones (``convert_params`` casts them per policy).
+    `generator` lives on `device`. Real weights come from io/checkpoint.py
+    or io/convert.py."""
+    def rand(shape):
+        return torch.randn(shape, generator=generator, device=device) * 0.02
+
+    L = cfg.n_layers
+    layers: dict[str, Any] = {name: rand((L, *shape_fn(cfg)))
+                              for name, shape_fn in LAYER_LINEARS.items()}
+    layers["attn_norm"] = torch.ones((L, cfg.n_embd), device=device)
+    layers["ffn_norm"] = torch.ones((L, cfg.n_embd), device=device)
+    return {
+        "embed": rand((cfg.n_vocab, cfg.n_embd)),
+        "layers": layers,
+        "norm": torch.ones((cfg.n_embd,), device=device),
+        "lm_head": rand((cfg.n_vocab, cfg.n_embd)),
+    }
+
+
 def init_quantized_params(cfg: ModelConfig, policy: DtypePolicy,
                           generator: torch.Generator,
                           device="cpu") -> Params:
@@ -131,7 +161,10 @@ def init_quantized_params(cfg: ModelConfig, policy: DtypePolicy,
     quantization) built on `device` one f32 tensor at a time, so the peak
     extra memory is one layer's tensor plus the quantized layers and the
     embedding tables. `generator` lives on `device`."""
-    require_quantized(policy)
+    if not policy.is_quantized:
+        raise ValueError(f"{policy.wdtype} weights are dense: use "
+                         "init_dense_params")
+    check_policy(policy)
     kind = policy.wdtype
 
     def rand(shape):
@@ -154,14 +187,17 @@ def init_quantized_params(cfg: ModelConfig, policy: DtypePolicy,
 
 
 def convert_params(dense: Params, policy: DtypePolicy) -> Params:
-    """Block-quantize dense f32 params ([L, d_out, d_in] per layer linear)
-    into the policy's kind. Norm weights stay f32; the embedding table is
-    "nk", every matmul weight "kn"."""
-    require_quantized(policy)
+    """Cast or block-quantize dense f32 params ([L, d_out, d_in] per layer
+    linear) per the policy. Norm weights stay f32. Quantized: the
+    embedding table is "nk", every matmul weight "kn"; dense: each weight
+    in the policy's wdtype, laid out as given."""
+    check_policy(policy)
 
     def conv(name: str, w: torch.Tensor):
         if name.endswith("norm"):
             return w.float()
+        if not policy.is_quantized:
+            return w.to(DTYPES[policy.wdtype])
         return quantize(w, policy.wdtype,
                         layout="nk" if name == "embed" else "kn")
 
@@ -187,23 +223,65 @@ def params_to(params: Params, device) -> Params:
 
 
 def pad_lm_head_vocab(params: Params, multiple: int = 2048) -> Params:
-    """Pad a kn lm_head's vocab dim (32003 -> 32768) with zero data and
-    zero scales, so the decode kernel reads whole 4-byte column groups and
-    strips. Zero scales null the pad columns exactly (a 4-bit column's -7
-    offset is multiplied by its scale too); lm_head_logits slices them
-    off, so samplers never see pad ids."""
+    """Pad a quantized kn lm_head's vocab dim (32003 -> 32768) with zero
+    data and zero scales, so the decode kernel reads whole 4-byte column
+    groups and strips. Zero scales null the pad columns exactly (a 4-bit
+    column's -7 offset is multiplied by its scale too); lm_head_logits
+    slices them off, so samplers never see pad ids. A dense lm_head, which
+    no kernel reads, stays as it is (JAX pads only under use_pallas)."""
     lm = params["lm_head"]
+    if not isinstance(lm, QTensor) or lm.layout != "kn":
+        return params
     pad = (-lm.data.shape[-1]) % multiple
-    if lm.layout != "kn" or not pad:
+    if not pad:
         return params
     return {**params, "lm_head": QTensor(F.pad(lm.data, (0, pad)),
                                          F.pad(lm.scales, (0, pad)),
                                          lm.kind, lm.layout)}
 
 
+def cast_dense_weights(params: Params, dtype: torch.dtype) -> Params:
+    """Dense matmul weights and the embedding table in the activation
+    dtype, norms as they are: the values every product and gather of the
+    JAX package computes with (it casts the weight to x.dtype a call), so
+    the cast is made once, not once a step. Quantized params pass
+    through."""
+    if isinstance(params["embed"], QTensor):
+        return params
+
+    def cast(name, w):
+        return w if name.endswith("norm") else w.to(dtype)
+
+    return {
+        "embed": cast("embed", params["embed"]),
+        "norm": params["norm"],
+        "lm_head": cast("lm_head", params["lm_head"]),
+        "layers": {n: cast(n, w) for n, w in params["layers"].items()},
+    }
+
+
 # ----------------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------------
+
+
+def _attend_plain(q: torch.Tensor, cache, li: int,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """The attention of dense weights on any cache kind, as the JAX
+    ``_block`` computes it with use_pallas=False: the layer's keys and
+    values gathered into a dense [B, Kh, S, d] view (pages, a staged
+    tail and int8 dequantized in f32), then ``gqa_attention`` at the
+    queries' absolute positions."""
+    B, T = q.shape[:2]
+    q_positions = (pos.long()[:, None]
+                   + torch.arange(T, device=q.device)[None, :])
+    if isinstance(cache, StagedKVCache):
+        k, v = staged_layer_view(cache, li, q.dtype)
+    elif isinstance(cache, PagedKVCache):
+        k, v = paged_layer_view(cache, li, q.dtype)
+    else:
+        k, v = layer_cache_view(cache, li, q.dtype)
+    return gqa_attention(q, k, v, q_positions, kernel_order=False)
 
 
 def _attend_paged_prefill(q, k, v, layer0, pos, from_zero, quantized):
@@ -246,14 +324,18 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
     H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
     layer = layer_ids[li:li + 1]
+    dense = not isinstance(lp["wqkv"], QTensor)
     fused = decode_fused_eligible(cfg, lp, B * T, aq8)
     ffn_eligible = ffn_fused_eligible(cfg, lp["w_gateup"], lp["w_down"], B * T)
+
+    def lin(h, name):
+        # a dense weight's layer is sliced by its host index
+        return linear(h, lp[name], li if dense else layer, aq8)
 
     if fused:
         qkv = fused_norm_qkv(x, lp["attn_norm"], lp["wqkv"], layer, eps, inside)
     else:
-        qkv = linear(rms_norm(x, lp["attn_norm"][li], eps, inside), lp["wqkv"],
-                     layer, aq8)
+        qkv = lin(rms_norm(x, lp["attn_norm"][li], eps, inside), "wqkv")
     q = qkv[..., : H * d].reshape(B, T, H, d)
     k = qkv[..., H * d: (H + Kh) * d].reshape(B, T, Kh, d)
     v = qkv[..., (H + Kh) * d:].reshape(B, T, Kh, d)
@@ -265,30 +347,34 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
         # a staged decode chunk: one batched write of the step's K/V into
         # the tail; attention reads the pool below base + the tail
         update_staged_at_layer(cache, li, k, v)
+    elif isinstance(cache, PagedKVCache):
+        update_paged_at_layer(cache, li, k, v, pos)
+    else:
+        update_cache_at_layer(cache, li, k, v, pos)
+    if dense:
+        attn = _attend_plain(q, cache, li, pos)
+    elif isinstance(cache, StagedKVCache):
         attend = (flash_paged_staged_attention if cache.paged
                   else flash_staged_attention)
         attn = attend(q, cache, layer, pos)
     elif isinstance(cache, PagedKVCache):
-        update_paged_at_layer(cache, li, k, v, pos)
         if T == 1:
             attn = flash_paged_attention(q, cache, layer, pos)
         else:
             attn = _attend_paged_prefill(q, k, v, layer_ids[:1], pos,
                                          from_zero, cache.quantized)
+    elif fused and T == 1 and B == 1 and d % 32 == 0:
+        x = fused_attn_out(q, cache, layer, pos, x, lp["wo"])
     else:
-        update_cache_at_layer(cache, li, k, v, pos)
-        if fused and T == 1 and B == 1 and d % 32 == 0:
-            x = fused_attn_out(q, cache, layer, pos, x, lp["wo"])
-        else:
-            attend = (flash_decode_heads_attention if T == 1
-                      else flash_prefill_attention)
-            attn = attend(q, cache, layer, pos)
+        attend = (flash_decode_heads_attention if T == 1
+                  else flash_prefill_attention)
+        attn = attend(q, cache, layer, pos)
     if attn is not None:
         attn = attn.reshape(B, T, H * d)
         if fused:
             x = fused_out_residual(attn, x, lp["wo"], layer)
         else:
-            x = x + linear(attn, lp["wo"], layer, aq8)
+            x = x + lin(attn, "wo")
     if fused and ffn_eligible:
         return ffn_fused_normed(x, lp["ffn_norm"], lp["w_gateup"],
                                 lp["w_down"], layer, cfg)
@@ -296,10 +382,10 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
     h = rms_norm(x, lp["ffn_norm"][li], eps, inside)
     if ffn_eligible and not aq8:  # the JAX branch for an unfused block
         return x + ffn_fused(h, lp["w_gateup"], lp["w_down"], layer, cfg)
-    gate_up = linear(h, lp["w_gateup"], layer, aq8)
+    gate_up = lin(h, "w_gateup")
     gate, up = gate_up[..., : cfg.n_ffn], gate_up[..., cfg.n_ffn:]
     inner = F.silu(gate.float()).to(x.dtype) * up
-    return x + linear(inner, lp["w_down"], layer, aq8)
+    return x + lin(inner, "w_down")
 
 
 def forward(
@@ -319,7 +405,7 @@ def forward(
     prefill needs from_zero (it starts at position 0). Rope rows of
     positions past max_ctx (the discarded overhang of a last chunk) read
     the table's last row, as the JAX package's clamped gather does."""
-    require_quantized(policy)
+    check_policy(policy)
     B, T = tokens.shape
     device = tokens.device
     cos, sin = rope_tables if rope_tables is not None else rope_table(
@@ -342,6 +428,8 @@ def lm_head_logits(params: Params, hidden: torch.Tensor,
                    aq8: bool = False) -> torch.Tensor:
     """Hidden rows [B, D] -> f32 logits [B, n_vocab] (with `aq8`, K1's
     int8-activation branch at B <= 8); a vocab-padded lm_head is sliced
-    back to the embedding table's vocab."""
+    back to the embedding table's vocab (the rows of a dense table, of a
+    quantized one's nk data)."""
     logits = linear_f32_out(hidden.contiguous(), params["lm_head"], aq8)
-    return logits[..., : params["embed"].data.shape[0]]
+    emb = params["embed"]
+    return logits[..., : (emb.data if isinstance(emb, QTensor) else emb).shape[0]]

@@ -22,6 +22,7 @@ def gqa_attention(
     k: torch.Tensor,  # [B, Kh, S, d]
     v: torch.Tensor,  # [B, Kh, S, d]
     q_positions: torch.Tensor,  # [B, T] absolute positions of the queries
+    kernel_order: bool = True,
 ) -> torch.Tensor:
     """Causal GQA attention of new queries against the whole cache.
     Returns [B, T, H, d] in q.dtype.
@@ -30,7 +31,10 @@ def gqa_attention(
     f32) with TF32 off. At bf16 the probabilities round to bf16 before the
     weighted sum of V, as the kernels feed bf16 to their second product,
     and as there unnormalized (exp(s - max), so the largest is exactly 1):
-    the f32 sum of the unrounded ones divides after the sum."""
+    the f32 sum of the unrounded ones divides after the sum. With
+    ``kernel_order=False`` (the dense weights' path) they are normalized
+    first and then rounded, as the JAX package's plain gqa_attention
+    computes them."""
     B, T, H, d = q.shape
     Kh, S = k.shape[1], k.shape[2]
     G = H // Kh
@@ -46,10 +50,13 @@ def gqa_attention(
         m = scores.amax(dim=-1, keepdim=True)
         p = torch.exp(scores - m)
         l = p.sum(dim=-1, keepdim=True)  # [B, Kh, T, G, 1]
-        if low:
+        if low and kernel_order:
             out = torch.einsum("bktgs,bksd->btkgd",
                                p.to(torch.bfloat16).float(), v.float())
             out = out / l.permute(0, 2, 1, 3, 4)
         else:
-            out = torch.einsum("bktgs,bksd->btkgd", p / l, v.float())
+            p = p / l
+            if low:
+                p = p.to(torch.bfloat16).float()
+            out = torch.einsum("bktgs,bksd->btkgd", p, v.float())
     return out.reshape(B, T, H, d).to(q.dtype)

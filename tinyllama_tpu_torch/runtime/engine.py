@@ -17,7 +17,11 @@ The counterpart of the JAX package's runtime/engine.py:
 The cache is monolithic, or with ``paged=True`` a page pool
 (runtime/paged.py), in the policy's KV dtype: bf16, f16, f32, or int8
 with scales (``"i8"``, the ``*-kvi8`` policies). The policy's aq8 (q8a8,
-q4a8) reaches every linear and the lm_head. Each step is
+q4a8) reaches every linear and the lm_head. Dense weights (f16, bf16,
+f32) run the plain ops on either device, as the JAX engine runs them
+without Pallas; the engine stores them cast to the activation dtype (an
+f16 weight as bf16 under the f16 policy), the values every product of
+the JAX package casts them to. Each step is
 dispatched eagerly from Python; capturing it in a CUDA graph is queued
 work (ROADMAP.md).
 
@@ -103,16 +107,21 @@ class Engine:
                  params: llama.Params, max_ctx: int | None = None,
                  device=None, paged: bool = False):
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and policy.adtype != "bf16":
+        if (self.device.type == "cuda" and policy.is_quantized
+                and policy.adtype != "bf16"):
             raise NotImplementedError(
                 f"the CUDA kernels take bf16 activations, not {policy.adtype}; "
-                "f32 and f16 compute are queued (ROADMAP.md)")
+                "f32 and f16 compute with quantized weights are queued "
+                "(ROADMAP.md)")
         self.cfg = cfg
         self.policy = policy
         self.max_ctx = max_ctx or cfg.max_ctx
         self.paged = paged
-        # whole char4 rows and strips for the lm_head kernel
-        self.params = llama.pad_lm_head_vocab(llama.params_to(params, self.device))
+        # quantized: whole char4 rows and strips for the lm_head kernel;
+        # dense: the weights cast to the activation dtype once, here
+        self.params = llama.cast_dense_weights(
+            llama.pad_lm_head_vocab(llama.params_to(params, self.device)),
+            llama.act_dtype(policy))
         self.rope_tables = rope_table(self.max_ctx, cfg.d_head, cfg.rope_theta,
                                       self.device)
         self.layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32,

@@ -77,6 +77,7 @@ class ContinuousBatcher:
         n_pages: int | None = None,
         page_size: int | None = None,
         sp_admit_threshold: int | None = None,
+        ttft_chunk: int = 0,
     ):
         if sp_admit_threshold is not None:
             raise NotImplementedError(
@@ -88,6 +89,11 @@ class ContinuousBatcher:
         self.engine = engine
         self.gen = gen or GenerationConfig()
         self.B = max_batch
+        #: first-token latency dial (0: off): while a running slot has
+        #: produced no token yet, the next chunk runs at most this many
+        #: steps, so its first token reaches the host sooner, at the cost
+        #: of more, shorter chunks
+        self.ttft_chunk = ttft_chunk
         #: the batch of the last chunk
         self._bucket = self.B
         self._ids = itertools.count()
@@ -250,11 +256,15 @@ class ContinuousBatcher:
 
     def _chunk_len(self) -> int:
         """chunk_size, cut to the largest remaining budget (rounded up to a
-        power of two)."""
+        power of two), and to ttft_chunk while a running slot waits for
+        its first token."""
         C = max(1, self.gen.chunk_size)
         rem = [r.max_new - len(r.output) for r in self.running if r is not None]
         if rem:
             C = min(C, _pow2_at_least(max(max(rem), 1)))
+        if self.ttft_chunk and any(r is not None and not r.output
+                                   for r in self.running):
+            C = max(1, min(C, self.ttft_chunk))
         return C
 
     def step(self, stream: Callable[[int, int], None] | None = None) -> None:
