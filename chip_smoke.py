@@ -133,6 +133,21 @@ Phases, each fatal on failure:
    after each kind's (h) and (i), that kind's weight kernels (K1, K2 at
    M = 128, 512 and 2048, K5-K8) against their plain versions, as in phase 3, with
    the launches of (h) and (i), and K1-aq8's q4 rows;
+   every decode chunk of these paths goes through Engine.run_chunk, a CUDA
+   graph of Engine.chunk captured at its first use and replayed after
+   (runtime/graphs.py); the counts read the chunks through run_chunk, so a
+   replay counts its captured launches. For comparison the entry points
+   run again with the eager Engine.chunk (eager_chunks): (a), (e), (j),
+   (k), (l) and (n)'s b1 generate (the same ids and counts; ms/token
+   each, and the device's ms a step over replayed chunks), (h)'s q4 CLI,
+   (f)'s and (g)'s requests (the batchers' first pass captures, the
+   measured pass replays and gives the first pass's tokens, the eager
+   pass the same tokens) and (m)'s 16 HTTP requests; each path prints
+   the graphs it captured, their seconds and torch.cuda.memory_reserved;
+   and for (a), (d), (e), (f), (j), (l) and (n), two chained 32-step
+   chunks from one prefill, eager and through run_chunk's capture and
+   replays over a cache prefilled again, must be torch.equal (tokens and
+   logits); on (a) also with top-k from one seed;
 5. parity: a 2-layer model at TinyLlama's full widths, the same weights
    on the card (kernels) and the CPU (plain versions): a long prefill
    and 4 teacher-forced decode steps, a short (fused) prefill, a B = 4
@@ -164,6 +179,7 @@ from __future__ import annotations
 
 import atexit
 import collections
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -1150,18 +1166,243 @@ def main() -> int:
               f"{stats.prefill_s * 1e3:.3f} ms (bucket "
               f"{engine_bucket(LONG_PROMPT, eng.max_ctx)}, eager, host clock); "
               f"b1 decode after it: "
-              f"eager {stats.ms_per_token:.4f} ms/token over 64 tokens (pos "
+              f"{stats.ms_per_token:.4f} ms/token over 64 tokens (pos "
               f"{LONG_PROMPT}-{LONG_PROMPT + 63}); one step at pos {LONG_POS} "
-              f"replayed as a CUDA graph {ms:.4f} ms; card {card}", flush=True)
+              f"replayed as a CUDA graph {ms:.4f} ms{notes['first_use']}; card "
+              f"{card}", flush=True)
+
+    def graphs_of(engs):
+        engs = engs if isinstance(engs, list) else [engs]
+        return (sum(e.graph_stats["graphs"] for e in engs),
+                sum(e.graph_stats["capture_s"] for e in engs),
+                torch.cuda.memory_reserved())
+
+    def first_use(engs, before):
+        """The note of a run whose chunks met keys with no graph yet (their
+        first chunks ran eagerly and were captured, in its time)."""
+        n, sec, _ = graphs_of(engs)
+        n, sec = n - before[0], sec - before[1]
+        return (f" (first use of {n} chunk graph key{'s' * (n != 1)}: its "
+                f"first chunk eager, then captured, {sec:.3f} s, included)"
+                if n else "")
+
+    #: the last recorded run's first_use note
+    notes = {"first_use": ""}
+
+    # the serving paths: exact counts from the shapes each path ran at
+    def qmm(M):
+        return "qmm_smallm" if M <= qm.SMALL_M else "qmm_bigm"
+
+    def prefill_counts(c, b, T, paged, aq8):
+        """An admission of b rows at bucket T from position 0 (a paged
+        prefill attends its own keys: flash_prefill_own)."""
+        attend = "flash_prefill_own" if paged else "flash_prefill"
+        if b * T <= 32 and not aq8:  # the fused branch
+            for k in ("fused_norm_qkv", attend, "fused_out_residual",
+                      "ffn_fused_normed"):
+                c[k] += L
+        else:
+            c[qmm(b * T)] += 4 * L
+            c[attend] += L
+        c[qmm(b)] += 1
+
+    def chunk_counts(c, B, C, paged, aq8):
+        attend = ({True: "flash_paged_staged", False: "flash_staged"}[paged]
+                  if B > 1 else "flash_paged" if paged
+                  else "flash_decode_heads" if aq8 else "fused_attn_out")
+        c[attend] += C * L
+        if aq8:  # the unfused branch: four linears a layer and the lm_head
+            c[qmm(B)] += C * (4 * L + 1)
+            return
+        for k in ("fused_norm_qkv", "ffn_fused_normed"):
+            c[k] += C * L
+        if attend != "fused_attn_out":
+            c["fused_out_residual"] += C * L
+        c[qmm(B)] += C
+
+    def recorded(eng, paged, run):
+        """Run `run()` with the prefill and run_chunk of `eng` (an Engine,
+        or a list of Engines of one policy) wrapped to record each
+        admission's (rows, bucket) and each chunk's (rows, steps), whether
+        the chunk is its graph's capture, a replay or (in eager_chunks)
+        the eager Engine.chunk; returns run()'s result, the record and the
+        counts it dictates (none for dense weights, which launch no
+        kernel)."""
+        engs = eng if isinstance(eng, list) else [eng]
+        record = {"prefill": [], "chunk": []}
+
+        def wrap(e):
+            prefill, run_chunk = e.prefill, e.run_chunk
+
+            def rec_prefill(cache, prompts):
+                T = engine_bucket(max(len(p) for p in prompts), e.max_ctx)
+                record["prefill"].append((len(prompts), T))
+                return prefill(cache, prompts)
+
+            def rec_chunk(cache, logits, pos, C, *a, **k):
+                record["chunk"].append((logits.shape[0], C))
+                return run_chunk(cache, logits, pos, C, *a, **k)
+
+            e.prefill, e.run_chunk = rec_prefill, rec_chunk
+
+        for e in engs:
+            wrap(e)
+        before = graphs_of(engs)
+        try:
+            reset()
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            for e in engs:
+                del e.prefill, e.run_chunk
+        notes["first_use"] = first_use(engs, before)
+        want = {k: 0 for c in counters for k in c}
+        want["flash_prefill_own"] = 0
+        if engs[0].policy.is_quantized:
+            aq8 = engs[0].policy.aq8
+            for b, T in record["prefill"]:
+                prefill_counts(want, b, T, paged, aq8)
+            for B, C in record["chunk"]:
+                chunk_counts(want, B, C, paged, aq8)
+        return out, record, want
+
+    def ids_ok(outs, n_new):
+        return all(len(o) == n and all(0 <= t < cfg.n_vocab for t in o)
+                   for o, n in zip(outs, n_new))
+
+    # the decode chunk as a CUDA graph (Engine.run_chunk) against the
+    # eager Engine.chunk
+    graph_run_chunk = Engine.run_chunk
+
+    @contextlib.contextmanager
+    def eager_chunks():
+        """Every engine's entry points (generate, generate_batch, the
+        batcher) run the eager Engine.chunk for the duration, for
+        comparison: run_chunk rebound to chunk on the class."""
+        Engine.run_chunk = Engine.chunk
+        try:
+            yield
+        finally:
+            Engine.run_chunk = graph_run_chunk
+
+    def graph_line(path, engs, before):
+        """The graphs `engs` captured since `before` (graphs_of), the
+        seconds spent on them and the memory the allocator holds."""
+        (n0, s0, m0), (n1, s1, m1) = before, graphs_of(engs)
+        print(f"path {path}: {n1 - n0} chunk graphs captured in "
+              f"{s1 - s0:.3f} s (each with its eager first run); "
+              f"torch.cuda.memory_reserved {m0 / 2**20:.1f} -> "
+              f"{m1 / 2**20:.1f} MiB", flush=True)
+
+    def replay_rate(eng, prompts, C=32, n=4):
+        """n chained replays of a greedy C-step chunk over `prompts` in the
+        engine's own cache of their batch size, the one generate and
+        generate_batch use (so the graph they captured, over the same
+        addresses; captured here if they have not): device ms a step
+        (CUDA events around the replays) and host ms a step to the last
+        replay's end."""
+        cache = eng._cache(len(prompts))
+        logits, lens = eng.prefill(cache, prompts)
+        pos = torch.from_numpy(lens.astype(np.int32)).to("cuda")
+        gcfg = GenerationConfig(greedy=True, eos_token=-1)
+        _, _, logits, pos = eng.run_chunk(cache, logits, pos, C, gcfg)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            _, _, logits, pos = eng.run_chunk(cache, logits, pos, C, gcfg)
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) / (n * C),
+                (time.perf_counter() - t0) * 1e3 / (n * C))
+
+    def graph_equals(path, eng, prompts_, seed=None, chunks=2, C=32):
+        """`chunks` chained C-step chunks from one prefill: Engine.chunk
+        eagerly over one cache, Engine.run_chunk over another in two
+        passes (the first captures, the second replays every chunk after
+        the cache is prefilled again); tokens and logits must be
+        torch.equal. With `seed`, top-k (40, temperature 0.9) from
+        generators of that seed."""
+        gcfg = (GenerationConfig(greedy=True, eos_token=-1) if seed is None
+                else GenerationConfig(greedy=False, top_k=40, temperature=0.9,
+                                      eos_token=-1))
+
+        def start(cache):
+            logits, lens = eng.prefill(cache, prompts_)
+            return logits, torch.from_numpy(lens.astype(np.int32)).to("cuda")
+
+        def generator():
+            return (None if seed is None
+                    else torch.Generator("cuda").manual_seed(seed))
+
+        cache = eng.new_cache(len(prompts_))
+        logits, pos = start(cache)
+        g, eager = generator(), []
+        for _ in range(chunks):
+            toks, _, logits, pos = eng.chunk(cache, logits, pos, C, gcfg, g)
+            eager.append((toks.clone(), logits.clone()))
+        store, g = eng.new_cache(len(prompts_)), generator()
+        for rep in range(2):
+            logits, pos = start(store)
+            if g is not None:
+                g.manual_seed(seed)
+            for i, (want_t, want_l) in enumerate(eager):
+                toks, _, logits, pos = eng.run_chunk(store, logits, pos, C,
+                                                     gcfg, g)
+                if not (torch.equal(toks, want_t) and torch.equal(logits,
+                                                                   want_l)):
+                    raise AssertionError(
+                        f"graph {path}: chunk {i} of pass {rep} through "
+                        "run_chunk differs from the eager Engine.chunk")
+        print(f"graph {path}: {chunks} chained {C}-step chunks at B="
+              f"{len(prompts_)}, {'greedy' if seed is None else f'top-k seed {seed}'}"
+              f": the captured chunk and its replays (after the cache is "
+              f"prefilled again) torch.equal to the eager Engine.chunk, "
+              f"tokens and logits", flush=True)
+
+    def b1_paths(path, eng, prompt_, n_new, kind="q8", **want):
+        """prompt_ and n_new greedy tokens through Engine.generate with
+        the chunk's graph replayed (captured by a warm-up generate), then
+        with the eager chunk: the same tokens, the same exact launch
+        counts (`want`, else those the recorded shapes dictate); their
+        ms/token, and the device's ms a step over replayed chunks (its
+        busy share of each)."""
+        before = graphs_of(eng)
+        eng.generate(prompt_, GenerationConfig(
+            n_predict=len(prompt_) + 32, greedy=True, eos_token=-1,
+            chunk_size=32))
+        runs = []
+        for mode in ("graph", "eager"):
+            with eager_chunks() if mode == "eager" else contextlib.nullcontext():
+                (out_, stats_), _, dictated = recorded(
+                    eng, eng.paged, lambda: generate(prompt_, n_new, eng))
+            expect(f"{path} {mode}", kind, **(want or dictated))
+            runs.append((out_, stats_))
+        (out_, stats_), (out_e, stats_e) = runs
+        if out_e != out_:
+            raise AssertionError(f"path {path}: the graph's tokens are not "
+                                 "the eager chunk's")
+        dev_ms, _ = replay_rate(eng, [prompt_])
+        print(f"path {path}: decode {stats_.ms_per_token:.4f} ms/token with "
+              f"the chunk's graph replayed, {stats_e.ms_per_token:.4f} ms/token"
+              f" eager ({stats_e.ms_per_token / stats_.ms_per_token:.2f}x), "
+              f"{n_new} tokens each, the same ids; the device "
+              f"{dev_ms:.4f} ms a step over replayed chunks: busy "
+              f"{dev_ms / stats_.ms_per_token:.3f} of a graph token, "
+              f"{dev_ms / stats_e.ms_per_token:.3f} of an eager one; card "
+              f"{card}", flush=True)
+        graph_line(path, eng, before)
+        return out_, stats_
 
     # (a) main path: unfused prefill (bucket 128), fused b1 decode
     prompt = prompt_of(PROMPT_LEN)
-    engine.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
-                                             greedy=True, eos_token=-1))
-    out, stats = generate(prompt, N_NEW)
-    expect("(a)", qmm_bigm=4 * L, flash_prefill=L, qmm_smallm=1 + N_NEW,
-           fused_norm_qkv=L * N_NEW, fused_attn_out=L * N_NEW,
-           ffn_fused_normed=L * N_NEW)
+    out, stats = b1_paths(
+        "(a)", engine, prompt, N_NEW, qmm_bigm=4 * L, flash_prefill=L,
+        qmm_smallm=1 + N_NEW, fused_norm_qkv=L * N_NEW,
+        fused_attn_out=L * N_NEW, ffn_fused_normed=L * N_NEW)
+    graph_equals("(a)", engine, [prompt])
+    graph_equals("(a)", engine, [prompt], seed=7)
     print(f"path (a): prefill {stats.prefill_s * 1e3:.3f} ms "
           f"({stats.prompt_tokens} tokens, bucket 128); decode "
           f"{stats.decode_tokens_per_s:.2f} tok/s = "
@@ -1176,9 +1417,9 @@ def main() -> int:
     pos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device="cuda")
     step_ms = time_ms(lambda i: engine.decode_step(cache, tok, pos), 20, True)
     print(f"path (a): one decode step at pos {PROMPT_LEN} replayed as a "
-          f"CUDA graph: {step_ms:.4f} ms device time; eager "
+          f"CUDA graph: {step_ms:.4f} ms device time; generate "
           f"{stats.ms_per_token:.4f} ms/token, so the device is busy "
-          f"{step_ms / stats.ms_per_token:.3f} of an eager step", flush=True)
+          f"{step_ms / stats.ms_per_token:.3f} of its token", flush=True)
     if "--profile" in sys.argv[1:]:
         profile_decode(engine, prompt, torch)
 
@@ -1189,7 +1430,9 @@ def main() -> int:
         chat = prompt_of(CHAT_LEN)
         eng.generate(chat, GenerationConfig(n_predict=CHAT_LEN + 2, greedy=True,
                                             eos_token=-1))
+        before = graphs_of(eng)
         out, stats = generate(chat, CHAT_NEW, eng)
+        note = first_use(eng, before)
         if eng.policy.aq8:  # unfused: K2 at M = 32, then K1-aq8 and K4
             expect(path, kind, qmm_bigm=4 * L, flash_prefill=L,
                    qmm_smallm=1 + CHAT_NEW * (4 * L + 1),
@@ -1202,7 +1445,7 @@ def main() -> int:
         print(f"path {path}: prefill {stats.prefill_s * 1e3:.3f} ms "
               f"({stats.prompt_tokens} tokens, bucket 32); decode "
               f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
-              "tokens", flush=True)
+              f"tokens{note}", flush=True)
         return chat
 
     def batch_path(eng, path, kind="q8", graph=False):
@@ -1249,89 +1492,12 @@ def main() -> int:
     # (c) batched decode steps: unfused prefill of 4 rows, fused B = 4 steps
     batch_path(engine, "(c)", graph=True)
 
-    # the serving paths: exact counts from the shapes each path ran at
-    def qmm(M):
-        return "qmm_smallm" if M <= qm.SMALL_M else "qmm_bigm"
-
-    def prefill_counts(c, b, T, paged, aq8):
-        """An admission of b rows at bucket T from position 0 (a paged
-        prefill attends its own keys: flash_prefill_own)."""
-        attend = "flash_prefill_own" if paged else "flash_prefill"
-        if b * T <= 32 and not aq8:  # the fused branch
-            for k in ("fused_norm_qkv", attend, "fused_out_residual",
-                      "ffn_fused_normed"):
-                c[k] += L
-        else:
-            c[qmm(b * T)] += 4 * L
-            c[attend] += L
-        c[qmm(b)] += 1
-
-    def chunk_counts(c, B, C, paged, aq8):
-        attend = ({True: "flash_paged_staged", False: "flash_staged"}[paged]
-                  if B > 1 else "flash_paged" if paged
-                  else "flash_decode_heads" if aq8 else "fused_attn_out")
-        c[attend] += C * L
-        if aq8:  # the unfused branch: four linears a layer and the lm_head
-            c[qmm(B)] += C * (4 * L + 1)
-            return
-        for k in ("fused_norm_qkv", "ffn_fused_normed"):
-            c[k] += C * L
-        if attend != "fused_attn_out":
-            c["fused_out_residual"] += C * L
-        c[qmm(B)] += C
-
-    def recorded(eng, paged, run):
-        """Run `run()` with the prefill and chunk of `eng` (an Engine, or a
-        list of Engines of one policy) wrapped to record each admission's
-        (rows, bucket) and each chunk's (rows, steps); returns run()'s
-        result, the record and the counts it dictates (none for dense
-        weights, which launch no kernel)."""
-        engs = eng if isinstance(eng, list) else [eng]
-        record = {"prefill": [], "chunk": []}
-
-        def wrap(e):
-            prefill, chunk = e.prefill, e.chunk
-
-            def rec_prefill(cache, prompts):
-                T = engine_bucket(max(len(p) for p in prompts), e.max_ctx)
-                record["prefill"].append((len(prompts), T))
-                return prefill(cache, prompts)
-
-            def rec_chunk(cache, logits, pos, C, *a, **k):
-                record["chunk"].append((logits.shape[0], C))
-                return chunk(cache, logits, pos, C, *a, **k)
-
-            e.prefill, e.chunk = rec_prefill, rec_chunk
-
-        for e in engs:
-            wrap(e)
-        try:
-            reset()
-            out = run()
-            torch.cuda.synchronize()
-        finally:
-            for e in engs:
-                del e.prefill, e.chunk
-        want = {k: 0 for c in counters for k in c}
-        want["flash_prefill_own"] = 0
-        if engs[0].policy.is_quantized:
-            aq8 = engs[0].policy.aq8
-            for b, T in record["prefill"]:
-                prefill_counts(want, b, T, paged, aq8)
-            for B, C in record["chunk"]:
-                chunk_counts(want, B, C, paged, aq8)
-        return out, record, want
-
-    def ids_ok(outs, n_new):
-        return all(len(o) == n and all(0 <= t < cfg.n_vocab for t in o)
-                   for o, n in zip(outs, n_new))
-
     # (d) generate_batch, monolithic: staged chunks over the cache (K9)
     gcfg = GenerationConfig(n_predict=PROMPT_LEN + 64, greedy=True,
                             eos_token=-1, chunk_size=32)
     prompts = [prompt_of(PROMPT_LEN) for _ in range(BATCH)]
-    engine.generate_batch(prompts[:2], GenerationConfig(
-        n_predict=PROMPT_LEN + 4, greedy=True, eos_token=-1, chunk_size=2))
+    engine.generate_batch(prompts, GenerationConfig(  # captures B = 4, C = 32
+        n_predict=PROMPT_LEN + 32, greedy=True, eos_token=-1, chunk_size=32))
     t0 = time.perf_counter()
     (outs, stats), record, want = recorded(
         engine, False, lambda: engine.generate_batch(prompts, gcfg))
@@ -1344,7 +1510,8 @@ def main() -> int:
           f"64 new tokens each: prefill {stats.prefill_s * 1e3:.3f} ms, "
           f"decode {stats.decode_s * 1e3 / stats.decode_steps:.4f} ms a "
           f"staged B={BATCH} step, {stats.generated_tokens / stats.decode_s:.2f} "
-          f"tok/s; wall {wall:.3f} s", flush=True)
+          f"tok/s (the chunk's graph replayed); wall {wall:.3f} s", flush=True)
+    graph_equals("(d)", engine, prompts)
 
     # (e) paged generate: K10 each step; the short prompt's prefill attends
     # a 32-key temporary cache. The engine serves (f) too.
@@ -1352,7 +1519,9 @@ def main() -> int:
                           device="cuda", paged=True)
     paged_engine.generate(chat, GenerationConfig(n_predict=CHAT_LEN + 2,
                                                  greedy=True, eos_token=-1))
-    for prompt_e, n_new in ((prompt, 64), (chat, 16)):
+    b1_paths("(e) 100-token prompt", paged_engine, prompt, 64)
+    graph_equals("(e)", paged_engine, [prompt])
+    for prompt_e, n_new in ((chat, 16),):
         gcfg = GenerationConfig(n_predict=len(prompt_e) + n_new, greedy=True,
                                 eos_token=-1, chunk_size=32)
         (out, stats), record, want = recorded(
@@ -1363,50 +1532,84 @@ def main() -> int:
         expect(f"(e) {len(prompt_e)}-token prompt", **want)
         print(f"path (e): paged generate, {len(prompt_e)}-token prompt: "
               f"prefill {stats.prefill_s * 1e3:.3f} ms; decode "
-              f"{stats.ms_per_token:.4f} ms/token over {n_new} tokens",
+              f"{stats.ms_per_token:.4f} ms/token over {n_new} tokens"
+              f"{notes['first_use']}",
               flush=True)
     long_step("(e)", paged_engine, "q8")
 
     # (f), (g) continuous batching: the batcher's cache is its engine's kind
-    def serve(path, eng, max_batch, n_requests, seed, kind="q8", ttft_chunk=0):
-        """Run the requests of `seed` through a batcher; returns its
-        aggregate tok/s, TTFT p50 and p95 (s) and its pool's bytes."""
+    def serve(path, eng, max_batch, n_requests, seed, kind="q8", ttft_chunk=0,
+              eager_too=False):
+        """Run the requests of `seed` through one batcher twice: a first
+        pass that captures its chunks' graphs, then the measured pass
+        (its chunks replays), whose tokens must be the first pass's; with
+        eager_too, once more through a new batcher with the eager chunk,
+        the same tokens again. Returns the measured pass's aggregate
+        tok/s, TTFT p50 and p95 (s) and its pool's bytes."""
         srng = np.random.default_rng(seed)
         lens = srng.integers(8, 201, n_requests)
         n_new = srng.integers(32, 97, n_requests).tolist()
         reqs = [[1] + srng.integers(2, cfg.n_vocab, n - 1).tolist() for n in lens]
         gcfg = GenerationConfig(greedy=True, eos_token=-1, chunk_size=32)
-        batcher = ContinuousBatcher(eng, gcfg, max_batch=max_batch,
-                                    ttft_chunk=ttft_chunk)
 
-        def run():
-            ids = [batcher.submit(r, max_new=n) for r, n in zip(reqs, n_new)]
+        def batcher_():
+            return ContinuousBatcher(eng, gcfg, max_batch=max_batch,
+                                     ttft_chunk=ttft_chunk)
+
+        def run(b):
+            ids = [b.submit(r, max_new=n) for r, n in zip(reqs, n_new)]
             t0 = time.perf_counter()
-            res = batcher.run()
-            return ids, res, time.perf_counter() - t0
+            res = b.run()
+            return [res[i] for i in ids], time.perf_counter() - t0
 
-        (ids, res, wall), record, want = recorded(eng, eng.paged, run)
-        outs = [res[i].output for i in ids]
-        if not ids_ok(outs, n_new):
+        def report(mode, done, wall, record):
+            ttft = np.array([r.first_token_s - r.submitted_s for r in done])
+            buckets = sorted({B for B, _ in record["chunk"]})
+            print(f"path {path}: ContinuousBatcher(paged={eng.paged}, "
+                  f"max_batch={max_batch}), {mode}, {n_requests} requests, "
+                  f"prompts {int(lens.min())}-{int(lens.max())} tokens, "
+                  f"{sum(n_new)} new tokens: {sum(n_new) / wall:.2f} tok/s "
+                  f"aggregate, TTFT p50 {np.percentile(ttft, 50) * 1e3:.3f} ms "
+                  f"p95 {np.percentile(ttft, 95) * 1e3:.3f} ms, wall "
+                  f"{wall:.3f} s; {len(record['prefill'])} admissions, "
+                  f"{len(record['chunk'])} chunks at buckets {buckets}; card "
+                  f"{card}", flush=True)
+            return (sum(n_new) / wall, np.percentile(ttft, 50),
+                    np.percentile(ttft, 95))
+
+        batcher = batcher_()
+        before = graphs_of(eng)
+        first, first_wall = run(batcher)
+        graph_line(f"{path} first pass ({first_wall:.3f} s)", eng, before)
+        before = graphs_of(eng)
+        (done, wall), record, want = recorded(eng, eng.paged,
+                                              lambda: run(batcher))
+        outs = [r.output for r in done]
+        if not ids_ok(outs, n_new) or outs != [r.output for r in first]:
             raise AssertionError(f"path {path}: a request did not get its "
-                                 "max_new ids in range")
+                                 "max_new ids in range, or not the first "
+                                 "pass's")
         expect(path, kind, **want)
-        ttft = np.array([res[i].first_token_s - res[i].submitted_s for i in ids])
-        buckets = sorted({B for B, _ in record["chunk"]})
-        print(f"path {path}: ContinuousBatcher(paged={eng.paged}, max_batch="
-              f"{max_batch}), {n_requests} requests, prompts {int(lens.min())}-"
-              f"{int(lens.max())} tokens, {sum(n_new)} new tokens: "
-              f"{sum(n_new) / wall:.2f} tok/s aggregate, TTFT p50 "
-              f"{np.percentile(ttft, 50) * 1e3:.3f} ms p95 "
-              f"{np.percentile(ttft, 95) * 1e3:.3f} ms, wall {wall:.3f} s; "
-              f"{len(record['prefill'])} admissions, {len(record['chunk'])} "
-              f"chunks at buckets {buckets}", flush=True)
+        result = report("chunk graphs replayed", done, wall, record)
+        graph_line(f"{path} measured pass", eng, before)
+        if eager_too:
+            with eager_chunks():
+                (done_e, wall_e), record_e, want_e = recorded(
+                    eng, eng.paged, lambda: run(batcher_()))
+            expect(f"{path} eager", kind, **want_e)
+            if [r.output for r in done_e] != outs:
+                raise AssertionError(f"path {path}: the eager chunk's tokens "
+                                     "are not the graphs'")
+            report("eager chunks, the same tokens", done_e, wall_e, record_e)
         pool = batcher.pool if eng.paged else batcher.cache
-        return (sum(n_new) / wall, np.percentile(ttft, 50),
-                np.percentile(ttft, 95), tree_nbytes(pool))
+        return (*result, tree_nbytes(pool))
 
-    served = {"(f)": serve("(f)", paged_engine, ADMIT, 64, 5),
-              "(g)": serve("(g)", engine, 8, 16, 6)}
+    served = {"(f)": serve("(f)", paged_engine, ADMIT, 64, 5, eager_too=True),
+              "(g)": serve("(g)", engine, 8, 16, 6, eager_too=True)}
+    srng = np.random.default_rng(5)
+    graph_equals("(f)", paged_engine,
+                 [[1] + srng.integers(2, cfg.n_vocab, n - 1).tolist()
+                  for n in srng.integers(8, 201, 64)][:ADMIT])
 
     # one admission of (f) at full width: its first ADMIT prompts (seed 5)
     # prefilled into a page pool at once, padded to one bucket, as the
@@ -1429,11 +1632,12 @@ def main() -> int:
           f"{bucket}, M = {rows_ * bucket}): "
           f"{', '.join(f'{ms:.3f}' for ms in adm_ms)} ms (three calls, "
           f"eager, host clock); card {card}", flush=True)
-    del paged_engine, adm_cache
+    del adm_cache
 
     # the device's share of a full-width staged step of (f) and (g): 8
     # eager steps on the host clock against one step replayed as a CUDA
-    # graph, at a 100-token fill
+    # graph, at a 100-token fill; then 4 chained full-width 32-step chunks
+    # replayed, device time against host time
     for path, paged, width in (("(f)", True, 32), ("(g)", False, 8)):
         cache = (engine.new_paged_cache(width) if paged
                  else engine.new_cache(width))
@@ -1449,11 +1653,16 @@ def main() -> int:
         torch.cuda.synchronize()
         eager_ms = (time.perf_counter() - t0) * 1e3 / 8
         graph_ms = time_ms(lambda i: engine.decode_step(st, tok, pos), 20, True)
+        dev_ms, host_ms = replay_rate(paged_engine if paged else engine,
+                                      [prompt] * width)
         print(f"path {path}: one staged B={width} step at pos {PROMPT_LEN}: "
               f"eager {eager_ms:.4f} ms (host clock, 8 steps), replayed as a "
               f"CUDA graph {graph_ms:.4f} ms, so the device is busy "
-              f"{graph_ms / eager_ms:.3f} of an eager step", flush=True)
+              f"{graph_ms / eager_ms:.3f} of an eager step; 32-step chunks "
+              f"replayed: device {dev_ms:.4f} ms a step, host {host_ms:.4f} "
+              f"ms a step, busy {dev_ms / host_ms:.3f}", flush=True)
         del cache, st
+    del paged_engine
 
     mark("paths (a)-(g)")
 
@@ -1461,12 +1670,12 @@ def main() -> int:
     # every cache kind: the int8 instantiations of K3, K4, K8-K11
     kvi8 = POLICIES["q8-kvi8"]
     eng8 = Engine(cfg, kvi8, engine.params, max_ctx=2048, device="cuda")
-    eng8.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
-                                           greedy=True, eos_token=-1))
-    out, stats = generate(prompt, 64, eng8)
-    expect("(j) b1", "q8-kvi8", qmm_bigm=4 * L, flash_prefill=L,
-           qmm_smallm=1 + 64, fused_norm_qkv=L * 64, fused_attn_out=L * 64,
-           ffn_fused_normed=L * 64)
+    out, stats = b1_paths("(j) b1", eng8, prompt, 64, "q8-kvi8",
+                          qmm_bigm=4 * L, flash_prefill=L, qmm_smallm=1 + 64,
+                          fused_norm_qkv=L * 64, fused_attn_out=L * 64,
+                          ffn_fused_normed=L * 64)
+    graph_equals("(j) b1", eng8, [prompt])
+    graph_equals("(j) B=4", eng8, prompts)
     cache = eng8.new_cache(1)
     eng8.prefill(cache, [prompt])
     tok = torch.tensor([5], dtype=torch.int32, device="cuda")
@@ -1477,8 +1686,8 @@ def main() -> int:
           f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
           f"tokens; one decode step at pos {PROMPT_LEN} replayed as a CUDA "
           f"graph {step8_ms:.4f} ms against (a)'s {step_ms:.4f} ms (bf16 "
-          f"cache); busy {step8_ms / stats.ms_per_token:.3f} of an eager "
-          "step", flush=True)
+          f"cache); busy {step8_ms / stats.ms_per_token:.3f} of a generate "
+          "token", flush=True)
     del cache
     batch_path(eng8, "(j) B=4", "q8-kvi8")
     gcfg = GenerationConfig(n_predict=PROMPT_LEN + 32, greedy=True,
@@ -1491,7 +1700,7 @@ def main() -> int:
     expect("(j) generate_batch", "q8-kvi8", **want)
     print(f"path (j) generate_batch: {BATCH} x {PROMPT_LEN}-token prompts, one "
           f"staged 32-step chunk: {stats.decode_s * 1e3 / stats.decode_steps:.4f}"
-          f" ms a staged B={BATCH} step", flush=True)
+          f" ms a staged B={BATCH} step{notes['first_use']}", flush=True)
     paged8 = Engine(cfg, kvi8, engine.params, max_ctx=2048, device="cuda",
                     paged=True)
     (out, stats), record, want = recorded(
@@ -1502,7 +1711,8 @@ def main() -> int:
     expect("(j) paged generate", "q8-kvi8", **want)
     print(f"path (j) paged generate: prefill {stats.prefill_s * 1e3:.3f} ms "
           f"(K3 over the prompt's own quantized keys); decode "
-          f"{stats.ms_per_token:.4f} ms/token over 32 tokens", flush=True)
+          f"{stats.ms_per_token:.4f} ms/token over 32 tokens"
+          f"{notes['first_use']}", flush=True)
     served["(j) paged batcher"] = serve("(j) paged batcher", paged8, 32, 64, 5,
                                         "q8-kvi8")
     served["(j) monolithic batcher"] = serve("(j) monolithic batcher", eng8, 8,
@@ -1523,18 +1733,17 @@ def main() -> int:
     # no weight): every block unfused, K1's aq8 branch at M <= 8
     q8a8 = POLICIES["q8a8"]
     enga = Engine(cfg, q8a8, engine.params, max_ctx=2048, device="cuda")
-    enga.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
-                                           greedy=True, eos_token=-1))
-    out, stats = generate(prompt, 64, enga)
-    expect("(k) b1", "q8a8", qmm_bigm=4 * L, flash_prefill=L,
-           qmm_smallm=1 + 64 * (4 * L + 1), flash_decode_heads=64 * L)
+    out, stats = b1_paths("(k) b1", enga, prompt, 64, "q8a8", qmm_bigm=4 * L,
+                          flash_prefill=L, qmm_smallm=1 + 64 * (4 * L + 1),
+                          flash_decode_heads=64 * L)
     stepa_ms = graph_step(enga, prompt, PROMPT_LEN)
     print(f"path (k) b1: prefill {stats.prefill_s * 1e3:.3f} ms "
           f"({stats.prompt_tokens} tokens, bucket 128); decode "
           f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
           f"tokens; one decode step at pos {PROMPT_LEN} replayed as a CUDA "
           f"graph {stepa_ms:.4f} ms against (a)'s {step_ms:.4f} ms (q8, fused "
-          f"branch); busy {stepa_ms / stats.ms_per_token:.3f} of an eager step",
+          f"branch); busy {stepa_ms / stats.ms_per_token:.3f} of a generate "
+          "token",
           flush=True)
     long_step("(k)", enga, "q8a8")
     batch_path(enga, f"(k) B={BATCH}", "q8a8")
@@ -1549,7 +1758,8 @@ def main() -> int:
                     "steps, or ids out of range")
     expect("(k) paged generate", "q8a8", **want)
     print(f"path (k) paged generate: prefill {stats.prefill_s * 1e3:.3f} ms; "
-          f"decode {stats.ms_per_token:.4f} ms/token over 32 tokens", flush=True)
+          f"decode {stats.ms_per_token:.4f} ms/token over 32 tokens"
+          f"{notes['first_use']}", flush=True)
     del paged_a
     served["(k) monolithic batcher"] = serve("(k) monolithic batcher", enga, 8,
                                              16, 6, "q8a8")
@@ -1569,12 +1779,11 @@ def main() -> int:
         label = f"q8-kv{kv}"
         polk = dataclasses.replace(policy, kv_dtype=kv)
         engk = Engine(cfg, polk, engine.params, max_ctx=2048, device="cuda")
-        engk.generate(prompt, GenerationConfig(n_predict=PROMPT_LEN + 8,
-                                               greedy=True, eos_token=-1))
-        out, stats = generate(prompt, 64, engk)
-        expect(f"(l) {kv} b1", label, qmm_bigm=4 * L, flash_prefill=L,
-               qmm_smallm=1 + 64, fused_norm_qkv=L * 64, fused_attn_out=L * 64,
-               ffn_fused_normed=L * 64)
+        out, stats = b1_paths(f"(l) {kv} b1", engk, prompt, 64, label,
+                              qmm_bigm=4 * L, flash_prefill=L,
+                              qmm_smallm=1 + 64, fused_norm_qkv=L * 64,
+                              fused_attn_out=L * 64, ffn_fused_normed=L * 64)
+        graph_equals(f"(l) {kv} b1", engk, [prompt])
         stepk_ms = graph_step(engk, prompt, PROMPT_LEN)
         print(f"path (l) {kv} b1: prefill {stats.prefill_s * 1e3:.3f} ms; decode "
               f"{stats.ms_per_token:.4f} ms/token over {stats.generated_tokens} "
@@ -1592,7 +1801,7 @@ def main() -> int:
         print(f"path (l) {kv} generate_batch: {BATCH} x {PROMPT_LEN}-token "
               f"prompts, one staged 32-step chunk: "
               f"{stats.decode_s * 1e3 / stats.decode_steps:.4f} ms a staged "
-              f"B={BATCH} step; cache {tree_nbytes(engk.new_cache(BATCH))} B "
+              f"B={BATCH} step{notes['first_use']}; cache {tree_nbytes(engk.new_cache(BATCH))} B "
               f"against {tree_nbytes(engine.new_cache(BATCH))} B in bf16",
               flush=True)
         pagedk = Engine(cfg, polk, engine.params, max_ctx=2048, device="cuda",
@@ -1605,8 +1814,8 @@ def main() -> int:
         expect(f"(l) {kv} paged generate", label, **want)
         print(f"path (l) {kv} paged generate: prefill "
               f"{stats.prefill_s * 1e3:.3f} ms (K3 over the step's own bf16 "
-              f"keys); decode {stats.ms_per_token:.4f} ms/token over 32 tokens",
-              flush=True)
+              f"keys); decode {stats.ms_per_token:.4f} ms/token over 32 tokens"
+              f"{notes['first_use']}", flush=True)
         if kv == "f16":
             path = "(l) f16 paged batcher"
             served[path] = serve(path, pagedk, 32, 64, 5, label)
@@ -1627,7 +1836,7 @@ def main() -> int:
             print(f"path (l) {kv} paged generate_batch: {BATCH} x {PROMPT_LEN}"
                   f"-token prompts, one staged 32-step chunk over the pool: "
                   f"{stats.decode_s * 1e3 / stats.decode_steps:.4f} ms a staged "
-                  f"B={BATCH} step", flush=True)
+                  f"B={BATCH} step{notes['first_use']}", flush=True)
         del engk, pagedk
 
     mark("path (l)")
@@ -1694,12 +1903,23 @@ def main() -> int:
                                  f"{SERVE_NEW} ids in range")
         return answers
 
-    http_generate(ports[0], payloads[0], tok)  # first admission's warm-up
+    # a first pass of the requests, then waves of 1, 2 and 4, capture the
+    # chunk graphs of the buckets the server runs (which ones depends on
+    # how the requests arrive)
+    before = graphs_of(m_engines[0])
+    t0 = time.perf_counter()
+    clients(ports[0], payloads)
+    for n in (1, 2, 4):
+        clients(ports[0], payloads[:n])
+    graph_line(f"(m) server first pass ({time.perf_counter() - t0:.3f} s)",
+               m_engines[0], before)
+    before = graphs_of(m_engines[0])
     t0 = time.perf_counter()
     answers, record, want = recorded(m_engines[0], True,
                                      lambda: clients(ports[0], payloads))
     wall = time.perf_counter() - t0
     expect("(m) server", **want)
+    graph_line("(m) server measured pass", m_engines[0], before)
     got = {k: v for c in counters for k, v in c.items()}
     if not (got["qmm_smallm"] and got["flash_prefill"]
             and got["fused_out_residual"] and got["ffn_fused_normed"]
@@ -1721,8 +1941,26 @@ def main() -> int:
           f"{np.percentile(ttft, 95) * 1e3:.3f} ms (server ttft_ms of the "
           f"others p50 {np.percentile(ttft_srv, 50) * 1e3:.3f} ms); "
           f"{len(record['prefill'])} admissions, {len(record['chunk'])} chunks "
-          f"at buckets {sorted({B for B, _ in record['chunk']})}; card {card}",
-          flush=True)
+          f"at buckets {sorted({B for B, _ in record['chunk']})}, the chunks' "
+          f"graphs replayed; card {card}", flush=True)
+    # the same requests with the eager chunk
+    t0 = time.perf_counter()
+    with eager_chunks():
+        answers_e, record_e, want_e = recorded(
+            m_engines[0], True, lambda: clients(ports[0], payloads))
+    wall_e = time.perf_counter() - t0
+    expect("(m) server eager", **want_e)
+    ttft_e = np.array([t for (_, t), p in zip(answers_e, payloads)
+                       if p["stream"]])
+    print(f"path (m): the same requests with the eager chunk: "
+          f"{SERVE_REQUESTS / wall_e:.3f} requests/s against "
+          f"{SERVE_REQUESTS / wall:.3f} with graphs, wall {wall_e:.3f} s; "
+          f"client TTFT p50 {np.percentile(ttft_e, 50) * 1e3:.3f} ms p95 "
+          f"{np.percentile(ttft_e, 95) * 1e3:.3f} ms against "
+          f"{np.percentile(ttft, 50) * 1e3:.3f} / "
+          f"{np.percentile(ttft, 95) * 1e3:.3f}; "
+          f"{len(record_e['prefill'])} admissions, {len(record_e['chunk'])} "
+          f"chunks; card {card}", flush=True)
     # one request alone: the tokens of ContinuousBatcher.run on the engine
     alone, _ = http_generate(ports[0], {**payloads[0], "stream": False}, tok)
     solo = ContinuousBatcher(m_engines[0], gen_m, max_batch=SERVE_SLOTS)
@@ -1801,13 +2039,15 @@ def main() -> int:
               f"{eng.params['layers']['wqkv'].dtype} at Engine build; load "
               f"{stats.load_s:.3f} s, prefill {stats.prefill_s * 1e3:.3f} ms "
               f"({n_prompt} tokens), decode {stats.ms_per_token:.4f} ms/token "
-              f"over {len(out)} tokens (eager, no port kernel); card {card}",
+              f"over {len(out)} tokens (the chunk's graph, its capture "
+              f"included; no port kernel); card {card}",
               flush=True)
         return eng
 
     eng16 = dense_cli("f16")
-    out, stats = generate(prompt, 64, eng16)
-    expect("(n) f16 (a)", "f16")
+    out, stats = b1_paths("(n) f16 (a)", eng16, prompt, 64, "f16")
+    graph_equals("(n) f16 b1", eng16, [prompt])
+    graph_equals("(n) f16 B=4", eng16, prompts)
     print(f"path (n) f16 (a): prefill {stats.prefill_s * 1e3:.3f} ms "
           f"({PROMPT_LEN} tokens), decode {stats.ms_per_token:.4f} ms/token "
           f"over 64 tokens", flush=True)
@@ -1821,8 +2061,8 @@ def main() -> int:
         return fail(f"path (n) f16 paged: {len(out)} ids, or ids out of range")
     expect("(n) f16 paged generate", "f16")
     print(f"path (n) f16 paged generate: prefill {stats.prefill_s * 1e3:.3f} "
-          f"ms, decode {stats.ms_per_token:.4f} ms/token over 64 tokens",
-          flush=True)
+          f"ms, decode {stats.ms_per_token:.4f} ms/token over 64 tokens"
+          f"{notes['first_use']}", flush=True)
     del paged16
     path = "(n) f16 monolithic batcher"
     served[path] = serve(path, eng16, 8, 16, 6, "f16")
@@ -1842,20 +2082,25 @@ def main() -> int:
     # on its weights
     del engine, params
 
-    def cli_path(kind, ckpt, vocab, n_prompt, kv=None):
+    def cli_path(kind, ckpt, vocab, n_prompt, kv=None, eager_too=False):
         """cli.main on the file (with --kv `kv` when given); the engine it
-        builds and its generate call are caught by run_cli."""
+        builds and its generate call are caught by run_cli. Its decode
+        runs whole 32-step chunks (the first of them captures the chunk's
+        graph), so the steps run are a whole number of chunks within one
+        chunk of the budget. With eager_too, cli.main again with the eager
+        chunk: the same ids and counts."""
         policy_name = f"{kind}-kv{kv}" if kv else kind
         policy = (dataclasses.replace(POLICIES[kind], kv_dtype=kv) if kv
                   else POLICIES[kind])
-        eng, toks, out, stats = run_cli(
-            [f"-{kind}", "--ckpt", str(ckpt), "--tokenizer", str(vocab), "-p",
-             CLI_PROMPT, "-greedy", "--npred", str(CLI_NPRED), "--model",
-             cfg.name] + (["--kv", kv] if kv else []))
-        steps = stats.decode_steps
+        argv = ([f"-{kind}", "--ckpt", str(ckpt), "--tokenizer", str(vocab),
+                 "-p", CLI_PROMPT, "-greedy", "--npred", str(CLI_NPRED),
+                 "--model", cfg.name] + (["--kv", kv] if kv else []))
+        eng, toks, out, stats = run_cli(argv)
+        steps, budget = stats.decode_steps, CLI_NPRED - n_prompt
         if (len(toks) != n_prompt or eng.policy != policy
                 or eng.params["lm_head"].kind != kind
-                or not len(out) <= steps <= CLI_NPRED - n_prompt
+                or not len(out) <= min(steps, budget)
+                or steps % 32 or steps > -(-budget // 32) * 32
                 or not all(0 <= t < cfg.n_vocab for t in out)):
             raise AssertionError(f"path (h) {kind}: {len(toks)} prompt tokens, "
                                  f"{len(out)} ids in {steps} steps, weights "
@@ -1869,7 +2114,23 @@ def main() -> int:
               f"load {stats.load_s:.3f} s, prefill {stats.prefill_s * 1e3:.3f} "
               f"ms ({n_prompt} tokens, bucket 128, first launches of the "
               f"{kind} kernels included), decode {stats.ms_per_token:.4f} "
-              f"ms/token over {len(out)} tokens in {steps} steps", flush=True)
+              f"ms/token over {len(out)} tokens in {steps} steps (the chunk's "
+              f"graph captured at its first chunk: {eng.graph_stats['graphs']} "
+              f"graph in {eng.graph_stats['capture_s']:.3f} s)", flush=True)
+        if eager_too:
+            with eager_chunks():
+                _, _, out_e, stats_e = run_cli(argv)
+            expect(f"(h) {policy_name} eager", policy_name, qmm_bigm=4 * L,
+                   flash_prefill=L, qmm_smallm=1 + steps,
+                   fused_norm_qkv=L * steps, fused_attn_out=L * steps,
+                   ffn_fused_normed=L * steps)
+            if out_e != out or stats_e.decode_steps != steps:
+                raise AssertionError(f"path (h) {policy_name}: the eager "
+                                     "chunk's ids are not the graph's")
+            print(f"path (h) {policy_name}: decode {stats.ms_per_token:.4f} "
+                  f"ms/token with the chunk's graph (its capture included), "
+                  f"{stats_e.ms_per_token:.4f} eager, the same {len(out)} "
+                  f"ids; card {card}", flush=True)
         # the device's own time for one decode step, as for (a)
         cache = eng.new_cache(1)
         eng.prefill(cache, [toks])
@@ -1878,9 +2139,10 @@ def main() -> int:
         step_ms = time_ms(lambda i: eng.decode_step(cache, tok, pos), 20, True)
         print(f"path (h) {policy_name}: one decode step at pos {n_prompt} "
               "replayed as "
-              f"a CUDA graph: {step_ms:.4f} ms device time; eager "
-              f"{stats.ms_per_token:.4f} ms/token, so the device is busy "
-              f"{step_ms / stats.ms_per_token:.3f} of an eager step", flush=True)
+              f"a CUDA graph: {step_ms:.4f} ms device time; the CLI's "
+              f"{stats.ms_per_token:.4f} ms/token (its first chunk's capture "
+              f"included), so the device is busy "
+              f"{step_ms / stats.ms_per_token:.3f} of its token", flush=True)
         return eng
 
     with files:
@@ -1890,7 +2152,7 @@ def main() -> int:
               "in a child process started before the build (waited after "
               f"(l) {writer_wait:.1f} s)", flush=True)
         for kind in ("q4", "q4g"):
-            eng4 = cli_path(kind, ckpt, vocab, n_prompt)
+            eng4 = cli_path(kind, ckpt, vocab, n_prompt, eager_too=kind == "q4")
             chat_path(eng4, f"(i) {kind} chat", kind)
             batch_path(eng4, f"(i) {kind} B={BATCH}", kind)
             rows += phase_kernels(eng4, torch, ops, kind)

@@ -41,7 +41,11 @@ programmatic dependent launch) over every weight kind and KV kind at G =
 1, 2, 3, 4 and 8 and pos 0, 63, 64, 127, 447, 448 and 1500 (a second call
 bit-equal, K4's and K6's counts unmoved), replayed from a CUDA graph
 captured at layer 0 and pos 127 at another layer and positions, and its
-plan resident on the card.
+plan resident on the card; and the decode chunk as a CUDA graph
+(``Engine.run_chunk``) bit-equal to the eager ``Engine.chunk`` over
+every cache kind at B = 1, 4 and 32 and over dense f16 and f32 weights,
+its top-k draws, its replays after a cache is reused (tokens and launch
+counts of the eager chunk), and two threads capturing at once.
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -76,6 +80,7 @@ from tinyllama_tpu_torch.runtime import kvcache
 from tinyllama_tpu_torch.runtime.engine import Engine
 from tinyllama_tpu_torch.runtime.kvcache import KVCache
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache
+from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
 from tinyllama_tpu_torch.runtime.staging import StagedKVCache
 
 TOL = dict(rtol=2e-2, atol=5e-3)
@@ -2296,3 +2301,200 @@ def test_f32_dense_on_the_card_runs_without_tf32(card):
     for t in (got, got32):
         assert t.dtype == torch.float32
         assert float((t.cpu().double() - want).abs().max()) <= 1e-5 * scale
+
+
+# --- the decode chunk as a CUDA graph (runtime/graphs.py) ---------------------------
+
+#: the graph tests' model: d_head 64, 4 query heads a kv head, max_ctx 256
+GRAPH_CFG = dict(n_embd=256, n_heads=4, n_kv_heads=1, n_ffn=512, max_ctx=256)
+_graph_params: dict = {}
+
+
+def _graph_engine(card, policy, paged=False):
+    """An Engine of the graph tests' model under `policy` (q8 weights, or
+    dense f32 weights from a seed for a dense policy)."""
+    cfg = tiny_test_config(**GRAPH_CFG)
+    kind = "q8" if policy.is_quantized else "dense"
+    if kind not in _graph_params:
+        g = torch.Generator().manual_seed(0)
+        _graph_params[kind] = (
+            llama.init_quantized_params(cfg, POLICIES["q8"], g)
+            if kind == "q8" else llama.init_dense_params(cfg, g))
+    return Engine(cfg, policy, _graph_params[kind], device=card, paged=paged)
+
+
+def _graph_prompts(B):
+    return [[1] + [2 + (7 * b + 3 * i) % 200 for i in range(5 + (13 * b) % 40)]
+            for b in range(B)]
+
+
+def _graph_against_eager(eng, B, gen, chunks=(8, 8, 4), seed=None):
+    """Chained chunks of `chunks` steps from one prefill: Engine.chunk
+    eagerly over one cache, and run_chunk twice over another (its graphs
+    captured in the first pass, every chunk of the second a replay over
+    the re-prefilled cache), each pass's top-k generator seeded alike;
+    tokens, done and logits must be torch.equal at every chunk."""
+    prompts = _graph_prompts(B)
+
+    def generator():
+        return (None if seed is None
+                else torch.Generator(eng.device).manual_seed(seed))
+
+    def start(cache):
+        logits, lens = eng.prefill(cache, prompts)
+        return logits, torch.from_numpy(lens.astype(np.int32)).to(eng.device)
+
+    eager, cache = [], eng.new_cache(B)
+    logits, pos = start(cache)
+    g = generator()
+    for C in chunks:
+        toks, done, logits, pos = eng.chunk(cache, logits, pos, C, gen, g)
+        eager.append((toks.clone(), done.clone(), logits.clone()))
+    store = eng.new_cache(B)
+    g = generator()
+    for _ in range(2):
+        logits, pos = start(store)
+        if g is not None:
+            g.manual_seed(seed)
+        for C, want in zip(chunks, eager):
+            toks, done, logits, pos = eng.run_chunk(store, logits, pos, C, gen, g)
+            for a, b in zip((toks, done, logits), want):
+                assert torch.equal(a, b), (B, C)
+    assert len(eng.chunk_graphs(store).graphs) == len(set(chunks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+@pytest.mark.parametrize("paged", [False, True], ids=["mono", "paged"])
+def test_graph_chunk_equals_eager_chunk(card, paged, kv, B):
+    """Every cache kind (monolithic B = 1: K8; paged B = 1: K10; staged
+    B = 4 and 32: K9 or K11; bf16, int8, f16, f32): the replayed chunk is
+    the eager chunk, bit for bit, over chained chunks of 8, 8 and 4 steps
+    and after the cache is prefilled again."""
+    policy = dataclasses.replace(POLICIES["q8"], kv_dtype=kv)
+    eng = _graph_engine(card, policy, paged)
+    _graph_against_eager(eng, B, GenerationConfig(greedy=True, eos_token=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("paged", [False, True], ids=["mono", "paged"])
+@pytest.mark.parametrize("name", ["f16", "f32"])
+def test_dense_graph_chunk_equals_eager_chunk(card, name, paged, B):
+    """The dense weights' plain ops (no kernel) captured and replayed: the
+    eager chunk's tokens and logits, bit for bit."""
+    eng = _graph_engine(card, POLICIES[name], paged)
+    _graph_against_eager(eng, B, GenerationConfig(greedy=True, eos_token=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+def test_graph_topk_draws_equal_eager(card, B):
+    """Top-k through the graph draws the eager chunk's tokens from one seed
+    (the generator registered with each graph advances as the eager body
+    advances it); the sampler's draw is torch.multinomial's on the card."""
+    eng = _graph_engine(card, POLICIES["q8"])
+    gen = GenerationConfig(greedy=False, top_k=40, temperature=0.9,
+                           eos_token=-1)
+    _graph_against_eager(eng, B, gen, seed=17)
+    logits = torch.randn(6, 300, device=card)
+    a, b = (torch.Generator(card).manual_seed(5) for _ in range(2))
+    vals, idx = torch.topk(logits, 40)
+    for _ in range(3):
+        want = idx.gather(1, torch.multinomial(torch.softmax(vals / 0.9, -1),
+                                               1, generator=a))[:, 0]
+        got = sampling.sample_top_k(logits, b, 0.9, 40)
+        assert torch.equal(got.long(), want)
+
+
+def _launch_counts():
+    mods = (qmatmul, decode_fused, ffn_fused, flash_attention, flash_paged,
+            attn_out_fused)
+    return {k: v for m in mods for k, v in m.launches.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["mono", "paged"])
+def test_generate_replays_after_cache_reuse(card, paged, monkeypatch):
+    """generate on one engine, a long prompt and then a short one (its
+    chunks replays over the reused cache), gives the tokens and the launch
+    counts of generate with the eager chunk on a fresh engine; so do
+    generate_batch and the batcher."""
+    gen = GenerationConfig(n_predict=48, greedy=True, eos_token=-1,
+                           chunk_size=8)
+    long_, short = _graph_prompts(3)[2], _graph_prompts(1)[0]
+    used = _graph_engine(card, POLICIES["q8"], paged)
+    used.generate(long_, gen)
+    used.generate_batch(_graph_prompts(4)[::-1], gen)
+
+    def run(eng):
+        before = _launch_counts()
+        out = (eng.generate(short, gen)[0],
+               eng.generate_batch(_graph_prompts(4), gen)[0])
+        b = ContinuousBatcher(eng, gen, max_batch=4)
+        ids = [b.submit(p, max_new=n) for p, n in
+               zip(_graph_prompts(6), (9, 20, 3, 14, 30, 6))]
+        res = b.run()
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        return out + ([res[i].output for i in ids],), {
+            k: after[k] - before[k] for k in after}
+
+    graph_out, graph_counts = run(used)
+    fresh = _graph_engine(card, POLICIES["q8"], paged)
+    monkeypatch.setattr(fresh, "run_chunk", fresh.chunk)
+    eager_out, eager_counts = run(fresh)
+    assert graph_out == eager_out
+    assert graph_counts == eager_counts and any(graph_counts.values())
+
+
+@pytest.mark.cuda
+def test_two_threads_capture_at_once(card):
+    """Two engines, each driven by its own thread (as two servers in one
+    process), capture and replay their chunks at the same time: each
+    gives its eager chunk's tokens."""
+    import threading
+
+    gen = GenerationConfig(greedy=True, eos_token=-1)
+    engines = [_graph_engine(card, POLICIES["q8"], paged) for paged in (False,
+                                                                         True)]
+    want, got, errors = [], [None, None], []
+    for eng in engines:
+        cache = eng.new_cache(4)
+        logits, lens = eng.prefill(cache, _graph_prompts(4))
+        pos = torch.from_numpy(lens.astype(np.int32)).to(card)
+        seq = []
+        for C in (8, 4, 2, 8, 1):
+            toks, _, logits, pos = eng.chunk(cache, logits, pos, C, gen)
+            seq.append(toks.cpu())
+        want.append(seq)
+    barrier = threading.Barrier(2)
+
+    def drive(i, eng):
+        try:
+            stream = torch.cuda.Stream(card)
+            with torch.cuda.stream(stream):
+                cache = eng.new_cache(4)
+                logits, lens = eng.prefill(cache, _graph_prompts(4))
+                pos = torch.from_numpy(lens.astype(np.int32))
+                barrier.wait()
+                seq = []
+                for C in (8, 4, 2, 8, 1):
+                    toks, _, logits, pos = eng.run_chunk(cache, logits, pos, C,
+                                                         gen)
+                    seq.append(toks.cpu())
+                got[i] = seq
+        except Exception as e:  # reported below, on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=drive, args=(i, e))
+               for i, e in enumerate(engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    for g, w in zip(got, want):
+        assert len(g) == len(w) and all(torch.equal(a, b) for a, b in zip(g, w))
+    assert all(e.graph_stats["graphs"] == 4 for e in engines)

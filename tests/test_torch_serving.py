@@ -571,7 +571,7 @@ def test_cli_paged_runs_on_cpu(capsys):
 PKG = Path(__file__).resolve().parents[1] / "tinyllama_tpu_torch"
 SERVING_MODULES = ["runtime/paged.py", "runtime/staging.py",
                    "runtime/scheduler.py", "ops/kernels/flash_paged.py",
-                   "interop.py"]
+                   "interop.py", "runtime/graphs.py"]
 
 
 @pytest.mark.parametrize("module", SERVING_MODULES)

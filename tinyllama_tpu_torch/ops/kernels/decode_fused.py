@@ -34,6 +34,7 @@ import torch
 
 from tinyllama_tpu_torch.config import ModelConfig
 from tinyllama_tpu_torch.ops.kernels import build, fused_plan, qmatmul
+from tinyllama_tpu_torch.ops.kernels.counts import count
 from tinyllama_tpu_torch.quant.codec import QTensor
 
 #: largest M (= B * T) of the fused branch; larger M takes the unfused one.
@@ -163,7 +164,7 @@ def fused_norm_qkv(x: torch.Tensor, norm_w: torch.Tensor, w: QTensor,
         w.scales.data_ptr(), out.data_ptr(), qmatmul.KIND_CODE[w.kind], M, D, N,
         float(eps), int(inside), width, splits, build.stream_ptr(x))
     build.check(err, "fused_norm_qkv")
-    launches["fused_norm_qkv"] += 1
+    count(launches, "fused_norm_qkv")
     return out.reshape(B, T, N)
 
 
@@ -186,5 +187,5 @@ def fused_out_residual(attn: torch.Tensor, residual: torch.Tensor, w: QTensor,
         *plan(code, M, K, D, qmatmul.sm_count(attn.device), "fused_out_residual"),
         build.stream_ptr(attn))
     build.check(err, "fused_out_residual")
-    launches["fused_out_residual"] += 1
+    count(launches, "fused_out_residual")
     return out

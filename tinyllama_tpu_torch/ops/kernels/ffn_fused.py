@@ -37,6 +37,7 @@ import torch
 
 from tinyllama_tpu_torch.config import ModelConfig
 from tinyllama_tpu_torch.ops.kernels import build, fused_plan, qmatmul
+from tinyllama_tpu_torch.ops.kernels.counts import count
 from tinyllama_tpu_torch.ops.kernels.decode_fused import (
     FUSED_M,
     STRIP,
@@ -144,7 +145,7 @@ def _launch(x, norm_w, wgu, wdown, layer, cfg, eps, inside, name):
         *plan(code, M, D, F, True, n_sm), *plan(code, M, F, D, False, n_sm),
         build.stream_ptr(x))
     build.check(err, name)
-    launches[name] += 1
+    count(launches, name)
     return out.reshape(B, T, D)
 
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from tinyllama_tpu_torch.ops.attention import gqa_attention
+from tinyllama_tpu_torch.ops.kernels import counts
 from tinyllama_tpu_torch.ops.kernels import decode_split as ds
 from tinyllama_tpu_torch.ops.kernels.qmatmul import layer_index
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
@@ -166,7 +167,7 @@ def _check_paged(q, cache: PagedKVCache, layer, pos, staged=None) -> int:
 def count(table: dict, name: str, kind: int) -> None:
     """One launch of kernel `name` with a cache of KV kind `kind`, in a
     module's launch table, under "<name>" plus the kind's KV_SUFFIX."""
-    table[name + KV_SUFFIX[kind]] += 1
+    counts.count(table, name + KV_SUFFIX[kind])
 
 
 def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,

@@ -52,6 +52,7 @@ import functools
 import torch
 
 from tinyllama_tpu_torch.ops.kernels import build, fused_plan
+from tinyllama_tpu_torch.ops.kernels.counts import count
 from tinyllama_tpu_torch.ops.precision import exact_f32
 from tinyllama_tpu_torch.quant.codec import (
     BLOCK_SIZE,
@@ -323,5 +324,5 @@ def qmatmul(x: torch.Tensor, w: QTensor, out_dtype=None,
         err = fn(*ptrs, *ints, *smallm_plan(code, M, K, N, aq8, sm_count(x.device)),
                  build.stream_ptr(x))
     build.check(err, name)
-    launches[name] += 1
+    count(launches, name)
     return out.reshape(*lead, N)

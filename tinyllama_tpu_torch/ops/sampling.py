@@ -3,6 +3,11 @@
 Both run on the logits' device and return a device tensor, so a decode
 loop samples without a host round-trip. Top-k draws from an explicit
 ``torch.Generator``; its numbers differ from JAX's PRNG for the same seed.
+Its draw is ``torch.multinomial``'s one-sample path written out (an
+exponential variate a candidate, the least variate / probability), the
+same numbers from the same generator state, without multinomial's check
+of the probabilities, so that a CUDA graph of the decode chunk
+(runtime/graphs.py) captures the draw whatever form that check takes.
 """
 
 from __future__ import annotations
@@ -27,5 +32,6 @@ def sample_top_k(
     before the temperature divide."""
     vals, idx = torch.topk(logits, top_k, dim=-1)
     probs = torch.softmax(vals.float() / temperature, dim=-1)
-    choice = torch.multinomial(probs, 1, generator=generator)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    choice = q.div_(probs).argmin(dim=-1, keepdim=True)
     return idx.gather(-1, choice)[:, 0].to(torch.int32)

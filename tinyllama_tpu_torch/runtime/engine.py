@@ -8,22 +8,28 @@ The counterpart of the JAX package's runtime/engine.py:
   last row's logits;
 * ``decode_step`` runs one token per sequence at device positions;
 * ``chunk`` runs C decode steps with sampling on the device and no
-  read-back (the role of the JAX package's on-device decode chunk); at
-  B > 1 it stages the chunk's K/V (runtime/staging.py);
-* ``generate`` (one prompt) and ``generate_batch`` (prompts in
-  lockstep) read the sampled tokens back once a chunk, so the host
-  waits on the card once a chunk and not once a token.
+  read-back (the body of the JAX package's on-device decode chunk); at
+  B > 1 it stages the chunk's K/V (runtime/staging.py). It is dispatched
+  op by op from Python: the eager reference;
+* ``run_chunk`` is ``chunk``'s function through static buffers: on the
+  card a CUDA graph of ``chunk``, captured at its first use and replayed
+  after (runtime/graphs.py), the counterpart of the JAX package's
+  jitted chunk; on the CPU ``chunk`` over the same buffers;
+* ``generate`` (one prompt) runs whole chunks and dispatches chunk i + 1
+  before it reads chunk i back, as the JAX ``generate`` does;
+  ``generate_batch`` (prompts in lockstep) reads each chunk back before
+  the next. Both replay ``run_chunk`` over one cache a batch size, kept
+  on the engine and rewritten from position 0 by each prefill (no
+  kernel or plain path reads a key past its row's position).
 
 The cache is monolithic, or with ``paged=True`` a page pool
 (runtime/paged.py), in the policy's KV dtype: bf16, f16, f32, or int8
 with scales (``"i8"``, the ``*-kvi8`` policies). The policy's aq8 (q8a8,
 q4a8) reaches every linear and the lm_head. Dense weights (f16, bf16,
 f32) run the plain ops on either device, as the JAX engine runs them
-without Pallas; the engine stores them cast to the activation dtype (an
-f16 weight as bf16 under the f16 policy), the values every product of
-the JAX package casts them to. Each step is
-dispatched eagerly from Python; capturing it in a CUDA graph is queued
-work (ROADMAP.md).
+without Pallas, and their chunk is captured as well; the engine stores
+them cast to the activation dtype (an f16 weight as bf16 under the f16
+policy), the values every product of the JAX package casts them to.
 
 The engine runs on the card unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain version. With no card and no
@@ -33,6 +39,7 @@ explicit ``"cpu"`` it raises; it never carries on on the CPU by itself.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -43,6 +50,7 @@ from tinyllama_tpu_torch.config import DtypePolicy, GenerationConfig, ModelConfi
 from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.ops import sampling
 from tinyllama_tpu_torch.ops.rope import rope_table
+from tinyllama_tpu_torch.runtime import graphs
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, init_cache
 from tinyllama_tpu_torch.runtime.paged import (
     PagedKVCache,
@@ -126,6 +134,17 @@ class Engine:
                                       self.device)
         self.layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32,
                                       device=self.device)
+        #: top-k draws of generate and generate_batch, reseeded each call
+        self.generator = torch.Generator(self.device)
+        #: the caches of generate and generate_batch, one a batch size
+        self._caches: dict[int, KVCache | PagedKVCache] = {}
+        #: the captured chunks by cache storage (id of its k plane), each
+        #: dropped with its storage
+        self._chunk_graphs: dict[int, graphs.ChunkGraphs] = {}
+        self._capture = graphs.capture_for(self.device)
+        #: graphs captured by this engine and the seconds spent on them
+        #: (their eager first runs included)
+        self.graph_stats = {"graphs": 0, "capture_s": 0.0}
 
     def new_cache(self, batch: int) -> KVCache | PagedKVCache:
         if self.paged:
@@ -143,6 +162,15 @@ class Engine:
                                  device=self.device)
         return cache.with_table(
             1 + torch.arange(batch * J, dtype=torch.int32).reshape(batch, J))
+
+    def _cache(self, batch: int) -> KVCache | PagedKVCache:
+        """The engine's own cache of `batch` rows for generate and
+        generate_batch: made once, reused by every later call (its
+        captured chunks address it)."""
+        cache = self._caches.get(batch)
+        if cache is None:
+            cache = self._caches[batch] = self.new_cache(batch)
+        return cache
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -228,12 +256,35 @@ class Engine:
             flush_staged(state, C)
         return toks, done, logits, pos
 
+    def chunk_graphs(self, cache) -> graphs.ChunkGraphs:
+        """The captured chunks over `cache`'s storage and their static
+        buffers (made at first use; dropped when the storage is)."""
+        plane = cache.k
+        key = id(plane)
+        found = self._chunk_graphs.get(key)
+        if found is None:
+            found = graphs.ChunkGraphs(self, self._capture)
+            self._chunk_graphs[key] = found
+            weakref.finalize(plane, self._chunk_graphs.pop, key, None)
+        return found
+
+    def run_chunk(self, cache, logits: torch.Tensor, pos: torch.Tensor,
+                  C: int, gen: GenerationConfig,
+                  generator: torch.Generator | None = None):
+        """``chunk``'s function and results, through the static buffers of
+        `cache` (``chunk_graphs``): on the card its CUDA graph replays
+        (captured at the first call of its key); on the CPU ``chunk`` runs
+        over the same buffers. The results are those buffers: read the
+        tokens before the next chunk over this cache at this batch size.
+        pos (and a page table) may be host tensors; inputs that are
+        already the buffers are not copied."""
+        return self.chunk_graphs(cache).run(cache, logits, pos, C, gen,
+                                            generator)
+
     def _generator(self, gen: GenerationConfig) -> torch.Generator | None:
         if gen.greedy:
             return None
-        generator = torch.Generator(self.device)
-        generator.manual_seed(gen.seed)
-        return generator
+        return self.generator.manual_seed(gen.seed)
 
     def generate(
         self,
@@ -243,11 +294,15 @@ class Engine:
     ) -> tuple[list[int], GenStats]:
         """Single-prompt generation (greedy or top-k), with the reference
         loop's semantics: up to n_predict - len(prompt) new tokens, ending
-        at EOS (not emitted). Decodes in chunks of chunk_size steps (the
-        last one cut so no step passes max_ctx) with one read-back each."""
+        at EOS (not emitted). Decodes whole chunks of C = min(chunk_size,
+        budget) steps (a last chunk's steps past max_ctx write and read
+        position max_ctx - 1, and the host drops their tokens), and
+        dispatches chunk i + 1 before it reads chunk i back, so the host's
+        read and its loop overlap the card's next chunk; at most one chunk
+        is wasted at EOS, as in the JAX generate."""
         gen = gen or GenerationConfig()
         stats = GenStats(prompt_tokens=len(prompt_tokens))
-        cache = self.new_cache(1)
+        cache = self._cache(1)
 
         t0 = time.perf_counter()
         logits, lens = self.prefill(cache, [prompt_tokens])
@@ -261,16 +316,22 @@ class Engine:
         C = max(1, min(gen.chunk_size, max_new))
         generator = self._generator(gen)
         pos = torch.tensor([int(lens[0])], dtype=torch.int32, device=self.device)
+        readback = _Readback(self.device, C)
 
         out: list[int] = []
         t_decode = time.perf_counter()
-        while len(out) < max_new:
-            n = min(C, max_new - len(out))  # never past max_ctx
-            toks, _, logits, pos = self.chunk(cache, logits, pos, n, gen,
+        toks, _, logits, pos = self.run_chunk(cache, logits, pos, C, gen,
                                               generator)
-            stats.decode_steps += n
+        stats.decode_steps += C
+        while True:
+            pending = readback.start(toks[0])
+            more = len(out) + C < max_new
+            if more:  # queued behind the copy of this chunk's tokens
+                toks, _, logits, pos = self.run_chunk(cache, logits, pos, C,
+                                                      gen, generator)
+                stats.decode_steps += C
             t1 = time.perf_counter()
-            chunk = toks[0].tolist()  # one read-back per chunk
+            chunk = readback.wait(pending)  # one read-back a chunk
             stats.decode_token_times.append(time.perf_counter() - t1)
             finished = False
             for t in chunk:
@@ -282,7 +343,7 @@ class Engine:
                     stream(t)
                 if len(out) >= max_new:
                     break
-            if finished:
+            if finished or not more:
                 break
 
         stats.decode_s = time.perf_counter() - t_decode
@@ -295,15 +356,16 @@ class Engine:
         gen: GenerationConfig | None = None,
     ) -> tuple[list[list[int]], GenStats]:
         """Offline batched generation: all prompts decode in lockstep, in
-        whole chunks of chunk_size steps (staged at B > 1), one read-back
-        a chunk. Row b keeps min(n_predict, max_ctx) - len(prompt b) new
-        tokens, cut at EOS; a row past its budget or max_ctx decodes
-        padding that the host drops (ContinuousBatcher serves requests
-        that arrive over time)."""
+        whole chunks of chunk_size steps (staged at B > 1), each read back
+        before the next is dispatched, as the JAX generate_batch. Row b
+        keeps min(n_predict, max_ctx) - len(prompt b) new tokens, cut at
+        EOS; a row past its budget or max_ctx decodes padding that the
+        host drops (ContinuousBatcher serves requests that arrive over
+        time)."""
         gen = gen or GenerationConfig()
         B = len(prompts)
         stats = GenStats(prompt_tokens=sum(len(p) for p in prompts))
-        cache = self.new_cache(B)
+        cache = self._cache(B)
         t0 = time.perf_counter()
         logits, lens = self.prefill(cache, prompts)
         self._sync()
@@ -323,8 +385,8 @@ class Engine:
         t_decode = time.perf_counter()
         emitted = 0
         while emitted < max_new and not all(finished):
-            toks, _, logits, pos = self.chunk(cache, logits, pos, C, gen,
-                                              generator)
+            toks, _, logits, pos = self.run_chunk(cache, logits, pos, C, gen,
+                                                  generator)
             stats.decode_steps += C
             toks_np = toks.cpu().numpy()  # one read-back per chunk
             emitted += C
@@ -341,3 +403,28 @@ class Engine:
         stats.decode_s = time.perf_counter() - t_decode
         stats.generated_tokens = sum(len(o) for o in outs)
         return outs, stats
+
+
+class _Readback:
+    """A chunk's tokens to the host without a wait at the copy: two host
+    buffers (pinned on the card) used in turn, each copy marked by an
+    event that the reader waits on."""
+
+    def __init__(self, device: torch.device, n: int):
+        cuda = device.type == "cuda"
+        self.bufs = [torch.empty(n, dtype=torch.int32, pin_memory=cuda)
+                     for _ in range(2)]
+        self.events = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        self.turn = 0
+
+    def start(self, toks: torch.Tensor) -> int:
+        i, self.turn = self.turn, 1 - self.turn
+        self.bufs[i].copy_(toks, non_blocking=True)
+        if self.events is not None:
+            self.events[i].record()
+        return i
+
+    def wait(self, i: int) -> list[int]:
+        if self.events is not None:
+            self.events[i].synchronize()
+        return self.bufs[i].tolist()

@@ -12,17 +12,22 @@ package's runtime/scheduler.py.
   Paged: each request reserves its worst-case page count, gets its
   prompt's pages, and is prefilled straight into the pool through an
   admission page table; only its logits row moves.
-* Every running slot advances in the engine's decode chunk (one
-  read-back a chunk). The admission prefill is queued behind the chunk
-  before the chunk's tokens are read, so the host never waits on the
-  card to admit.
+* Every running slot advances in the engine's decode chunk
+  (``Engine.run_chunk``: on the card a replayed CUDA graph), one
+  read-back a chunk. The chunk's inputs are written into its static
+  buffers (runtime/graphs.py): the slots' positions and, paged, the
+  bucket's page table from the host, the admitted rows' logits in place;
+  the full-width logits are the buffer itself. The admission prefill is
+  queued behind the chunk before the chunk's tokens are read, so the
+  host never waits on the card to admit.
 * Finished slots park at position 0 (paged: table row 0, the scratch
   page) and their tokens are dropped.
 * Paged bucket downshift: when few slots run, the chunk runs at the
   smallest power-of-two bucket that holds them; the table rows, pos and
-  logits rows are gathered into the bucket and scattered back. The KV
-  pages never move. (A monolithic downshift would move cache rows, so
-  the monolithic batcher always runs at full width.)
+  logits rows are gathered into the bucket's buffers and the logits
+  scattered back, outside the graph. The KV pages never move. (A
+  monolithic downshift would move cache rows, so the monolithic batcher
+  always runs at full width.)
 
 Sequence-parallel admission and tensor parallelism are not ported
 (ROADMAP.md).
@@ -103,8 +108,6 @@ class ContinuousBatcher:
 
         self.paged = paged
         dev = engine.device
-        self.logits = torch.zeros((self.B, engine.cfg.n_vocab),
-                                  dtype=torch.float32, device=dev)
         self.pos_np = np.zeros((self.B,), np.int32)
         self.generator = None
         if not self.gen.greedy:
@@ -130,6 +133,11 @@ class ContinuousBatcher:
             self.cache = None
         else:
             self.cache = engine.new_cache(self.B)
+        #: the chunks' static buffers over this batcher's pool or cache
+        self.graphs = engine.chunk_graphs(self.pool if paged else self.cache)
+        #: every slot's logits: the full-width chunk's input buffer
+        self.logits = self.graphs.buffers_for(self.pool if paged
+                                              else self.cache, self.B).logits
         #: monolithic admission caches, one a bucket, reused
         self._admit_caches: dict = {}
 
@@ -276,7 +284,7 @@ class ContinuousBatcher:
         idx = None  # bucket row -> slot (None: every slot, in order)
         in_flight = None
         if any(was_running):
-            logits_in, pos_in = self.logits, self.pos_np
+            pos_in, store = self.pos_np, self.pool if self.paged else self.cache
             if self.paged:
                 self._grow_pages(C)
                 table = self.table_np
@@ -287,15 +295,16 @@ class ContinuousBatcher:
                     parked = [s for s, w in enumerate(was_running) if not w]
                     idx = np.asarray(active + parked[: self._bucket - len(active)])
                     table, pos_in = table[idx], pos_in[idx]
-                    logits_in = self.logits[torch.from_numpy(idx).to(
-                        self.logits.device)]
-                cache_in = self.pool.with_table(table)
-            else:
-                cache_in = self.cache
-            pos_dev = torch.from_numpy(pos_in.astype(np.int32)).to(
-                self.engine.device)
-            in_flight = self.engine.chunk(cache_in, logits_in, pos_dev, C,
-                                          self.gen, self.generator)
+                    idx_dev = torch.from_numpy(idx).to(self.logits.device)
+            buf = self.graphs.buffers_for(store, self._bucket)
+            buf.pos.copy_(torch.from_numpy(pos_in.astype(np.int32)))
+            if self.paged:
+                buf.table.copy_(torch.from_numpy(table))
+                store = store.with_table(buf.table)
+            if idx is not None:
+                torch.index_select(self.logits, 0, idx_dev, out=buf.logits)
+            in_flight = self.engine.run_chunk(store, buf.logits, buf.pos, C,
+                                              self.gen, self.generator)
         admitted = self._admit_prefill()
         if in_flight is None:
             if admitted is not None:
@@ -303,11 +312,10 @@ class ContinuousBatcher:
             return
 
         toks, _, logits_out, _ = in_flight
-        if idx is None:
-            self.logits = logits_out
-        else:
-            self.logits.index_copy_(
-                0, torch.from_numpy(idx).to(self.logits.device), logits_out)
+        if idx is not None:
+            self.logits.index_copy_(0, idx_dev, logits_out)
+        elif logits_out is not self.logits:  # the eager Engine.chunk's own
+            self.logits.copy_(logits_out)
         toks_np = toks.cpu().numpy()  # one read-back a chunk
         now = time.perf_counter()
         for slot, was in enumerate(was_running):
