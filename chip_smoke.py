@@ -164,6 +164,23 @@ Phases, each fatal on failure:
    of max |logits|); the logits must agree. Then a reading: 48 greedy
    b1 steps with an int8 cache on the card, the CPU fed the card's
    tokens, and how often its own pick is the card's.
+6. path (o), Llama-3-8B (head dim 128, G = 4, 32 layers, n_embd 4,096,
+   max_ctx 8,192) at full width and depth on random weights made on the
+   card, after TinyLlama's phases (the helpers of phase 4 read its config
+   from there on; its blocks take the unfused branch, n_embd > 2,048): the
+   d = 128 kernel rows (phase_attention_d128: K3, K4, K9-K11 at Llama-3's
+   heads over every KV kind, S = 8,192, K3 at G = 4 and 8); (o1) q4 b1, a
+   1,000-token prompt and 128 tokens, graph and eager, a profiler window,
+   then q8 and q4g (100 + 64); (o2) a 7,000-token prompt through a paged
+   engine (K3 at T = 8,192), 64 tokens and a graph step at pos 7,000;
+   (o3) generate_batch of 4 prompts (K9) and a paged ContinuousBatcher of
+   16 slots over 32 requests (prompts 64-2,048, seed 7: K11, K3 at
+   admission); (o4) q4-kvi8 b1 and an 8-request int8 admission, then
+   int8, f16 and f32 caches through K3, K4, K9, K10 and K11 (eager
+   chunks); (o5) cli.main --model llama-3-8b -q4 --random-weights; exact
+   launch counts throughout; then logits parity at 2 layers: 8B q8, q4,
+   q4g, q4-kvi8 (long prefill, b1, B = 4, a staged paged chunk step) and
+   70B q4 (G = 8: a prefill and 2 b1 steps), the CPU's traces in threads.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -181,6 +198,7 @@ import atexit
 import collections
 import contextlib
 import dataclasses
+import gc
 import http.client
 import json
 import subprocess
@@ -448,6 +466,24 @@ REPLACES_I8 = {
 }
 
 
+def kernel_row(kernel, name, kind, src, replaces, err, ms, plain_ms, nbytes,
+               flops, library_ms, note="") -> dict:
+    """One kernel's row of the `kernels` line (its launches filled in from
+    the paths of policy `kind` later), printed: bound_ms = max(bytes /
+    HBM_BW, operations / PEAK_BF16)."""
+    t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / PEAK_BF16 * 1e3
+    r = dict(name=name, kernel=kernel, kind=kind, route="cuda", source=src,
+             replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             library_ms=library_ms)
+    print(f"kernel {name}: max_abs_err {err:.3e} (rtol {RTOL}, atol {ATOL}) "
+          f"kernel_ms {ms:.5f} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
+          f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f}" + note,
+          flush=True)
+    return r
+
+
 def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
                   aq8=False) -> list[dict]:
     """Every kernel against its plain version at main-path shapes, on the
@@ -513,20 +549,9 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
 
     def row(kernel, shape, route_src, replaces, err, ms, plain_ms, nbytes,
             flops, library_ms, note=""):
-        t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / PEAK_BF16 * 1e3
-        r = dict(name=f"{kernel} {label}{shape}", kernel=kernel, kind=row_kind,
-                 route="cuda",
-                 source=route_src, replaces=replaces, launches=0,
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 library_ms=library_ms)
-        rows.append(r)
-        print(f"kernel {r['name']}: max_abs_err {err:.3e} "
-              f"(rtol {RTOL}, atol {ATOL}) kernel_ms {ms:.5f} "
-              f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
-              f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f}"
-              + (note or yardstick), flush=True)
+        rows.append(kernel_row(kernel, f"{kernel} {label}{shape}", row_kind,
+                               route_src, replaces, err, ms, plain_ms, nbytes,
+                               flops, library_ms, note or yardstick))
 
     # K1 / K2: the quantized matmuls
     lin = params["layers"]
@@ -880,6 +905,200 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     return rows
 
 
+
+#: the d = 128 rows' shapes: Llama-3-8B's heads (32 query, 8 kv: G = 4)
+#: and Llama-3-70B's (64, 8: G = 8), max_ctx 8,192
+D128_S = 8192
+D128_HEADS = {4: (32, 8), 8: (64, 8)}
+
+
+def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
+    """The five attention kernels at head dim 128 against their plain
+    versions, over random caches of Llama-3's heads at S = 8,192, 4
+    layers cycled (past the 50 MB L2): in bf16, K3 at T = 128, 512, 2,048
+    and 8,192 at G = 4 and 8 (8,192 at G = 8 with 32 query heads over 4
+    kv heads: the plain version's f32 scores of 64 heads would not fit
+    beside the rest), K4 at pos 127, 1,500 and 8,191 and at B = 4 (pos
+    4,000), K10 at pos 127, 1,500 and 8,191 (K4 and K10 also captured at
+    pos 127 and replayed elsewhere), K9 at B = 8 and K11 at B = 16 over
+    fills of 1,536 and 8,000 and a 32-slot tail; with kv = "i8", "f16" or
+    "f32" one shape of each (K3 T = 2,048, K4 and K10 pos 1,500, K9 and
+    K11 fill 1,536 + 32), at G = 4. Each row's bound counts the kind's
+    bytes (int8 with its f32 scales); its library yardstick is SDPA over
+    the same keys as bf16."""
+    from tinyllama_tpu_torch.runtime.kvcache import (
+        KVCache, layer_cache_view, quantize_kv,
+    )
+    from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
+    from tinyllama_tpu_torch.runtime.staging import StagedKVCache
+    from tinyllama_tpu_torch.tools.kbench import time_ms
+
+    _, fa, _, _, _, fp, _ = ops
+    dev, d, S, L = "cuda", 128, D128_S, 4
+    layers = [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(L)]
+    gen = torch.Generator(dev)
+    gen.manual_seed(128)
+    rows = []
+    kv_row = KV_ROW_BYTES[kv](d)
+    kind = "8b-q4" if kv == "bf16" else f"8b-q4-kv{kv}"
+    yardstick = {"bf16": "", "i8": " (SDPA over the dequantized bf16 K/V)"}.get(
+        kv, " (SDPA over the cache cast to bf16)")
+    rep_of = {"K3": ("tinyllama_tpu/ops/pallas/flash_prefill.py:35",
+                     REPLACES_I8["K3"], REPLACES_KV16["K3"]),
+              "K4": ("tinyllama_tpu/ops/pallas/flash_prefill.py:201",
+                     REPLACES_I8["K4"], REPLACES_KV16_HELPER),
+              "K9": ("tinyllama_tpu/ops/pallas/flash_prefill.py:375",
+                     REPLACES_I8["K9"], REPLACES_KV16_HELPER),
+              "K10": ("tinyllama_tpu/ops/pallas/flash_paged.py:38",
+                      REPLACES_I8["K10"], REPLACES_KV16_HELPER),
+              "K11": ("tinyllama_tpu/ops/pallas/flash_paged.py:171",
+                      REPLACES_I8["K11"], REPLACES_KV16_HELPER)}
+
+    def replaces(kernel):
+        bf, i8, f = rep_of[kernel.split()[0]]
+        return {"bf16": bf, "i8": i8}.get(kv, f)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def quant(cache):
+        if kv == "bf16":
+            return cache
+        table = cache.table if isinstance(cache, PagedKVCache) else None
+        if kv == "i8":
+            (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
+        else:
+            dt = {"f16": torch.float16, "f32": torch.float32}[kv]
+            k, v, ks, vs = cache.k.to(dt), cache.v.to(dt), None, None
+        if table is not None:
+            return PagedKVCache(k, v, table, ks, vs)
+        return KVCache(k, v, ks, vs)
+
+    def sdpa(q, k, v, is_causal=False, mask=None):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=is_causal, attn_mask=mask, enable_gqa=True)
+
+    def measure(kernel, shape, src, fn, plain, library, nbytes, flops, reps):
+        err = check_close(f"{kernel} d=128 {kv} {shape}", fn(0), plain(0))
+        ms = time_ms(fn, reps, True)
+        plain_ms = time_ms(plain, 3, False)
+        lib_ms = time_ms(library, reps, True)
+        rows.append(kernel_row(kernel, f"{kernel} d=128 "
+                               + ("" if kv == "bf16" else f"{kv} ") + shape,
+                               kind, src, replaces(kernel), err, ms, plain_ms,
+                               nbytes, flops, lib_ms, yardstick))
+
+    def mono(B, H, Kh):
+        return quant(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)))
+
+    # K3: the causal prefill from pos 0 over T new tokens
+    src3 = "tinyllama_tpu_torch/csrc/flash_attention.cu"
+    k3 = ([(T, G) for G in (4, 8) for T in (128, 512, 2048, 8192)]
+          if kv == "bf16" else [(2048, 4)])
+    for T, G in k3:
+        H, Kh = (32, 4) if (T, G) == (8192, 8) else D128_HEADS[G]
+        cache = mono(1, H, Kh)
+        dk, dv = layer_cache_view(cache, 3, torch.bfloat16)
+        dk, dv = dk[:, :, :T], dv[:, :, :T]
+        q = rand(1, T, H, d)
+        pos = torch.zeros(1, dtype=torch.int32, device=dev)
+        qh = q.transpose(1, 2)
+        pairs = H * T * (T + 1) // 2
+        measure("K3 flash_prefill", f"T={T} pos=0 S={S} H={H} Kh={Kh} G={G}",
+                src3, lambda i: fa.flash_prefill_attention(q, cache, layers[i % L],
+                                                           pos),
+                lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
+                lambda i: sdpa(qh, dk, dv, is_causal=True),
+                2 * T * H * d * 2 + 2 * Kh * T * kv_row, 4 * d * pairs,
+                20 if T == 8192 else 100)
+        del cache, dk, dv, q, qh
+
+    # K4 and K10: one new token a row at pos, the cache full of keys
+    src = "tinyllama_tpu_torch/csrc/decode_split.cu"
+    H, Kh = D128_HEADS[4]
+    P = 256
+    k4 = ([(1, p) for p in (127, 1500, S - 1)] + [(4, 4000)] if kv == "bf16"
+          else [(1, 1500)])
+    for B, p in k4:
+        cache = mono(B, H, Kh)
+        q = rand(B, 1, H, d)
+        pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+        dk, dv = layer_cache_view(cache, 3, torch.bfloat16)
+        kx, vx, qh = dk[:, :, :p + 1], dv[:, :, :p + 1], q.transpose(1, 2)
+        if p == S - 1:
+            replay_at(f"K4 d=128 {kv} B={B}",
+                      lambda: fa.flash_decode_heads_attention(q, cache, layers[3],
+                                                              pos),
+                      pos, 127, (1500, 5, S - 1))
+        measure("K4 flash_decode_heads", f"B={B} pos={p} S={S} H={H} Kh={Kh}",
+                src, lambda i: fa.flash_decode_heads_attention(q, cache,
+                                                               layers[i % L], pos),
+                lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
+                lambda i: sdpa(qh, kx, vx),
+                B * (2 * H * d * 2 + 2 * Kh * (p + 1) * kv_row),
+                4 * d * B * H * (p + 1), 100)
+        del cache, dk, dv, kx, vx
+    for p in (127, 1500, S - 1) if kv == "bf16" else (1500,):
+        n = p // P + 1
+        table = torch.zeros((1, S // P), dtype=torch.int32, device=dev)
+        table[0, :n] = 1 + torch.arange(n, device=dev)
+        pool = quant(PagedKVCache(rand(L, 1 + n, Kh, P, d),
+                                  rand(L, 1 + n, Kh, P, d), table))
+        q = rand(1, 1, H, d)
+        pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+        dk, dv = paged_layer_view(pool, 3, torch.bfloat16)
+        kx, vx, qh = dk[:, :, :p + 1], dv[:, :, :p + 1], q.transpose(1, 2)
+        if p == S - 1:
+            replay_at(f"K10 d=128 {kv}",
+                      lambda: fp.flash_paged_attention(q, pool, layers[3], pos),
+                      pos, 127, (1500, 5, S - 1))
+        measure("K10 flash_paged", f"B=1 pos={p} P={P} H={H} Kh={Kh}", src,
+                lambda i: fp.flash_paged_attention(q, pool, layers[i % L], pos),
+                lambda i: fp.paged_attention_ref(q, pool, layers[i % L], pos),
+                lambda i: sdpa(qh, kx, vx),
+                2 * H * d * 2 + 2 * Kh * (p + 1) * kv_row, 4 * d * H * (p + 1),
+                100)
+        del pool, dk, dv, kx, vx
+
+    # K9 (B = 8, the monolithic cache) and K11 (B = 16, the pool): every
+    # row's base at `fill`, a 32-slot tail full
+    for kernel, B, paged in (("K9 flash_staged", 8, False),
+                             ("K11 flash_paged_staged", 16, True)):
+        for fill in (1536, 8000) if kv == "bf16" else (1536,):
+            if paged:
+                n = -(-fill // P)
+                table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
+                table[:, :n] = 1 + torch.arange(B * n, device=dev).reshape(B, n)
+                pool = quant(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
+                                          rand(L, 1 + B * n, Kh, P, d), table))
+                fn = fp.flash_paged_staged_attention
+                dk, dv = paged_layer_view(pool, 3, torch.bfloat16)
+            else:
+                pool = mono(B, H, Kh)
+                fn = fa.flash_staged_attention
+                dk, dv = layer_cache_view(pool, 3, torch.bfloat16)
+            t = quant(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)))
+            base = torch.full((B,), fill, dtype=torch.int32, device=dev)
+            st = StagedKVCache(pool, t.k, t.v, base, sk_scale=t.k_scale,
+                               sv_scale=t.v_scale)
+            pos = base + 31
+            q = rand(B, 1, H, d)
+            tk, tv = layer_cache_view(t, 3, torch.bfloat16)
+            kx = torch.cat([dk[:, :, :fill], tk], dim=2)
+            vx = torch.cat([dv[:, :, :fill], tv], dim=2)
+            qh = q.transpose(1, 2)
+            measure(kernel, f"B={B} fill={fill} tail=32 "
+                    + (f"P={P}" if paged else f"S={S}") + f" H={H} Kh={Kh}", src,
+                    lambda i: fn(q, st, layers[i % L], pos),
+                    lambda i: fp.staged_attention_ref(q, st, layers[i % L], pos),
+                    lambda i: sdpa(qh, kx, vx),
+                    2 * Kh * B * (fill + 32) * kv_row + 2 * B * H * d * 2,
+                    4 * d * H * B * (fill + 32), 100)
+            del pool, st, t, dk, dv, kx, vx
+    torch.cuda.empty_cache()
+    return rows
+
+
 #: the TPU kernel bodies the microbench's kernels replace (tools/kbench.py)
 KBENCH_REPLACES = {
     "kbench_probe_int4": "tools/kbench.py:142",
@@ -988,7 +1207,8 @@ def profile_decode(engine, prompt, torch, steps: int = 4) -> None:
         n[1] += e.time_range.elapsed_us() / 1e3
     dev_ms = sum(t for _, t in by_name.values()) / steps
     port = {name: v for name, v in by_name.items()
-            if any(k in name for k in ("qmm_", "flash_", "fused_"))}
+            if any(k in name for k in ("qmm_", "flash_", "fused_", "walk_kernel",
+                                       "decode_split"))}
     ours = sum(t for _, t in port.values()) / steps
     n_ours = sum(c for c, _ in port.values()) / steps
     print(f"profile: {len(kernels) / steps:.1f} device kernels a decode step "
@@ -1193,11 +1413,12 @@ def main() -> int:
     def qmm(M):
         return "qmm_smallm" if M <= qm.SMALL_M else "qmm_bigm"
 
-    def prefill_counts(c, b, T, paged, aq8):
+    def prefill_counts(c, b, T, paged, unfused):
         """An admission of b rows at bucket T from position 0 (a paged
-        prefill attends its own keys: flash_prefill_own)."""
+        prefill attends its own keys: flash_prefill_own); `unfused`: the
+        fused branch is closed (aq8, or n_embd above 2,048)."""
         attend = "flash_prefill_own" if paged else "flash_prefill"
-        if b * T <= 32 and not aq8:  # the fused branch
+        if b * T <= 32 and not unfused:  # the fused branch
             for k in ("fused_norm_qkv", attend, "fused_out_residual",
                       "ffn_fused_normed"):
                 c[k] += L
@@ -1206,12 +1427,12 @@ def main() -> int:
             c[attend] += L
         c[qmm(b)] += 1
 
-    def chunk_counts(c, B, C, paged, aq8):
+    def chunk_counts(c, B, C, paged, unfused):
         attend = ({True: "flash_paged_staged", False: "flash_staged"}[paged]
                   if B > 1 else "flash_paged" if paged
-                  else "flash_decode_heads" if aq8 else "fused_attn_out")
+                  else "flash_decode_heads" if unfused else "fused_attn_out")
         c[attend] += C * L
-        if aq8:  # the unfused branch: four linears a layer and the lm_head
+        if unfused:  # four linears a layer and the lm_head (no K7 either)
             c[qmm(B)] += C * (4 * L + 1)
             return
         for k in ("fused_norm_qkv", "ffn_fused_normed"):
@@ -1259,11 +1480,11 @@ def main() -> int:
         want = {k: 0 for c in counters for k in c}
         want["flash_prefill_own"] = 0
         if engs[0].policy.is_quantized:
-            aq8 = engs[0].policy.aq8
+            unfused = engs[0].policy.aq8 or engs[0].cfg.n_embd > 2048
             for b, T in record["prefill"]:
-                prefill_counts(want, b, T, paged, aq8)
+                prefill_counts(want, b, T, paged, unfused)
             for B, C in record["chunk"]:
-                chunk_counts(want, B, C, paged, aq8)
+                chunk_counts(want, B, C, paged, unfused)
         return out, record, want
 
     def ids_ok(outs, n_new):
@@ -1539,16 +1760,17 @@ def main() -> int:
 
     # (f), (g) continuous batching: the batcher's cache is its engine's kind
     def serve(path, eng, max_batch, n_requests, seed, kind="q8", ttft_chunk=0,
-              eager_too=False):
-        """Run the requests of `seed` through one batcher twice: a first
+              eager_too=False, lens_range=(8, 201), new_range=(32, 97)):
+        """Run the requests of `seed` (prompt lengths and new tokens drawn
+        from the ranges) through one batcher twice: a first
         pass that captures its chunks' graphs, then the measured pass
         (its chunks replays), whose tokens must be the first pass's; with
         eager_too, once more through a new batcher with the eager chunk,
         the same tokens again. Returns the measured pass's aggregate
         tok/s, TTFT p50 and p95 (s) and its pool's bytes."""
         srng = np.random.default_rng(seed)
-        lens = srng.integers(8, 201, n_requests)
-        n_new = srng.integers(32, 97, n_requests).tolist()
+        lens = srng.integers(*lens_range, n_requests)
+        n_new = srng.integers(*new_range, n_requests).tolist()
         reqs = [[1] + srng.integers(2, cfg.n_vocab, n - 1).tolist() for n in lens]
         gcfg = GenerationConfig(greedy=True, eos_token=-1, chunk_size=32)
 
@@ -2331,6 +2553,245 @@ def main() -> int:
           f"{PROMPT_LEN}-{PROMPT_LEN + GREEDY_STEPS - 1}); where not, its own "
           f"pick beats the card's by at most {max(margins):.5f}")
     mark("i8 greedy reading")
+
+    # (o) Llama-3-8B (d = 128, G = 4): its attention kernels' d = 128 rows,
+    # then its paths at full width and depth on random weights made on the
+    # card, bf16 activations, max_ctx 8,192; the helpers above read cfg and
+    # L, so they count and check for it from here on
+    from tinyllama_tpu_torch.config import LLAMA_3_70B, LLAMA_3_8B
+
+    def free():
+        """Frees what engines deleted above held (an engine and its chunk
+        graphs refer to each other, so they go at a collection)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    t_o = time.perf_counter()
+    rows8 = []
+    for kv in ("bf16", "i8", "f16", "f32"):
+        rows8 += phase_attention_d128(torch, ops, kv)
+    mark("(o) d = 128 kernel rows")
+    cfg, L = LLAMA_3_8B, LLAMA_3_8B.n_layers
+    kinds8 = ("8b-q4", "8b-q8", "8b-q4g", "8b-q4-kvi8", "8b-q4-kvf16",
+              "8b-q4-kvf32")
+    totals.update({kind: {k: 0 for c in counters for k in c} for kind in kinds8})
+    rng = np.random.default_rng(16)
+
+    def init8(kind):
+        g = torch.Generator("cuda")
+        g.manual_seed(8)
+        t0 = time.perf_counter()
+        p = llama.init_quantized_params(cfg, POLICIES[kind], g, "cuda")
+        torch.cuda.synchronize()
+        print(f"init: Llama-3-8B {kind} random weights on the card in "
+              f"{time.perf_counter() - t0:.1f} s, {tree_nbytes(p) / 1e9:.3f} GB",
+              flush=True)
+        return p
+
+    def engine8(policy, paged=False):
+        return Engine(cfg, policy, params8, max_ctx=cfg.max_ctx, device="cuda",
+                      paged=paged)
+
+    def run8(path, eng, run, kind="8b-q4"):
+        """run() with its shapes recorded and its exact counts checked."""
+        out_, record_, want_ = recorded(eng, eng.paged, run)
+        expect(path, kind, **want_)
+        return out_, record_
+
+    params8 = init8("q4")
+    q4_8b = POLICIES["q4"]
+    eng8 = engine8(q4_8b)
+    prompt8 = prompt_of(1000)
+    prompt100 = prompt_of(100)
+    # (o1) b1 generate: a 1,000-token prompt (bucket 1,024: K2, K3 at T =
+    # 1,024), 128 greedy tokens on the unfused branch (K1, K4)
+    out, stats = b1_paths("(o1) 8B q4", eng8, prompt8, 128, "8b-q4")
+    print(f"path (o1) 8B q4: prefill {stats.prefill_s * 1e3:.3f} ms (1,000 "
+          f"tokens, bucket {engine_bucket(1000, eng8.max_ctx)}); decode "
+          f"{stats.ms_per_token:.4f} ms/token over 128 tokens (graph); graph "
+          f"captures so far {eng8.graph_stats['graphs']} in "
+          f"{eng8.graph_stats['capture_s']:.3f} s; card {card}", flush=True)
+    print("path (o1) 8B q4: torch.profiler over eager decode steps at pos 100:",
+          flush=True)
+    profile_decode(eng8, prompt100, torch)
+    mark("(o1) q4")
+    # (o2) long context, paged: a 7,000-token prompt (bucket 8,192: K3 at T
+    # = 8,192 over the temporary cache), 64 tokens (K10 at pos 7,000-7,063,
+    # the chunk captured at its first position and replayed at the next)
+    peng = engine8(q4_8b, paged=True)
+    long8 = prompt_of(7000)
+    (out, stats), _ = run8("(o2) paged 7,000-token prompt", peng,
+                           lambda: peng.generate(long8, GenerationConfig(
+                               n_predict=7064, greedy=True, eos_token=-1,
+                               chunk_size=32)))
+    if not ids_ok([out], [64]):
+        return fail(f"path (o2): {len(out)} ids, or ids out of range")
+    ms = graph_step(peng, long8, 7000)
+    print(f"path (o2) 8B q4 paged: 7,000-token prompt: prefill "
+          f"{stats.prefill_s * 1e3:.3f} ms (bucket 8,192, eager, host clock); "
+          f"decode {stats.ms_per_token:.4f} ms/token over 64 tokens (pos "
+          f"7,000-7,063{notes['first_use']}); one step at pos 7,000 replayed "
+          f"as a CUDA graph {ms:.4f} ms; card {card}", flush=True)
+    mark("(o2) paged long context")
+    # (o3) serving: generate_batch of 4 prompts (staged chunks, K9), then
+    # the paged batcher, 16 slots, 32 requests (K11; K10 at bucket 1; K3 at
+    # admission)
+    batch8 = [prompt_of(n) for n in (100, 200, 300, 400)]
+    gcfg = GenerationConfig(n_predict=464, greedy=True, eos_token=-1,
+                            chunk_size=32)
+    t0 = time.perf_counter()
+    (outs, stats), record = run8("(o3) generate_batch", eng8,
+                                 lambda: eng8.generate_batch(batch8, gcfg))
+    if not ids_ok(outs, [364, 264, 164, 64]):
+        return fail(f"path (o3) generate_batch: {[len(o) for o in outs]} ids")
+    print(f"path (o3) 8B q4 generate_batch of 4 prompts (100-400 tokens, to "
+          f"464): prefill {stats.prefill_s * 1e3:.3f} ms (bucket "
+          f"{record['prefill'][0][1]}), decode {stats.decode_s * 1e3 / stats.decode_steps:.4f} "
+          f"ms a staged B=4 step over {stats.decode_steps} steps"
+          f"{notes['first_use']}; wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    del eng8
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    tps, p50, p95, nb = serve("(o3) 8B q4 paged batcher", peng, 16, 32, 7,
+                              "8b-q4", lens_range=(64, 2049),
+                              new_range=(32, 129))
+    print(f"path (o3): 8B q4 paged batcher, 16 slots, 32 requests (seed 7, "
+          f"prompts 64-2,048, 32-128 new): {tps:.2f} tok/s, TTFT p50 "
+          f"{p50 * 1e3:.3f} ms p95 {p95 * 1e3:.3f} ms; KV pool {nb} B; "
+          f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} "
+          f"B; card {card}", flush=True)
+    del peng
+    free()
+    mark("(o3) serving")
+    # (o4) the int8 cache: b1 generate (int8 K3, K4), then one paged
+    # batcher admission of 8 requests and their chunks (int8 K11)
+    q4i8 = POLICIES["q4-kvi8"]
+    eng8 = engine8(q4i8)
+    b1_paths("(o4) 8B q4-kvi8", eng8, prompt100, 64, "8b-q4-kvi8")
+    del eng8
+    free()
+    peng = engine8(q4i8, paged=True)
+    tps, p50, p95, nb = serve("(o4) 8B q4-kvi8 paged batcher", peng, 8, 8, 9,
+                              "8b-q4-kvi8", lens_range=(64, 513),
+                              new_range=(32, 33))
+    print(f"path (o4): one admission of 8 requests over an int8 pool: "
+          f"{tps:.2f} tok/s, TTFT p50 {p50 * 1e3:.3f} ms; KV pool {nb} B",
+          flush=True)
+    del peng
+    free()
+    # int8, f16 and f32 caches: b1 (K3, K4), generate_batch (K9), paged b1
+    # (K3 over the step's own keys, int8 when the pool is; K10) and a paged
+    # generate_batch (K11), one eager 8-step chunk each (a capture would
+    # cost seconds a run here)
+    gcfg = GenerationConfig(n_predict=108, greedy=True, eos_token=-1,
+                            chunk_size=8)
+    for kv in ("i8", "f16", "f32"):
+        polk = dataclasses.replace(q4_8b, kv_dtype=kv)
+        for paged in (False, True):
+            engk = engine8(polk, paged)
+            with eager_chunks():
+                (out, stats), _ = run8(f"(o4) 8B q4-kv{kv} b1 paged={paged}",
+                                       engk, lambda: engk.generate(prompt100, gcfg),
+                                       f"8b-q4-kv{kv}")
+                (outs, _), _ = run8(f"(o4) 8B q4-kv{kv} B=4 paged={paged}", engk,
+                                    lambda: engk.generate_batch(batch8[:1] * 4,
+                                                                gcfg),
+                                    f"8b-q4-kv{kv}")
+            if not ids_ok([out] + outs, [8] * 5):
+                return fail(f"path (o4) {kv}: ids out of range")
+            print(f"path (o4) 8B q4-kv{kv} paged={paged}: b1 decode "
+                  f"{stats.ms_per_token:.4f} ms/token over 8 tokens (eager "
+                  f"chunk)", flush=True)
+            del engk
+            free()
+    del params8
+    free()
+    mark("(o4) KV kinds")
+    # q8 and q4g: b1 generate, a 100-token prompt and 64 tokens each
+    for kind in ("q8", "q4g"):
+        params8 = init8(kind)
+        eng8 = engine8(POLICIES[kind])
+        b1_paths(f"(o1) 8B {kind}", eng8, prompt100, 64, f"8b-{kind}")
+        del eng8, params8
+        free()
+    mark("(o1) q8, q4g")
+    # (o5) the CLI on the card: random q4 weights, 32 tokens
+    eng_c, toks, out, stats = run_cli(
+        ["--model", "llama-3-8b", "-q4", "--random-weights", "-p", CLI_PROMPT,
+         "-greedy", "--npred", str(len(CLI_PROMPT) + 1 + 32)])
+    want = {k: 0 for c in counters for k in c}
+    prefill_counts(want, 1, engine_bucket(len(toks), eng_c.max_ctx), False, True)
+    chunk_counts(want, 1, stats.decode_steps, False, True)
+    expect("(o5) cli", "8b-q4", **want)
+    if not (eng_c.cfg.name == "llama-3-8b" and ids_ok([out], [len(out)])
+            and 0 < len(out) <= 32):
+        return fail(f"path (o5): {eng_c.cfg.name}, {len(out)} ids")
+    print(f"path (o5): cli.main --model llama-3-8b -q4 --random-weights: load "
+          f"{stats.load_s:.3f} s, prefill {stats.prefill_s * 1e3:.3f} ms "
+          f"({len(toks)} tokens), decode {stats.ms_per_token:.4f} ms/token over "
+          f"{len(out)} tokens (its first chunk's capture included); card {card}",
+          flush=True)
+    del eng_c
+    free()
+    for r in rows8:
+        names = [counter_name(n, r["kind"]) for n in launch_names[r["kernel"]]]
+        r["launches"] = sum(totals[r["kind"]][k] for k in names)
+        if not r["launches"]:
+            return fail(f"{r['name']} was not launched on path (o)")
+    rows += rows8
+    mark("(o5) cli")
+
+    # parity of Llama-3-8B and -70B at 2 layers and full width: the same
+    # weights (made on the card, copied to the CPU) on the card and the
+    # CPU; the card's traces first, then the CPU's all at once, a thread
+    # each (the plain ops hold no lock)
+    jobs = []
+    for big, kinds_, kw in (
+            (LLAMA_3_8B, ("q8", "q4", "q4g", "q4-kvi8"),
+             dict(b1_steps=1, b4=True, staged=("paged",))),
+            (LLAMA_3_70B, ("q4",), dict(b1_steps=2))):
+        cfg2 = big.replace(n_layers=2, max_ctx=256)
+        made = {}
+        for kind in kinds_:
+            wkind = kind.split("-")[0]
+            if wkind not in made:
+                g = torch.Generator("cuda")
+                g.manual_seed(99)
+                made[wkind] = llama.init_quantized_params(cfg2, POLICIES[wkind], g,
+                                                          "cuda")
+            tag = f"{cfg2.name} {kind} "
+            card_trace = parity_trace(Engine(cfg2, POLICIES[kind], made[wkind],
+                                             device="cuda"), tag, **kw)
+            jobs.append((cfg2, POLICIES[kind], llama.params_to(made[wkind], "cpu"),
+                         tag, kw, card_trace))
+        del made
+        free()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        cpu_traces = list(pool.map(
+            lambda j: parity_trace(Engine(j[0], j[1], j[2], device="cpu"), j[3],
+                                   **j[4]), jobs))
+    pairs = []
+    for job, cpu_trace in zip(jobs, cpu_traces):
+        pairs += list(zip(job[5], cpu_trace))
+    del jobs
+    mark("parity Llama-3 traces")
+    worst = 0.0
+    for (name, a), (_, b) in pairs:
+        if not (torch.isfinite(a).all() and a.shape[-1] == LLAMA_3_8B.n_vocab):
+            return fail(f"parity {name}: logits not finite or misshapen")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        worst = max(worst, err / scale)
+        print(f"parity {name}: max |gpu - cpu| {err:.5f}, max |cpu| "
+              f"{scale:.4f}, mean |diff| {float((a - b).abs().mean()):.6f} "
+              f"(limit {PARITY_REL} of max |cpu|)")
+        if err > PARITY_REL * scale:
+            return fail(f"parity {name}: {err} > {PARITY_REL} * {scale}")
+    print(f"parity: Llama-3's worst relative max error {worst:.5f} (limit "
+          f"{PARITY_REL}); path (o) and its parity {time.perf_counter() - t_o:.1f} s")
+    mark("(o) parity")
 
     for r in rows:
         del r["kernel"], r["kind"]

@@ -51,6 +51,18 @@ from tinyllama_tpu_torch.runtime.kvcache import KVCache
 
 from test_torch_fused_plan import split_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch ops: with the test
+    workers sharing the host's cores, eight threads a worker each spin for
+    the cores and the ops run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 L, KH, S, D = 2, 2, 512, 64
 LAYER = 1
 POSITIONS = (0, 63, 64, 447, 448, S - 1)

@@ -2498,3 +2498,239 @@ def test_two_threads_capture_at_once(card):
     for g, w in zip(got, want):
         assert len(g) == len(w) and all(torch.equal(a, b) for a, b in zip(g, w))
     assert all(e.graph_stats["graphs"] == 4 for e in engines)
+
+
+# --- head dim 128 (Llama-3): K3, K4, K9, K10, K11 -----------------------------
+
+#: max_ctx of the d = 128 tests (Llama-3's) and their page size
+D128_S, D128_P = 8192, 256
+#: K4 / K10: a row at each position; K9 / K11: (chunk base, tail fill) a
+#: row, a 64-slot tail
+D128_POS = [0, 63, 64, D128_S - 1]
+D128_STAGED = [(0, 1), (63, 33), (64, 64), (D128_S - 64, 64)]
+
+
+def _d128_inputs(B, G, kv, bases, seed, device, T=1, Kh=2, L=2, Cs=64):
+    """The d = 128 kernels' operands in the KV kind `kv` at max_ctx 8,192:
+    q [B, T, G Kh, 128]; a monolithic cache [L, B, Kh, S, 128] and a page
+    pool of the same values (256-key pages under a shuffled table); a
+    staged tail of Cs slots over each, chunk bases `bases`. Values N(0,
+    1); int8 ones uniform with scales uniform in [0.005, 0.025)."""
+    g = torch.Generator().manual_seed(seed)
+    S, P, d = D128_S, D128_P, 128
+    J = S // P
+
+    def planes(shape):  # k, v and their scales (None but int8), on the CPU
+        if kv == "i8":
+            data = [torch.randint(-127, 128, shape, generator=g,
+                                  dtype=torch.int8) for _ in range(2)]
+            return data + [torch.rand(shape[:-1], generator=g) * 0.02 + 0.005
+                           for _ in range(2)]
+        dt = {"bf16": torch.bfloat16, "f16": torch.float16,
+              "f32": torch.float32}[kv]
+        return [torch.randn(shape, generator=g).to(dt) for _ in range(2)] + [
+            None, None]
+
+    dense = planes((L, B, Kh, S, d))
+    tail = planes((L, B, Kh, Cs, d))
+    table = 1 + torch.randperm(B * J, generator=g).reshape(B, J)
+    pool = []
+    for x in dense:
+        if x is None:
+            pool.append(None)
+            continue
+        y = torch.zeros((L, 1 + B * J, Kh, P) + x.shape[4:], dtype=x.dtype)
+        for b in range(B):
+            for j in range(J):
+                y[:, table[b, j]] = x[:, b, :, j * P:(j + 1) * P]
+        pool.append(y)
+    on = [None if x is None else x.to(device) for x in dense + pool + tail]
+    k, v, ks, vs, pk, pv, pks, pvs, sk, sv, sks, svs = on
+    base = _i32(bases, device)
+    cache = KVCache(k, v, ks, vs)
+    paged = PagedKVCache(pk, pv, table.to(device, torch.int32), pks, pvs)
+    q = torch.randn(B, T, G * Kh, d, generator=g).to(device, torch.bfloat16)
+    return (q, cache, paged,
+            StagedKVCache(cache, sk, sv, base, sk_scale=sks, sv_scale=svs),
+            StagedKVCache(paged, sk, sv, base, sk_scale=sks, sv_scale=svs))
+
+
+def _d128_decode_cases(q, cache, paged, st_d, st_p, layer, p, p_st):
+    """(module, counter, kernel, plain) of K4, K10, K9 and K11."""
+    fa, fp = flash_attention, flash_paged
+    return [
+        (fa, "flash_decode_heads",
+         lambda: fa.flash_decode_heads_attention(q, cache, layer, p),
+         lambda: fa.attention_ref(q, cache, layer, p)),
+        (fp, "flash_paged", lambda: fp.flash_paged_attention(q, paged, layer, p),
+         lambda: fp.paged_attention_ref(q, paged, layer, p)),
+        (fa, "flash_staged",
+         lambda: fa.flash_staged_attention(q, st_d, layer, p_st),
+         lambda: fp.staged_attention_ref(q, st_d, layer, p_st)),
+        (fp, "flash_paged_staged",
+         lambda: fp.flash_paged_staged_attention(q, st_p, layer, p_st),
+         lambda: fp.staged_attention_ref(q, st_p, layer, p_st)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+@pytest.mark.parametrize("G", [4, 8])
+def test_d128_split_kernels_match_plain(card, G, kv):
+    """K4 and K10 at d = 128, a row at each of pos 0, 63, 64 and S - 1 (S =
+    8,192), and K9 and K11 at chunk bases 0, 63, 64 and S - 64 with tails
+    filled 1, 33, 64 and 64: each against its plain version, one launch
+    counted a call under the kind's counter."""
+    bases = [b for b, _ in D128_STAGED]
+    q, cache, paged, st_d, st_p = _d128_inputs(4, G, kv, bases, seed=G,
+                                               device=card)
+    layer = _i32([1], card)
+    p = _i32(D128_POS, card)
+    p_st = _i32([b + f - 1 for b, f in D128_STAGED], card)
+    sfx = "" if kv == "bf16" else f"_{kv}"
+    for mod, name, kernel, plain in _d128_decode_cases(q, cache, paged, st_d,
+                                                       st_p, layer, p, p_st):
+        got = _counted(mod, name + sfx, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("T,pos", [(130, [0, 7000]), (8192, [0])])
+def test_d128_prefill_kernel_matches_plain(card, T, pos, G, kv):
+    """K3 at d = 128: 130 new tokens a row at pos 0 and 7,000 (a partial
+    last query tile, keys past 7,129 unread), and a whole 8,192-token
+    prompt against S = 8,192; against its plain version."""
+    q, cache, _, _, _ = _d128_inputs(len(pos), G, kv, [0] * len(pos),
+                                     seed=T + G, device=card, T=T)
+    layer, p = _i32([1], card), _i32(pos, card)
+    sfx = "" if kv == "bf16" else f"_{kv}"
+    got = _counted(flash_attention, "flash_prefill" + sfx,
+                   lambda: flash_attention.flash_prefill_attention(q, cache,
+                                                                   layer, p))
+    want = flash_attention.attention_ref(q, cache, layer, p)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _replays_equal(run, states, what):
+    """run() captured in a CUDA graph (after an eager call), then for each
+    state: set it (a callable writing device tensors in place), replay,
+    and the outputs must equal an eager call there."""
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for label, set_state in states:
+        set_state()
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = run()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e), f"{what} replayed at {label}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+def test_d128_kernels_replay_in_a_graph(card, kv):
+    """At d = 128, G = 4: K4 and K10 captured at pos 127 and replayed at
+    1,500, 5 and 8,191; K9 and K11 captured at slot 3 of a chunk and
+    replayed at slots 0, 40 and 63 and in chunks whose bases moved by 64
+    and 3,000; K3 captured at pos 0 and replayed at 500 and 8,062 (pos,
+    base written in place): each replay equals an eager call there."""
+    bases = [b for b, _ in D128_STAGED[:3]] + [4000]
+    q, cache, paged, st_d, st_p = _d128_inputs(4, 4, kv, bases, seed=21,
+                                               device=card)
+    layer = _i32([1], card)
+    p = _i32([127] * 4, card)
+    p_st = st_d.base + 3
+    cases = _d128_decode_cases(q, cache, paged, st_d, st_p, layer, p, p_st)
+    _replays_equal(lambda: [c[2]() for c in cases[:2]],
+                   [(at, functools.partial(p.fill_, at))
+                    for at in (1500, 5, D128_S - 1)], f"K4, K10 {kv}")
+    base0 = st_d.base.clone()
+
+    def chunk_at(shift, slot):
+        def set_state():
+            st_d.base.copy_(base0 + shift)
+            p_st.copy_(st_d.base + slot)
+        return (f"base + {shift}, slot {slot}", set_state)
+
+    _replays_equal(lambda: [c[2]() for c in cases[2:]],
+                   [chunk_at(0, 0), chunk_at(0, 40), chunk_at(0, 63),
+                    chunk_at(64, 17), chunk_at(3000, 50)], f"K9, K11 {kv}")
+    q3, cache3, _, _, _ = _d128_inputs(1, 4, kv, [0], seed=22, device=card,
+                                       T=130)
+    p3 = _i32([0], card)
+    _replays_equal(
+        lambda: [flash_attention.flash_prefill_attention(q3, cache3, layer, p3)],
+        [(at, functools.partial(p3.fill_, at)) for at in (500, D128_S - 130)],
+        f"K3 {kv}")
+
+
+@pytest.mark.cuda
+def test_d128_wrappers_refuse_other_head_dims(card):
+    """A head dim the kernels do not take (96) is refused on the card with
+    a ValueError naming the ones they take, before a launch; K8 takes
+    only 64."""
+    d = 96
+    q = torch.zeros(1, 1, 8, d, dtype=torch.bfloat16, device=card)
+    cache = _cache(1, 2, 256, [4], seed=0, device=card, d=d)
+    layer, pos = _i32([0], card), _i32([3], card)
+    pool = PagedKVCache(cache.k.clone(), cache.v.clone(), _i32([[0]], card))
+    st = StagedKVCache(cache, cache.k[:, :, :, :32].contiguous(),
+                       cache.v[:, :, :, :32].contiguous(), _i32([2], card))
+    calls = [
+        lambda: flash_attention.flash_prefill_attention(
+            torch.zeros(1, 2, 8, d, dtype=torch.bfloat16, device=card), cache,
+            layer, pos),
+        lambda: flash_attention.flash_decode_heads_attention(q, cache, layer,
+                                                             pos),
+        lambda: flash_attention.flash_staged_attention(q, st, layer, pos),
+        lambda: flash_paged.flash_paged_attention(q, pool, layer, pos),
+        lambda: flash_paged.flash_paged_staged_attention(
+            q, StagedKVCache(pool, st.sk, st.sv, st.base), layer, pos),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match=r"d must be one of \(64, 128\)"):
+            call()
+    q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16, device=card)
+    cache = _cache(1, 2, 256, [4], seed=0, device=card, d=128)
+    res = torch.zeros(1, 1, 1024, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match=r"one of \(64,\)"):
+        attn_out_fused.fused_attn_out(q, cache, _i32([0], card), _i32([3], card),
+                                      res, _weight(2, 1024, 1024, 0, card))
+
+
+_llama3_params: dict = {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kv", ["bf16", "i8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["mono", "paged"])
+def test_graph_chunk_equals_eager_chunk_llama3_width(card, paged, kv, B):
+    """test_graph_chunk_equals_eager_chunk at Llama-3-8B's widths and head
+    dim (2 of its 32 layers, q4 weights made on the card, max_ctx 1,024):
+    the unfused b1 step (K1, K4 or K10 at d = 128) and the staged B = 4
+    one (K9 or K11), replayed, are the eager chunk bit for bit."""
+    from tinyllama_tpu_torch.config import LLAMA_3_8B
+
+    cfg = LLAMA_3_8B.replace(n_layers=2)
+    if "q4" not in _llama3_params:
+        g = torch.Generator(card).manual_seed(0)
+        _llama3_params["q4"] = llama.init_quantized_params(cfg, POLICIES["q4"], g,
+                                                           device=card)
+    policy = dataclasses.replace(POLICIES["q4"], kv_dtype=kv)
+    eng = Engine(cfg, policy, _llama3_params["q4"], max_ctx=1024, device=card,
+                 paged=paged)
+    _graph_against_eager(eng, B, GenerationConfig(greedy=True, eos_token=-1))

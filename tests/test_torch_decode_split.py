@@ -42,6 +42,18 @@ from tinyllama_tpu_torch.ops.kernels import build
 from tinyllama_tpu_torch.ops.kernels import decode_split as ds
 from tinyllama_tpu_torch.ops.kernels import flash_attention, flash_paged
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch ops: with the test
+    workers sharing the host's cores, eight threads a worker each spin for
+    the cores and the ops run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 L, B, KH, G, D = 2, 3, 2, 4, 64
 S, P = 512, 64  # 8 key tiles a row (one past SOLO_TILES); K10 pages of one tile
 #: each case runs both position sets: 0, 63, 64, 65 and S - 1 over 3 rows
@@ -203,7 +215,7 @@ def test_launch_path_ignores_pos(kernel, monkeypatch):
                       (B, KH * G, KH, pc.k.shape[1], P, S // P, D), S // P)
     want = ds.decode_splits(B, KH, S // 64, 132)
     assert [n for _, n in seen] == [want] * 4
-    assert set(shapes) == {(B, KH * G, want, ds.PARTIAL)}
+    assert set(shapes) == {(B, KH * G, want, ds.partial_floats(D))}
 
 
 def test_attn_ab_needs_a_card(capsys):

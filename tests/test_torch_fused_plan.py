@@ -41,6 +41,18 @@ from tinyllama_tpu_torch.ops.kernels import decode_fused, ffn_fused, fused_plan,
 from tinyllama_tpu_torch.ops.precision import exact_f32
 from tinyllama_tpu_torch.quant.codec import QTensor, dequantize, quantize
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch ops: with the test
+    workers sharing the host's cores, eight threads a worker each spin for
+    the cores and the ops run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=2e-2, atol=5e-3)
 H100_SMS = 132
 #: TinyLlama-1.1B's fused launches: (K, output columns); the gate/up

@@ -451,3 +451,22 @@ def test_graph_modules_import_torch_and_the_standard_library(module):
                     "threading", "time", "typing", "torch",
                     "tinyllama_tpu_torch"}, tops
     assert graphs.capture_for(torch.device("cpu")) is None
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["mono", "paged"])
+def test_engine_with_graphs_is_freed(both_params, paged):
+    """An engine whose chunks ran through run_chunk over its own cache
+    (generate keeps one cache a batch size) is freed once nothing refers
+    to it: the finalizer that drops its graphs with a storage holds the
+    engine weakly, so the engine, its caches and its graphs go together."""
+    import gc
+    import weakref
+
+    _, pp = both_params
+    eng = _engine(pp, paged=paged)
+    eng.generate(PROMPT, pconfig.GenerationConfig(**_gen()))
+    assert eng._chunk_graphs
+    gone = weakref.ref(eng)
+    del eng
+    gc.collect()
+    assert gone() is None

@@ -49,6 +49,18 @@ from tinyllama_tpu_torch.ops.kernels import kbench_probe as kp
 from tinyllama_tpu_torch.ops.kernels import kbench_sweep as ks
 from tinyllama_tpu_torch.tools import kbench
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch ops: with the test
+    workers sharing the host's cores, eight threads a worker each spin for
+    the cores and the ops run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parent.parent
 SWEEP_ALL = ks.VARIANTS + ("manual",)
 

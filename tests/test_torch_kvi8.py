@@ -61,6 +61,18 @@ from tinyllama_tpu_torch.runtime import kvcache, paged, staging
 from tinyllama_tpu_torch.runtime.engine import Engine
 from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch ops: with the test
+    workers sharing the host's cores, eight threads a worker each spin for
+    the cores and the ops run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 JCFG = jax_tiny()
 CFG = pconfig.tiny_test_config()
 L, Kh, d = CFG.n_layers, CFG.n_kv_heads, CFG.d_head

@@ -279,4 +279,4 @@ def test_launch_path_ignores_pos_and_base(kernel, monkeypatch):
     want = ds.decode_splits(B, KH, S // 64 + 2, 132)
     name = "flash_staged" if kernel == "K9" else "flash_paged_staged"
     assert seen == [(name, want)] * 4
-    assert set(shapes) == {(B, KH * G, want, ds.PARTIAL)}
+    assert set(shapes) == {(B, KH * G, want, ds.partial_floats(D))}

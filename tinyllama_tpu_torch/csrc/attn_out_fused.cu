@@ -48,19 +48,23 @@
 
 namespace {
 
+// K8's head dim. The split template also has 128 (Llama-3), which no
+// registry model brings here: the fused branch takes n_embd <= 2048.
+constexpr int D = 64;
+
 // The attention at K4's addressing with G query heads a kv head, letting
 // the wo walk start early.
 template <class KV>
 int attention(const dsplit::Args<KV>& a, int G, cudaStream_t st) {
   switch (G) {
-    case 1: return dsplit::launch_g<1, false, false, KV, true>(a, st);
-    case 2: return dsplit::launch_g<2, false, false, KV, true>(a, st);
-    case 3: return dsplit::launch_g<3, false, false, KV, true>(a, st);
-    case 4: return dsplit::launch_g<4, false, false, KV, true>(a, st);
-    case 5: return dsplit::launch_g<5, false, false, KV, true>(a, st);
-    case 6: return dsplit::launch_g<6, false, false, KV, true>(a, st);
-    case 7: return dsplit::launch_g<7, false, false, KV, true>(a, st);
-    case 8: return dsplit::launch_g<8, false, false, KV, true>(a, st);
+    case 1: return dsplit::launch_g<D, 1, false, false, KV, true>(a, st);
+    case 2: return dsplit::launch_g<D, 2, false, false, KV, true>(a, st);
+    case 3: return dsplit::launch_g<D, 3, false, false, KV, true>(a, st);
+    case 4: return dsplit::launch_g<D, 4, false, false, KV, true>(a, st);
+    case 5: return dsplit::launch_g<D, 5, false, false, KV, true>(a, st);
+    case 6: return dsplit::launch_g<D, 6, false, false, KV, true>(a, st);
+    case 7: return dsplit::launch_g<D, 7, false, false, KV, true>(a, st);
+    case 8: return dsplit::launch_g<D, 8, false, false, KV, true>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -85,7 +89,7 @@ int fused_attn_out(const void* q, const void* k, const void* v, const void* ks,
                    void* attn, void* out, int kind, int kv_kind, int H, int Kh,
                    int S, int N, int n_split, int width, int splits,
                    void* stream) {
-  const int K = H * dsplit::D;
+  const int K = H * D;
   if (!kvkind::valid(kv_kind) || Kh < 1 || H % Kh || H / Kh > dsplit::GMAX ||
       S < dsplit::BS || S % dsplit::BS || n_split < 1 ||
       n_split > min(S / dsplit::BS, dsplit::MAX_SPLITS) ||

@@ -1,6 +1,8 @@
 // Single-token grouped-query attention over a long KV cache for Hopper
 // (sm_90a), with the key walk split across the card's SMs: bf16 queries,
-// a bf16, f16, f32 or int8 cache (kvkind.cuh), f32 softmax and sums.
+// a bf16, f16, f32 or int8 cache (kvkind.cuh), f32 softmax and sums, at
+// head dim 64 (TinyLlama) or 128 (Llama-3), each an instantiation of the
+// template.
 //
 // One kernel template serves four TPU kernels, which differ only in how
 // key tile t of batch row b is addressed:
@@ -42,8 +44,8 @@ struct Ptrs {
 template <bool PAGED, bool STAGED>
 int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int rows,
              int n_pages, int J, int Cs, int d, int n_split, void* stream) {
-  if (!kvkind::valid(kv_kind) || d != D || B < 1 || Kh < 1 || H % Kh ||
-      rows < BS || rows % BS || (PAGED && (J < 1 || n_pages < 1)) ||
+  if (!kvkind::valid(kv_kind) || (d != 64 && d != 128) || B < 1 || Kh < 1 ||
+      H % Kh || rows < BS || rows % BS || (PAGED && (J < 1 || n_pages < 1)) ||
       (STAGED && (Cs < 32 || Cs % 32)))
     return (int)cudaErrorInvalidValue;
   const int cap_tiles = PAGED ? J * (rows / BS) : rows / BS;
@@ -63,11 +65,13 @@ int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int rows,
                static_cast<const int*>(p.table), static_cast<float*>(p.ws),
                static_cast<bf16*>(p.out), B, Kh, rows, n_pages, J, Cs,
                cap_tiles, n_split};
-    switch (H / Kh) {
-      case 4: return launch_g<4, PAGED, STAGED, KV>(a, st);
-      case 8: return launch_g<8, PAGED, STAGED, KV>(a, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    const int G = H / Kh;
+    if (G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+    if (d == 64)
+      return G == 4 ? launch_g<64, 4, PAGED, STAGED, KV>(a, st)
+                    : launch_g<64, 8, PAGED, STAGED, KV>(a, st);
+    return G == 4 ? launch_g<128, 4, PAGED, STAGED, KV>(a, st)
+                  : launch_g<128, 8, PAGED, STAGED, KV>(a, st);
   });
 }
 
@@ -77,11 +81,12 @@ extern "C" {
 
 // kv_kind (kvkind.cuh): 0 bf16, 2 f16 or 3 f32 planes with null scales; 1
 // int8 planes with f32 scale planes of their shape less d. ws: f32 [B, H,
-// n_split, 66], written whole before it is read (never zeroed);
+// n_split, d + 2], written whole before it is read (never zeroed);
 // 1 <= n_split <= min(32, the row's capacity in 64-key tiles, a staged
 // tail's ceil(Cs / 64) counted); B * Kh <= 65536. One launch: the split
-// walk, its last block a group merging. Every entry requires d == 64, H /
-// Kh in {4, 8} and S (or P) % 64 == 0; the staged ones Cs % 32 == 0.
+// walk, its last block a group merging. Every entry requires d in {64,
+// 128}, H / Kh in {4, 8} and S (or P) % 64 == 0; the staged ones Cs % 32
+// == 0.
 
 // K4. q, out: [B, 1, H, d] bf16; k, v: [L, B, Kh, S, d]; ks, vs: [L, B,
 // Kh, S]; layer [1]; pos [B] (pos[b] < S).

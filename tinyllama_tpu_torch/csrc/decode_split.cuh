@@ -1,10 +1,11 @@
 // The split-key single-token attention of the port, for Hopper (sm_90a):
 // one kernel template, bf16 queries against a bf16, f16, f32 or int8
-// cache (kvkind.cuh), f32 softmax and sums. Its users:
+// cache (kvkind.cuh), f32 softmax and sums, at head dim D = 64 or 128 (a
+// template parameter: TinyLlama's 64, Llama-3's 128). Its users:
 // * K4, K9, K10 and K11 (decode_split.cu), which differ only in how key
 //   tile t of batch row b is addressed (the PAGED and STAGED flags);
 // * K8 fused_attn_out (attn_out_fused.cu): K4's addressing at B = 1, any
-//   G <= 8, its result the x of the wo walk (fused_walk.cuh) that runs as
+//   G <= 8, D = 64 only, its result the x of the wo walk (fused_walk.cuh) that runs as
 //   the next, programmatic dependent, launch; the TRIGGER flag lets that
 //   launch start once a block's first copies are issued.
 //
@@ -50,13 +51,17 @@
 //   (staged: base 0 and pos < 0) takes no tile: its split 0 writes zeros,
 //   as JAX's denominator of 1 gives.
 // * Ring. Inside a block the tiles go through a ring of NS stages in
-//   shared memory (3; 2 for f32, so two 80 KB blocks fit an SM), filled
+//   shared memory (3; 2 for f32, so two 80 KB blocks fit an SM at D = 64;
+//   at D = 128 a stage doubles: 2 blocks an SM in bf16 and int8, 1 in f16
+//   and f32), filled
 //   by 16-byte cp.async copies of the raw cache bytes (and an int8 tile's
 //   f32 scales): tile t + NS - 1 is in flight while tile t is computed;
 //   the page number of a tile is read as its copies are issued. bf16 K
-//   and V rows are stored with an XOR swizzle of their 16-byte chunks
-//   (chunk c of row r at c ^ (r & 7)), so the copies stay 16-byte aligned
-//   and the 8 rows of an ldmatrix come from 8 distinct bank groups. An
+//   and V rows (D / 8 chunks of 16 bytes) are stored with an XOR swizzle
+//   of their chunks (chunk c of row r at c ^ (r & 7): at D = 128 the low
+//   three bits of c, so a chunk stays in its half of the row), so the
+//   copies stay 16-byte aligned and the 8 rows of an ldmatrix come from 8
+//   distinct bank groups. An
 //   int8, f16 or f32 tile lands raw and is converted once, by the whole
 //   block, into swizzled bf16 K and V tiles beside the ring: f16 and f32
 //   rounded to bf16, as the TPU kernels cast a tile; int8 K and V times
@@ -65,20 +70,21 @@
 // * Products. A block is NW = 4 warps whatever G; warp w takes keys 16 w
 //   .. 16 w + 15 of every tile for all G heads of the group, as its own
 //   sub-split with its own running (m, l, acc). Scores S^T [16 keys x 8
-//   heads] are four mma.sync.m16n8k16 (K rows by ldmatrix from the
+//   heads] are D / 16 mma.sync.m16n8k16 (K rows by ldmatrix from the
 //   swizzled tile, the group's queries held as B fragments; heads past G
 //   are zero columns); the online softmax runs in the accumulators, a
 //   head's 16 keys over the 8 lanes that hold its column; the bf16
 //   probabilities are transposed in registers (movmatrix) into the B
-//   operand of O^T [64 dims x 8 heads] += V^T P^T, four more mma.sync
+//   operand of O^T [D dims x 8 heads] += V^T P^T, D / 16 more mma.sync
 //   with V^T by ldmatrix.trans. At the end of the walk the four warps'
 //   partials merge in shared memory into the block's.
 // * Merge, in the same launch. A group with one live block writes its
 //   output directly. Otherwise each live block writes (m, l, acc[64]) in
-//   f32 a query head to a workspace [B, H, n_split, 66] from torch.empty
+//   f32 a query head to a workspace [B, H, n_split, D + 2] from torch.empty
 //   (slots past n_live are never written or read), fences, and takes a
 //   ticket from its group's arrival count; the block that takes the last
-//   merges, a warp a head and a lane a partial: M = max m_i, then
+//   merges, a warp a head and a lane a partial (then, D / 64 times, two
+//   dims a lane): M = max m_i, then
 //   sum(exp(m_i - M) acc_i) / sum(exp(m_i - M) l_i) as bf16 (l > 0, else
 //   1). Its atomicInc wraps the count back to 0, so nothing is zeroed
 //   between launches or graph replays. A second, merging launch was the
@@ -110,25 +116,24 @@ namespace dsplit {
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64;            // head dim
 constexpr int BS = 64;           // keys per tile
 constexpr int NW = 4;            // warps a block: 16 keys of a tile each
 constexpr int NT = NW * 32;      // threads a block
 constexpr int GMAX = 8;          // heads of the products' N = 8 columns
-constexpr int WS = D + 2;        // floats of one partial: m, l, acc[D]
 constexpr int MAX_SPLITS = 32;   // a warp merges them, a lane a partial
 constexpr int SOLO_TILES = 7;    // a row of <= this many tiles: one block
-constexpr int BF_ROW = 2 * D;    // bytes of a bf16 row
-constexpr int BF_TILE = BS * BF_ROW;
 
-// The ring for a KV element type: NS stages, each the raw K and V tiles
-// of BS rows, then (int8) the tile's BS key scales and BS value scales.
-// Kinds other than bf16 are converted once a tile, into bf16 K and V
-// tiles beside the ring, before the warps read them.
-template <class KV>
+// The ring for a KV element type at head dim D: NS stages, each the raw K
+// and V tiles of BS rows, then (int8) the tile's BS key scales and BS
+// value scales. Kinds other than bf16 are converted once a tile, into
+// bf16 K and V tiles beside the ring, before the warps read them.
+template <class KV, int D>
 struct Tile {
+  static_assert(D == 64 || D == 128, "the template's head dims");
   static constexpr bool I8 = kvkind::is_i8<KV>;
   static constexpr bool RAW = !std::is_same<KV, bf16>::value;
+  static constexpr int WS = D + 2;                  // floats of a partial
+  static constexpr int BF_TILE = BS * 2 * D;        // a bf16 K or V tile
   static constexpr int ROW = D * (int)sizeof(KV);  // bytes of a raw row
   static constexpr int CPR = ROW / 16;              // 16-byte chunks a row
   static constexpr int BYTES = BS * ROW;            // one raw K or V tile
@@ -137,10 +142,12 @@ struct Tile {
   static constexpr int SMEM = NS * STAGE + (RAW ? 2 * BF_TILE : 0);
 };
 
-// Where 16-byte chunk c of bf16 row r sits in a tile: at c ^ (r & 7) of
-// its row, so the 8 rows of an ldmatrix matrix (one chunk each) land in 8
-// distinct bank groups and every copy stays 16-byte aligned.
-__device__ inline int kchunk(int r, int c) { return r * 8 + (c ^ (r & 7)); }
+// Where 16-byte chunk c of bf16 row r (D / 8 chunks) sits in a tile: at
+// c ^ (r & 7) of its row, so the 8 rows of an ldmatrix matrix (one chunk
+// each) land in 8 distinct bank groups and every copy stays 16-byte
+// aligned.
+template <int D>
+__device__ inline int kchunk(int r, int c) { return r * (D / 8) + (c ^ (r & 7)); }
 
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
@@ -158,8 +165,9 @@ __device__ inline uint32_t movmatrix_trans(uint32_t x) {
   return y;
 }
 
-// One call's operands. KV: bf16, int8_t, __half or float; the scale
-// planes (int8 only, else null) have the data's shape less D.
+// One call's operands (D the head dim of the launch). KV: bf16, int8_t,
+// __half or float; the scale planes (int8 only, else null) have the
+// data's shape less D.
 template <class KV>
 struct Args {
   const bf16* q;       // [B, 1, H, D]
@@ -175,7 +183,7 @@ struct Args {
   const int* pos;      // [B]
   const int* base;     // [B] (staged only)
   const int* table;    // [B, J] (paged only)
-  float* ws;           // [B, H, n_split, WS]
+  float* ws;           // [B, H, n_split, D + 2]
   bf16* out;           // [B, 1, H, D]
   int B, Kh;
   int rows;            // dense: S; paged: page size P
@@ -197,7 +205,7 @@ __device__ inline int tile_keys(int t, int n_pool, int npool, int ntail) {
 // Where tile t of row b, kv head kh lies: the element offset of its first
 // row in its source, pool (or slab) tile t below n_pool, else tail tile
 // t - n_pool.
-template <bool PAGED, bool STAGED, class KV>
+template <int D, bool PAGED, bool STAGED, class KV>
 __device__ inline size_t tile_offset(const Args<KV>& a, int li, int b, int kh,
                                      int t, int n_pool) {
   if (STAGED && t >= n_pool) {
@@ -222,15 +230,15 @@ __device__ inline size_t tile_offset(const Args<KV>& a, int li, int b, int kh,
 // are zeros, and a copy of source size 0 reads nothing), since the
 // tensor-core P V multiplies every key of a warp's 16, a masked one by
 // p = 0.
-template <class KV>
+template <int D, class KV>
 __device__ inline void issue_tile(unsigned char* stage, const KV* k,
                                   const KV* v, const float* ks,
                                   const float* vs, size_t off, int rows) {
-  using T = Tile<KV>;
+  using T = Tile<KV, D>;
   const unsigned char* kg = reinterpret_cast<const unsigned char*>(k + off);
   const unsigned char* vg = reinterpret_cast<const unsigned char*>(v + off);
   for (int i = threadIdx.x; i < BS * T::CPR; i += NT) {
-    const int sd = T::RAW ? i : kchunk(i / T::CPR, i % T::CPR);
+    const int sd = T::RAW ? i : kchunk<D>(i / T::CPR, i % T::CPR);
     const bool in = i < rows * T::CPR;
     hopper::cp_async16(stage + sd * 16, kg + (in ? i * 16 : 0), in ? 16 : 0);
     hopper::cp_async16(stage + T::BYTES + sd * 16, vg + (in ? i * 16 : 0),
@@ -248,16 +256,16 @@ __device__ inline void issue_tile(unsigned char* stage, const KV* k,
 
 // Issue tile t of row b, kv head kh into a stage (tile_offset's source),
 // its visible keys only.
-template <bool PAGED, bool STAGED, class KV>
+template <int D, bool PAGED, bool STAGED, class KV>
 __device__ inline void issue(unsigned char* stage, const Args<KV>& a, int li,
                              int b, int kh, int t, int n_pool, int npool,
                              int ntail) {
-  const size_t off = tile_offset<PAGED, STAGED>(a, li, b, kh, t, n_pool);
+  const size_t off = tile_offset<D, PAGED, STAGED>(a, li, b, kh, t, n_pool);
   const int rows = tile_keys<STAGED>(t, n_pool, npool, ntail);
   if (STAGED && t >= n_pool)
-    issue_tile(stage, a.sk, a.sv, a.sks, a.svs, off, rows);
+    issue_tile<D>(stage, a.sk, a.sv, a.sks, a.svs, off, rows);
   else
-    issue_tile(stage, a.k, a.v, a.ks, a.vs, off, rows);
+    issue_tile<D>(stage, a.k, a.v, a.ks, a.vs, off, rows);
 }
 
 // Eight int8 values (8 bytes, 8-byte aligned) times s as eight bf16, each
@@ -283,31 +291,36 @@ __device__ inline uint4 i8x8_bf16(const int8_t* p, float s) {
 // f16 and f32 rounded to nearest even (kvkind::load8); int8 K and V times
 // their row's scale (sc[r] and sc[BS + r]) rounded (as
 // kvkind::load8_scaled). A thread
-// converts CPT 8-value chunks, every load issued before the first store
-// (one shared-memory latency, not CPT of them).
-template <class KV>
+// converts CPT 8-value chunks a pass (D / 64 passes), every load of a
+// pass issued before its first store (one shared-memory latency, not CPT
+// of them).
+template <int D, class KV>
 __device__ inline void convert_tile(const unsigned char* stage,
                                     unsigned char* bk, unsigned char* bv,
                                     const float* sc) {
-  using T = Tile<KV>;
+  using T = Tile<KV, D>;
+  constexpr int CR = D / 8;  // 8-value chunks a row
   constexpr int CPT = 2 * BS * 8 / NT;
-  uint4 x[CPT];
 #pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int o = threadIdx.x + j * NT;
-    const int plane = o / (BS * 8), r = (o / 8) % BS, c = o % 8;
-    const KV* src = reinterpret_cast<const KV*>(stage + plane * T::BYTES +
-                                                r * T::ROW) + 8 * c;
-    if constexpr (T::I8)
-      x[j] = i8x8_bf16(src, sc[plane * BS + r]);
-    else
-      x[j] = kvkind::load8(src);
-  }
+  for (int pass = 0; pass < D / 64; ++pass) {
+    uint4 x[CPT];
 #pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int o = threadIdx.x + j * NT;
-    const int plane = o / (BS * 8), r = (o / 8) % BS, c = o % 8;
-    *reinterpret_cast<uint4*>((plane ? bv : bk) + kchunk(r, c) * 16) = x[j];
+    for (int j = 0; j < CPT; ++j) {
+      const int o = threadIdx.x + (pass * CPT + j) * NT;
+      const int plane = o / (BS * CR), r = (o / CR) % BS, c = o % CR;
+      const KV* src = reinterpret_cast<const KV*>(stage + plane * T::BYTES +
+                                                  r * T::ROW) + 8 * c;
+      if constexpr (T::I8)
+        x[j] = i8x8_bf16(src, sc[plane * BS + r]);
+      else
+        x[j] = kvkind::load8(src);
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int o = threadIdx.x + (pass * CPT + j) * NT;
+      const int plane = o / (BS * CR), r = (o / CR) % BS, c = o % CR;
+      *reinterpret_cast<uint4*>((plane ? bv : bk) + kchunk<D>(r, c) * 16) = x[j];
+    }
   }
 }
 
@@ -325,11 +338,16 @@ __device__ unsigned int g_tickets[MAX_GROUPS];
 // itself; otherwise each writes its partial and the last to arrive
 // merges them. TRIGGER: once its first copies are issued, the block lets
 // the next launch, a programmatic dependent one, start (a block that
-// returns early lets it by exiting).
-template <int G, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
-__global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
-  using T = Tile<KV>;
+// returns early lets it by exiting). At D = 128 the stages and the
+// accumulators double; two blocks an SM is what the bf16 ring leaves
+// (the register budget follows).
+template <int D, int G, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
+__global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
+    decode_split_kernel(Args<KV> a) {
+  using T = Tile<KV, D>;
   static_assert(G <= GMAX, "a group's heads are the products' 8 columns");
+  constexpr int WS = T::WS;
+  constexpr int KS = D / 16;  // k16 steps of the scores, m16 tiles of O^T
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float part[NW][G][WS];  // each warp's (m, l, acc) a head
   __shared__ unsigned int ticket;
@@ -370,37 +388,37 @@ __global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
 #pragma unroll
   for (int s = 0; s < T::NS - 1; ++s) {
     if (t0 + s < t1)
-      issue<PAGED, STAGED>(smem + s * T::STAGE, a, li, b, kh, t0 + s, n_pool,
-                           npool, ntail);
+      issue<D, PAGED, STAGED>(smem + s * T::STAGE, a, li, b, kh, t0 + s,
+                              n_pool, npool, ntail);
     cp_async_commit();  // empty groups keep the count uniform
   }
   if constexpr (TRIGGER) hopper::launch_dependents();
   // the group's queries as the scores' B fragments: head r4 (zero past
   // G), dims 16 kk + 2 c4 + {0, 1} in qb[kk][0] and + 8 in qb[kk][1]
-  uint32_t qb[4][2];
+  uint32_t qb[KS][2];
   {
     const uint32_t* qr = reinterpret_cast<const uint32_t*>(
         a.q + (head0 + min(r4, G - 1)) * D);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       qb[kk][0] = r4 < G ? qr[8 * kk + c4] : 0u;
       qb[kk][1] = r4 < G ? qr[8 * kk + 4 + c4] : 0u;
     }
   }
 
   unsigned char* bk = smem + T::NS * T::STAGE;  // converted tiles (RAW)
-  unsigned char* bv = bk + BF_TILE;
+  unsigned char* bv = bk + T::BF_TILE;
   const float scale = 1.f / sqrtf((float)D);
   // this warp's sub-split: running max and sum of heads 2 c4 + e, and
   // acc[mt][2 i + e] = dim 16 mt + r4 + 8 i of head 2 c4 + e
   float m[2] = {TL_NEG_INF, TL_NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[4][4] = {};
+  float acc[KS][4] = {};
   const int key0 = 16 * w;  // this warp's keys of every tile
   for (int t = t0; t < t1; ++t) {
     const int i = t - t0;
     if (t + T::NS - 1 < t1)
-      issue<PAGED, STAGED>(smem + ((i + T::NS - 1) % T::NS) * T::STAGE, a, li,
-                           b, kh, t + T::NS - 1, n_pool, npool, ntail);
+      issue<D, PAGED, STAGED>(smem + ((i + T::NS - 1) % T::NS) * T::STAGE, a,
+                              li, b, kh, t + T::NS - 1, n_pool, npool, ntail);
     cp_async_commit();
     cp_async_wait<T::NS - 1>();  // this thread's copies of tile t landed
     __syncthreads();              // and everyone's
@@ -409,7 +427,7 @@ __global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
     const unsigned char* kt = st;
     const unsigned char* vt = st + T::BYTES;
     if constexpr (T::RAW) {
-      convert_tile<KV>(st, bk, bv, sc);
+      convert_tile<D, KV>(st, bk, bv, sc);
       __syncthreads();
       kt = bk;
       vt = bv;
@@ -422,11 +440,11 @@ __global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
     // (lane & 7) + 8 (j & 1) at chunk 2 kk + (j >> 1).
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       const int j = lane >> 3;
       const int r = key0 + (lane & 7) + 8 * (j & 1);
       uint32_t ka[4];
-      hopper::ldmatrix_x4(ka, kt + kchunk(r, 2 * kk + (j >> 1)) * 16);
+      hopper::ldmatrix_x4(ka, kt + kchunk<D>(r, 2 * kk + (j >> 1)) * 16);
       hopper::mma_16816(s, ka, qb[kk][0], qb[kk][1]);
     }
     // online softmax over the warp's 16 keys, a head's over the 8 lanes
@@ -465,17 +483,17 @@ __global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
     // the bf16 pairs of S^T's layout, transposed in registers
     const uint32_t pb0 = movmatrix_trans(kvkind::bf16x2(s[0], s[1]));
     const uint32_t pb1 = movmatrix_trans(kvkind::bf16x2(s[2], s[3]));
-    // O^T [64 dims x 8 heads] += V^T P^T: A fragments of V^T by
+    // O^T [D dims x 8 heads] += V^T P^T: A fragments of V^T by
     // ldmatrix.trans, lanes 8 j .. 8 j + 7 addressing rows key0 + (lane &
     // 7) + 8 (j >> 1) at chunk 2 mt + (j & 1)
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+    for (int mt = 0; mt < KS; ++mt) {
 #pragma unroll
       for (int x = 0; x < 4; ++x) acc[mt][x] *= alpha[x & 1];
       const int j = lane >> 3;
       const int r = key0 + (lane & 7) + 8 * (j >> 1);
       uint32_t va[4];
-      hopper::ldmatrix_x4_trans(va, vt + kchunk(r, 2 * mt + (j & 1)) * 16);
+      hopper::ldmatrix_x4_trans(va, vt + kchunk<D>(r, 2 * mt + (j & 1)) * 16);
       hopper::mma_16816(acc[mt], va, pb0, pb1);
     }
     __syncthreads();  // the stage and the bf16 tiles are free again
@@ -491,37 +509,42 @@ __global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
         part[w][h][1] = l[e];
       }
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+      for (int mt = 0; mt < KS; ++mt) {
         part[w][h][2 + 16 * mt + r4] = acc[mt][e];
         part[w][h][2 + 16 * mt + r4 + 8] = acc[mt][2 + e];
       }
     }
   }
   __syncthreads();
-  for (int h = w; h < G; h += NW) {  // a warp a head, a lane two dims
+  // a warp a head, a lane two dims of each 64 (pair 32 hf + lane)
+  for (int h = w; h < G; h += NW) {
     float M = TL_NEG_INF;
 #pragma unroll
     for (int x = 0; x < NW; ++x) M = fmaxf(M, part[x][h][0]);
-    float L = 0.f, a0 = 0.f, a1 = 0.f;
-#pragma unroll
-    for (int x = 0; x < NW; ++x) {
-      const float c = expf(part[x][h][0] - M);
-      L = fmaf(c, part[x][h][1], L);
-      a0 = fmaf(c, part[x][h][2 + 2 * lane], a0);
-      a1 = fmaf(c, part[x][h][3 + 2 * lane], a1);
-    }
     const size_t row = head0 + h;
-    if (n_live == 1) {  // the whole walk was this block's
-      const float den = L > 0.f ? L : 1.f;
-      reinterpret_cast<__nv_bfloat162*>(a.out + row * D)[lane] =
-          __floats2bfloat162_rn(a0 / den, a1 / den);
-    } else {
-      float* ws = a.ws + (row * a.n_split + split) * WS;
-      if (lane == 0) {
-        ws[0] = M;
-        ws[1] = L;
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf) {
+      const int dd = 64 * hf + 2 * lane;
+      float L = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int x = 0; x < NW; ++x) {
+        const float c = expf(part[x][h][0] - M);
+        L = fmaf(c, part[x][h][1], L);
+        a0 = fmaf(c, part[x][h][2 + dd], a0);
+        a1 = fmaf(c, part[x][h][3 + dd], a1);
       }
-      reinterpret_cast<float2*>(ws + 2)[lane] = make_float2(a0, a1);
+      if (n_live == 1) {  // the whole walk was this block's
+        const float den = L > 0.f ? L : 1.f;
+        reinterpret_cast<__nv_bfloat162*>(a.out + row * D)[32 * hf + lane] =
+            __floats2bfloat162_rn(a0 / den, a1 / den);
+      } else {
+        float* ws = a.ws + (row * a.n_split + split) * WS;
+        if (hf == 0 && lane == 0) {
+          ws[0] = M;
+          ws[1] = L;
+        }
+        reinterpret_cast<float2*>(ws + 2)[32 * hf + lane] = make_float2(a0, a1);
+      }
     }
   }
   if (n_live == 1) return;
@@ -534,8 +557,8 @@ __global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
 
   // the last block: merge the group's n_live <= 32 partials, a warp a
   // head, lane i holding partial i's (m, l) and every lane loading its two
-  // dims of each acc (past the L1, which may hold nothing of them: the
-  // writers fenced)
+  // dims of each acc, 64 dims at a time (past the L1, which may hold
+  // nothing of them: the writers fenced)
   for (int h = w; h < G; h += NW) {
     const size_t row = head0 + h;
     const float* ws = a.ws + row * a.n_split * WS;  // this head's partials
@@ -544,37 +567,47 @@ __global__ void __launch_bounds__(NT, 4) decode_split_kernel(Args<KV> a) {
       mp = __ldcg(ws + lane * WS);
       lp = __ldcg(ws + lane * WS + 1);
     }
-    float2 pacc[MAX_SPLITS];
+    // dims 64 hf + 2 lane, + 1 of partial x: issued before the reductions
+    auto load = [&](float2 (&pacc)[MAX_SPLITS], int hf) {
 #pragma unroll
-    for (int x = 0; x < MAX_SPLITS; ++x)
-      if (x < n_live)
-        pacc[x] = __ldcg(reinterpret_cast<const float2*>(ws + x * WS + 2) + lane);
+      for (int x = 0; x < MAX_SPLITS; ++x)
+        if (x < n_live)
+          pacc[x] = __ldcg(reinterpret_cast<const float2*>(ws + x * WS + 2) +
+                           32 * hf + lane);
+    };
+    float2 pacc[MAX_SPLITS];
+    load(pacc, 0);
     const float M = tl_warp_max(mp);
     const float c = lane < n_live ? expf(mp - M) : 0.f;
     const float den_sum = tl_warp_sum(c * lp);
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-    for (int x = 0; x < MAX_SPLITS; ++x) {
-      if (x < n_live) {
-        const float cx = __shfl_sync(0xffffffffu, c, x);
-        a0 = fmaf(cx, pacc[x].x, a0);
-        a1 = fmaf(cx, pacc[x].y, a1);
-      }
-    }
     const float den = den_sum > 0.f ? den_sum : 1.f;
-    reinterpret_cast<__nv_bfloat162*>(a.out + row * D)[lane] =
-        __floats2bfloat162_rn(a0 / den, a1 / den);
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf) {
+      if (hf) load(pacc, hf);
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int x = 0; x < MAX_SPLITS; ++x) {
+        if (x < n_live) {
+          const float cx = __shfl_sync(0xffffffffu, c, x);
+          a0 = fmaf(cx, pacc[x].x, a0);
+          a1 = fmaf(cx, pacc[x].y, a1);
+        }
+      }
+      reinterpret_cast<__nv_bfloat162*>(a.out + row * D)[32 * hf + lane] =
+          __floats2bfloat162_rn(a0 / den, a1 / den);
+    }
   }
 }
 
-template <int G, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
+template <int D, int G, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
 int launch_g(const Args<KV>& a, cudaStream_t st) {
-  constexpr int SMEM = Tile<KV>::SMEM;  // f16: 64 KB, f32: 80 KB, above 48
+  // f16: 64 KB, f32: 80 KB at D = 64, twice that at D = 128; above 48
+  constexpr int SMEM = Tile<KV, D>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<G, PAGED, STAGED, KV, TRIGGER>,
+      decode_split_kernel<D, G, PAGED, STAGED, KV, TRIGGER>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  decode_split_kernel<G, PAGED, STAGED, KV, TRIGGER>
+  decode_split_kernel<D, G, PAGED, STAGED, KV, TRIGGER>
       <<<dim3(a.Kh, a.B, a.n_split), NT, SMEM, st>>>(a);
   return (int)cudaGetLastError();
 }

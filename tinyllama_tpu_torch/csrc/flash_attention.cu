@@ -1,7 +1,8 @@
 // Causal grouped-query attention of new tokens over the stacked KV cache
 // for Hopper (sm_90a), bf16 queries, a bf16, f16, f32 or int8 cache
 // (kvkind.cuh: int8 with f32 scales [L, B, Kh, S]), f32 softmax and
-// accumulation.
+// accumulation, at head dim D = 64 (TinyLlama) or 128 (Llama-3), a
+// template parameter.
 //
 // The cache is [L, B, Kh, S, d] with the new tokens' k/v already written;
 // the layer and the positions are read from device memory, so no layer
@@ -22,13 +23,19 @@
 //     every K/V tile, as the TPU kernel's rows do; row blocks run in
 //     reverse, so the longest causal walks start first and the tail of
 //     the grid is short walks;
-//   * S = Q K^T as four wgmma.m64n64k16 from shared memory (Q loaded
-//     once; K rows [key, d] are 128 bytes, one 128-byte-swizzled row);
-//     the online softmax runs on the accumulator registers, each thread
+//   * S = Q K^T as D / 16 wgmma.m64n64k16 from shared memory (Q loaded
+//     once). A bf16 tile of 64 rows is D / 64 column blocks of 64 values,
+//     each 64 rows of 128 bytes under the 128-byte swizzle (8 KB, the
+//     swizzle's atom column), the second 8 KB after the first: at D = 128
+//     a row's 256 bytes span both and k16 steps 4..7 start one block on.
+//     The online softmax runs on the accumulator registers, each thread
 //     holding 16 scores of each of two rows, their max and sum two quad
 //     shuffles; the bf16 probabilities are the A operand of the P V
-//     wgmma from registers, V the MN-major B operand in shared memory;
-//   * an asynchronous ring of key tiles (3 stages; 2 for f32): 16-byte
+//     wgmmas from registers (one m64n64 a column block of V, so the
+//     output takes D / 2 f32 registers a thread beside the scores' 32), V
+//     the MN-major B operand in shared memory;
+//   * an asynchronous ring of key tiles (3 stages; 2 for f32, and for
+//     bf16 at D = 128, where a third would leave one block an SM): 16-byte
 //     cp.async copies that arrive on the stage's mbarrier, so tiles j + 1
 //     and j + 2 land while tile j is computed. A bf16 tile lands swizzled
 //     and is used as it lands; an int8, f16 or f32 tile lands raw and the
@@ -38,8 +45,9 @@
 //   * causal work only: tiles above the block's last row are neither
 //     loaded nor computed, and only tiles that cross the diagonal are
 //     masked.
-//   Shared memory: 57 KB (bf16), 52 KB (int8), 73 KB (f16), 89 KB (f32),
-//   so at least two blocks an SM.
+//   Shared memory at D = 64: 57 KB (bf16), 52 KB (int8), 73 KB (f16),
+//   89 KB (f32), so at least two blocks an SM; at D = 128: 81 KB (bf16),
+//   100 KB (int8), two blocks an SM; 145 KB (f16), 177 KB (f32), one.
 //
 // K4 flash_decode_heads (T = 1), which replaces _decode_heads_kernel of
 //   the same file, shares one split-key template with K10 in
@@ -60,27 +68,34 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64;            // head dim
 constexpr int PF_THREADS = 128;  // one warpgroup
 constexpr int PF_BR = 64;        // query rows a block
 constexpr int PF_BS = 64;        // keys a tile
-constexpr int BF_TILE = PF_BS * D * 2;  // a bf16 K or V tile: 8 KB
+constexpr int ATOM = 64 * 128;   // a 64-row column block of 64 bf16 values
 
-// The ring for a KV element type: NS stages, each the K and V tiles of
-// PF_BS rows (bf16: swizzled, read by the products as they are; else
-// raw), then (int8) the tile's key and value scales.
-template <class KV>
+// The ring for a KV element type at head dim D: NS stages, each the K and
+// V tiles of PF_BS rows (bf16: swizzled, read by the products as they
+// are; else raw), then (int8) the tile's key and value scales.
+template <class KV, int D>
 struct PfTile {
+  static_assert(D == 64 || D == 128, "the kernel's head dims");
   static constexpr bool I8 = kvkind::is_i8<KV>;
   static constexpr bool RAW = !std::is_same<KV, bf16>::value;
+  static constexpr int BF_TILE = PF_BS * D * 2;   // a bf16 Q, K or V tile
   static constexpr int ROW = D * (int)sizeof(KV);  // bytes of a raw row
   static constexpr int BYTES = PF_BS * ROW;        // a raw K or V tile
   static constexpr int STAGE = (2 * BYTES + (I8 ? 2 * PF_BS * 4 : 0) + 1023) / 1024 * 1024;
-  static constexpr int NS = sizeof(KV) == 4 ? 2 : 3;
+  static constexpr int NS = sizeof(KV) == 4 || (D == 128 && !RAW) ? 2 : 3;
   // Q, the converted K and V (not bf16), the ring, its barriers, slack
   // for the 1024-byte alignment
   static constexpr int SMEM = BF_TILE + (RAW ? 2 * BF_TILE : 0) + NS * STAGE + 8 * NS + 1024;
 };
+
+// Byte offset of 16-byte chunk c (of D / 8) of row r in a 64-row bf16
+// tile: column block c / 8, then the 128-byte swizzle inside it.
+__device__ inline int tswz(int r, int c) {
+  return (c >> 3) * ATOM + hopper::swz(r, c & 7);
+}
 
 template <class KV>
 struct PfArgs {
@@ -97,10 +112,10 @@ struct PfArgs {
 };
 
 // Issue the copies of key tile jt of the slab at kv_off into a ring slot.
-template <class KV>
+template <int D, class KV>
 __device__ inline void pf_issue(const PfArgs<KV>& a, size_t kv_off, int jt,
                                 unsigned char* slot) {
-  using T = PfTile<KV>;
+  using T = PfTile<KV, D>;
   const unsigned char* kg =
       reinterpret_cast<const unsigned char*>(a.k + kv_off + (size_t)jt * PF_BS * D);
   const unsigned char* vg =
@@ -111,7 +126,7 @@ __device__ inline void pf_issue(const PfArgs<KV>& a, size_t kv_off, int jt,
     const int plane = u / CHUNKS, o = u % CHUNKS;
     const unsigned char* src = (plane ? vg : kg) + o * 16;
     unsigned char* dst = slot + plane * T::BYTES;
-    hopper::cp_async16(T::RAW ? dst + o * 16 : dst + hopper::swz(o / 8, o % 8), src);
+    hopper::cp_async16(T::RAW ? dst + o * 16 : dst + tswz(o / (D / 8), o % (D / 8)), src);
   }
   if constexpr (T::I8) {
     if (threadIdx.x < 2 * PF_BS / 4) {  // 16 chunks of f32 scales a plane
@@ -123,27 +138,30 @@ __device__ inline void pf_issue(const PfArgs<KV>& a, size_t kv_off, int jt,
 }
 
 // A landed raw tile to the bf16 K and V tiles (swizzled), once a block.
-template <class KV>
+template <int D, class KV>
 __device__ inline void pf_convert(const unsigned char* slot, unsigned char* kb,
                                   unsigned char* vb) {
-  using T = PfTile<KV>;
+  using T = PfTile<KV, D>;
+  constexpr int CR = D / 8;  // 8-value chunks a row
   const float* sc = reinterpret_cast<const float*>(slot + 2 * T::BYTES);
 #pragma unroll 4
-  for (int u = threadIdx.x; u < 2 * PF_BS * 8; u += PF_THREADS) {
-    const int plane = u / (PF_BS * 8), r = (u / 8) % PF_BS, c = u % 8;
+  for (int u = threadIdx.x; u < 2 * PF_BS * CR; u += PF_THREADS) {
+    const int plane = u / (PF_BS * CR), r = (u / CR) % PF_BS, c = u % CR;
     const KV* src = reinterpret_cast<const KV*>(slot + plane * T::BYTES + r * T::ROW) + 8 * c;
     uint4 val;
     if constexpr (T::I8)
       val = kvkind::load8_scaled(src, sc[plane * PF_BS + r]);
     else
       val = kvkind::load8(src);
-    *reinterpret_cast<uint4*>((plane ? vb : kb) + hopper::swz(r, c)) = val;
+    *reinterpret_cast<uint4*>((plane ? vb : kb) + tswz(r, c)) = val;
   }
 }
 
-template <class KV>
+template <int D, class KV>
 __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfArgs<KV> a) {
-  using T = PfTile<KV>;
+  using T = PfTile<KV, D>;
+  constexpr int BF_TILE = T::BF_TILE;
+  constexpr int NB = D / 64;  // column blocks of 64 values
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* qs = smem;                                  // Q, swizzled
@@ -170,17 +188,18 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
   // Q rows r -> token (r0 + r) / G, head kh * G + (r0 + r) % G; rows past
   // TG are zeros. Its copies arrive with tile 0's.
 #pragma unroll
-  for (int i = 0; i < PF_BR * 8 / PF_THREADS; ++i) {
-    const int u = threadIdx.x + i * PF_THREADS, r = u / 8, c = u % 8, rr = r0 + r;
+  for (int i = 0; i < PF_BR * (D / 8) / PF_THREADS; ++i) {
+    const int u = threadIdx.x + i * PF_THREADS, r = u / (D / 8), c = u % (D / 8);
+    const int rr = r0 + r;
     const bool in = rr < TG;
     const bf16* src = in ? a.q + (((size_t)b * a.T + rr / G) * a.H + kh * G + rr % G) * D + c * 8
                          : a.q;
-    hopper::cp_async16(qs + hopper::swz(r, c), src, in ? 16 : 0);
+    hopper::cp_async16(qs + tswz(r, c), src, in ? 16 : 0);
   }
 #pragma unroll
   for (int i = 0; i < T::NS - 1; ++i) {
     if (i < n_tiles) {
-      pf_issue(a, kv_off, i, ring + i * T::STAGE);
+      pf_issue<D>(a, kv_off, i, ring + i * T::STAGE);
       hopper::cp_async_arrive(&full[i]);
     }
   }
@@ -195,22 +214,24 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
   // scores in log2 units: exp(x / sqrt(d)) = 2^(x log2(e) / sqrt(d))
   const float scale = 1.4426950408889634f / sqrtf((float)D);
   float m[2] = {TL_NEG_INF, TL_NEG_INF}, l[2] = {0.f, 0.f};
-  float o[32];
+  float o[NB][32];  // the output, a column block of 64 dims each
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int h = 0; h < NB; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
   const uint32_t q_addr = hopper::smem_u32(qs);
 
   for (int j = 0; j < n_tiles; ++j) {
     const int nx = j + T::NS - 1;  // into the slot that tile j - 1 freed
     if (nx < n_tiles) {
-      pf_issue(a, kv_off, nx, ring + (nx % T::NS) * T::STAGE);
+      pf_issue<D>(a, kv_off, nx, ring + (nx % T::NS) * T::STAGE);
       hopper::cp_async_arrive(&full[nx % T::NS]);
     }
     unsigned char* slot = ring + (j % T::NS) * T::STAGE;
     hopper::mbar_wait(&full[j % T::NS], (j / T::NS) & 1);
     unsigned char *kt = slot, *vt = slot + BF_TILE;
     if constexpr (T::RAW) {
-      pf_convert<KV>(slot, cvt, cvt + BF_TILE);
+      pf_convert<D, KV>(slot, cvt, cvt + BF_TILE);
       kt = cvt;
       vt = cvt + BF_TILE;
       hopper::fence_proxy_async();
@@ -219,7 +240,8 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
       hopper::fence_proxy_async();
     }
 
-    // S = Q K^T over d = 64: four k16 steps of 32 bytes along the rows
+    // S = Q K^T over d: D / 16 k16 steps of 32 bytes along the rows, the
+    // fifth on in the next column block
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -227,9 +249,11 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
     hopper::reg_fence(s);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_m64n64_ss(s, hopper::desc_k(q_addr + kk * 32),
-                              hopper::desc_k(k_addr + kk * 32));
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * ATOM + (kk % 4) * 32;
+      hopper::wgmma_m64n64_ss(s, hopper::desc_k(q_addr + off),
+                              hopper::desc_k(k_addr + off));
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait0();
     hopper::reg_fence(s);
@@ -267,10 +291,12 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        o[4 * c + 2 * i] *= alpha;
-        o[4 * c + 2 * i + 1] *= alpha;
-      }
+      for (int h = 0; h < NB; ++h)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          o[h][4 * c + 2 * i] *= alpha;
+          o[h][4 * c + 2 * i + 1] *= alpha;
+        }
     }
     // the bf16 probabilities as the A operand: keys 16 kk .. 16 kk + 15
     uint32_t p[PF_BS / 16][4];
@@ -280,21 +306,27 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
       for (int h = 0; h < 4; ++h)
         p[kk][h] = hopper::pack_bf16(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1]);
 
-    // O += P V, V MN-major: k16 steps of 16 key rows (2048 bytes)
+    // O += P V, V MN-major: k16 steps of 16 key rows (2048 bytes), one
+    // m64n64 product a column block of V's dims
     const uint32_t v_addr = hopper::smem_u32(vt);
-    hopper::reg_fence(o);
+#pragma unroll
+    for (int h = 0; h < NB; ++h) hopper::reg_fence(o[h]);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < PF_BS / 16; ++kk)
-      hopper::wgmma_m64n64_rs_mn(o, p[kk], hopper::desc_mn(v_addr + kk * 2048, BF_TILE));
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int kk = 0; kk < PF_BS / 16; ++kk)
+        hopper::wgmma_m64n64_rs_mn(o[h], p[kk],
+                                   hopper::desc_mn(v_addr + h * ATOM + kk * 2048, BF_TILE));
     hopper::wgmma_commit();
     hopper::wgmma_wait0();
-    hopper::reg_fence(o);
+#pragma unroll
+    for (int h = 0; h < NB; ++h) hopper::reg_fence(o[h]);
     hopper::reg_fence(p);
     __syncthreads();  // the slot (and converted tiles) are free
   }
 
-  // o[4 c + 2 i + e]: row i, dim 8 c + 2 (lane % 4) + e
+  // o[h][4 c + 2 i + e]: row i, dim 64 h + 8 c + 2 (lane % 4) + e
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int rr = r0 + 16 * w + lane / 4 + 8 * i;
@@ -302,20 +334,22 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
     const float den = l[i] > 0.f ? l[i] : 1.f;
     bf16* op = a.out + (((size_t)b * a.T + rr / G) * a.H + kh * G + rr % G) * D + 2 * (lane % 4);
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      *reinterpret_cast<uint32_t*>(op + 8 * c) =
-          hopper::pack_bf16(o[4 * c + 2 * i] / den, o[4 * c + 2 * i + 1] / den);
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<uint32_t*>(op + 64 * h + 8 * c) =
+            hopper::pack_bf16(o[h][4 * c + 2 * i] / den, o[h][4 * c + 2 * i + 1] / den);
   }
 }
 
-template <class KV>
+template <int D, class KV>
 int launch_prefill(const PfArgs<KV>& a, int B, cudaStream_t st) {
-  constexpr int SMEM = PfTile<KV>::SMEM;
+  constexpr int SMEM = PfTile<KV, D>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_prefill_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      flash_prefill_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((a.T * a.G + PF_BR - 1) / PF_BR, a.Kh, B);
-  flash_prefill_kernel<KV><<<grid, PF_THREADS, SMEM, st>>>(a);
+  flash_prefill_kernel<D, KV><<<grid, PF_THREADS, SMEM, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -326,12 +360,13 @@ extern "C" {
 // q, out: [B, T, H, d] bf16; k, v: [L, B, Kh, S, d] of the KV kind
 // (kvkind.cuh: 0 bf16, 1 int8, 2 f16, 3 f32); ks, vs: [L, B, Kh, S] f32
 // scales (int8, 16-byte aligned; null for the others); layer: [1]; pos:
-// [B]. Requires d == 64, H % Kh == 0 and S % 64 == 0; pos[b] + T <= S.
+// [B]. Requires d in {64, 128}, H % Kh == 0 and S % 64 == 0; pos[b] + T
+// <= S.
 int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* layer, const void* pos, void* out,
                   int kv_kind, int B, int T, int H, int Kh, int S, int d,
                   void* stream) {
-  if (!kvkind::valid(kv_kind) || d != D || Kh < 1 || H % Kh || S % PF_BS ||
+  if (!kvkind::valid(kv_kind) || (d != 64 && d != 128) || Kh < 1 || H % Kh || S % PF_BS ||
       T < 1 || B < 1 || B > 65535 || Kh > 65535)
     return (int)cudaErrorInvalidValue;
   return kvkind::with_type(kv_kind, [&](auto tag) {
@@ -340,8 +375,9 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
                        static_cast<const KV*>(v), static_cast<const float*>(ks),
                        static_cast<const float*>(vs), static_cast<const int*>(layer),
                        static_cast<const int*>(pos), static_cast<bf16*>(out),
-                       T, H, Kh, S, H / Kh, (size_t)B * Kh * S * D};
-    return launch_prefill<KV>(a, B, static_cast<cudaStream_t>(stream));
+                       T, H, Kh, S, H / Kh, (size_t)B * Kh * S * d};
+    auto st = static_cast<cudaStream_t>(stream);
+    return d == 64 ? launch_prefill<64, KV>(a, B, st) : launch_prefill<128, KV>(a, B, st);
   });
 }
 

@@ -22,8 +22,9 @@ The layer index and pos are device tensors. The cache is bf16, f16, f32,
 or int8 with f32 scale planes (read at half the bytes a key, each key
 and value times its scale rounded to bf16 as a tile lands, as the plain
 version dequantizes; f16 and f32 values rounded to bf16). CUDA tensors
-(bf16 q and residual, d_head 64, at most 8 query heads per kv head)
-launch the kernels or raise; only CPU tensors go to the plain version.
+(bf16 q and residual, d_head 64 (HEAD_DIM), at most 8 query heads per
+kv head) launch the kernels or raise; only CPU tensors go to the plain
+version.
 """
 
 from __future__ import annotations
@@ -50,6 +51,9 @@ launches = {"fused_attn_out" + sfx: 0 for sfx in KV_SUFFIX}
 #: query heads per kv head the kernels take at most (the attention's
 #: products have 8 head columns).
 MAX_GROUP = 8
+#: the head dim the kernels take (the split template's d = 128 is not
+#: instantiated here: no registry model with it takes the fused branch)
+HEAD_DIM = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -120,7 +124,7 @@ def fused_attn_out(q: torch.Tensor, cache: KVCache, layer: torch.Tensor,
         raise ValueError("fused_attn_out is the batch-1 decode path (B = T = 1)")
     if not q.is_cuda:
         return fused_attn_out_ref(q, cache, layer, pos, residual, wo)
-    kv_kind = flash_attention._check(q, cache, layer, pos)
+    kv_kind = flash_attention._check(q, cache, layer, pos, (HEAD_DIM,))
     if any(s is not None and s.data_ptr() % 16
            for s in (cache.k_scale, cache.v_scale)):
         raise ValueError("int8 cache scales must lie on 16-byte boundaries "
@@ -139,8 +143,8 @@ def fused_attn_out(q: torch.Tensor, cache: KVCache, layer: torch.Tensor,
     code = qmatmul.KIND_CODE[wo.kind]
     n_split, width, splits = card_plan(code, Kh, S, H * d, N,
                                        qmatmul.sm_count(q.device))
-    ws = torch.empty((H, n_split, decode_split.PARTIAL), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty((H, n_split, decode_split.partial_floats(d)),
+                     dtype=torch.float32, device=q.device)
     attn = torch.empty(H * d, dtype=torch.bfloat16, device=q.device)
     out = torch.empty_like(residual)
     err = _lib().fused_attn_out(

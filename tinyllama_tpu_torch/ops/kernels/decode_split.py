@@ -38,8 +38,6 @@ from tinyllama_tpu_torch.runtime.paged import PagedKVCache
 
 #: keys per tile of the walk
 KEY_TILE = 64
-#: f32 values of one partial: m, l, then acc over d = 64
-PARTIAL = 66
 #: blocks an SM the split count aims at (chosen on the card: with the
 #: tensor-core products a block walks a tile in well under a microsecond,
 #: and every block past one an SM costs more in launch and merge than it
@@ -88,6 +86,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def partial_floats(d: int) -> int:
+    """f32 values of one partial in the workspace: m, l, then acc over
+    the head dim d (66 at d = 64, 130 at d = 128)."""
+    return d + 2
+
+
 def tail_tiles(Cs: int) -> int:
     """Key tiles of a staged tail of Cs slots: ceil(Cs / 64)."""
     return -(-Cs // KEY_TILE)
@@ -103,13 +107,13 @@ def launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     entry's order; `sizes` its int arguments between the kind and
     n_split; `cap_tiles` the row's capacity in key tiles, a tail's
     counted. Returns the output."""
-    B, _, H, _ = q.shape
+    B, _, H, d = q.shape
     Kh = k.shape[2]
     if any(s is not None and s.data_ptr() % 16 for s in scales):
         raise ValueError("int8 cache scales must lie on 16-byte boundaries "
                          "(cp.async copies)")
     n_split = decode_splits(B, Kh, cap_tiles, sm_count(q.device))
-    ws = torch.empty((B, H, n_split, PARTIAL), dtype=torch.float32,
+    ws = torch.empty((B, H, n_split, partial_floats(d)), dtype=torch.float32,
                      device=q.device)
     out = torch.empty_like(q)
     err = getattr(_lib(), entry)(

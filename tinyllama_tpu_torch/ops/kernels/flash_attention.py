@@ -37,9 +37,10 @@ bf16 as a tile is converted (as the plain version dequantizes; the TPU
 kernels fold the key scales into the scores and the value scales into
 the probabilities). f16 and f32 values are rounded to bf16 once a
 tile after its raw bytes land, as the TPU kernels cast a tile to the
-compute dtype. CUDA tensors (bf16 q, d = 64)
-launch a kernel or raise; only CPU tensors go to the plain version,
-``gqa_attention`` over the layer's cache, dequantized.
+compute dtype. CUDA tensors (bf16 q, d = 64 or 128, each an
+instantiation of the kernels' templates) launch a kernel or raise; only
+CPU tensors go to the plain version, ``gqa_attention`` over the layer's
+cache, dequantized.
 """
 
 from __future__ import annotations
@@ -61,8 +62,6 @@ launches = {name + sfx: 0
             for name in ("flash_prefill", "flash_decode_heads", "flash_staged")
             for sfx in fp.KV_SUFFIX}
 
-#: head dim the kernels take.
-HEAD_DIM = 64
 #: keys per tile: the cache length must be a whole number of tiles.
 KEY_TILE = 64
 #: K3's flattened (token, group member) query rows a block
@@ -102,16 +101,19 @@ def prefill_row_blocks(T: int, G: int) -> list[range]:
             for x in range(n)]
 
 
-def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor) -> int:
-    """What K3, K4 and K8 take; returns the cache's KV kind."""
+def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor,
+           head_dims=fp.HEAD_DIMS) -> int:
+    """What K3, K4 and K8 take, d one of `head_dims`; returns the
+    cache's KV kind."""
     B, T, H, d = q.shape
     L, Bc, Kh, S, dc = cache.k.shape
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA attention takes bf16 queries, not {q.dtype}")
     kind = fp.kv_kind([cache.k, cache.v], [cache.k_scale, cache.v_scale])
-    if d != HEAD_DIM or dc != d or Bc != B or H % Kh:
+    if d not in head_dims or dc != d or Bc != B or H % Kh:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
-                         f"{tuple(cache.k.shape)} (d must be {HEAD_DIM})")
+                         f"{tuple(cache.k.shape)} (d must be one of "
+                         f"{head_dims})")
     if S % KEY_TILE or cache.v.shape != cache.k.shape:
         raise ValueError(f"cache length {S} is not a multiple of {KEY_TILE}")
     for t in (q, cache.k, cache.v):

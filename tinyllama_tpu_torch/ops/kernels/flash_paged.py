@@ -24,9 +24,9 @@ dequantizes, where the TPU kernels fold the key scales into the scores
 and the value scales into the probabilities; f16 and f32 values are rounded
 to bf16 as a tile is converted, as the TPU kernels cast a tile to the
 compute dtype). Each tile reads only its row's visible keys. CUDA
-tensors (bf16 q, d = 64, G in {4, 8}, pages a whole number of 64-key
-tiles, a tail a multiple of 32 slots) launch a kernel or raise; only CPU
-tensors go to the plain versions, ``gqa_attention`` over
+tensors (bf16 q, d = 64 or 128, G in {4, 8}, pages a whole number of
+64-key tiles, a tail a multiple of 32 slots) launch a kernel or raise;
+only CPU tensors go to the plain versions, ``gqa_attention`` over
 ``paged_layer_view`` or ``staged_layer_view``, which dequantize.
 """
 
@@ -51,8 +51,9 @@ KV_SUFFIX = ("", "_i8", "_f16", "_f32")
 launches = {name + sfx: 0 for name in ("flash_paged", "flash_paged_staged")
             for sfx in KV_SUFFIX}
 
-#: head dim the kernels take.
-HEAD_DIM = 64
+#: head dims the attention kernels take (TinyLlama's 64, Llama-3's 128;
+#: K8 64 only).
+HEAD_DIMS = (64, 128)
 #: keys per tile: a page must be a whole number of tiles.
 KEY_TILE = 64
 #: query heads per kv head the kernels take.
@@ -111,10 +112,10 @@ def ptr(t) -> int | None:
 
 def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
     """What K9-K11 take: q [B, 1, H, d] bf16 with H / Kh in GROUPS and
-    d = 64; key planes [.., Kh, rows, d] of one KV kind with `scales` (one
-    per plane; kv_kind), whose rows are whole 64-key tiles (32-slot
-    multiples for a staged tail); contiguous, 16-byte aligned tensors on
-    q's device; int32 index tensors of the sizes in `ints` ({name:
+    d in HEAD_DIMS; key planes [.., Kh, rows, d] of one KV kind with
+    `scales` (one per plane; kv_kind), whose rows are whole 64-key tiles
+    (32-slot multiples for a staged tail); contiguous, 16-byte aligned
+    tensors on q's device; int32 index tensors of the sizes in `ints` ({name:
     (tensor, numel)}). Returns the KV kind."""
     B, T, H, d = q.shape
     if T != 1:
@@ -125,10 +126,10 @@ def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
     kind = kv_kind([p for p, _ in planes], scales)
     for plane, rows_quantum in planes:
         Kh, rows, dc = plane.shape[2:]
-        if d != HEAD_DIM or dc != d or H % Kh or H // Kh not in GROUPS:
+        if d not in HEAD_DIMS or dc != d or H % Kh or H // Kh not in GROUPS:
             raise ValueError(f"q {tuple(q.shape)} does not fit keys "
-                             f"{tuple(plane.shape)}: d must be {HEAD_DIM} and "
-                             f"H / Kh one of {GROUPS}")
+                             f"{tuple(plane.shape)}: d must be one of "
+                             f"{HEAD_DIMS} and H / Kh one of {GROUPS}")
         if rows % rows_quantum:
             raise ValueError(f"{rows} key rows a slab, not a multiple of "
                              f"{rows_quantum}")

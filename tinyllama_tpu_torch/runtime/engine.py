@@ -105,6 +105,14 @@ def _bucket(n: int, max_ctx: int, minimum: int = 16) -> int:
     return min(b, max_ctx)
 
 
+def _drop_graphs(engine_ref, key: int) -> None:
+    """Drop an engine's chunk graphs over a storage that is gone (if the
+    engine still lives)."""
+    engine = engine_ref()
+    if engine is not None:
+        engine._chunk_graphs.pop(key, None)
+
+
 class Engine:
     """One model + dtype policy on one device.
 
@@ -265,7 +273,9 @@ class Engine:
         if found is None:
             found = graphs.ChunkGraphs(self, self._capture)
             self._chunk_graphs[key] = found
-            weakref.finalize(plane, self._chunk_graphs.pop, key, None)
+            # the finalizer holds the engine weakly: the engine holds its
+            # caches, and a strong hold would keep both alive for good
+            weakref.finalize(plane, _drop_graphs, weakref.ref(self), key)
         return found
 
     def run_chunk(self, cache, logits: torch.Tensor, pos: torch.Tensor,
