@@ -180,7 +180,36 @@ Phases, each fatal on failure:
    chunks); (o5) cli.main --model llama-3-8b -q4 --random-weights; exact
    launch counts throughout; then logits parity at 2 layers: 8B q8, q4,
    q4g, q4-kvi8 (long prefill, b1, B = 4, a staged paged chunk step) and
-   70B q4 (G = 8: a prefill and 2 b1 steps), the CPU's traces in threads.
+   70B q4 (G = 8: a prefill and 2 b1 steps), the CPU's traces in threads;
+   inside (o1), (p5): generate_speculative with k = 4 on its q4 engine (a
+   100-token prompt, 64 tokens: the unfused branch, K1 at M = 5 for every
+   linear and the lm_head, K3 at d = 128 from pos > 0), ms/token beside
+   (o1)'s;
+7. path (p), speculative decoding (Engine.generate_speculative: n-gram
+   drafts verified k + 1 = 5 at a time, R verify rounds a CUDA graph
+   replay) on TinyLlama q8 from (a)'s seed, after (o): the verify round's
+   kernels against their plain versions (K3 at T = 5, G = 8 over S =
+   2,048 + 128 from pos 127, 1,500 and 2,170, captured at 127 and
+   replayed at the others, its library call SDPA under an offset causal
+   mask; K5, K6, K7 and the lm_head's K1 at M = 5); (p1) (a)'s prompt and
+   a 100-token prompt repeating a 20-token phrase, 256 tokens each with
+   exact counts (the prefill's K2 and K3; K5, K3, K6, K7 a layer and K1
+   once a round, the rounds after done included): tokens a verify,
+   ms/token beside (a)'s generate, the device's busy share, the capture,
+   the tokens each verify gave, the prefix shared with generate (printed,
+   not asserted at bf16), and ms/token at R = 1, 2, 4 and 8; (p2) 16
+   replays of the rounds' graph torch.equal to the same rounds run
+   eagerly from one saved state, through done; (p3) dense f32 weights
+   (no kernel): generate_speculative equal to generate for two prompts x
+   64 tokens at k = 1 and 4, and the whole budget at the context limit
+   (max_ctx 256, a 200-token prompt, 56 tokens); a differing token prints
+   its logit margin and fails; (p4) cli.main -q8 --random-weights -greedy
+   --spec 4 --profile DIR --debug-nans in a process of its own, as a user
+   runs the CLI (it prints its ids, rounds and launch counts back): the
+   speculative line and the profile table printed, its exact launch
+   counts, each port kernel's events in the trace equal to what those
+   counts stand for (a mismatch prints where the events differ), the
+   same ids as cli.main without --debug-nans in this process.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -200,6 +229,7 @@ import contextlib
 import dataclasses
 import gc
 import http.client
+import io
 import json
 import subprocess
 import sys
@@ -1100,6 +1130,139 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
 
 
 #: the TPU kernel bodies the microbench's kernels replace (tools/kbench.py)
+#: path (p): the verify rounds' draft length, and K3's positions over the
+#: speculative cache (max_ctx 2,048 + 128) for its rows
+SPEC_K = 4
+SPEC_POS = (127, 1500, 2170)
+#: path (p4): the CLI's speculative run, 64 new tokens after CLI_PROMPT
+SPEC_CLI_ARGV = ["-q8", "--random-weights", "-greedy", "--spec", str(SPEC_K),
+                 "-p", CLI_PROMPT, "--npred", str(len(CLI_PROMPT) + 1 + 64)]
+
+
+def phase_spec_rows(engine, torch, ops) -> list[dict]:
+    """The verify round's kernels at its shapes (T = M = SPEC_K + 1 = 5) on
+    the engine's q8 weights against their plain versions, in the
+    phase_kernels idiom (CUDA events over a graph of calls, layers cycled):
+    K3 over the speculative cache's length S = max_ctx + 128 from pos 127,
+    1,500 and 2,170 (captured at pos 127 and replayed at the others; its
+    library call SDPA under an explicit causal mask offset by pos), K5, K6
+    and K7 at M = 5 and K1 as the lm_head at M = 5 (f32 out)."""
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
+    from tinyllama_tpu_torch.runtime.speculative import PAD
+    from tinyllama_tpu_torch.tools.kbench import time_ms
+
+    qm, fa, df, ffn, _, _, codec = ops
+    cfg, params = engine.cfg, engine.params
+    L, dev, M = cfg.n_layers, engine.device, SPEC_K + 1
+    D, F = cfg.n_embd, cfg.n_ffn
+    H, Kh, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, engine.max_ctx + PAD
+    eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
+    layers = [engine.layer_ids[i:i + 1] for i in range(L)]
+    lin = params["layers"]
+    gen = torch.Generator(dev)
+    gen.manual_seed(17)
+    rows = []
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def dense(name):
+        w = lin[name]
+        return [codec.dequantize(codec.QTensor(w.data[i], w.scales[i], "q8",
+                                               "kn"), torch.bfloat16)
+                for i in range(L)]
+
+    def nbytes_of(w):
+        return w.data[0].numel() * w.data[0].element_size() + w.scales[0].numel() * 2
+
+    def case(kernel, label, src, rep, fn, plain, lib, nbytes, flops, note=""):
+        err = check_close(f"{kernel} {label}", fn(0), plain(0))
+        ms = time_ms(fn, 100, True)
+        plain_ms = time_ms(plain, 5, False)
+        lib_ms = time_ms(lib, 100, True)
+        rows.append(kernel_row(kernel, f"{kernel} verify {label}", "q8-spec",
+                               src, rep, err, ms, plain_ms, nbytes, flops,
+                               lib_ms, note))
+
+    # K3: T = 5 new tokens (40 query rows a kv head) from pos over S
+    shape = (L, 1, Kh, S, d)
+    cache = KVCache(rand(*shape), rand(*shape))
+    dk, dv = layer_cache_view(cache, 3, torch.bfloat16)
+    q = rand(1, M, H, d)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    replay_at(f"K3 flash_prefill verify T={M}",
+              lambda: fa.flash_prefill_attention(q, cache, layers[3], pos), pos,
+              SPEC_POS[0], SPEC_POS[1:])
+    for p in SPEC_POS:
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        n_keys = p + M
+        kx, vx = dk[:, :, :n_keys], dv[:, :, :n_keys]
+        mask = (torch.arange(n_keys, device=dev)[None, :]
+                <= p + torch.arange(M, device=dev)[:, None])
+        qh = q.transpose(1, 2)
+        case("K3 flash_prefill", f"T={M} pos={p} S={S}",
+             "tinyllama_tpu_torch/csrc/flash_attention.cu",
+             "tinyllama_tpu/ops/pallas/flash_prefill.py:35",
+             lambda i, pos=pos: fa.flash_prefill_attention(q, cache,
+                                                           layers[i % L], pos),
+             lambda i, pos=pos: fa.attention_ref(q, cache, layers[i % L], pos),
+             lambda i, kx=kx, vx=vx, mask=mask: (
+                 torch.nn.functional.scaled_dot_product_attention(
+                     qh, kx, vx, attn_mask=mask, enable_gqa=True)),
+             2 * M * H * d * 2 + 2 * Kh * n_keys * 2 * d,
+             4 * d * H * sum(p + t + 1 for t in range(M)),
+             " (SDPA under a causal mask offset by pos)")
+    del cache, dk, dv
+
+    src = "tinyllama_tpu_torch/csrc/decode_fused.cu"
+    rep = "tinyllama_tpu/ops/pallas/decode_fused.py"
+    x, r = rand(1, M, D), rand(1, M, D)  # the round's [1, T, D]
+    wqkv, N = lin["wqkv"], lin["wqkv"].data.shape[-1]
+    dq = dense("wqkv")
+    case("K5 fused_norm_qkv", f"M={M} K={D} N={N}", src, f"{rep}:49",
+         lambda i: df.fused_norm_qkv(x, lin["attn_norm"], wqkv, layers[i % L],
+                                     eps, inside),
+         lambda i: df.fused_norm_qkv_ref(x, lin["attn_norm"], wqkv,
+                                         layers[i % L], eps, inside),
+         lambda i: torch.matmul(x.view(M, D), dq[i % L]),
+         nbytes_of(wqkv) + M * D * 2 + D * 4 + M * N * 2, 2 * M * D * N)
+    del dq
+    do = dense("wo")
+    case("K6 fused_out_residual", f"M={M} K={D} N={D}", src, f"{rep}:130",
+         lambda i: df.fused_out_residual(x, r, lin["wo"], layers[i % L]),
+         lambda i: df.fused_out_residual_ref(x, r, lin["wo"], layers[i % L]),
+         lambda i: torch.addmm(r.view(M, D), x.view(M, D), do[i % L]),
+         nbytes_of(lin["wo"]) + 3 * M * D * 2, 2 * M * D * D)
+    del do
+    gu, wd = lin["w_gateup"], lin["w_down"]
+    dgu, dwd = dense("w_gateup"), dense("w_down")
+    case("K7 ffn_fused", f"normed M={M} D={D} F={F}",
+         "tinyllama_tpu_torch/csrc/ffn_fused.cu",
+         "tinyllama_tpu/ops/pallas/ffn_fused.py:160",
+         lambda i: ffn.ffn_fused_normed(x, lin["ffn_norm"], gu, wd,
+                                        layers[i % L], cfg),
+         lambda i: ffn.ffn_fused_ref(x, lin["ffn_norm"], gu, wd, layers[i % L],
+                                     cfg, eps, inside),
+         lambda i: torch.matmul(torch.matmul(x.view(M, D), dgu[i % L])[:, :F],
+                                dwd[i % L]),
+         nbytes_of(gu) + nbytes_of(wd) + 2 * M * D * 2 + D * 4,
+         2 * M * 3 * F * D)
+    del dgu, dwd
+    lm = params["lm_head"]
+    lm_dense = codec.dequantize(lm, torch.bfloat16)
+    xl = rand(M, D)
+    Nv = lm.data.shape[-1]
+    case("K1 qmm_smallm", f"lm_head M={M} K={D} N={Nv}",
+         "tinyllama_tpu_torch/csrc/qmatmul.cu",
+         "tinyllama_tpu/ops/pallas/qmatmul.py:87",
+         lambda i: qm.qmatmul(xl, lm, torch.float32),
+         lambda i: qm.qmatmul_ref(xl, lm, torch.float32),
+         lambda i: torch.matmul(xl, lm_dense),
+         lm.data.numel() + lm.scales.numel() * 2 + M * D * 2 + M * Nv * 4,
+         2 * M * D * Nv)
+    return rows
+
+
 KBENCH_REPLACES = {
     "kbench_probe_int4": "tools/kbench.py:142",
     "kbench_probe_bitcast": "tools/kbench.py:167",
@@ -1253,9 +1416,10 @@ def main() -> int:
     from tinyllama_tpu_torch.runtime.engine import Engine
     from tinyllama_tpu_torch.runtime.engine import _bucket as engine_bucket
     from tinyllama_tpu_torch.runtime.perf import tree_nbytes
+    from tinyllama_tpu_torch.runtime import speculative, trace
     from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
     from tinyllama_tpu_torch.runtime.staging import stage_cache
-    from tinyllama_tpu_torch.tools import kbench
+    from tinyllama_tpu_torch.tools import kbench, profile_check
     from tinyllama_tpu_torch.tools.kbench import time_ms
 
     # 1. card
@@ -1616,12 +1780,100 @@ def main() -> int:
         graph_line(path, eng, before)
         return out_, stats_
 
+    # (p) speculative decoding: the verify rounds' counts, runs and reads
+    def spec_counts(eng, n_prompt, rounds, k=SPEC_K):
+        """The launches of a generate_speculative: the prompt's prefill,
+        then `rounds` verify rounds (those after done included) of T = k +
+        1 tokens from pos > 0: K3 a layer, the fused branch's K5, K6, K7
+        (T <= 32, n_embd <= 2,048, no aq8) or else four linears (K1 at T
+        <= 8, K2 above), and the lm_head over the T rows."""
+        c = {name: 0 for cc in counters for name in cc}
+        c["flash_prefill_own"] = 0
+        unfused = eng.policy.aq8 or eng.cfg.n_embd > 2048
+        prefill_counts(c, 1, engine_bucket(n_prompt, eng.max_ctx), False,
+                       unfused)
+        T = k + 1
+        c["flash_prefill"] += rounds * L
+        if T <= 32 and not unfused:
+            for name in ("fused_norm_qkv", "fused_out_residual",
+                         "ffn_fused_normed"):
+                c[name] += rounds * L
+        else:
+            c[qmm(T)] += rounds * 4 * L
+        c[qmm(T)] += rounds
+        return c
+
+    def spec_run(path, eng, prompt_, n_new, kind, k=SPEC_K, rounds=None):
+        """prompt_ and n_new greedy tokens through generate_speculative
+        (with speculative.ROUNDS set to `rounds` for the call, if given),
+        with its exact launch counts (none for dense weights)."""
+        gcfg = GenerationConfig(n_predict=len(prompt_) + n_new, greedy=True,
+                                eos_token=-1)
+        chosen = speculative.ROUNDS
+        speculative.ROUNDS = rounds or chosen
+        reset()
+        try:
+            out_, stats_ = eng.generate_speculative(prompt_, gcfg, k)
+        finally:
+            speculative.ROUNDS = chosen
+        torch.cuda.synchronize()
+        if not ids_ok([out_], [n_new]):
+            raise AssertionError(f"path {path}: {len(out_)} ids of {n_new}, "
+                                 "or ids out of range")
+        want_ = (spec_counts(eng, len(prompt_), stats_.decode_steps, k)
+                 if eng.policy.is_quantized else {})
+        expect(path, kind, **want_)
+        return out_, stats_
+
+    def round_ms(eng, prompt_, k=SPEC_K, R=None, n=4):
+        """Device ms a verify round: CUDA events over n replays of the
+        rounds' graph from prompt_'s prefill (its budget far from spent)."""
+        R = R or speculative.ROUNDS
+        spec = eng.round_graphs()
+        buf = spec.buffers_for(k)
+        logits, _ = eng.prefill(spec.cache, [prompt_])
+        speculative.start(buf, prompt_, int(logits[0].argmax()),
+                          eng.max_ctx - len(prompt_) - 1)
+        spec.run(k, -1, R)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            spec.run(k, -1, R)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (n * R)
+
+    def spec_line(path, eng, prompt_, n_new, kind, base_ms, k=SPEC_K):
+        """generate_speculative twice (the first captures its rounds'
+        graph, if none is there), the second timed; its ms/token beside
+        base_ms (generate's), tokens a verify, the device's busy share and
+        the graph's capture; returns its ids."""
+        before = graphs_of(eng)
+        _, first = spec_run(f"{path} first", eng, prompt_, n_new, kind, k)
+        n_g, cap_s, _ = graphs_of(eng)
+        out_, stats_ = spec_run(path, eng, prompt_, n_new, kind, k)
+        nv = stats_.decode_token_times[0]
+        dev = round_ms(eng, prompt_, k)
+        print(f"path {path}: generate_speculative k={k}, R="
+              f"{speculative.ROUNDS}: {stats_.generated_tokens} tokens in {nv} "
+              f"verify forwards ({stats_.generated_tokens / nv:.3f} a verify; "
+              f"{stats_.decode_steps} rounds run), {stats_.ms_per_token:.4f} "
+              f"ms/token as a graph against generate's {base_ms:.4f} "
+              f"({base_ms / stats_.ms_per_token:.3f}x); a round {dev:.4f} ms "
+              f"on the device, busy {dev * stats_.decode_steps / (stats_.decode_s * 1e3):.3f} "
+              f"of the decode; first call {first.ms_per_token:.4f} ms/token with "
+              f"{n_g - before[0]} graph captured in {cap_s - before[1]:.3f} s; "
+              f"card {card}", flush=True)
+        return out_, stats_
+
     # (a) main path: unfused prefill (bucket 128), fused b1 decode
     prompt = prompt_of(PROMPT_LEN)
     out, stats = b1_paths(
         "(a)", engine, prompt, N_NEW, qmm_bigm=4 * L, flash_prefill=L,
         qmm_smallm=1 + N_NEW, fused_norm_qkv=L * N_NEW,
         fused_attn_out=L * N_NEW, ffn_fused_normed=L * N_NEW)
+    a_ms = stats.ms_per_token  # (p) reads it beside its own
     graph_equals("(a)", engine, [prompt])
     graph_equals("(a)", engine, [prompt], seed=7)
     print(f"path (a): prefill {stats.prefill_s * 1e3:.3f} ms "
@@ -2074,24 +2326,24 @@ def main() -> int:
     if not 33 <= n_prompt <= 128:
         return fail(f"path (h): the templated prompt has {n_prompt} tokens")
 
-    def run_cli(argv):
-        """cli.main(argv) with Engine.generate caught: (engine, prompt
-        tokens, ids, stats) of its one generate call."""
+    def run_cli(argv, method="generate"):
+        """cli.main(argv) with Engine.generate (or `method`) caught:
+        (engine, prompt tokens, ids, stats) of its one call."""
         seen = []
-        real = Engine.generate
+        real = getattr(Engine, method)
 
-        def spy(self, prompt_tokens, gen=None, stream=None):
-            out, stats = real(self, prompt_tokens, gen, stream)
+        def spy(self, prompt_tokens, *a, **k):
+            out, stats = real(self, prompt_tokens, *a, **k)
             seen.append((self, prompt_tokens, out, stats))
             return out, stats
 
-        Engine.generate = spy
+        setattr(Engine, method, spy)
         try:
             reset()
             rc = cli.main(argv)
             torch.cuda.synchronize()
         finally:
-            Engine.generate = real
+            setattr(Engine, method, real)
         if rc or len(seen) != 1:
             raise AssertionError(f"cli.main {argv[0]} gave {rc} after "
                                  f"{len(seen)} generate calls")
@@ -2615,6 +2867,10 @@ def main() -> int:
     print("path (o1) 8B q4: torch.profiler over eager decode steps at pos 100:",
           flush=True)
     profile_decode(eng8, prompt100, torch)
+    # (p5) speculative decoding on this engine, k = 4: the unfused branch
+    # (K1 at M = 5 for every linear and the lm_head, K3 at d = 128 from
+    # pos > 0)
+    spec_line("(p5) 8B q4", eng8, prompt100, 64, "8b-q4", stats.ms_per_token)
     mark("(o1) q4")
     # (o2) long context, paged: a 7,000-token prompt (bucket 8,192: K3 at T
     # = 8,192 over the temporary cache), 64 tokens (K10 at pos 7,000-7,063,
@@ -2793,6 +3049,183 @@ def main() -> int:
           f"{PARITY_REL}); path (o) and its parity {time.perf_counter() - t_o:.1f} s")
     mark("(o) parity")
 
+    # (p) speculative decoding on TinyLlama q8, (a)'s weights again (the
+    # same seed), bf16 activations: the verify rounds as CUDA graphs
+    t_p = time.perf_counter()
+    cfg, L = TINYLLAMA_1_1B, TINYLLAMA_1_1B.n_layers
+    totals["q8-spec"] = {k: 0 for c in counters for k in c}
+    gen = torch.Generator("cuda")
+    gen.manual_seed(1234)
+    params = llama.init_quantized_params(cfg, policy, gen, "cuda")
+    engine = Engine(cfg, policy, params, max_ctx=2048, device="cuda")
+    spec_rows = phase_spec_rows(engine, torch, ops)
+    mark("(p) kernel rows")
+    # (p1) b1, k = 4: (a)'s prompt, and a 100-token prompt that repeats a
+    # 20-token phrase, 256 tokens each
+    phrase = prompt_of(20)[1:]
+    repeat = [1] + (phrase * 5)[:PROMPT_LEN - 1]
+    for name, prompt_ in (("(a)'s prompt", prompt), ("repeated phrase", repeat)):
+        want_ids, _ = generate(prompt_, N_NEW)
+        out, stats = spec_line(f"(p1) {name}", engine, prompt_, N_NEW,
+                               "q8-spec", a_ms)
+        shared = next((i for i, (x, y) in enumerate(zip(out, want_ids))
+                       if x != y), len(out))
+        spec = engine.round_graphs()
+        buf = spec.buffers_for(SPEC_K)
+        logits, _ = engine.prefill(spec.cache, [prompt_])
+        speculative.start(buf, prompt_, int(logits[0].argmax()), N_NEW - 1)
+        gave, n_out = [], 0
+        while True:  # one round a replay, (n_out, done) read after each
+            spec.run(SPEC_K, -1, 1)
+            st = dict(zip(speculative.STATE, buf.state.tolist()))
+            if st["n_verify"] > len(gave):
+                gave.append(st["n_out"] - n_out)
+                n_out = st["n_out"]
+            if st["done"]:
+                break
+        print(f"path (p1) {name}: the prefix shared with generate at bf16 "
+              f"{shared} of {N_NEW} tokens; tokens a verify forward gave "
+              f"{dict(sorted(collections.Counter(gave).items()))}: "
+              f"{gave[:48]}", flush=True)
+    # R: ms/token of (a)'s prompt at 1, 2, 4 and 8 rounds a replay
+    for R in (1, 2, 4, 8):
+        n0, s0, _ = graphs_of(engine)
+        spec_run(f"(p1) R={R} first", engine, prompt, N_NEW, "q8-spec",
+                 rounds=R)
+        n1, s1, _ = graphs_of(engine)
+        _, stats = spec_run(f"(p1) R={R}", engine, prompt, N_NEW, "q8-spec",
+                            rounds=R)
+        print(f"path (p1) R={R}: {stats.ms_per_token:.4f} ms/token, "
+              f"{stats.decode_token_times[0]} verify forwards, "
+              f"{stats.decode_steps} rounds run, "
+              f"{stats.decode_steps // R} host reads; capture "
+              f"{s1 - s0:.3f} s ({n1 - n0} graph)", flush=True)
+    mark("(p1) b1 k = 4")
+    # (p2) the replayed rounds against the same rounds run eagerly, from
+    # one saved state, through done
+    spec = engine.round_graphs()
+    buf = spec.buffers_for(SPEC_K)
+    R = 4  # (p1)'s graph of 4 rounds: done within 16 replays
+    logits, _ = engine.prefill(spec.cache, [repeat])
+    speculative.start(buf, repeat, int(logits[0].argmax()), 40)
+
+    def spec_state():
+        return [t.clone() for t in (buf.toks, buf.out, buf.state, spec.cache.k,
+                                    spec.cache.v)]
+
+    saved = spec_state()
+    eager = []
+    for i in range(16 * R):
+        speculative.verify_round(engine, spec.cache, spec.rope, buf, SPEC_K, -1)
+        if i % R == R - 1:
+            eager.append(spec_state())
+    for t, v in zip((buf.toks, buf.out, buf.state, spec.cache.k, spec.cache.v),
+                    saved):
+        t.copy_(v)
+    for i, want in enumerate(eager):
+        spec.run(SPEC_K, -1, R)
+        if not all(torch.equal(a, b) for a, b in zip(spec_state(), want)):
+            return fail(f"path (p2): replay {i} of the rounds' graph differs "
+                        "from the same rounds run eagerly")
+    if not eager[-1][2][speculative.STATE.index("done")]:
+        return fail("path (p2): the rounds did not reach done")
+    print(f"path (p2): 16 replays of {R} rounds torch.equal to the same "
+          f"{16 * R} rounds run eagerly (toks, out, n_ctx, next_tok, n_out, "
+          f"n_verify, done, budget, the cache's k and v), done reached",
+          flush=True)
+    del saved, eager
+    mark("(p2) graph against eager")
+    # (p3) token identity at f32: the dense --f32 policy runs no kernel,
+    # so it checks the loop alone
+    g32 = torch.Generator("cuda")
+    g32.manual_seed(32)
+    p32 = llama.convert_params(llama.init_dense_params(cfg, g32, "cuda"),
+                               POLICIES["f32"])
+
+    def same_or_fail(path, eng, prompt_, want_ids, got):
+        """got must be want_ids; else print the logit margin of the first
+        token that differs (an f32 argmax tie?) and fail."""
+        if got == want_ids:
+            return None
+        i = next(j for j, (x, y) in enumerate(zip(got, want_ids)) if x != y)
+        lg, _ = eng.prefill(eng.new_cache(1), [prompt_ + want_ids[:i]])
+        top = torch.topk(lg[0], 2)
+        return fail(f"path {path}: token {i} is {got[i]}, generate's "
+                    f"{want_ids[i]}; the top two logits there {top.values.tolist()} "
+                    f"(ids {top.indices.tolist()}), margin "
+                    f"{float(top.values[0] - top.values[1])}")
+
+    e32 = Engine(cfg, POLICIES["f32"], p32, max_ctx=2048, device="cuda")
+    for prompt_ in (prompt, repeat):
+        want_ids, _ = generate(prompt_, 64, e32)
+        for k in (1, SPEC_K):
+            got, stats = spec_run(f"(p3) f32 k={k}", e32, prompt_, 64, "f32", k)
+            if same_or_fail(f"(p3) f32 k={k}", e32, prompt_, want_ids, got):
+                return 1
+            print(f"path (p3) f32 k={k}: 64 tokens equal to generate's, "
+                  f"{stats.decode_token_times[0]} verify forwards", flush=True)
+    e256 = Engine(cfg, POLICIES["f32"], p32, max_ctx=256, device="cuda")
+    edge = prompt_of(200)
+    gcfg = GenerationConfig(n_predict=256, greedy=True, eos_token=-1)
+    want_ids, _ = e256.generate(edge, gcfg)
+    got, stats = spec_run("(p3) f32 context limit", e256, edge, 56, "f32")
+    if same_or_fail("(p3) f32 context limit", e256, edge, want_ids, got):
+        return 1
+    print(f"path (p3): max_ctx 256, a 200-token prompt, n_predict 256: the "
+          f"whole budget (56 tokens) equal to generate's in "
+          f"{stats.decode_token_times[0]} verify forwards", flush=True)
+    del e32, e256, p32
+    free()
+    mark("(p3) f32 token identity")
+    # (p4) the CLI: --spec 4 with --profile and --debug-nans, in a process
+    # of its own (a user's CLI run, with none of this process's profiler
+    # windows and graphs behind it); its launch counts come back with it
+    prof_dir = Path(files.name) / "profile"
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--profiled-cli", str(prof_dir)],
+                           stdout=subprocess.PIPE, text=True, timeout=600)
+    if child.returncode:
+        return fail(f"path (p4): the CLI's process exited {child.returncode}")
+    res = json.loads(child.stdout.splitlines()[-1])
+    print(res["printed"], flush=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        eng_c, toks, out_plain, _ = run_cli(SPEC_CLI_ARGV, "generate_speculative")
+    reset()
+    for c in counters:
+        for k in c:
+            c[k] = res["launches"][k]
+    expect("(p4) cli --spec --profile --debug-nans", "q8-spec",
+           **spec_counts(eng_c, len(toks), res["decode_steps"]))
+    events = trace.parse_device_events(prof_dir)
+    want_ev = trace.expected_kernel_events(res["launches"])
+    got_ev = trace.kernel_event_counts(events)
+    print(f"path (p4): the trace's events of the port's kernels {got_ev}; "
+          f"their launches {want_ev}", flush=True)
+    if got_ev != want_ev:
+        return fail("path (p4): the profiler's kernel events "
+                    f"{got_ev} are not the kernels' launches {want_ev}; "
+                    f"{profile_check.diagnose(prof_dir)}")
+    printed = res["printed"]
+    if " speculative : " not in printed or "DEVICE TIME PER TOKEN" not in printed:
+        return fail("path (p4): the speculative line or the profile table "
+                    "was not printed")
+    if out_plain != res["ids"]:
+        return fail("path (p4): --debug-nans changed the ids")
+    print(f"path (p4): cli.main --spec {SPEC_K} --profile --debug-nans in its "
+          f"own process: {len(out_plain)} ids, the same without --debug-nans; "
+          f"decode {res['ms_per_token']:.4f} ms/token under the profiler (its "
+          "first rounds' capture included)", flush=True)
+    del eng_c, engine, params
+    free()
+    for r in spec_rows:
+        names = [counter_name(n, r["kind"]) for n in launch_names[r["kernel"]]]
+        r["launches"] = sum(totals[r["kind"]][k] for k in names)
+        if not r["launches"]:
+            return fail(f"{r['name']} was not launched on path (p)")
+    rows += spec_rows
+    print(f"path (p): {time.perf_counter() - t_p:.1f} s", flush=True)
+    mark("(p4) cli")
+
     for r in rows:
         del r["kernel"], r["kind"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the builds "
@@ -2821,7 +3254,22 @@ def write_checkpoint(ckpt: str, vocab: str) -> int:
     return 0
 
 
+def profiled_cli(prof_dir: str) -> int:
+    """The child process of path (p4): cli.main(SPEC_CLI_ARGV) with
+    --profile prof_dir and --debug-nans on the card; prints one JSON line:
+    the ids, the rounds run, the kernels' launch counts and what the CLI
+    printed (tools/profile_check.py)."""
+    sys.path.insert(0, str(ROOT))
+    from tinyllama_tpu_torch.tools import profile_check
+
+    print(json.dumps(profile_check.profiled_cli(SPEC_CLI_ARGV + ["--debug-nans"],
+                                                prof_dir)))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--write-checkpoint"]:
         sys.exit(write_checkpoint(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--profiled-cli"]:
+        sys.exit(profiled_cli(sys.argv[2]))
     sys.exit(main())

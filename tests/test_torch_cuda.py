@@ -45,7 +45,14 @@ plan resident on the card; and the decode chunk as a CUDA graph
 (``Engine.run_chunk``) bit-equal to the eager ``Engine.chunk`` over
 every cache kind at B = 1, 4 and 32 and over dense f16 and f32 weights,
 its top-k draws, its replays after a cache is reused (tokens and launch
-counts of the eager chunk), and two threads capturing at once.
+counts of the eager chunk), and two threads capturing at once; and
+speculative decoding: K3 at a verify round's shapes (T = 5, G = 8, pos
+> 0 over 2,048 + 128 keys) over every KV kind, captured at one pos and
+replayed at others, the verify rounds' graph torch.equal to the same
+rounds run eagerly (k = 1, 4 and 40), f32 dense generate_speculative
+equal to generate, the graph keys and launch counts with and without
+debug_nans, and the profiler's kernel events against the launch counts
+of a replayed chunk and a replayed set of rounds.
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -76,7 +83,7 @@ from tinyllama_tpu_torch.ops.kernels import (
     qmatmul,
 )
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize
-from tinyllama_tpu_torch.runtime import kvcache
+from tinyllama_tpu_torch.runtime import kvcache, speculative, trace
 from tinyllama_tpu_torch.runtime.engine import Engine
 from tinyllama_tpu_torch.runtime.kvcache import KVCache
 from tinyllama_tpu_torch.runtime.paged import PagedKVCache
@@ -2734,3 +2741,159 @@ def test_graph_chunk_equals_eager_chunk_llama3_width(card, paged, kv, B):
     eng = Engine(cfg, policy, _llama3_params["q4"], max_ctx=1024, device=card,
                  paged=paged)
     _graph_against_eager(eng, B, GenerationConfig(greedy=True, eos_token=-1))
+
+
+# --- speculative decoding: verify rounds as CUDA graphs (runtime/graphs.py) --
+
+
+def _kv_kind(cache: KVCache, kv: str) -> KVCache:
+    """A bf16 cache's values in the KV kind `kv` (int8 through quantize_kv,
+    with its scales; f16 and f32 cast)."""
+    if kv == "bf16":
+        return cache
+    if kv == "i8":
+        (k, ks), (v, vs) = (kvcache.quantize_kv(cache.k),
+                            kvcache.quantize_kv(cache.v))
+        return KVCache(k, v, ks, vs)
+    dt = {"f16": torch.float16, "f32": torch.float32}[kv]
+    return KVCache(cache.k.to(dt), cache.v.to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8", "f16", "f32"])
+def test_k3_at_verify_shapes_replays(card, kv):
+    """K3 at a verify round's shapes: T = 5 new tokens of TinyLlama's heads
+    (32 query, 4 kv: 40 query rows a kv head, one partial row block) from
+    pos > 0 over S = 2,048 + 128 keys, against its plain version at pos 1,
+    127, 1,500 and S - 5; captured in a CUDA graph at pos 127 and replayed
+    at 5, 1,500 and S - 5, each replay equal to an eager call there."""
+    H, Kh, S, T = 32, 4, 2048 + speculative.PAD, 5
+    cache = _kv_kind(_cache(1, Kh, S, [S], seed=31, device=card), kv)
+    g = torch.Generator().manual_seed(32)
+    q = torch.randn(1, T, H, 64, generator=g).to(card, torch.bfloat16)
+    layer, pos = _i32([1], card), _i32([0], card)
+    for p in (1, 127, 1500, S - T):
+        pos.fill_(p)
+        got = flash_attention.flash_prefill_attention(q, cache, layer, pos)
+        want = flash_attention.attention_ref(q, cache, layer, pos)
+        torch.testing.assert_close(got.float(), want.float(), **TOL,
+                                   msg=f"pos {p}")
+    pos.fill_(127)
+    _replays_equal(
+        lambda: [flash_attention.flash_prefill_attention(q, cache, layer, pos)],
+        [(at, functools.partial(pos.fill_, at)) for at in (5, 1500, S - T)],
+        f"K3 verify {kv}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 40])
+def test_spec_rounds_replay_equals_eager(card, k):
+    """From one saved state, the verify rounds' graph (4 rounds a replay,
+    captured at its first call) leaves toks, out, the state and the cache
+    torch.equal to the same rounds run eagerly, replay by replay, through
+    done and past it; twice, the second pass all replays. k = 40 (T = 41)
+    takes the unfused branch (K2)."""
+    eng = _graph_engine(card, POLICIES["q8"])
+    spec = eng.round_graphs()
+    buf, R = spec.buffers_for(k), 4
+    prompt = _graph_prompts(2)[1]
+    logits, _ = eng.prefill(spec.cache, [prompt])
+    speculative.start(buf, prompt, int(logits[0].argmax()), 30)
+
+    def tensors():
+        return [buf.toks, buf.out, buf.state, *kvcache.kv_planes(spec.cache)]
+
+    saved = [t.clone() for t in tensors()]
+    eager = []
+    for i in range(10 * R):
+        speculative.verify_round(eng, spec.cache, spec.rope, buf, k, -1)
+        if i % R == R - 1:
+            eager.append([t.clone() for t in tensors()])
+    assert eager[-1][2][speculative.STATE.index("done")] == 1
+    for _ in range(2):
+        for t, s in zip(tensors(), saved):
+            t.copy_(s)
+        for i, want in enumerate(eager):
+            spec.run(k, -1, R)
+            assert all(torch.equal(a, b) for a, b in zip(tensors(), want)), i
+    assert list(spec.graphs) == [(k, -1, R)]
+
+
+@pytest.mark.cuda
+def test_spec_f32_dense_equals_generate(card):
+    """Dense f32 weights (no kernel, so the loop alone): generate's tokens
+    at k = 1 and 4 over two prompts, and the whole budget at the context
+    limit (max_ctx 256, a 200-token prompt)."""
+    eng = _graph_engine(card, POLICIES["f32"])
+    for prompt in _graph_prompts(2):
+        gen = GenerationConfig(n_predict=len(prompt) + 48, greedy=True,
+                               eos_token=-1)
+        want = eng.generate(prompt, gen)[0]
+        for k in (1, 4):
+            assert eng.generate_speculative(prompt, gen, k)[0] == want, k
+    prompt = [1] + [2 + (7 * i) % 100 for i in range(199)]
+    gen = GenerationConfig(n_predict=256, greedy=True, eos_token=-1)
+    want = eng.generate(prompt, gen)[0]
+    got = eng.generate_speculative(prompt, gen, 4)[0]
+    assert got == want and len(got) == 56
+
+
+@pytest.mark.cuda
+def test_debug_nans_keys_and_counts(card):
+    """Without debug_nans the chunk's graph key is (B, C, sampler, EOS,
+    generator) and the rounds' (k, EOS, R); with it each key ends in
+    "debug_nans". The tokens and the kernels' launches are the same
+    either way."""
+    prompt = _graph_prompts(1)[0]
+    gen = GenerationConfig(n_predict=len(prompt) + 24, greedy=True,
+                           eos_token=-1, chunk_size=8)
+    runs = []
+    for debug in (False, True):
+        eng = _graph_engine(card, POLICIES["q8"])
+        eng.debug_nans = debug
+        before = _launch_counts()
+        out = (eng.generate(prompt, gen)[0],
+               eng.generate_speculative(prompt, gen, 3)[0])
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        keys = [key for cg in eng._chunk_graphs.values() for key in cg.graphs]
+        runs.append((out, {n: after[n] - before[n] for n in after},
+                     keys + list(eng.round_graphs().graphs)))
+    (out0, counts0, keys0), (out1, counts1, keys1) = runs
+    assert out0 == out1 and counts0 == counts1
+    assert keys0 == [(1, 8, (True, 0, 0.0), -1, None),
+                     (3, -1, speculative.ROUNDS)]
+    assert keys1 == [key + ("debug_nans",) for key in keys0]
+
+
+@pytest.mark.cuda
+def test_profiler_kernel_events_equal_launches(card, tmp_path):
+    """One replayed b1 chunk (K5, K8's two launches, K7's two, K1) and one
+    replay of the verify rounds under torch.profiler: the trace's events
+    of each of the port's kernels are what the launch counts stand for."""
+    eng = _graph_engine(card, POLICIES["q8"])
+    prompt = _graph_prompts(1)[0]
+    gen = GenerationConfig(n_predict=len(prompt) + 16, greedy=True,
+                           eos_token=-1, chunk_size=8)
+    eng.generate(prompt, gen)
+    eng.generate_speculative(prompt, gen, 4)
+    cache = eng._cache(1)
+    logits, lens = eng.prefill(cache, [prompt])
+    spec = eng.round_graphs()
+    speculative.start(spec.buffers_for(4), prompt, int(logits[0].argmax()), 100)
+    torch.cuda.synchronize()
+    pos = _i32([int(lens[0])], card)
+    before = _launch_counts()
+
+    def replays():
+        eng.run_chunk(cache, logits, pos, 8, gen)
+        spec.run(4, -1, speculative.ROUNDS)
+
+    events = trace.profile_device_events(replays, tmp_path, card)
+    after = _launch_counts()
+    launched = {n: after[n] - before[n] for n in after}
+    L = eng.cfg.n_layers
+    assert launched["fused_attn_out"] == 8 * L
+    assert launched["fused_out_residual"] == speculative.ROUNDS * L
+    assert trace.kernel_event_counts(events) == trace.expected_kernel_events(
+        launched)

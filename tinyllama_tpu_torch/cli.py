@@ -31,11 +31,21 @@ policy's, bf16): ``--kv i8`` stores int8 with one f32 scale a (head,
 position), about half the bytes; ``f16`` and ``f32`` store the values
 in that type. The performance table's load time covers reading (or
 making) the weights, not building the engine.
+
+``--spec K`` decodes with K-token n-gram drafts verified K + 1 at a time
+(``Engine.generate_speculative``: greedy and monolithic only, the same
+tokens as plain greedy), and prints the JAX CLI's speculative line after
+the performance table. ``--profile DIR`` writes a torch.profiler trace of
+the generation under DIR and prints the device time a token in the
+reference's linear / attention / other buckets (runtime/trace.py).
+``--debug-nans`` raises FloatingPointError at the first NaN in the
+logits, as the JAX CLI's ``jax_debug_nans``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -50,6 +60,7 @@ from tinyllama_tpu_torch.io.checkpoint import load_gten_checkpoint, load_hf_chec
 from tinyllama_tpu_torch.io.hf_tokenizer import load_tokenizer
 from tinyllama_tpu_torch.io.tokenizer import safe_piece
 from tinyllama_tpu_torch.models import llama
+from tinyllama_tpu_torch.runtime import trace
 from tinyllama_tpu_torch.runtime.engine import Engine, resolve_device
 from tinyllama_tpu_torch.runtime.perf import perf_report
 
@@ -114,6 +125,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sampling seed (default: time-based)")
     p.add_argument("--no-perf", action="store_true",
                    help="suppress the performance table")
+    p.add_argument("--spec", type=int, default=0, metavar="K",
+                   help="speculative decoding with K-token n-gram drafts "
+                        "(greedy only; output identical to plain greedy)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of generation to DIR "
+                        "and print its device time by bucket")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast (FloatingPointError) on a NaN in the "
+                        "logits")
     return p
 
 
@@ -131,6 +151,10 @@ def validate(args) -> None:
                          "--random-weights")
     if args.ckpt and not Path(args.ckpt).exists():
         raise SystemExit(f"no checkpoint at {args.ckpt}")
+    if args.spec and not args.greedy:
+        raise SystemExit("--spec requires -greedy (exact greedy acceptance).")
+    if args.spec and args.paged:
+        raise SystemExit("--spec uses the monolithic cache (drop --paged).")
 
 
 def load_params(args, cfg, device):
@@ -172,7 +196,7 @@ def main(argv=None) -> int:
     if args.kv:
         policy = dataclasses.replace(policy, kv_dtype=args.kv)
     engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device,
-                    paged=args.paged)
+                    paged=args.paged, debug_nans=args.debug_nans)
 
     tok_path = args.tokenizer or ("tokenizer.bin" if Path("tokenizer.bin").exists()
                                   else None)
@@ -206,12 +230,39 @@ def main(argv=None) -> int:
                 sys.stderr.write(f"{t} ")
                 sys.stderr.flush()
 
-        out, stats = engine.generate(tokens, gen, stream=stream)
+        with (trace.profiled(args.profile, device) if args.profile
+              else contextlib.nullcontext()):
+            if args.spec:
+                # the rounds run on the device until done: the tokens
+                # stream once they are back
+                out, stats = engine.generate_speculative(tokens, gen,
+                                                         draft_len=args.spec)
+                for t in out:
+                    stream(t)
+            else:
+                out, stats = engine.generate(tokens, gen, stream=stream)
         stats.load_s = load_s
         sys.stderr.write("\n")
         if args.greedy and not args.no_perf:
             sys.stdout.write(perf_report(stats, engine.params,
                                          engine.new_cache(1), device))
+            if args.spec and stats.decode_token_times:
+                nv = stats.decode_token_times[0]
+                sys.stdout.write(
+                    f" speculative : {stats.generated_tokens} tokens / "
+                    f"{nv} verify forwards = "
+                    f"{stats.generated_tokens / max(1, nv):.2f} tok per "
+                    f"weight-stream (draft K={args.spec})\n")
+        if args.profile:
+            # the print_perf buckets from the trace's device events
+            try:
+                events = trace.parse_device_events(args.profile)
+            except FileNotFoundError:
+                sys.stderr.write(
+                    f"[profile] no trace files found under {args.profile}\n")
+            else:
+                sys.stdout.write(trace.format_bucket_table(trace.bucket_report(
+                    events, steps=max(1, stats.generated_tokens))))
 
     if args.prompt:
         run_once(args.prompt)

@@ -21,6 +21,17 @@ The counterpart of the JAX package's runtime/engine.py:
   the next. Both replay ``run_chunk`` over one cache a batch size, kept
   on the engine and rewritten from position 0 by each prefill (no
   kernel or plain path reads a key past its row's position).
+* ``generate_speculative`` (one prompt, greedy) verifies n-gram drafts
+  k + 1 tokens a forward (runtime/speculative.py), in graphs of R verify
+  rounds replayed until done (runtime/graphs.py ``RoundGraphs``), over a
+  cache of max_ctx + 128 positions kept on the engine.
+
+``debug_nans`` is the counterpart of the JAX CLI's ``jax_debug_nans``:
+the prefill, every step of a chunk and every verify round OR a NaN test
+of their logits into a device flag (``nan_flag``), and the call raises
+FloatingPointError after the read back that shows it, naming the call and
+the chunk. It tests the logits only, where JAX tests every value; an inf
+does not raise. Off, nothing of the above runs.
 
 The cache is monolithic, or with ``paged=True`` a page pool
 (runtime/paged.py), in the policy's KV dtype: bf16, f16, f32, or int8
@@ -50,7 +61,7 @@ from tinyllama_tpu_torch.config import DtypePolicy, GenerationConfig, ModelConfi
 from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.ops import sampling
 from tinyllama_tpu_torch.ops.rope import rope_table
-from tinyllama_tpu_torch.runtime import graphs
+from tinyllama_tpu_torch.runtime import graphs, speculative
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, init_cache
 from tinyllama_tpu_torch.runtime.paged import (
     PagedKVCache,
@@ -121,7 +132,7 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, policy: DtypePolicy,
                  params: llama.Params, max_ctx: int | None = None,
-                 device=None, paged: bool = False):
+                 device=None, paged: bool = False, debug_nans: bool = False):
         self.device = resolve_device(device)
         if (self.device.type == "cuda" and policy.is_quantized
                 and policy.adtype != "bf16"):
@@ -153,6 +164,12 @@ class Engine:
         #: graphs captured by this engine and the seconds spent on them
         #: (their eager first runs included)
         self.graph_stats = {"graphs": 0, "capture_s": 0.0}
+        #: the speculative rounds' padded cache, buffers and graphs (made
+        #: at the first generate_speculative)
+        self._rounds: graphs.RoundGraphs | None = None
+        self.debug_nans = debug_nans
+        #: set by a NaN in the logits while debug_nans is on
+        self.nan_flag = torch.zeros(1, dtype=torch.bool, device=self.device)
 
     def new_cache(self, batch: int) -> KVCache | PagedKVCache:
         if self.paged:
@@ -216,6 +233,7 @@ class Engine:
         logits = self._forward_logits(
             cache, torch.from_numpy(toks).to(self.device), pos,
             torch.from_numpy(lens - 1).to(self.device), from_zero=True)
+        self._note_nans(logits)
         return logits, lens
 
     def decode_step(self, cache, tokens: torch.Tensor,
@@ -259,6 +277,7 @@ class Engine:
             toks[:, i] = tok
             step_pos = pos if staged else pos.clamp(max=self.max_ctx - 1)
             logits = self.decode_step(state, tok, step_pos)
+            self._note_nans(logits)
             pos += 1
         if staged:
             flush_staged(state, C)
@@ -291,6 +310,24 @@ class Engine:
         return self.chunk_graphs(cache).run(cache, logits, pos, C, gen,
                                             generator)
 
+    def _note_nans(self, logits: torch.Tensor) -> None:
+        if self.debug_nans:
+            self.nan_flag.logical_or_(torch.isnan(logits).any())
+
+    def nan_mark(self) -> torch.Tensor | None:
+        """With debug_nans, the NaN flag as the work queued so far leaves
+        it (a copy, queued behind that work); else None."""
+        return self.nan_flag.clone() if self.debug_nans else None
+
+    def raise_on_nan(self, mark: torch.Tensor | None, call: str,
+                     where: str) -> None:
+        """Raise FloatingPointError if `mark` (``nan_mark``) shows a NaN;
+        the flag is cleared for the next call."""
+        if mark is not None and bool(mark.cpu()):
+            self.nan_flag.zero_()
+            raise FloatingPointError(
+                f"debug_nans: {call}: a NaN in the logits of {where}")
+
     def _generator(self, gen: GenerationConfig) -> torch.Generator | None:
         if gen.greedy:
             return None
@@ -318,6 +355,7 @@ class Engine:
         logits, lens = self.prefill(cache, [prompt_tokens])
         self._sync()
         stats.prefill_s = time.perf_counter() - t0
+        self.raise_on_nan(self.nan_mark(), "generate", "the prefill")
 
         max_new = max(0, min(gen.n_predict - len(prompt_tokens),
                              self.max_ctx - len(prompt_tokens)))
@@ -332,6 +370,7 @@ class Engine:
         t_decode = time.perf_counter()
         toks, _, logits, pos = self.run_chunk(cache, logits, pos, C, gen,
                                               generator)
+        mark = self.nan_mark()
         stats.decode_steps += C
         while True:
             pending = readback.start(toks[0])
@@ -339,10 +378,15 @@ class Engine:
             if more:  # queued behind the copy of this chunk's tokens
                 toks, _, logits, pos = self.run_chunk(cache, logits, pos, C,
                                                       gen, generator)
+                next_mark = self.nan_mark()
                 stats.decode_steps += C
             t1 = time.perf_counter()
             chunk = readback.wait(pending)  # one read-back a chunk
             stats.decode_token_times.append(time.perf_counter() - t1)
+            self.raise_on_nan(
+                mark, "generate",
+                f"chunk {len(stats.decode_token_times) - 1}")
+            mark = next_mark if more else None
             finished = False
             for t in chunk:
                 if t == gen.eos_token:
@@ -358,6 +402,87 @@ class Engine:
 
         stats.decode_s = time.perf_counter() - t_decode
         stats.generated_tokens = len(out)
+        return out, stats
+
+    def round_graphs(self) -> graphs.RoundGraphs:
+        """The speculative rounds' padded cache, buffers and graphs (made
+        at first use)."""
+        if self._rounds is None:
+            self._rounds = graphs.RoundGraphs(self, self._capture)
+        return self._rounds
+
+    def generate_speculative(
+        self,
+        prompt_tokens: list[int],
+        gen: GenerationConfig | None = None,
+        draft_len: int = 4,
+    ) -> tuple[list[int], GenStats]:
+        """Greedy generation with n-gram drafts of `draft_len` tokens
+        verified draft_len + 1 at a time (runtime/speculative.py), as the
+        JAX ``generate_speculative``: the same tokens as ``generate``. The
+        loop runs in graphs of R = speculative.ROUNDS verify rounds,
+        replayed until a read back of (n_out, done) after a replay shows
+        done (on the CPU the rounds run eagerly); each replay is queued
+        before the state of the one before it is read, so at most 2R - 1
+        rounds run after done. ``stats.decode_token_times`` is [verify
+        forwards], as in JAX; ``stats.decode_steps`` counts every round
+        the device ran, those after done included. Greedy and monolithic
+        only, draft_len below speculative.PAD."""
+        gen = gen or GenerationConfig()
+        if not gen.greedy:
+            raise ValueError("speculative decoding is greedy-only")
+        if self.paged:
+            raise ValueError("speculative decoding uses the monolithic cache")
+        if not 0 <= draft_len < speculative.PAD:
+            raise ValueError(f"draft_len must lie in [0, {speculative.PAD}), "
+                             f"not {draft_len}")
+        stats = GenStats(prompt_tokens=len(prompt_tokens))
+        spec = self.round_graphs()
+
+        t0 = time.perf_counter()
+        logits, _ = self.prefill(spec.cache, [prompt_tokens])
+        next_tok = int(sampling.greedy(logits)[0])
+        stats.prefill_s = time.perf_counter() - t0
+        self.raise_on_nan(self.nan_mark(), "generate_speculative", "the prefill")
+
+        max_new = max(0, min(gen.n_predict - len(prompt_tokens),
+                             self.max_ctx - len(prompt_tokens)))
+        if not max_new or next_tok == gen.eos_token:
+            return [], stats
+        if max_new == 1:
+            stats.generated_tokens = 1
+            return [next_tok], stats
+
+        buf = spec.buffers_for(draft_len)
+        speculative.start(buf, list(prompt_tokens), next_tok, max_new - 1)
+        readback = _Readback(self.device, len(speculative.STATE))
+        rounds = speculative.ROUNDS
+
+        def replay():
+            """The next `rounds` rounds, then a copy of the state they
+            leave (and the NaN flag) queued behind them."""
+            spec.run(draft_len, gen.eos_token, rounds)
+            stats.decode_steps += rounds
+            return readback.start(buf.state), self.nan_mark()
+
+        t1 = time.perf_counter()
+        pending = replay()
+        while True:
+            # replay i + 1 is queued before replay i's state is read, so
+            # the host's read and the next launch overlap the device's
+            # rounds; a replay after done changes nothing
+            queued = replay()
+            state = dict(zip(speculative.STATE, readback.wait(pending[0])))
+            first = stats.decode_steps - 2 * rounds
+            self.raise_on_nan(pending[1], "generate_speculative",
+                              f"verify rounds {first}-{first + rounds - 1}")
+            if state["done"]:
+                break
+            pending = queued
+        out = [next_tok] + buf.out[: state["n_out"]].tolist()
+        stats.decode_s = time.perf_counter() - t1
+        stats.generated_tokens = len(out)
+        stats.decode_token_times.append(state["n_verify"])
         return out, stats
 
     def generate_batch(
@@ -380,6 +505,7 @@ class Engine:
         logits, lens = self.prefill(cache, prompts)
         self._sync()
         stats.prefill_s = time.perf_counter() - t0
+        self.raise_on_nan(self.nan_mark(), "generate_batch", "the prefill")
 
         budgets = [max(0, min(gen.n_predict, self.max_ctx) - int(n))
                    for n in lens]
@@ -399,6 +525,8 @@ class Engine:
                                                   generator)
             stats.decode_steps += C
             toks_np = toks.cpu().numpy()  # one read-back per chunk
+            self.raise_on_nan(self.nan_mark(), "generate_batch",
+                              f"chunk {stats.decode_steps // C - 1}")
             emitted += C
             for b in range(B):
                 if finished[b]:
@@ -416,9 +544,9 @@ class Engine:
 
 
 class _Readback:
-    """A chunk's tokens to the host without a wait at the copy: two host
-    buffers (pinned on the card) used in turn, each copy marked by an
-    event that the reader waits on."""
+    """A chunk's tokens (or the verify rounds' state) to the host without
+    a wait at the copy: two host buffers (pinned on the card) used in
+    turn, each copy marked by an event that the reader waits on."""
 
     def __init__(self, device: torch.device, n: int):
         cuda = device.type == "cuda"

@@ -35,6 +35,18 @@ process) capture and run side by side.
 
 On the CPU there is no capture: ``run`` runs the body over the same
 buffers at every call.
+
+``RoundGraphs`` does the same for speculative decoding
+(runtime/speculative.py): R verify rounds a graph, over the engine's
+cache padded past max_ctx and the static buffers of each draft length;
+one graph a key (draft length, EOS token, R), captured in the same pool
+with the same tally. ``Engine.generate_speculative`` replays it until a
+read back of the state shows done, each replay queued before the one
+before it is read.
+
+With the engine's ``debug_nans`` on, the bodies OR a NaN test of their
+logits into the engine's flag, and every key takes a ``"debug_nans"``
+entry; with it off the keys and bodies are as they were.
 """
 
 from __future__ import annotations
@@ -47,6 +59,9 @@ from typing import Callable
 import torch
 
 from tinyllama_tpu_torch.ops.kernels import counts
+from tinyllama_tpu_torch.ops.rope import rope_table
+from tinyllama_tpu_torch.runtime import speculative
+from tinyllama_tpu_torch.runtime.kvcache import init_cache
 
 #: one capture at a time in the process
 _CAPTURE_LOCK = threading.Lock()
@@ -166,24 +181,76 @@ class ChunkGraphs:
             sampler = ((True, 0, 0.0) if gen.greedy
                        else (False, gen.top_k, gen.temperature))
             key = (B, C, sampler, gen.eos_token, generator)
-            graph = self.graphs.get(key)
-            if graph is None:
-                self.graphs[key] = self._capture(body, generator)
-            else:
-                graph.replay()
-                graph.tally.add()
+            _run_graph(self.engine, self.capture, self.graphs,
+                       key + _debug_key(self.engine), body, generator, "chunk")
         return toks, buf.done, buf.logits, buf.pos
 
-    def _capture(self, body, generator) -> _Graph:
-        t0 = time.perf_counter()
-        with counts.tally() as ran:
-            self.capture.warm_up(body)
-        with counts.tally(launched=False) as captured:
-            replay = self.capture(body, generator)
-        if captured != ran:
-            raise RuntimeError(
-                f"the captured chunk launches {captured.by_name()}, its eager "
-                f"run {ran.by_name()}")
-        self.engine.graph_stats["graphs"] += 1
-        self.engine.graph_stats["capture_s"] += time.perf_counter() - t0
-        return _Graph(replay, captured)
+
+def _debug_key(engine) -> tuple:
+    return ("debug_nans",) if engine.debug_nans else ()
+
+
+def _run_graph(engine, capture: CudaCapture, graphs: dict, key, body,
+               generator, what: str) -> None:
+    """Replay the graph of `key` (adding its tally), or at the key's first
+    use run `body` (the `what`) eagerly and capture it."""
+    graph = graphs.get(key)
+    if graph is not None:
+        graph.replay()
+        graph.tally.add()
+        return
+    t0 = time.perf_counter()
+    with counts.tally() as ran:
+        capture.warm_up(body)
+    with counts.tally(launched=False) as captured:
+        replay = capture(body, generator)
+    if captured != ran:
+        raise RuntimeError(
+            f"the captured {what} launches {captured.by_name()}, its eager "
+            f"run {ran.by_name()}")
+    engine.graph_stats["graphs"] += 1
+    engine.graph_stats["capture_s"] += time.perf_counter() - t0
+    graphs[key] = _Graph(replay, captured)
+
+
+class RoundGraphs:
+    """The captured verify rounds of one engine: its cache and rope table
+    padded to max_ctx + speculative.PAD (made once: the graphs address
+    them), the static buffers of each draft length, and one graph a key
+    (draft length, EOS token, rounds)."""
+
+    def __init__(self, engine, capture: CudaCapture | None):
+        self.engine = engine
+        self.capture = capture
+        S = engine.max_ctx + speculative.PAD
+        cfg = engine.cfg
+        self.cache = init_cache(cfg, 1, engine.policy.kv_dtype, S,
+                                engine.device)
+        self.rope = rope_table(S, cfg.d_head, cfg.rope_theta, engine.device)
+        self.buffers: dict[int, speculative.SpecBuffers] = {}
+        self.graphs: dict[tuple, _Graph] = {}
+
+    def buffers_for(self, k: int) -> speculative.SpecBuffers:
+        buf = self.buffers.get(k)
+        if buf is None:
+            buf = self.buffers[k] = speculative.new_buffers(
+                self.engine.max_ctx, k, self.engine.device)
+        return buf
+
+    def run(self, k: int, eos: int, rounds: int) -> None:
+        """`rounds` verify rounds of draft length k over its buffers: the
+        graph of (k, eos, rounds) replayed (at the key's first use run
+        eagerly and captured); on the CPU the rounds run eagerly."""
+        buf = self.buffers_for(k)
+
+        def body():
+            for _ in range(rounds):
+                speculative.verify_round(self.engine, self.cache, self.rope,
+                                         buf, k, eos)
+
+        if self.capture is None:
+            body()
+        else:
+            _run_graph(self.engine, self.capture, self.graphs,
+                       (k, eos, rounds) + _debug_key(self.engine), body, None,
+                       "rounds")

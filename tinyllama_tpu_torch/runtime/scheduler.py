@@ -317,6 +317,8 @@ class ContinuousBatcher:
         elif logits_out is not self.logits:  # the eager Engine.chunk's own
             self.logits.copy_(logits_out)
         toks_np = toks.cpu().numpy()  # one read-back a chunk
+        self.engine.raise_on_nan(self.engine.nan_mark(), "ContinuousBatcher",
+                                 "a chunk or an admission")
         now = time.perf_counter()
         for slot, was in enumerate(was_running):
             if was:
