@@ -210,6 +210,35 @@ Phases, each fatal on failure:
    counts, each port kernel's events in the trace equal to what those
    counts stand for (a mismatch prints where the events differ), the
    same ids as cli.main without --debug-nans in this process.
+8. path (q), tensor parallelism (parallel/mesh.py, parallel/tp.py,
+   Engine(tp=N)), after (p): first K1-K4 and K9-K11 at a TP rank's local
+   widths against their plain versions (phase_tp_rows: TinyLlama at tp 2
+   and 4, one kv head a rank at 4; at tp 2 also q4g K1 / K2, the ring's
+   chunks and K3 / K4 over int8; Llama-3-8B q4 at tp 2: K2, K3); then a
+   pool of 4 rank processes (ranks sharing one card run gloo, the chunk
+   eagerly; with a card a rank, NCCL and the chunk a graph; the kernels
+   are built before the ranks start, so they only load them), each
+   rank's weights drawn on the card from the tp = 1 engine's seed and
+   kept in host memory (building the engine may take the card no more
+   than the rank's shard and one lm_head), every step's launch counts
+   exact on every rank and the same on all, its outputs bit-equal
+   across ranks: (q1) TinyLlama q8, bf16 KV, full width and depth, at
+   tp 2 and 4: the prefill's logits of (a)'s length against the tp = 1
+   engine (within PARITY_REL of max |logits|), 64 greedy tokens
+   (ms/token beside tp = 1 graph and eager), generate_batch of 4 x 100
+   + 8 (K9), one all-reduce of a row timed (its share of a token, an
+   estimate); (q4), (q5) a paged engine: generate of 16 tokens
+   (K10), generate_batch (K11) and a batcher of 8 slots over 8 requests
+   of 8 tokens; (q2) q4g at tp 2 (parity, 16 tokens), and at tp 4
+   refused on every rank (a JAX pack group split); (q3) an int8 cache at
+   tp 2 (32 tokens); (q6) --tp-overlap at tp 2 (the ring: its prefill
+   against tp = 1, wo and w_down launched in 2 chunks); (q8) Llama-3-8B
+   q4, full width,
+   4 layers, tp 2: prefill parity; (q7) `python -m tinyllama_tpu_torch.cli
+   --tp 2 -q8 --random-weights -greedy -p hi --npred 32` as a child (29
+   ids, one table); (q9) NCCL: (q1)-(q8) ran it where the machine has 4
+   cards or more, tp 2 runs here on 2 or 3, else a line says it did not
+   run.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -219,6 +248,12 @@ Prints a `kernels` JSON line, the card line, and last
 adds, after path (a), a torch.profiler window over a few eager decode
 steps of the main path: kernels launched a step, device time by kernel,
 the port's kernels' share of it, and the host's time a step.
+
+    python3 chip_smoke.py --tp-only
+
+builds the kernels and runs path (q) alone, with its kernel rows: on a
+machine of 4 cards or more its pool's ranks take a card each and run
+NCCL, the chunk a captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -456,6 +491,20 @@ def check_close(name: str, got, want) -> float:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version, max |err| {err}")
     return err
+
+
+#: each kernel row's launch counters (a row's launches: their sum on the
+#: paths of its kind)
+LAUNCH_NAMES = {"K1 qmm_smallm": ["qmm_smallm"], "K2 qmm_bigm": ["qmm_bigm"],
+                "K3 flash_prefill": ["flash_prefill"],
+                "K4 flash_decode_heads": ["flash_decode_heads"],
+                "K5 fused_norm_qkv": ["fused_norm_qkv"],
+                "K6 fused_out_residual": ["fused_out_residual"],
+                "K7 ffn_fused": ["ffn_fused_normed", "ffn_fused"],
+                "K8 fused_attn_out": ["fused_attn_out"],
+                "K9 flash_staged": ["flash_staged"],
+                "K10 flash_paged": ["flash_paged"],
+                "K11 flash_paged_staged": ["flash_paged_staged"]}
 
 
 #: the TPU kernel bodies each weight kernel's 4-bit rows replace, by kind
@@ -1277,6 +1326,333 @@ KBENCH_REPLACES = {
 }
 
 
+#: path (q): the local widths of a TP rank a row kind measures: (model,
+#: weight kind, tp, layers of path (q)'s engine)
+TP_ROWS = {"q8-tp2": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "all"),
+           "q8-tp4": ("tinyllama-1.1b-chat-v0.4", "q8", 4, 22, "all"),
+           "q4g-tp2": ("tinyllama-1.1b-chat-v0.4", "q4g", 2, 22, "linears"),
+           "q8-tp2-kvi8": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "kv"),
+           "q8-tp2-overlap": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "ring"),
+           "8b-q4-tp2": ("llama-3-8b", "q4", 2, 4, "prefill")}
+#: path (q): the keys of a TP row's cache (max_ctx of its engines)
+TP_S = 2048
+
+
+def phase_tp_rows(torch, ops, kind) -> list[dict]:
+    """K1-K4 and K9-K11 at one TP rank's local widths (parallel/tp.py
+    ``local_config``: heads, kv heads and ffn divided by tp) against their
+    plain versions, with their times, bounds and library times, as phase
+    3, at each shape path (q) launches for its `kind` (TP_ROWS). "all":
+    K1 at M = 1 and K2 at M = 128 on the rank's four linears (random
+    weights, one a layer, cycled past the L2; wo and w_down quantized at
+    the full d_in and sliced as shard_params slices them), K3 at T = 128,
+    K4 at pos 127, K9 at B = 4, K10 at pos 127 and K11 at B = 8 over a
+    fill of 128 and a 32-slot tail, over S = TP_S keys; "linears": K1 and
+    K2 only; "ring": K1 and K2 on --tp-overlap's chunk-stacked wo and
+    w_down (tp_chunk_row_parallel: N / tp columns a chunk); "kv": K3 and
+    K4 over an int8 cache; "prefill" (Llama-3-8B, whose path (q) runs a
+    prefill): K2 and K3 only."""
+    from tinyllama_tpu_torch.config import MODEL_REGISTRY
+    from tinyllama_tpu_torch.parallel.tp import (
+        local_config, tp_chunk_row_parallel,
+    )
+    from tinyllama_tpu_torch.runtime.kvcache import (
+        KVCache, layer_cache_view, quantize_kv,
+    )
+    from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
+    from tinyllama_tpu_torch.runtime.staging import StagedKVCache
+    from tinyllama_tpu_torch.tools.kbench import time_ms
+
+    qm, fa, _, _, _, fp, codec = ops
+    model, wkind, tp, L, part = TP_ROWS[kind]
+    cfg = local_config(MODEL_REGISTRY[model], tp)
+    D, H, Kh, d, F = cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.n_ffn
+    dev, S, bf = "cuda", TP_S, torch.bfloat16
+    i8 = part == "kv"
+    gen = torch.Generator(dev)
+    gen.manual_seed(11)
+    layers = [torch.tensor([i], dtype=torch.int32, device=dev)
+              for i in range(L * tp)]
+    rows = []
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def row(kernel, label, src, rep, err, ms, plain, nbytes, flops, lib):
+        rows.append(kernel_row(kernel, f"{kernel} {kind} {label}", kind, src,
+                               rep, err, ms, plain, nbytes, flops, lib,
+                               " (one TP rank's local widths)"))
+
+    def weights(N, K, row_parallel):
+        """L layers of a [N, K] linear of the rank: a row-parallel one
+        quantized at the full d_in K * tp, then rank 0's d_in slice."""
+        w = codec.stack([codec.quantize(
+            torch.randn((N, K * tp if row_parallel else K), generator=gen,
+                        device=dev) * 0.02, wkind, "kn") for _ in range(L)])
+        if not row_parallel:
+            return w
+
+        def cut(a):
+            return a.narrow(-2, 0, a.shape[-2] // tp).contiguous()
+
+        return codec.QTensor(cut(w.data), cut(w.scales), w.kind, w.layout)
+
+    # K1 / K2 on the rank's column- and row-parallel shards
+    shapes = {"wqkv": ((H + 2 * Kh) * d, D), "wo": (D, H * d),
+              "w_gateup": (2 * F, D), "w_down": (D, F)}
+    names = {"all": shapes, "linears": shapes, "prefill": shapes,
+             "ring": ("wo", "w_down"), "kv": ()}[part]
+    mats = {n: weights(*shapes[n], n in ("wo", "w_down")) for n in names}
+    if part == "ring":
+        mats = tp_chunk_row_parallel({"layers": mats}, tp)["layers"]
+    src = "tinyllama_tpu_torch/csrc/qmatmul.cu"
+    for name, w in mats.items():
+        n_w, (N, K) = w.data.shape[0], w.shape[-2:]
+        wd = [codec.dequantize(codec.QTensor(w.data[i], w.scales[i], wkind,
+                                             "kn"), bf) for i in range(n_w)]
+        w_bytes = w.data[0].numel() * w.data.element_size() + w.scales[0].numel() * 2
+        for M in (128,) if part == "prefill" else (1, 128):
+            x = rand(M, K)
+            err = check_close(f"{kind} {name} M={M}",
+                              qm.qmatmul(x, w, bf, layers[0]),
+                              qm.qmatmul_ref(x, w, bf, layers[0]))
+            ms = time_ms(lambda i: qm.qmatmul(x, w, bf, layers[i % n_w]), 200,
+                         True)
+            plain = time_ms(lambda i: qm.qmatmul_ref(x, w, bf,
+                                                     layers[i % n_w]), 10, False)
+            lib = time_ms(lambda i: torch.matmul(x, wd[i % n_w]), 200, True)
+            small = M <= qm.SMALL_M
+            q8_line = ("tinyllama_tpu/ops/pallas/qmatmul.py:87" if small
+                       else "tinyllama_tpu/ops/pallas/qmatmul.py:288")
+            rep = q8_line if wkind == "q8" else REPLACES_4BIT[
+                "K1" if small else "K2"][wkind]
+            chunked = f" (chunk of {n_w // L})" if part == "ring" else ""
+            row("K1 qmm_smallm" if small else "K2 qmm_bigm",
+                f"{name}{chunked} M={M} K={K} N={N}", src, rep, err, ms, plain,
+                w_bytes + M * K * 2 + M * N * 2, 2 * M * K * N, lib)
+        del wd
+    del mats
+    if part in ("linears", "ring"):
+        torch.cuda.empty_cache()
+        return rows
+
+    def sdpa(q, k, v, is_causal=False, mask=None):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+
+    kv_row = KV_ROW_BYTES["i8" if i8 else "bf16"](d)
+
+    def attn_row(kernel, label, src, rep, fn, plain, lib, n_keys, pairs, B, T):
+        err = check_close(f"{kernel} {kind} {label}", fn(0), plain(0))
+        ms = time_ms(fn, 100, True)
+        plain_ms = time_ms(plain, 5, False)
+        lib_ms = time_ms(lib, 100, True)
+        row(kernel, label, src, rep, err, ms, plain_ms,
+            2 * Kh * n_keys * kv_row + 2 * B * T * H * d * 2, 4 * d * pairs,
+            lib_ms)
+
+    # K3 (T = 128 from pos 0) and K4 (pos 127) over a monolithic cache
+    # (int8 for "kv": its library yardstick SDPA over the dequantized keys)
+    cache = KVCache(rand(L, 1, Kh, S, d), rand(L, 1, Kh, S, d))
+    if i8:
+        (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
+        cache = KVCache(k, v, ks, vs)
+    dk, dv = layer_cache_view(cache, 3, bf)
+    for T, p in ((128, 0),) if part == "prefill" else ((128, 0), (1, 127)):
+        q = rand(1, T, H, d)
+        pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+        fn = fa.flash_decode_heads_attention if T == 1 else fa.flash_prefill_attention
+        n_keys = p + T
+        kx, vx, qh = dk[:, :, :n_keys], dv[:, :, :n_keys], q.transpose(1, 2)
+        kernel = "K4" if T == 1 else "K3"
+        rep = ("tinyllama_tpu/ops/pallas/flash_prefill.py:" + ("201" if T == 1
+                                                               else "35"))
+        attn_row(
+            "K4 flash_decode_heads" if T == 1 else "K3 flash_prefill",
+            f"T={T} pos={p} H={H} Kh={Kh} d={d} S={S}" + (" int8" if i8 else ""),
+            "tinyllama_tpu_torch/csrc/" + ("decode_split.cu" if T == 1
+                                           else "flash_attention.cu"),
+            REPLACES_I8[kernel] if i8 else rep,
+            lambda i: fn(q, cache, layers[i % L], pos),
+            lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
+            lambda i: sdpa(qh, kx, vx, is_causal=T > 1), n_keys,
+            H * sum(p + t + 1 for t in range(T)), 1, T)
+    del cache, dk, dv
+    if part != "all":
+        torch.cuda.empty_cache()
+        return rows
+
+    # K9, K10, K11 at the serving shapes of path (q): generate_batch's B = 4
+    # staged chunk (monolithic), a paged b1 step, the batcher's B = 8
+    # staged chunk over the pool
+    P, fill, tail = 256, 128, 32
+    for kernel, B, paged, staged, rep in (
+            ("K9 flash_staged", 4, False, True, "flash_prefill.py:375"),
+            ("K10 flash_paged", 1, True, False, "flash_paged.py:38"),
+            ("K11 flash_paged_staged", 8, True, True, "flash_paged.py:171")):
+        q = rand(B, 1, H, d)
+        if paged:
+            table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
+            table[:, 0] = 1 + torch.arange(B, device=dev, dtype=torch.int32)
+            pool = PagedKVCache(rand(L, 1 + B, Kh, P, d), rand(L, 1 + B, Kh, P, d),
+                                table)
+            kd, vd = paged_layer_view(pool, 3, bf)
+        else:
+            pool = KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d))
+            kd, vd = layer_cache_view(pool, 3, bf)
+        base = torch.full((B,), fill, dtype=torch.int32, device=dev)
+        kx, vx = kd[:, :, :fill], vd[:, :, :fill]
+        if staged:
+            sk, sv = rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)
+            arg = StagedKVCache(pool, sk, sv, base)
+            pos = base + (tail - 1)
+            fn = (fp.flash_paged_staged_attention if paged
+                  else fa.flash_staged_attention)
+            plain = fp.staged_attention_ref
+            kx = torch.cat([kx, sk[3, :, :, :tail]], dim=2)
+            vx = torch.cat([vx, sv[3, :, :, :tail]], dim=2)
+            label = f"B={B} fill={fill} tail={tail} H={H} Kh={Kh}"
+        else:
+            arg, pos = pool, base - 1
+            fn, plain = fp.flash_paged_attention, fp.paged_attention_ref
+            label = f"B={B} pos={fill - 1} P={P} H={H} Kh={Kh}"
+        n_keys = kx.shape[2]
+        qh = q.transpose(1, 2)
+        attn_row(kernel, label, "tinyllama_tpu_torch/csrc/decode_split.cu",
+                 f"tinyllama_tpu/ops/pallas/{rep}",
+                 lambda i: fn(q, arg, layers[i % L], pos),
+                 lambda i: plain(q, arg, layers[i % L], pos),
+                 lambda i: sdpa(qh, kx, vx), B * n_keys, B * H * n_keys, B, 1)
+        del pool, arg, kd, vd, kx, vx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_rank(mesh, model, kind, seed, layers, steps, refused=False, **kw):
+    """One rank of path (q): Engine(mesh=mesh) over `kind` weights of
+    `model` (cut to `layers` if given) drawn on the card from `seed` (the
+    same on every rank: the tp = 1 engine's weights) and kept in host
+    memory, as the CLI keeps them at --tp, so the engine copies only the
+    rank's shard to the card; max_ctx TP_S. Then each step of `steps`,
+    its launch counts set to 0 just before it and read just after, with
+    the shapes of its prefills and chunks. A step: ("prefill", prompts)
+    -> last-token logits; ("generate", prompt, n) -> ids;
+    ("generate_batch", prompts, n) -> ids; ("batcher", prompts, n, slots)
+    -> ids by request; ("all_reduce", n) -> ms of one all-reduce of a
+    [1, 1, n_embd] bf16 row, back to back. With `refused`, the engine is
+    expected to refuse (a ValueError, whose text returns)."""
+    import torch
+
+    from tinyllama_tpu_torch.config import (
+        GenerationConfig, MODEL_REGISTRY, POLICIES,
+    )
+    from tinyllama_tpu_torch.models import llama
+    from tinyllama_tpu_torch.ops.kernels import (
+        attn_out_fused, decode_fused, ffn_fused, flash_attention,
+        flash_paged, qmatmul,
+    )
+    from tinyllama_tpu_torch.runtime.engine import Engine, _bucket
+    from tinyllama_tpu_torch.runtime.perf import tree_nbytes
+    from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
+
+    counters = (qmatmul.launches, flash_attention.launches,
+                decode_fused.launches, ffn_fused.launches,
+                attn_out_fused.launches, flash_paged.launches)
+    cfg = MODEL_REGISTRY[model]
+    cfg = cfg.replace(n_layers=layers) if layers else cfg
+    policy = POLICIES[kind]
+    g = torch.Generator("cuda")
+    g.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = llama.init_quantized_params(cfg, policy, g, "cuda", "cpu")
+    full_bytes = tree_nbytes(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = Engine(cfg, policy, params, max_ctx=TP_S, mesh=mesh, **kw)
+    except ValueError as e:
+        if refused:
+            return {"refused": str(e)}
+        raise
+    if refused:
+        raise AssertionError("the engine was built where it must refuse")
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # what building the engine took on the card, against its shard
+    memory = {"init_s": init_s, "peak": torch.cuda.max_memory_allocated() - base,
+              "shard": tree_nbytes(eng.params), "full": full_bytes,
+              "lm_head": tree_nbytes(eng.params["lm_head"])}
+    record = {"prefill": [], "chunk": []}
+    prefill, run_chunk = eng.prefill, eng.run_chunk
+
+    def rec_prefill(cache, prompts):
+        record["prefill"].append(
+            (len(prompts), _bucket(max(len(p) for p in prompts), eng.max_ctx)))
+        return prefill(cache, prompts)
+
+    def rec_chunk(cache, logits, pos, C, *a, **k):
+        record["chunk"].append((logits.shape[0], C))
+        return run_chunk(cache, logits, pos, C, *a, **k)
+
+    eng.prefill, eng.run_chunk = rec_prefill, rec_chunk
+    results = []
+    for step in steps:
+        what = step[0]
+        gcfg = GenerationConfig(n_predict=TP_S, greedy=True, eos_token=-1,
+                                chunk_size=32)
+        if what == "generate" and eng.graph_stats["route"] == "graph":
+            # capture the b1 chunk first, so the step times its replays
+            eng.generate(step[1], dataclasses.replace(
+                gcfg, n_predict=len(step[1]) + 32))
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        record["prefill"].clear()
+        record["chunk"].clear()
+        res = {"what": what}
+        t0 = time.perf_counter()
+        if what == "prefill":
+            logits, _ = eng.prefill(eng.new_cache(len(step[1])), step[1])
+            res["out"] = logits.float().cpu().numpy()
+        elif what == "generate":
+            gcfg = dataclasses.replace(gcfg, n_predict=len(step[1]) + step[2])
+            res["out"], stats = eng.generate(step[1], gcfg)
+            res["ms_per_token"] = stats.ms_per_token
+            res["prefill_ms"] = stats.prefill_s * 1e3
+        elif what == "generate_batch":
+            gcfg = dataclasses.replace(gcfg, n_predict=max(map(len, step[1]))
+                                       + step[2])
+            res["out"], _ = eng.generate_batch(step[1], gcfg)
+        elif what == "batcher":
+            b = ContinuousBatcher(eng, gcfg, max_batch=step[3])
+            for p in step[1]:
+                b.submit(p, max_new=step[2])
+            done = b.run()
+            res["out"] = {i: r.output for i, r in done.items()}
+        elif what == "all_reduce":
+            x = torch.zeros((1, 1, cfg.n_embd), dtype=torch.bfloat16,
+                            device="cuda")
+            mesh.all_reduce(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(step[1]):
+                mesh.all_reduce(x)
+            torch.cuda.synchronize()
+            res["out"] = (time.perf_counter() - t0) * 1e3 / step[1]
+        torch.cuda.synchronize()
+        res["s"] = time.perf_counter() - t0
+        res["counts"] = {k: v for c in counters for k, v in c.items()}
+        res["record"] = {k: list(v) for k, v in record.items()}
+        results.append(res)
+    return {"steps": results, "route": eng.graph_stats["route"],
+            "backend": mesh.backend, "build_s": build_s,
+            "cache_heads": eng.new_cache(1).k.shape[2], "memory": memory,
+            "memory_reserved": torch.cuda.memory_reserved()}
+
+
 def kbench_replaces(counter: str) -> str:
     for key in sorted(KBENCH_REPLACES, key=len, reverse=True):
         if counter.startswith(key):
@@ -1428,16 +1804,33 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
 
+    #: --tp-only: the build, then path (q) alone (for a machine of several
+    #: cards, where its ranks run NCCL)
+    tp_only = sys.argv[1:] == ["--tp-only"]
+
+    def finish(rows, kb_rows) -> int:
+        for r in rows:
+            del r["kernel"], r["kind"]
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the builds "
+              "included")
+        print(json.dumps({"kernels": rows + kb_rows}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     # path (h)'s files, written by a child process while the kernels build
     # and phase 3 runs (host numpy, ~40 s); stopped and removed at exit
     files = tempfile.TemporaryDirectory()
     ckpt = Path(files.name) / "tinyllama.q4.gten"
     vocab = Path(files.name) / "tokenizer.bin"
-    writer = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--write-checkpoint", str(ckpt), str(vocab)],
-                              stdout=subprocess.PIPE, text=True)
     atexit.register(files.cleanup)
-    atexit.register(lambda: writer.poll() is None and writer.kill())
+    if not tp_only:
+        writer = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--write-checkpoint", str(ckpt), str(vocab)],
+                                  stdout=subprocess.PIPE, text=True)
+        atexit.register(lambda: writer.poll() is None and writer.kill())
 
     # 2. build
     t0 = time.perf_counter()
@@ -1462,15 +1855,16 @@ def main() -> int:
     print(f"init: TinyLlama-1.1B q8 random weights in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ops = (qm, fa, df, ffn, ao, fp, codec)
-    rows = phase_kernels(engine, torch, ops)
-    rows += phase_kernels(engine, torch, ops, kv="i8")
-    rows += phase_kernels(engine, torch, ops, aq8=True)
-    for kv in ("f16", "f32"):
-        rows += phase_kernels(engine, torch, ops, kv=kv)
-
-    mark("phase 3")
-    kb_rows = phase_kbench(torch)
-    mark("kbench")
+    rows, kb_rows = [], []
+    if not tp_only:
+        rows = phase_kernels(engine, torch, ops)
+        rows += phase_kernels(engine, torch, ops, kv="i8")
+        rows += phase_kernels(engine, torch, ops, aq8=True)
+        for kv in ("f16", "f32"):
+            rows += phase_kernels(engine, torch, ops, kv=kv)
+        mark("phase 3")
+        kb_rows = phase_kbench(torch)
+        mark("kbench")
 
     # 4. paths, each with exact launch counts
     counters = (qm.launches, fa.launches, df.launches, ffn.launches,
@@ -1866,6 +2260,320 @@ def main() -> int:
               f"{n_g - before[0]} graph captured in {cap_s - before[1]:.3f} s; "
               f"card {card}", flush=True)
         return out_, stats_
+
+    # (q) tensor parallelism: Engine(tp=N) in N rank processes on the
+    # card(s), against the tp = 1 engine in this process
+    def path_q() -> list[dict]:
+        """Path (q); returns the TP kernel rows with its launches (a rank's:
+        every rank's are checked equal)."""
+        nonlocal L
+        from tinyllama_tpu_torch.config import MODEL_REGISTRY
+        from tinyllama_tpu_torch.parallel.mesh import (
+            RankPool, backend_for, with_mesh,
+        )
+
+        def free_q():
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        t_q = time.perf_counter()
+        q_rows = []
+        for kind in TP_ROWS:
+            q_rows += phase_tp_rows(torch, ops, kind)
+        mark("(q) kernel rows")
+        name = TINYLLAMA_1_1B.name
+        qrng = np.random.default_rng(18)
+
+        def q_prompt(n):
+            return [1] + qrng.integers(2, TINYLLAMA_1_1B.n_vocab, n - 1).tolist()
+
+        prompt_q = q_prompt(PROMPT_LEN)
+        batch_q = [q_prompt(PROMPT_LEN) for _ in range(BATCH)]
+        requests_q = [q_prompt(int(n)) for n in qrng.integers(8, 201, 8)]
+
+        def ref_engine(model_cfg, kind, seed):
+            g = torch.Generator("cuda")
+            g.manual_seed(seed)
+            return Engine(model_cfg, POLICIES[kind], llama.init_quantized_params(
+                model_cfg, POLICIES[kind], g, "cuda"), max_ctx=TP_S,
+                device="cuda")
+
+        def same(a, b):
+            if isinstance(a, np.ndarray):
+                return np.array_equal(a, b)
+            return a == b
+
+        def check_step(path, kind, res, i, paged=False, overlap_tp=0):
+            """Step i on every rank: the same output bit for bit, the same
+            counts and shapes; rank 0's counts exactly what its prefills'
+            and chunks' shapes dictate on the unfused branch (TP), with
+            the ring's tp - 1 more launches for each of wo and w_down.
+            Returns rank 0's step."""
+            s0 = res[0]["steps"][i]
+            for rank, r in enumerate(res[1:], 1):
+                s = r["steps"][i]
+                if not same(s["out"], s0["out"]):
+                    raise AssertionError(f"path {path}: rank {rank}'s output "
+                                         "is not rank 0's")
+                if s["counts"] != s0["counts"] or s["record"] != s0["record"]:
+                    raise AssertionError(f"path {path}: rank {rank}'s launches "
+                                         f"{s['counts']} are not rank 0's "
+                                         f"{s0['counts']}")
+            want = {k: 0 for c in counters for k in c}
+            want["flash_prefill_own"] = 0
+            extra = 2 * (overlap_tp - 1) * L if overlap_tp else 0
+            for b, T in s0["record"]["prefill"]:
+                prefill_counts(want, b, T, paged, True)
+                want[qmm(b * T)] += extra
+            for B, C in s0["record"]["chunk"]:
+                chunk_counts(want, B, C, paged, True)
+                want[qmm(B)] += C * extra
+            for c in counters:
+                for k in c:
+                    c[k] = s0["counts"][k]
+            totals.setdefault(kind, {k: 0 for c in counters for k in c})
+            expect(f"{path} (each of {len(res)} ranks)", kind, **want)
+            return s0
+
+        def parity(path, got, want):
+            err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            print(f"parity {path}: max |tp - tp1| {err:.5f}, max |tp1| "
+                  f"{scale:.4f}, mean |diff| {float(np.abs(got - want).mean()):.6f} "
+                  f"(limit {PARITY_REL} of max |tp1|)", flush=True)
+            if not (np.isfinite(got).all() and err <= PARITY_REL * scale):
+                raise AssertionError(f"parity {path}: {err} > {PARITY_REL} * {scale}")
+
+        def ids_in_range(path, ids, n):
+            if len(ids) != n or not all(0 <= t < TINYLLAMA_1_1B.n_vocab
+                                        for t in ids):
+                raise AssertionError(f"path {path}: {len(ids)} ids of {n}, or "
+                                     "ids out of range")
+
+        # the tp = 1 references: (a)'s weights (seed 1234), graph and eager
+        e1 = ref_engine(TINYLLAMA_1_1B, "q8", 1234)
+        ref_logits = e1.prefill(e1.new_cache(1), [prompt_q])[0].float().cpu().numpy()
+        ids1, st1 = generate(prompt_q, 64, e1)
+        ids1, st1 = generate(prompt_q, 64, e1)  # the first captured its graph
+        with eager_chunks():
+            _, st1e = generate(prompt_q, 64, e1)
+        del e1
+        free_q()
+        print(f"path (q) tp=1: {st1.ms_per_token:.4f} ms/token as a CUDA graph, "
+              f"{st1e.ms_per_token:.4f} eager (64 tokens after a "
+              f"{PROMPT_LEN}-token prompt); card {card}", flush=True)
+        ms_tok = {}
+        # the pool's backend and the chunk's route follow from the cards:
+        # gloo and the eager chunk where its 4 ranks share a card, NCCL and
+        # the captured chunk where each has its own
+        n_cards = torch.cuda.device_count()
+        backend = backend_for(4)
+        route = "graph" if backend == "nccl" else "eager"
+        how = (f"{backend}, the chunk {'a CUDA graph' if route == 'graph' else 'eager'}"
+               f", ranks on {min(n_cards, 4)} card(s)")
+        with RankPool(4) as pool:
+            def ranks(tp, *a, **k):
+                res = pool.run(with_mesh, tp_rank, tp, 1, None, *a, **k)[:tp]
+                for rank, r in enumerate(res):
+                    if "steps" not in r:
+                        continue
+                    if (r["backend"], r["route"]) != (backend, route):
+                        raise AssertionError(
+                            f"path (q): rank {rank} ran {r['backend']} and the "
+                            f"{r['route']} chunk; on {n_cards} card(s) the pool "
+                            f"runs {backend} and the {route} chunk")
+                    # the engine copies the rank's shard to the card, not the
+                    # full weights (and pads the lm_head's vocab once)
+                    m = r["memory"]
+                    limit = m["shard"] + m["lm_head"] + 64 * 2**20
+                    if m["peak"] > limit:
+                        raise AssertionError(
+                            f"path (q): building rank {rank}'s engine took "
+                            f"{m['peak']} B on the card; its shard is "
+                            f"{m['shard']} B (limit {limit} B, the full "
+                            f"weights {m['full']} B)")
+                return res
+
+            for tp in (2, 4):
+                kind = f"q8-tp{tp}"
+                # (q1) TinyLlama q8, bf16 KV, full width and depth
+                res = ranks(tp, name, "q8", 1234, 0, [
+                    ("prefill", [prompt_q]), ("generate", prompt_q, 64),
+                    ("generate_batch", batch_q, 8), ("all_reduce", 200)])
+                heads = res[0]["cache_heads"]
+                if heads != TINYLLAMA_1_1B.n_kv_heads // tp:
+                    raise AssertionError(f"path (q1) tp={tp}: a rank's cache "
+                                         f"holds {heads} kv heads")
+                s = check_step(f"(q1) tp={tp} prefill", kind, res, 0)
+                parity(f"(q1) TinyLlama q8 tp={tp} prefill", s["out"], ref_logits)
+                s = check_step(f"(q1) tp={tp} generate", kind, res, 1)
+                ids_in_range(f"(q1) tp={tp}", s["out"], 64)
+                shared = next((i for i, (x, y) in enumerate(zip(s["out"], ids1))
+                               if x != y), 64)
+                s_b = check_step(f"(q4) tp={tp} generate_batch", kind, res, 2)
+                for o in s_b["out"]:
+                    ids_in_range(f"(q4) tp={tp} generate_batch", o, 8)
+                ar_ms = res[0]["steps"][3]["out"]
+                ms_tok[tp] = s["ms_per_token"]
+                m = res[0]["memory"]
+                print(f"path (q1) tp={tp}: {tp} ranks ({how}), weights drawn "
+                      f"in {m['init_s']:.1f} s and the engine built in "
+                      f"{res[0]['build_s']:.1f} s (the draw included), its "
+                      f"peak on the card "
+                      f"{m['peak'] / 2**20:.1f} MiB for a shard of "
+                      f"{m['shard'] / 2**20:.1f} MiB (the full weights "
+                      f"{m['full'] / 2**20:.1f} MiB, in host memory); prefill "
+                      f"{s['prefill_ms']:.3f} ms, decode "
+                      f"{s['ms_per_token']:.4f} ms/token over 64 tokens "
+                      f"(tp=1: {st1.ms_per_token:.4f} graph, "
+                      f"{st1e.ms_per_token:.4f} eager); one all-reduce of a "
+                      f"[1, 1, {TINYLLAMA_1_1B.n_embd}] bf16 row {ar_ms:.4f} ms "
+                      f"back to back, x {2 * L} a step = "
+                      f"{2 * L * ar_ms / s['ms_per_token']:.3f} of a token (an "
+                      f"estimate); the prefix shared with tp=1 at bf16 "
+                      f"{shared} of 64; memory_reserved a rank "
+                      f"{res[0]['memory_reserved'] / 2**20:.0f} MiB; card {card}",
+                      flush=True)
+                # (q4), (q5) paged generate, paged generate_batch and a
+                # batcher of 8 slots over 8 requests, on one paged engine
+                res = ranks(tp, name, "q8", 1234, 0, [
+                    ("generate", prompt_q, 16), ("generate_batch", batch_q, 8),
+                    ("batcher", requests_q, 8, 8)], paged=True)
+                s = check_step(f"(q4) tp={tp} paged generate", kind, res, 0,
+                               paged=True)
+                ids_in_range(f"(q4) tp={tp} paged", s["out"], 16)
+                check_step(f"(q4) tp={tp} paged generate_batch", kind, res, 1,
+                           paged=True)
+                s = check_step(f"(q5) tp={tp} batcher", kind, res, 2, paged=True)
+                if sorted(s["out"]) != list(range(8)) or any(
+                        len(o) != 8 for o in s["out"].values()):
+                    raise AssertionError(f"path (q5) tp={tp}: the batcher's "
+                                         "requests did not all finish")
+                print(f"path (q5) tp={tp}: the batcher: 8 requests x 8 tokens in "
+                      f"{res[0]['steps'][2]['s']:.2f} s "
+                      f"({8 * 8 / res[0]['steps'][2]['s']:.1f} tok/s; {how}); "
+                      f"card {card}", flush=True)
+            mark("(q1), (q4), (q5) tp = 2 and 4")
+
+            # (q2) q4g: tp = 2 runs; tp = 4 is refused (TinyLlama's w_down
+            # K = 5,632 over 4 splits a JAX pack group of 256)
+            e1 = ref_engine(TINYLLAMA_1_1B, "q4g", 4321)
+            ref4 = e1.prefill(e1.new_cache(1), [prompt_q])[0].float().cpu().numpy()
+            del e1
+            free_q()
+            res = ranks(2, name, "q4g", 4321, 0, [("prefill", [prompt_q]),
+                                                  ("generate", prompt_q, 16)])
+            s = check_step("(q2) q4g tp=2 prefill", "q4g-tp2", res, 0)
+            parity("(q2) TinyLlama q4g tp=2 prefill", s["out"], ref4)
+            s = check_step("(q2) q4g tp=2 generate", "q4g-tp2", res, 1)
+            ids_in_range("(q2) q4g tp=2", s["out"], 16)
+            res = ranks(4, name, "q4g", 4321, 0, [], refused=True)
+            if not all("pack group 256" in r["refused"] for r in res):
+                raise AssertionError(f"path (q2): q4g at tp=4: {res[0]}")
+            print(f"path (q2): q4g tp=2 {s['ms_per_token']:.4f} ms/token; tp=4 "
+                  f"refused on every rank: {res[0]['refused']!r}", flush=True)
+
+            # (q3) an int8 KV cache at tp = 2
+            res = ranks(2, name, "q8-kvi8", 1234, 0, [("generate", prompt_q, 32)])
+            s = check_step("(q3) int8 KV tp=2", "q8-tp2-kvi8", res, 0)
+            ids_in_range("(q3) int8 KV tp=2", s["out"], 32)
+            print(f"path (q3): q8-kvi8 tp=2 {s['ms_per_token']:.4f} ms/token",
+                  flush=True)
+
+            # (q6) --tp-overlap at tp = 2: the ring's logits against the
+            # all-reduce's, and its launches (wo and w_down in 2 chunks)
+            res = ranks(2, name, "q8", 1234, 0, [("prefill", [prompt_q]),
+                                                 ("generate", prompt_q, 16)],
+                        tp_overlap=True)
+            s = check_step("(q6) overlap prefill", "q8-tp2-overlap", res, 0,
+                           overlap_tp=2)
+            parity("(q6) tp=2 --tp-overlap prefill", s["out"], ref_logits)
+            s = check_step("(q6) overlap generate", "q8-tp2-overlap", res, 1,
+                           overlap_tp=2)
+            ids_in_range("(q6) overlap", s["out"], 16)
+            print(f"path (q6): tp=2 --tp-overlap {s['ms_per_token']:.4f} ms/token "
+                  f"({how}; under gloo the ring's hops and gather go through "
+                  f"host memory)", flush=True)
+            mark("(q2), (q3), (q6)")
+
+            # (q8) Llama-3-8B q4 at tp = 2, full width, 4 layers: prefill
+            # parity against tp = 1
+            cfg8 = MODEL_REGISTRY["llama-3-8b"].replace(n_layers=4)
+            e1 = ref_engine(cfg8, "q4", 88)
+            ref8 = e1.prefill(e1.new_cache(1), [prompt_q])[0].float().cpu().numpy()
+            del e1
+            free_q()
+            res = ranks(2, "llama-3-8b", "q4", 88, 4, [("prefill", [prompt_q])])
+            L, L_tiny = 4, L
+            try:
+                s = check_step("(q8) Llama-3-8B q4 tp=2 prefill", "8b-q4-tp2",
+                               res, 0)
+            finally:
+                L = L_tiny
+            parity("(q8) Llama-3-8B q4 (4 layers) tp=2 prefill", s["out"], ref8)
+            mark("(q8) Llama-3-8B")
+
+        # (q7) the CLI as a user runs it: it starts its own 2 ranks
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "tinyllama_tpu_torch.cli", "--tp", "2", "-q8",
+             "--random-weights", "-greedy", "-p", "hi", "--npred", "32"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            timeout=600)
+        ids = [line.split() for line in child.stderr.splitlines()
+               if line.split() and all(w.isdigit() for w in line.split())]
+        if (child.returncode or child.stdout.count("PERFORMANCE") != 1
+                or len(ids) != 1 or len(ids[0]) != 29):
+            print(child.stdout, child.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"path (q7): the CLI with --tp 2 exited "
+                                 f"{child.returncode}, or printed other than one "
+                                 "table and 29 ids")
+        per_tok = next(line for line in child.stdout.splitlines()
+                       if "Inference [per tok]" in line)
+        print(f"path (q7): python -m tinyllama_tpu_torch.cli --tp 2 -q8 "
+              f"--random-weights -greedy -p hi --npred 32: 29 ids, one "
+              f"performance table ({per_tok.strip()}), "
+              f"{time.perf_counter() - t0:.1f} s with its ranks' start",
+              flush=True)
+
+        # (q9) NCCL across cards, the chunk captured as a CUDA graph: (q1)-
+        # (q8) ran it where each of the pool's 4 ranks had a card; with 2
+        # or 3 cards, tp = 2 runs here on 2 of them
+        if backend == "nccl":
+            print(f"path (q9): (q1)-(q8) ran under NCCL, a card a rank, the "
+                  f"chunk a CUDA graph ({n_cards} cards)", flush=True)
+        elif n_cards >= 2:
+            with RankPool(2) as pool:
+                res = pool.run(with_mesh, tp_rank, 2, 1, None, name, "q8", 1234,
+                               0, [("prefill", [prompt_q]),
+                                   ("generate", prompt_q, 64)])
+            if any(r["backend"] != "nccl" or r["route"] != "graph" for r in res):
+                raise AssertionError("path (q9): ranks on cards of their own "
+                                     "must run NCCL and the chunk as a graph")
+            s = check_step("(q9) NCCL prefill", "q8-tp2-nccl", res, 0)
+            parity("(q9) NCCL tp=2 prefill", s["out"], ref_logits)
+            s = check_step("(q9) NCCL generate", "q8-tp2-nccl", res, 1)
+            ids_in_range("(q9) NCCL", s["out"], 64)
+            print(f"path (q9): NCCL tp=2 on 2 cards, the chunk a CUDA graph: "
+                  f"{s['ms_per_token']:.4f} ms/token", flush=True)
+        else:
+            print(f"path (q9): NCCL across cards did not run: this machine has "
+                  f"{n_cards} card (the ranks above shared it through gloo)",
+                  flush=True)
+        for r in q_rows:
+            names = [counter_name(n, r["kind"]) for n in LAUNCH_NAMES[r["kernel"]]]
+            r["launches"] = sum(totals[r["kind"]][k] for k in names)
+            if not r["launches"]:
+                raise AssertionError(f"{r['name']} was not launched on path (q)")
+        print(f"path (q): {time.perf_counter() - t_q:.1f} s; ms/token tp=1 "
+              f"{st1.ms_per_token:.4f} (graph) / {st1e.ms_per_token:.4f} (eager), "
+              f"tp=2 {ms_tok[2]:.4f}, tp=4 {ms_tok[4]:.4f} ({how}); card {card}",
+              flush=True)
+        return q_rows
+
+    if tp_only:
+        rows = path_q()
+        mark("(q) tensor parallelism")
+        return finish(rows, kb_rows)
 
     # (a) main path: unfused prefill (bucket 128), fused b1 decode
     prompt = prompt_of(PROMPT_LEN)
@@ -2644,18 +3352,8 @@ def main() -> int:
         cli_path("q4", ckpt, vocab, n_prompt, kv="i8")
         cli_path("q4", ckpt, vocab, n_prompt, kv="f16")
 
-    launch_names = {"K1 qmm_smallm": ["qmm_smallm"], "K2 qmm_bigm": ["qmm_bigm"],
-                    "K3 flash_prefill": ["flash_prefill"],
-                    "K4 flash_decode_heads": ["flash_decode_heads"],
-                    "K5 fused_norm_qkv": ["fused_norm_qkv"],
-                    "K6 fused_out_residual": ["fused_out_residual"],
-                    "K7 ffn_fused": ["ffn_fused_normed", "ffn_fused"],
-                    "K8 fused_attn_out": ["fused_attn_out"],
-                    "K9 flash_staged": ["flash_staged"],
-                    "K10 flash_paged": ["flash_paged"],
-                    "K11 flash_paged_staged": ["flash_paged_staged"]}
     for r in rows:
-        names = [counter_name(n, r["kind"]) for n in launch_names[r["kernel"]]]
+        names = [counter_name(n, r["kind"]) for n in LAUNCH_NAMES[r["kernel"]]]
         r["launches"] = sum(totals[r["kind"]][k] for k in names)
         if not r["launches"]:
             return fail(f"{r['kernel']} ({r['kind']}) was not launched on any "
@@ -2992,7 +3690,7 @@ def main() -> int:
     del eng_c
     free()
     for r in rows8:
-        names = [counter_name(n, r["kind"]) for n in launch_names[r["kernel"]]]
+        names = [counter_name(n, r["kind"]) for n in LAUNCH_NAMES[r["kernel"]]]
         r["launches"] = sum(totals[r["kind"]][k] for k in names)
         if not r["launches"]:
             return fail(f"{r['name']} was not launched on path (o)")
@@ -3218,7 +3916,7 @@ def main() -> int:
     del eng_c, engine, params
     free()
     for r in spec_rows:
-        names = [counter_name(n, r["kind"]) for n in launch_names[r["kernel"]]]
+        names = [counter_name(n, r["kind"]) for n in LAUNCH_NAMES[r["kernel"]]]
         r["launches"] = sum(totals[r["kind"]][k] for k in names)
         if not r["launches"]:
             return fail(f"{r['name']} was not launched on path (p)")
@@ -3226,16 +3924,9 @@ def main() -> int:
     print(f"path (p): {time.perf_counter() - t_p:.1f} s", flush=True)
     mark("(p4) cli")
 
-    for r in rows:
-        del r["kernel"], r["kind"]
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the builds "
-          "included")
-    print(json.dumps({"kernels": rows + kb_rows}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    rows += path_q()
+    mark("(q) tensor parallelism")
+    return finish(rows, kb_rows)
 
 
 def write_checkpoint(ckpt: str, vocab: str) -> int:

@@ -52,7 +52,9 @@ replayed at others, the verify rounds' graph torch.equal to the same
 rounds run eagerly (k = 1, 4 and 40), f32 dense generate_speculative
 equal to generate, the graph keys and launch counts with and without
 debug_nans, and the profiler's kernel events against the launch counts
-of a replayed chunk and a replayed set of rounds.
+of a replayed chunk and a replayed set of rounds; and K1-K4 and K9-K11 at
+a tensor-parallel rank's local widths (TinyLlama at tp 2 and 4, Kh = 1
+at 4; Llama-3-8B at tp 2; the --tp-overlap ring's column chunks).
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -69,7 +71,9 @@ import numpy as np
 import pytest
 import torch
 
-from tinyllama_tpu_torch.config import GenerationConfig, POLICIES, tiny_test_config
+from tinyllama_tpu_torch.config import (
+    GenerationConfig, MODEL_REGISTRY, POLICIES, tiny_test_config,
+)
 from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.ops import sampling
 from tinyllama_tpu_torch.ops.kernels import (
@@ -82,6 +86,7 @@ from tinyllama_tpu_torch.ops.kernels import (
     fused_plan,
     qmatmul,
 )
+from tinyllama_tpu_torch.parallel.tp import local_config
 from tinyllama_tpu_torch.quant.codec import QTensor, quantize
 from tinyllama_tpu_torch.runtime import kvcache, speculative, trace
 from tinyllama_tpu_torch.runtime.engine import Engine
@@ -508,9 +513,9 @@ def test_engine_on_the_card_matches_cpu(card):
 SERVE_S, SERVE_P, SERVE_C = 2048, 256, 32
 
 
-def _serving_inputs(B, G, base, seed, device="cpu", Kh=2, L=2):
-    """Random bf16 K9-K11 operands at full context: q [B, 1, G * Kh, 64]; a
-    dense cache [L, B, Kh, S, 64]; a page pool of 1 + B * J pages under a
+def _serving_inputs(B, G, base, seed, device="cpu", Kh=2, L=2, d=64):
+    """Random bf16 K9-K11 operands at full context: q [B, 1, G * Kh, d]; a
+    dense cache [L, B, Kh, S, d]; a page pool of 1 + B * J pages under a
     shuffled table (page 0 the scratch page); a staged tail of C = 32
     slots; row b's chunk base is (base + 97 b) % (S - C) and its tail fill
     1 + (b + base) % C, so B = 32 covers every fill from 1 to C."""
@@ -524,15 +529,15 @@ def _serving_inputs(B, G, base, seed, device="cpu", Kh=2, L=2):
     if B == 1:
         bases = [base]
     fills = [1 + (b + base) % SERVE_C for b in range(B)]
-    dense = KVCache(rand(L, B, Kh, SERVE_S, 64), rand(L, B, Kh, SERVE_S, 64))
+    dense = KVCache(rand(L, B, Kh, SERVE_S, d), rand(L, B, Kh, SERVE_S, d))
     table = 1 + torch.randperm(B * J, generator=g).reshape(B, J)
-    pool = PagedKVCache(rand(L, 1 + B * J, Kh, SERVE_P, 64),
-                        rand(L, 1 + B * J, Kh, SERVE_P, 64),
+    pool = PagedKVCache(rand(L, 1 + B * J, Kh, SERVE_P, d),
+                        rand(L, 1 + B * J, Kh, SERVE_P, d),
                         table.to(device, torch.int32))
-    sk, sv = rand(L, B, Kh, SERVE_C, 64), rand(L, B, Kh, SERVE_C, 64)
+    sk, sv = rand(L, B, Kh, SERVE_C, d), rand(L, B, Kh, SERVE_C, d)
     base_t = _i32(bases, device)
     pos = _i32([b + f - 1 for b, f in zip(bases, fills)], device)
-    q = rand(B, 1, G * Kh, 64)
+    q = rand(B, 1, G * Kh, d)
     return (q, pos, pool, StagedKVCache(dense, sk, sv, base_t),
             StagedKVCache(pool, sk, sv, base_t))
 
@@ -2897,3 +2902,119 @@ def test_profiler_kernel_events_equal_launches(card, tmp_path):
     assert launched["fused_out_residual"] == speculative.ROUNDS * L
     assert trace.kernel_event_counts(events) == trace.expected_kernel_events(
         launched)
+
+
+# --- tensor parallelism: the kernels at a TP rank's local widths -------------
+
+#: (model, tp) of the TP ranks path (q) of chip_smoke.py runs: TinyLlama at
+#: tp 2 and 4 (one kv head a rank), Llama-3-8B at tp 2
+TP_CASES = [("tinyllama-1.1b-chat-v0.4", 2), ("tinyllama-1.1b-chat-v0.4", 4),
+            ("llama-3-8b", 2)]
+
+
+def _tp_local(model, tp):
+    """(H, Kh, d) of a TP rank and its linears' (K, N): the column-parallel
+    wqkv and w_gateup shards, the row-parallel wo and w_down shards, and
+    the --tp-overlap ring's chunks of those (N / tp)."""
+    cfg = local_config(MODEL_REGISTRY[model], tp)
+    H, Kh, d, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.n_embd,
+                      cfg.n_ffn)
+    return (H, Kh, d), {"wqkv": (D, (H + 2 * Kh) * d), "wo": (H * d, D),
+                        "w_gateup": (D, 2 * F), "w_down": (F, D),
+                        "wo_chunk": (H * d, D // tp), "w_down_chunk": (F, D // tp)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wqkv", "wo", "w_gateup", "w_down",
+                                  "wo_chunk", "w_down_chunk"])
+@pytest.mark.parametrize("model,tp,kind", [
+    ("tinyllama-1.1b-chat-v0.4", 2, "q8"), ("tinyllama-1.1b-chat-v0.4", 2, "q4"),
+    ("tinyllama-1.1b-chat-v0.4", 2, "q4g"), ("tinyllama-1.1b-chat-v0.4", 4, "q8"),
+    ("tinyllama-1.1b-chat-v0.4", 4, "q4"), ("llama-3-8b", 2, "q4")])
+def test_tp_local_linears_match_plain(card, model, tp, kind, name):
+    """K1 (M = 1 and 4) and K2 (M = 128) on a TP rank's shard of each
+    linear, layer-stacked, against their plain versions."""
+    K, N = _tp_local(model, tp)[1][name]
+    w = _weight(2, K, N, seed=K + N, device=card, kind=kind)
+    layer = _i32([1], card)
+    for M in (1, 4, 128):
+        x = torch.randn(M, K, device=card).to(torch.bfloat16)
+        name_ = "qmm_smallm" if M <= qmatmul.SMALL_M else "qmm_bigm"
+        got = _counted(qmatmul, name_,
+                       lambda: qmatmul.qmatmul(x, w, torch.bfloat16, layer))
+        want = qmatmul.qmatmul_ref(x, w, torch.bfloat16, layer)
+        torch.cuda.synchronize()
+        assert got.shape == (M, N)
+        torch.testing.assert_close(got.float(), want.float(), **TOL,
+                                   msg=f"M={M}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,pos", [(128, [0, 0]), (12, [5, 70]),
+                                   (1, [127, 1500])])
+@pytest.mark.parametrize("model,tp", TP_CASES)
+def test_tp_local_attention_matches_plain(card, model, tp, T, pos):
+    """K3 (T > 1, from pos 0 and from pos > 0) and K4 (T = 1) at a TP
+    rank's heads (Kh = 1 at TinyLlama tp 4), two rows, S = 2,048."""
+    (H, Kh, d), _ = _tp_local(model, tp)
+    cache = _cache(2, Kh, 2048, [p + T for p in pos], seed=T, device=card, d=d)
+    q = torch.randn(2, T, H, d, device=card).to(torch.bfloat16)
+    layer, p = _i32([1], card), _i32(pos, card)
+    fn, name = ((flash_attention.flash_decode_heads_attention,
+                 "flash_decode_heads") if T == 1
+                else (flash_attention.flash_prefill_attention, "flash_prefill"))
+    got = _counted(flash_attention, name, lambda: fn(q, cache, layer, p))
+    want = flash_attention.attention_ref(q, cache, layer, p)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,pos", [(128, [0, 0]), (1, [127, 1500])])
+@pytest.mark.parametrize("model,tp", TP_CASES)
+def test_tp_local_i8_attention_matches_plain(card, model, tp, T, pos):
+    """K3 and K4 over an int8 cache at a TP rank's heads (an --kv i8
+    engine at tp > 1: Kh = 2 at TinyLlama tp 2, 1 at tp 4)."""
+    (H, Kh, d), _ = _tp_local(model, tp)
+    cache = _i8(_cache(2, Kh, 2048, [p + T for p in pos], seed=T + 1,
+                       device=card, d=d))
+    q = torch.randn(2, T, H, d, device=card).to(torch.bfloat16)
+    layer, p = _i32([1], card), _i32(pos, card)
+    fn, name = ((flash_attention.flash_decode_heads_attention,
+                 "flash_decode_heads_i8") if T == 1
+                else (flash_attention.flash_prefill_attention, "flash_prefill_i8"))
+    got = _counted(flash_attention, name, lambda: fn(q, cache, layer, p))
+    want = flash_attention.attention_ref(q, cache, layer, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,base", [(1, 127), (4, 100), (8, 300)])
+@pytest.mark.parametrize("model,tp", TP_CASES)
+def test_tp_local_serving_attention_matches_plain(card, model, tp, B, base):
+    """K9 (staged, monolithic), K11 (staged over a page pool) and K10
+    (paged) at a TP rank's heads, as generate_batch, the batcher and a
+    paged generate run them on path (q)."""
+    (H, Kh, d), _ = _tp_local(model, tp)
+    q, pos, pool, st_dense, st_paged = _serving_inputs(
+        B, H // Kh, base, seed=base + B, device=card, Kh=Kh, d=d)
+    layer = _i32([1], card)
+    cases = [
+        (flash_attention, "flash_staged",
+         lambda: flash_attention.flash_staged_attention(q, st_dense, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_dense, layer, pos)),
+        (flash_paged, "flash_paged_staged",
+         lambda: flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos),
+         lambda: flash_paged.staged_attention_ref(q, st_paged, layer, pos)),
+        (flash_paged, "flash_paged",
+         lambda: flash_paged.flash_paged_attention(q, pool, layer, st_paged.base),
+         lambda: flash_paged.paged_attention_ref(q, pool, layer, st_paged.base)),
+    ]
+    for mod, name, kernel, plain in cases:
+        got = _counted(mod, name, kernel)
+        want = plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+

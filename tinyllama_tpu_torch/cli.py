@@ -40,6 +40,17 @@ the generation under DIR and prints the device time a token in the
 reference's linear / attention / other buckets (runtime/trace.py).
 ``--debug-nans`` raises FloatingPointError at the first NaN in the
 logits, as the JAX CLI's ``jax_debug_nans``.
+
+``--tp N`` runs the model tensor-parallel over N rank processes that the
+CLI starts itself (parallel/mesh.py ``run_ranks``; on the card the
+kernels are built first, so the ranks only load them): each rank builds
+``Engine(tp=N)`` over its shard, rank 0 prints and reads the chat REPL's
+prompts and hands each to the others, the time-based seed is drawn on
+rank 0 and handed on. Ranks on one card talk through gloo, ranks on cards
+of their own through NCCL. ``--tp-overlap`` sums the row-parallel
+products with JAX's ring. ``--tp-mode gspmd`` (JAX's NamedSharding path,
+which runs no kernel) is not ported. ``--spec`` and ``--profile`` run at
+``--tp 1``.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import os
 import sys
 import time
 from pathlib import Path
@@ -60,6 +72,8 @@ from tinyllama_tpu_torch.io.checkpoint import load_gten_checkpoint, load_hf_chec
 from tinyllama_tpu_torch.io.hf_tokenizer import load_tokenizer
 from tinyllama_tpu_torch.io.tokenizer import safe_piece
 from tinyllama_tpu_torch.models import llama
+from tinyllama_tpu_torch.ops.kernels import build
+from tinyllama_tpu_torch.parallel.mesh import rank_device, run_ranks
 from tinyllama_tpu_torch.runtime import trace
 from tinyllama_tpu_torch.runtime.engine import Engine, resolve_device
 from tinyllama_tpu_torch.runtime.perf import perf_report
@@ -134,6 +148,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-nans", action="store_true",
                    help="fail fast (FloatingPointError) on a NaN in the "
                         "logits")
+    p.add_argument("--tp", type=int, default=1, metavar="N",
+                   help="tensor-parallel degree: N rank processes, each on "
+                        "its shard of the weights and KV cache")
+    p.add_argument("--tp-overlap", action="store_true",
+                   help="sum the row-parallel products with a ring of "
+                        "partial sums (reduce-scatter, then all-gather) "
+                        "instead of an all-reduce")
+    p.add_argument("--tp-mode", default="shard_map",
+                   choices=("shard_map", "gspmd"),
+                   help="the JAX CLI's TP paths: shard_map (the ranks run "
+                        "the kernels on their shards) is the one ported")
     return p
 
 
@@ -155,48 +180,85 @@ def validate(args) -> None:
         raise SystemExit("--spec requires -greedy (exact greedy acceptance).")
     if args.spec and args.paged:
         raise SystemExit("--spec uses the monolithic cache (drop --paged).")
+    if args.tp < 1:
+        raise SystemExit("tp must be >= 1.")
+    if args.tp > 1 and args.tp_mode == "gspmd":
+        raise SystemExit("--tp-mode gspmd (the JAX package's NamedSharding "
+                         "path, which runs no kernel) is not ported; the "
+                         "default shard_map path is.")
+    if args.tp > 1 and (args.spec or args.profile):
+        raise SystemExit("--spec and --profile run at --tp 1.")
 
 
-def load_params(args, cfg, device):
+def load_params(args, cfg, device, store=None):
     """(params, policy) from the flags: random, an HF checkpoint, or a
-    .gten file (whose own dtype serves when no dtype flag is given)."""
+    .gten file (whose own dtype serves when no dtype flag is given), on
+    `store` (default `device`). Random weights are drawn on `device`, so
+    they are the same wherever they are kept."""
+    store = device if store is None else store
     if args.random_weights:
         policy = POLICIES[args.dtype or DEFAULT_DTYPE]
         generator = torch.Generator(device)
         generator.manual_seed(WEIGHTS_SEED)
         if policy.is_quantized:
-            return (llama.init_quantized_params(cfg, policy, generator, device),
-                    policy)
+            return (llama.init_quantized_params(cfg, policy, generator, device,
+                                                store), policy)
         # as the JAX CLI: f32 weights, then cast per the policy
-        dense = llama.init_dense_params(cfg, generator, device=device)
+        dense = llama.init_dense_params(cfg, generator, device, store)
         return llama.convert_params(dense, policy), policy
     ckpt = Path(args.ckpt)
     if ckpt.is_dir() or ckpt.suffix in HF_SUFFIXES:
         policy = POLICIES[args.dtype or DEFAULT_DTYPE]
-        return load_hf_checkpoint(ckpt, cfg, policy, device), policy
+        return load_hf_checkpoint(ckpt, cfg, policy, store), policy
     return load_gten_checkpoint(ckpt, cfg, args.dtype and POLICIES[args.dtype],
-                                device)
+                                store)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     validate(args)
-    device = resolve_device(args.device)
+    if args.tp == 1:
+        return run(args, resolve_device(args.device))
+    if rank_device(0, args.device).type == "cuda":
+        build.build_all()  # the ranks only load the libraries
+    run_ranks(rank_main, args.tp, args, device=args.device,
+              stdin=not args.prompt)
+    return 0
 
+
+def rank_main(mesh, args) -> int:
+    """The CLI on one rank of ``--tp N``: rank 0 prints, the others print
+    nothing."""
+    if mesh.tp_rank == 0:
+        return run(args, mesh.device, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+            contextlib.redirect_stderr(null):
+        return run(args, mesh.device, mesh)
+
+
+def run(args, device, mesh=None) -> int:
+    """Load the weights, build the engine and generate (a prompt, or the
+    chat REPL), on `device`; with `mesh`, as one rank of it."""
+    lead = mesh is None or mesh.tp_rank == 0
     cfg = (tiny_test_config() if args.model == "tiny-test"
            else MODEL_REGISTRY[args.model])
     if args.max_ctx:
         cfg = cfg.replace(max_ctx=args.max_ctx)
 
     load_t0 = time.perf_counter()
-    params, policy = load_params(args, cfg, device)
+    # a rank keeps the full weights in host memory: its engine moves only
+    # its shard to the card (parallel/tp.py shard_params)
+    params, policy = load_params(args, cfg, device,
+                                 "cpu" if mesh is not None else device)
     if device.type == "cuda":  # weights made on the card are made async
         torch.cuda.synchronize(device)
     load_s = time.perf_counter() - load_t0
     if args.kv:
         policy = dataclasses.replace(policy, kv_dtype=args.kv)
     engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device,
-                    paged=args.paged, debug_nans=args.debug_nans)
+                    paged=args.paged, debug_nans=args.debug_nans,
+                    tp_overlap=args.tp_overlap, mesh=mesh)
+    del params  # a rank keeps its shard only
 
     tok_path = args.tokenizer or ("tokenizer.bin" if Path("tokenizer.bin").exists()
                                   else None)
@@ -204,10 +266,12 @@ def main(argv=None) -> int:
         raise SystemExit("no tokenizer: pass --tokenizer")
     tokenizer = load_tokenizer(tok_path) if tok_path else None
 
+    seed = args.seed if args.seed is not None else time.time_ns() % 2**31
+    if mesh is not None:  # every rank samples with rank 0's seed
+        seed = mesh.broadcast_object(seed)
     gen = GenerationConfig(
         n_predict=args.npred, temperature=args.temp, top_k=args.topk,
-        greedy=args.greedy, chunk_size=args.chunk,
-        seed=args.seed if args.seed is not None else time.time_ns() % 2**31,
+        greedy=args.greedy, chunk_size=args.chunk, seed=seed,
         eos_token=tokenizer.eos if tokenizer else -1,
     )
 
@@ -266,20 +330,26 @@ def main(argv=None) -> int:
 
     if args.prompt:
         run_once(args.prompt)
-    else:
-        print("Chat interface. Write your prompt and press enter to submit. "
-              "Enter q or press ctrl+c to quit.")
-        while True:
+        return 0
+    print("Chat interface. Write your prompt and press enter to submit. "
+          "Enter q or press ctrl+c to quit.")
+    while True:
+        prompt = None
+        if lead:  # rank 0 reads; None ends the chat on every rank
             try:
                 sys.stderr.write("\n\n[You]: ")
                 sys.stderr.flush()
                 prompt = input()
             except (EOFError, KeyboardInterrupt):
-                break
+                prompt = None
             if prompt == "q":
-                break
-            sys.stderr.write("\n[Tinyllama-Chat]: \n\n")
-            run_once(prompt)
+                prompt = None
+        if mesh is not None:
+            prompt = mesh.broadcast_object(prompt)
+        if prompt is None:
+            break
+        sys.stderr.write("\n[Tinyllama-Chat]: \n\n")
+        run_once(prompt)
     return 0
 
 

@@ -24,7 +24,10 @@ unpacked to their values in numpy and repacked in the port's layout
 ``cache_from_numpy`` does the same for a KV cache: the k/v planes (an
 int8 cache's scale planes, a page pool's table) of a JAX cache, as
 numpy, become the port's KVCache or PagedKVCache, so that both packages
-can be given the same pool.
+can be given the same pool. ``gather_tp_planes`` goes the other way for
+tensor parallelism: the planes of every rank's cache (its kv heads of
+its data row's batch rows) back into the one cache JAX's sharded cache
+assembles to.
 """
 
 from __future__ import annotations
@@ -200,3 +203,15 @@ def cache_from_numpy(k, v, table=None, k_scale=None, v_scale=None,
         return KVCache(k, v, *scales)
     return PagedKVCache(k, v, torch.from_numpy(
         np.asarray(table, np.int32)).to(device), *scales)
+
+
+def gather_tp_planes(planes: list, tp: int, dp: int = 1) -> np.ndarray:
+    """One cache plane [L, B, Kh, ...] from the ranks' planes (rank r at
+    grid place (r // tp, r % tp): its data row's B / dp batch rows, its
+    Kh / tp kv heads), as JAX assembles a cache sharded kv heads on
+    "model" and batch on "data"."""
+    if len(planes) != tp * dp:
+        raise ValueError(f"{len(planes)} planes for a {dp} x {tp} grid")
+    rows = [np.concatenate([np.asarray(planes[d * tp + t]) for t in range(tp)],
+                           axis=2) for d in range(dp)]
+    return np.concatenate(rows, axis=1)

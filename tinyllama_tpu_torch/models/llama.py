@@ -44,6 +44,13 @@ q8a8 and q4a8 policies; q8 and q4 weights) every block takes the
 unfused branch, as the JAX rule dictates: each ``linear`` and the
 lm_head run K1's int8-activation branch at M <= 8 (K2 as it is above),
 and the FFN is two ``linear`` calls, never ``ffn_fused``.
+
+Under tensor parallelism (``forward(..., tp=)``, parallel/tp.py) a rank
+runs this model at its local config over its shard: every block takes
+the unfused branch (as JAX's), wqkv and w_gateup give the rank's heads
+and ffn slice, and the products of wo and w_down are summed over the
+model group before their residuals, so every rank holds the same
+activations after each block.
 """
 
 from __future__ import annotations
@@ -133,56 +140,66 @@ def check_policy(policy: DtypePolicy) -> None:
 
 
 def init_dense_params(cfg: ModelConfig, generator: torch.Generator,
-                      device="cpu") -> Params:
+                      device="cpu", store=None) -> Params:
     """Random dense f32 parameters, N(0, 0.02), [L, d_out, d_in] per layer
     linear, norm weights ones (``convert_params`` casts them per policy).
-    `generator` lives on `device`. Real weights come from io/checkpoint.py
-    or io/convert.py."""
+    `generator` lives on `device`, where the values are drawn; each tensor
+    then moves to `store` (default `device`), so a rank of tensor
+    parallelism draws on its card what a single-device run draws there
+    and keeps the full weights in host memory. Real weights come from
+    io/checkpoint.py or io/convert.py."""
+    store = device if store is None else store
+
     def rand(shape):
-        return torch.randn(shape, generator=generator, device=device) * 0.02
+        return (torch.randn(shape, generator=generator, device=device)
+                * 0.02).to(store)
 
     L = cfg.n_layers
     layers: dict[str, Any] = {name: rand((L, *shape_fn(cfg)))
                               for name, shape_fn in LAYER_LINEARS.items()}
-    layers["attn_norm"] = torch.ones((L, cfg.n_embd), device=device)
-    layers["ffn_norm"] = torch.ones((L, cfg.n_embd), device=device)
+    layers["attn_norm"] = torch.ones((L, cfg.n_embd), device=store)
+    layers["ffn_norm"] = torch.ones((L, cfg.n_embd), device=store)
     return {
         "embed": rand((cfg.n_vocab, cfg.n_embd)),
         "layers": layers,
-        "norm": torch.ones((cfg.n_embd,), device=device),
+        "norm": torch.ones((cfg.n_embd,), device=store),
         "lm_head": rand((cfg.n_vocab, cfg.n_embd)),
     }
 
 
 def init_quantized_params(cfg: ModelConfig, policy: DtypePolicy,
                           generator: torch.Generator,
-                          device="cpu") -> Params:
+                          device="cpu", store=None) -> Params:
     """Random parameters of the policy's kind (N(0, 0.02) before
     quantization) built on `device` one f32 tensor at a time, so the peak
     extra memory is one layer's tensor plus the quantized layers and the
-    embedding tables. `generator` lives on `device`."""
+    embedding tables. `generator` lives on `device`. Each quantized
+    tensor moves to `store` (default `device`) as it is made: with the
+    host as `store`, `device` holds one layer's tensor at a time."""
     if not policy.is_quantized:
         raise ValueError(f"{policy.wdtype} weights are dense: use "
                          "init_dense_params")
     check_policy(policy)
     kind = policy.wdtype
+    store = device if store is None else store
 
     def rand(shape):
         return torch.randn(shape, generator=generator, device=device) * 0.02
 
+    def quant(shape, layout):
+        return quantize(rand(shape), kind, layout=layout).to(store)
+
     L = cfg.n_layers
     layers: dict[str, Any] = {}
     for name, shape_fn in LAYER_LINEARS.items():
-        N, K = shape_fn(cfg)
-        layers[name] = stack([quantize(rand((N, K)), kind, layout="kn")
-                              for _ in range(L)])
-    layers["attn_norm"] = torch.ones((L, cfg.n_embd), device=device)
-    layers["ffn_norm"] = torch.ones((L, cfg.n_embd), device=device)
+        layers[name] = stack([quant(shape_fn(cfg), "kn") for _ in range(L)])
+    layers["attn_norm"] = torch.ones((L, cfg.n_embd), device=store)
+    layers["ffn_norm"] = torch.ones((L, cfg.n_embd), device=store)
     return {
-        "embed": quantize(rand((cfg.n_vocab, cfg.n_embd)), kind, layout="nk"),
+        "embed": quant((cfg.n_vocab, cfg.n_embd), "nk"),
         "layers": layers,
-        "norm": torch.ones((cfg.n_embd,), device=device),
-        "lm_head": quantize(rand((cfg.n_vocab, cfg.n_embd)), kind, layout="kn"),
+        "norm": torch.ones((cfg.n_embd,), device=store),
+        "lm_head": quant((cfg.n_vocab, cfg.n_embd), "kn"),
     }
 
 
@@ -315,22 +332,36 @@ def _attend_paged_prefill(q, k, v, layer0, pos, from_zero, quantized):
 def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
            li: int, layer_ids: torch.Tensor, pos: torch.Tensor,
            cos: torch.Tensor, sin: torch.Tensor,
-           from_zero: bool = False, aq8: bool = False) -> torch.Tensor:
+           from_zero: bool = False, aq8: bool = False,
+           tp=None) -> torch.Tensor:
     """One pre-norm transformer block over x [B, T, D]; writes the
     block's K/V into the cache (monolithic, paged, or a staged chunk's
     tail) in place. The branch follows the JAX ``_block`` and depends on
-    shapes, weight types, aq8 and the cache's kind only."""
+    shapes, weight types, aq8, tensor parallelism and the cache's kind
+    only.
+
+    Under tensor parallelism (`tp`, a parallel/tp.py ``TpGroup``) `cfg`
+    is the rank's local config, lp holds its shards, and the products of
+    wo and w_down are summed over the model group (``tp.row_linear``: an
+    all-reduce, or the ring): JAX's ``_row_linear``. The block is then
+    always unfused, as JAX's."""
     B, T, _ = x.shape
     H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     eps, inside = cfg.norm_eps, cfg.norm_eps_inside_sqrt
     layer = layer_ids[li:li + 1]
     dense = not isinstance(lp["wqkv"], QTensor)
-    fused = decode_fused_eligible(cfg, lp, B * T, aq8)
+    fused = decode_fused_eligible(cfg, lp, B * T, aq8,
+                                  tp.size if tp is not None else 1)
     ffn_eligible = ffn_fused_eligible(cfg, lp["w_gateup"], lp["w_down"], B * T)
 
     def lin(h, name):
         # a dense weight's layer is sliced by its host index
         return linear(h, lp[name], li if dense else layer, aq8)
+
+    def row_lin(h, name):
+        if tp is None:
+            return lin(h, name)
+        return tp.row_linear(h, lp[name], li, layer_ids, aq8)
 
     if fused:
         qkv = fused_norm_qkv(x, lp["attn_norm"], lp["wqkv"], layer, eps, inside)
@@ -374,18 +405,18 @@ def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params, cache,
         if fused:
             x = fused_out_residual(attn, x, lp["wo"], layer)
         else:
-            x = x + lin(attn, "wo")
+            x = x + row_lin(attn, "wo")
     if fused and ffn_eligible:
         return ffn_fused_normed(x, lp["ffn_norm"], lp["w_gateup"],
                                 lp["w_down"], layer, cfg)
 
     h = rms_norm(x, lp["ffn_norm"][li], eps, inside)
-    if ffn_eligible and not aq8:  # the JAX branch for an unfused block
+    if ffn_eligible and not aq8 and tp is None:  # JAX's unfused-block gate
         return x + ffn_fused(h, lp["w_gateup"], lp["w_down"], layer, cfg)
     gate_up = lin(h, "w_gateup")
     gate, up = gate_up[..., : cfg.n_ffn], gate_up[..., cfg.n_ffn:]
     inner = F.silu(gate.float()).to(x.dtype) * up
-    return x + lin(inner, "w_down")
+    return x + row_lin(inner, "w_down")
 
 
 def forward(
@@ -398,13 +429,17 @@ def forward(
     rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
     layer_ids: torch.Tensor | None = None,  # [L] int32 = arange(L)
     from_zero: bool = False,  # host fact: every pos is 0 (a prefill)
+    tp=None,  # parallel/tp.py TpGroup: this rank's TP group
 ) -> torch.Tensor:
     """Run the model over T new tokens per sequence; the cache is updated
     in place. Returns hidden [B, T, D] after the final norm. Serves
     prefill (T = padded prompt length) and decode (T = 1) alike. A paged
     prefill needs from_zero (it starts at position 0). Rope rows of
     positions past max_ctx (the discarded overhang of a last chunk) read
-    the table's last row, as the JAX package's clamped gather does."""
+    the table's last row, as the JAX package's clamped gather does.
+    Under tensor parallelism `cfg` is the rank's local config and
+    `params` its shard (``_block``); with the ring's chunk-stacked
+    weights layer_ids is arange(L * tp)."""
     check_policy(policy)
     B, T = tokens.shape
     device = tokens.device
@@ -420,7 +455,7 @@ def forward(
     x = embedding_lookup(tokens, params["embed"], act_dtype(policy))
     for li in range(cfg.n_layers):
         x = _block(cfg, x, params["layers"], cache, li, layer_ids, pos,
-                   cos_g, sin_g, from_zero, policy.aq8)
+                   cos_g, sin_g, from_zero, policy.aq8, tp)
     return rms_norm(x, params["norm"], cfg.norm_eps, cfg.norm_eps_inside_sqrt)
 
 

@@ -63,14 +63,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def decode_fused_eligible(cfg: ModelConfig, lp: dict, M: int,
-                          aq8: bool = False) -> bool:
+                          aq8: bool = False, tp: int = 1) -> bool:
     """Whether a block of M = B * T rows takes the fused branch, by the
     rule of the JAX package's ``decode_fused_eligible``: M <= 32, no aq8
-    activations (the fused kernels take no int8 activations), all four
-    linears kn QTensors, n_embd <= 2048. The port has no tensor
-    parallelism and its weights are always layer-stacked, so those two
-    conditions of the JAX rule never refuse here."""
-    if M > FUSED_M or aq8:
+    activations (the fused kernels take no int8 activations), no tensor
+    parallelism (tp > 1: the row-parallel sums sit between the products
+    the fused kernels join), all four linears kn QTensors, n_embd <= 2048.
+    The port's weights are always layer-stacked, so that condition of the
+    JAX rule never refuses here."""
+    if M > FUSED_M or aq8 or tp > 1:
         return False
     for name in ("wqkv", "wo", "w_gateup", "w_down"):
         w = lp.get(name)

@@ -45,6 +45,19 @@ policy), the values every product of the JAX package casts them to.
 The engine runs on the card unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain version. With no card and no
 explicit ``"cpu"`` it raises; it never carries on on the CPU by itself.
+
+``tp=N`` is JAX's ``Engine(tp=N)``: the engine runs in each of N rank
+processes (parallel/mesh.py ``run_ranks``) on its rank's device, over the
+rank's shard of the weights (parallel/tp.py ``shard_params``); its
+forward runs at the rank's local config (``fwd_cfg``: heads, kv heads
+and ffn divided by N), with two sums over the model group a block, and
+every cache it makes holds the rank's kv heads only. ``tp_overlap``
+sums with the ring instead of an all-reduce. Every rank computes the same
+logits bit for bit after each sum, so every rank samples the same
+tokens, and the host loops of all ranks stay in lockstep. The chunk is a
+CUDA graph where the collectives can be captured (NCCL, ranks on cards
+of their own); under gloo (ranks sharing a card, or the CPU) it runs
+eagerly. ``graph_stats["route"]`` says which.
 """
 
 from __future__ import annotations
@@ -61,6 +74,13 @@ from tinyllama_tpu_torch.config import DtypePolicy, GenerationConfig, ModelConfi
 from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.ops import sampling
 from tinyllama_tpu_torch.ops.rope import rope_table
+from tinyllama_tpu_torch.parallel.mesh import make_mesh
+from tinyllama_tpu_torch.parallel.tp import (
+    TpGroup,
+    layer_ids_for,
+    local_config,
+    shard_params,
+)
 from tinyllama_tpu_torch.runtime import graphs, speculative
 from tinyllama_tpu_torch.runtime.kvcache import KVCache, init_cache
 from tinyllama_tpu_torch.runtime.paged import (
@@ -125,14 +145,34 @@ def _drop_graphs(engine_ref, key: int) -> None:
 
 
 class Engine:
-    """One model + dtype policy on one device.
+    """One model + dtype policy on one device (with tp > 1: one rank's
+    shard, on the rank's device). `mesh` is the rank's ``make_mesh``,
+    whose tp the engine takes; without one, ``tp=N`` makes it here.
+    Under tensor parallelism `params` are best kept in host memory: only
+    the rank's shard is copied to its device.
 
     ``paged`` makes every cache of the engine a page pool (one static run
     of pages a row, page 0 the scratch page)."""
 
     def __init__(self, cfg: ModelConfig, policy: DtypePolicy,
                  params: llama.Params, max_ctx: int | None = None,
-                 device=None, paged: bool = False, debug_nans: bool = False):
+                 device=None, paged: bool = False, debug_nans: bool = False,
+                 tp: int = 1, tp_overlap: bool = False, mesh=None):
+        if mesh is None and tp > 1:
+            mesh = make_mesh(tp, device=device)
+        if mesh is not None:
+            tp = mesh.tp
+        self.tp = tp
+        self.tp_overlap = tp_overlap and tp > 1
+        self._tp = None
+        if tp > 1:
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device}: this rank runs on "
+                                 f"{mesh.device}")
+            device = mesh.device
+            self._tp = TpGroup(mesh, self.tp_overlap)
+        self.mesh = mesh
         self.device = resolve_device(device)
         if (self.device.type == "cuda" and policy.is_quantized
                 and policy.adtype != "bf16"):
@@ -141,18 +181,23 @@ class Engine:
                 "f32 and f16 compute with quantized weights are queued "
                 "(ROADMAP.md)")
         self.cfg = cfg
+        #: the config the forward and the caches run at: the rank's local
+        #: one under tensor parallelism
+        self.fwd_cfg = local_config(cfg, tp) if tp > 1 else cfg
         self.policy = policy
         self.max_ctx = max_ctx or cfg.max_ctx
         self.paged = paged
+        # the rank's shard on its device (only the slices are copied);
         # quantized: whole char4 rows and strips for the lm_head kernel;
         # dense: the weights cast to the activation dtype once, here
-        self.params = llama.cast_dense_weights(
-            llama.pad_lm_head_vocab(llama.params_to(params, self.device)),
-            llama.act_dtype(policy))
+        shard = (shard_params(params, cfg, tp, mesh.tp_rank, self.device,
+                              self.tp_overlap) if tp > 1
+                 else llama.params_to(params, self.device))
+        self.params = llama.cast_dense_weights(llama.pad_lm_head_vocab(shard),
+                                               llama.act_dtype(policy))
         self.rope_tables = rope_table(self.max_ctx, cfg.d_head, cfg.rope_theta,
                                       self.device)
-        self.layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32,
-                                      device=self.device)
+        self.layer_ids = layer_ids_for(cfg, tp, self.tp_overlap, self.device)
         #: top-k draws of generate and generate_batch, reseeded each call
         self.generator = torch.Generator(self.device)
         #: the caches of generate and generate_batch, one a batch size
@@ -160,10 +205,13 @@ class Engine:
         #: the captured chunks by cache storage (id of its k plane), each
         #: dropped with its storage
         self._chunk_graphs: dict[int, graphs.ChunkGraphs] = {}
-        self._capture = graphs.capture_for(self.device)
+        self._capture = graphs.capture_for(self.device, mesh)
         #: graphs captured by this engine and the seconds spent on them
-        #: (their eager first runs included)
-        self.graph_stats = {"graphs": 0, "capture_s": 0.0}
+        #: (their eager first runs included), and the chunk's route:
+        #: "graph" (captured and replayed), "eager" (on the card, TP under
+        #: gloo) or "cpu"
+        self.graph_stats = {"graphs": 0, "capture_s": 0.0,
+                            "route": graphs.route(self.device, self._capture)}
         #: the speculative rounds' padded cache, buffers and graphs (made
         #: at the first generate_speculative)
         self._rounds: graphs.RoundGraphs | None = None
@@ -174,15 +222,15 @@ class Engine:
     def new_cache(self, batch: int) -> KVCache | PagedKVCache:
         if self.paged:
             return self.new_paged_cache(batch)
-        return init_cache(self.cfg, batch, self.policy.kv_dtype, self.max_ctx,
-                          self.device)
+        return init_cache(self.fwd_cfg, batch, self.policy.kv_dtype,
+                          self.max_ctx, self.device)
 
     def new_paged_cache(self, batch: int) -> PagedKVCache:
         """A page pool for the paths outside the scheduler (generate,
         generate_batch, the CLI's --paged): row b owns pages 1 + b * J ..
         (b + 1) * J, covering max_ctx; page 0 stays the scratch page."""
         J = self.max_ctx // default_page_size(self.max_ctx)
-        cache = init_paged_cache(self.cfg, 1 + batch * J, batch,
+        cache = init_paged_cache(self.fwd_cfg, 1 + batch * J, batch,
                                  self.policy.kv_dtype, self.max_ctx,
                                  device=self.device)
         return cache.with_table(
@@ -205,9 +253,9 @@ class Engine:
                         last: torch.Tensor | None = None,
                         from_zero: bool = False) -> torch.Tensor:
         """Logits of row b's token `last[b]` (the only token at decode)."""
-        hidden = llama.forward(self.cfg, self.policy, self.params, tokens,
-                               cache, pos, self.rope_tables, self.layer_ids,
-                               from_zero)
+        hidden = llama.forward(self.fwd_cfg, self.policy, self.params,
+                               tokens, cache, pos, self.rope_tables,
+                               self.layer_ids, from_zero, self._tp)
         aq8 = self.policy.aq8
         if last is None:
             return llama.lm_head_logits(self.params, hidden[:, 0], aq8)
@@ -429,6 +477,9 @@ class Engine:
         the device ran, those after done included. Greedy and monolithic
         only, draft_len below speculative.PAD."""
         gen = gen or GenerationConfig()
+        if self.tp > 1:
+            raise ValueError("speculative decoding runs at tp=1 (as the "
+                             "JAX engine asserts)")
         if not gen.greedy:
             raise ValueError("speculative decoding is greedy-only")
         if self.paged:

@@ -34,7 +34,8 @@ capture mode, so two engines driven by two threads (two servers in one
 process) capture and run side by side.
 
 On the CPU there is no capture: ``run`` runs the body over the same
-buffers at every call.
+buffers at every call; so on the card for a tensor-parallel engine under
+gloo, whose collectives wait on the host (``capture_for``).
 
 ``RoundGraphs`` does the same for speculative decoding
 (runtime/speculative.py): R verify rounds a graph, over the engine's
@@ -111,10 +112,26 @@ class CudaCapture:
         return graph.replay
 
 
-def capture_for(device: torch.device) -> CudaCapture | None:
+def capture_for(device: torch.device, mesh=None) -> CudaCapture | None:
     """How an engine on `device` captures its chunks: a CudaCapture on
-    cuda; none on the CPU, where the body runs at every call."""
-    return CudaCapture(device) if device.type == "cuda" else None
+    cuda; none on the CPU, where the body runs at every call. A
+    tensor-parallel engine (`mesh`, tp > 1) captures only where its
+    collectives can be captured, under NCCL; under gloo they wait on the
+    host, so its chunk runs eagerly on the card. Fixed when the engine is
+    built: a failed capture raises, nothing falls back."""
+    if device.type != "cuda":
+        return None
+    if mesh is not None and mesh.tp > 1 and mesh.backend != "nccl":
+        return None
+    return CudaCapture(device)
+
+
+def route(device: torch.device, capture: CudaCapture | None) -> str:
+    """The chunk's route: "graph", "eager" (on the card without capture)
+    or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    return "graph" if capture is not None else "eager"
 
 
 def _put(dst: torch.Tensor, src: torch.Tensor) -> None:

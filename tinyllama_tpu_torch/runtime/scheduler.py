@@ -29,8 +29,15 @@ package's runtime/scheduler.py.
   monolithic downshift would move cache rows, so the monolithic batcher
   always runs at full width.)
 
-Sequence-parallel admission and tensor parallelism are not ported
-(ROADMAP.md).
+Over a tensor-parallel engine (``Engine(tp=N)``) the batcher runs on every
+rank with the same requests: its pool is made at the rank's local config
+(its kv heads), and every host decision follows from tokens that are
+bit-equal on all ranks, so the ranks admit, grow, downshift and finish in
+lockstep. (The JAX batcher turns its downshift off at tp > 1, where its
+batch rows shard over a data axis; here a rank holds every row, so the
+downshift stays.)
+
+Sequence-parallel admission is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -118,7 +125,7 @@ class ContinuousBatcher:
             self.P = page_size or default_page_size(S)
             self.J = S // self.P
             n_pages = n_pages or self.B * self.J + 1
-            self.pool = init_paged_cache(engine.cfg, n_pages, self.B,
+            self.pool = init_paged_cache(engine.fwd_cfg, n_pages, self.B,
                                          engine.policy.kv_dtype, S,
                                          page_size=self.P, device=dev)
             self.alloc = PageAllocator(n_pages)
