@@ -161,8 +161,9 @@ Phases, each fatal on failure:
    paged chunk step; dense f16, bf16 and f32 weights through an fp16
    .gten the port writes and loads: a long and a short prefill, 2 b1
    steps and a B = 4 step (the plain path on both sides, f32 within 1e-3
-   of max |logits|); the logits must agree. Then a reading: 48 greedy
-   b1 steps with an int8 cache on the card, the CPU fed the card's
+   of max |logits|); the logits must agree (the CPU's traces run in
+   threads in the background while the card's go on). Then a reading: 48
+   greedy b1 steps with an int8 cache on the card, the CPU fed the card's
    tokens, and how often its own pick is the card's.
 6. path (o), Llama-3-8B (head dim 128, G = 4, 32 layers, n_embd 4,096,
    max_ctx 8,192) at full width and depth on random weights made on the
@@ -239,6 +240,32 @@ Phases, each fatal on failure:
    ids, one table); (q9) NCCL: (q1)-(q8) ran it where the machine has 4
    cards or more, tp 2 runs here on 2 or 3, else a line says it did not
    run.
+9. path (r), sequence parallelism (parallel/ring.py, parallel/sp.py,
+   Engine(sp=N)), after (q): first K2 at an SP rank's Tl rows on the four
+   linears (TinyLlama q8 at sp 2 and 4 over (e)'s 1,450-token prompt,
+   Llama-3-8B q4 at sp 2 over a 7,000-token one) and K1 on the lm_head
+   against their plain versions (phase_sp_rows), and the ring's hop (one
+   _block_update, PyTorch) timed beside K3 and SDPA over the same causal
+   keys; then a pool of 4 rank processes sharing the card through gloo
+   (the chunk a CUDA graph at tp 1), each rank's weights drawn on the card
+   from the sp = 1 engine's seed, every step's launch counts exact on
+   every rank (an SP prefill: the four linears at Tl rows a layer, K1 for
+   the lm_head, no K3) and the same on all, its outputs bit-equal across
+   ranks: (r1) TinyLlama q8, bf16 KV, full width and depth, at sp 2 and
+   4: the prefill's logits and handed-off cache of (e)'s prompt against
+   the sp = 1 engine's (within PARITY_REL of max |.|), 64 greedy tokens,
+   the prefill's ms beside sp = 1 and (at sp 2) the share of the ring's
+   hops, the K/V gather and the cache writes in it; (r2) a paged engine with an
+   int8 cache (q8-kvi8), the same checks and 16 tokens; (r3) the batcher
+   over Engine(sp=2), paged and monolithic: 8 short requests and 2 of
+   1,100 and 1,300 tokens, 16 tokens each, the long ones admitted alone
+   through the SP route; (r4) sp 2 x tp 2 on 4 ranks: prefill parity
+   against sp = 1, tp = 1; (r5) Llama-3-8B q4, full width and depth, sp
+   2: a 7,000-token prompt through a paged engine, parity, 16 tokens, the
+   card's peak in the prefill a rank and sp = 1's; (r6) `python -m tinyllama_tpu_torch.cli --sp 2 -q8
+   --random-weights -greedy` on a 1,100-character prompt as a child (99
+   ids, one table); (r7) NCCL, a card a rank, where the machine has 2
+   cards or more, else a line says it did not run.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -254,6 +281,10 @@ the port's kernels' share of it, and the host's time a step.
 builds the kernels and runs path (q) alone, with its kernel rows: on a
 machine of 4 cards or more its pool's ranks take a card each and run
 NCCL, the chunk a captured CUDA graph.
+
+    python3 chip_smoke.py --sp-only
+
+builds the kernels and runs path (r) alone, with its kernel rows.
 """
 
 from __future__ import annotations
@@ -262,6 +293,7 @@ import atexit
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import http.client
 import io
@@ -439,10 +471,12 @@ def replay_equals(name: str, fn) -> None:
     K8's merge tickets)."""
     import torch
 
+    from tinyllama_tpu_torch.runtime.graphs import capturing
+
     eager = fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with capturing(g):
         out = fn()
     for _ in range(2):
         out.zero_()
@@ -460,12 +494,14 @@ def replay_at(name: str, fn, pos, capture_at: int, positions) -> None:
     pos is restored after."""
     import torch
 
+    from tinyllama_tpu_torch.runtime.graphs import capturing
+
     keep = pos.clone()
     pos.fill_(capture_at)
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with capturing(g):
         out = fn()
     for p in positions:
         pos.fill_(p)
@@ -1334,7 +1370,8 @@ TP_ROWS = {"q8-tp2": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "all"),
            "q8-tp2-kvi8": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "kv"),
            "q8-tp2-overlap": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "ring"),
            "8b-q4-tp2": ("llama-3-8b", "q4", 2, 4, "prefill")}
-#: path (q): the keys of a TP row's cache (max_ctx of its engines)
+#: path (q): the keys of a TP row's cache (max_ctx of its engines, and of
+#: path (r)'s TinyLlama engines)
 TP_S = 2048
 
 
@@ -1528,19 +1565,29 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
     return rows
 
 
-def tp_rank(mesh, model, kind, seed, layers, steps, refused=False, **kw):
-    """One rank of path (q): Engine(mesh=mesh) over `kind` weights of
-    `model` (cut to `layers` if given) drawn on the card from `seed` (the
-    same on every rank: the tp = 1 engine's weights) and kept in host
-    memory, as the CLI keeps them at --tp, so the engine copies only the
-    rank's shard to the card; max_ctx TP_S. Then each step of `steps`,
-    its launch counts set to 0 just before it and read just after, with
-    the shapes of its prefills and chunks. A step: ("prefill", prompts)
-    -> last-token logits; ("generate", prompt, n) -> ids;
-    ("generate_batch", prompts, n) -> ids; ("batcher", prompts, n, slots)
-    -> ids by request; ("all_reduce", n) -> ms of one all-reduce of a
-    [1, 1, n_embd] bf16 row, back to back. With `refused`, the engine is
-    expected to refuse (a ValueError, whose text returns)."""
+def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
+              **kw):
+    """One rank of paths (q) and (r): Engine(mesh=mesh) (tp and sp from
+    the mesh) over `kind` weights of `model` (cut to `layers` if given)
+    drawn on the card from `seed` (the same on every rank: the tp = sp = 1
+    engine's weights) and kept in host memory, as the CLI keeps them, so
+    the engine copies only the rank's shard to the card; max_ctx S. Then
+    each step of `steps`, its launch counts set to 0 just before it and
+    read just after, with the shape of each prefill (("sp", Tl) for the
+    sequence-parallel route, else (rows, bucket)) and chunk, and the
+    card's peak in it. A step: ("prefill", prompts[, cache_layers]) ->
+    last-token logits (with cache_layers, one prompt: the digest of the
+    cache's rows of those layers and, on rank 0, the rows);
+    ("generate", prompt, n) -> ids; ("generate_batch", prompts, n) ->
+    ids; ("batcher", prompts, n, slots) -> ids by request;
+    ("all_reduce", n) -> ms of one all-reduce of a [1, 1, n_embd] bf16
+    row, back to back; ("timed", prompt, reps, synced) -> the prefill's
+    ms (best of reps), and with `synced` one more run with a sync around
+    each ring hop, the K/V gather and the cache writes: their ms. With
+    `refused`, the engine is expected to refuse (a ValueError, whose
+    text returns)."""
+    import hashlib
+
     import torch
 
     from tinyllama_tpu_torch.config import (
@@ -1551,6 +1598,7 @@ def tp_rank(mesh, model, kind, seed, layers, steps, refused=False, **kw):
         attn_out_fused, decode_fused, ffn_fused, flash_attention,
         flash_paged, qmatmul,
     )
+    from tinyllama_tpu_torch.parallel import sp as spmod
     from tinyllama_tpu_torch.runtime.engine import Engine, _bucket
     from tinyllama_tpu_torch.runtime.perf import tree_nbytes
     from tinyllama_tpu_torch.runtime.scheduler import ContinuousBatcher
@@ -1558,6 +1606,10 @@ def tp_rank(mesh, model, kind, seed, layers, steps, refused=False, **kw):
     counters = (qmatmul.launches, flash_attention.launches,
                 decode_fused.launches, ffn_fused.launches,
                 attn_out_fused.launches, flash_paged.launches)
+    # the engines of earlier calls (they and their chunk graphs hold each
+    # other) go now, so the card's readings below are this call's
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = MODEL_REGISTRY[model]
     cfg = cfg.replace(n_layers=layers) if layers else cfg
     policy = POLICIES[kind]
@@ -1571,7 +1623,7 @@ def tp_rank(mesh, model, kind, seed, layers, steps, refused=False, **kw):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     try:
-        eng = Engine(cfg, policy, params, max_ctx=TP_S, mesh=mesh, **kw)
+        eng = Engine(cfg, policy, params, max_ctx=S, mesh=mesh, **kw)
     except ValueError as e:
         if refused:
             return {"refused": str(e)}
@@ -1589,49 +1641,103 @@ def tp_rank(mesh, model, kind, seed, layers, steps, refused=False, **kw):
     prefill, run_chunk = eng.prefill, eng.run_chunk
 
     def rec_prefill(cache, prompts):
+        n = max(len(p) for p in prompts)
         record["prefill"].append(
-            (len(prompts), _bucket(max(len(p) for p in prompts), eng.max_ctx)))
+            ("sp", spmod.padded_length(n, eng.sp) // eng.sp)
+            if eng.sp > 1 and len(prompts) == 1
+            else (len(prompts), _bucket(n, eng.max_ctx)))
         return prefill(cache, prompts)
 
     def rec_chunk(cache, logits, pos, C, *a, **k):
         record["chunk"].append((logits.shape[0], C))
         return run_chunk(cache, logits, pos, C, *a, **k)
 
+    def timed_prefill(prompt, reps, synced):
+        cache = eng.new_cache(1)
+        best = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.prefill(cache, [prompt])
+            torch.cuda.synchronize()
+            best.append((time.perf_counter() - t1) * 1e3)
+        out = {"ms": min(best)}
+        if not synced:
+            return out
+        spent = {"hops": 0.0, "gather": 0.0, "writes": 0.0}
+
+        def timed(key, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res_ = fn(*a, **k)
+                torch.cuda.synchronize()
+                spent[key] += (time.perf_counter() - t1) * 1e3
+                return res_
+            return run
+
+        Mesh = type(mesh)  # a frozen dataclass: patched on the class
+        saved = (Mesh.data_ring_shift, Mesh.data_all_gather,
+                 spmod.update_cache_at_layer, spmod.update_paged_at_layer)
+        Mesh.data_ring_shift = timed("hops", saved[0])
+        Mesh.data_all_gather = timed("gather", saved[1])
+        spmod.update_cache_at_layer = timed("writes", saved[2])
+        spmod.update_paged_at_layer = timed("writes", saved[3])
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.prefill(cache, [prompt])
+            torch.cuda.synchronize()
+            spent["total"] = (time.perf_counter() - t1) * 1e3
+        finally:
+            (Mesh.data_ring_shift, Mesh.data_all_gather,
+             spmod.update_cache_at_layer, spmod.update_paged_at_layer) = saved
+        return {**out, **spent}
+
     eng.prefill, eng.run_chunk = rec_prefill, rec_chunk
+    gcfg = GenerationConfig(n_predict=S, greedy=True, eos_token=-1,
+                            chunk_size=32)
     results = []
     for step in steps:
         what = step[0]
-        gcfg = GenerationConfig(n_predict=TP_S, greedy=True, eos_token=-1,
-                                chunk_size=32)
         if what == "generate" and eng.graph_stats["route"] == "graph":
-            # capture the b1 chunk first, so the step times its replays
-            eng.generate(step[1], dataclasses.replace(
-                gcfg, n_predict=len(step[1]) + 32))
+            # capture the b1 chunk first (its C follows from the step's n),
+            # so the step times its replays
+            eng.generate(step[1][:16], dataclasses.replace(
+                gcfg, n_predict=16 + step[2]))
         for c in counters:
             for k in c:
                 c[k] = 0
         record["prefill"].clear()
         record["chunk"].clear()
+        torch.cuda.reset_peak_memory_stats()
         res = {"what": what}
         t0 = time.perf_counter()
         if what == "prefill":
-            logits, _ = eng.prefill(eng.new_cache(len(step[1])), step[1])
+            cache = eng.new_cache(len(step[1]))
+            logits, _ = eng.prefill(cache, step[1])
             res["out"] = logits.float().cpu().numpy()
+            if len(step) > 2:
+                rows = cache_rows(cache, len(step[1][0]), step[2])
+                res["digest"] = hashlib.sha1(rows.tobytes()).hexdigest()
+                if mesh.rank == 0:
+                    res["cache"] = rows
+            del cache
         elif what == "generate":
-            gcfg = dataclasses.replace(gcfg, n_predict=len(step[1]) + step[2])
-            res["out"], stats = eng.generate(step[1], gcfg)
+            res["out"], stats = eng.generate(step[1], dataclasses.replace(
+                gcfg, n_predict=len(step[1]) + step[2]))
             res["ms_per_token"] = stats.ms_per_token
             res["prefill_ms"] = stats.prefill_s * 1e3
         elif what == "generate_batch":
-            gcfg = dataclasses.replace(gcfg, n_predict=max(map(len, step[1]))
-                                       + step[2])
-            res["out"], _ = eng.generate_batch(step[1], gcfg)
+            res["out"], _ = eng.generate_batch(step[1], dataclasses.replace(
+                gcfg, n_predict=max(map(len, step[1])) + step[2]))
         elif what == "batcher":
             b = ContinuousBatcher(eng, gcfg, max_batch=step[3])
             for p in step[1]:
                 b.submit(p, max_new=step[2])
             done = b.run()
             res["out"] = {i: r.output for i, r in done.items()}
+            res["threshold"] = b.sp_admit_threshold
         elif what == "all_reduce":
             x = torch.zeros((1, 1, cfg.n_embd), dtype=torch.bfloat16,
                             device="cuda")
@@ -1642,15 +1748,189 @@ def tp_rank(mesh, model, kind, seed, layers, steps, refused=False, **kw):
                 mesh.all_reduce(x)
             torch.cuda.synchronize()
             res["out"] = (time.perf_counter() - t0) * 1e3 / step[1]
+        elif what == "timed":
+            res["out"] = timed_prefill(*step[1:])
         torch.cuda.synchronize()
         res["s"] = time.perf_counter() - t0
+        res["peak"] = torch.cuda.max_memory_allocated()
         res["counts"] = {k: v for c in counters for k, v in c.items()}
         res["record"] = {k: list(v) for k, v in record.items()}
         results.append(res)
     return {"steps": results, "route": eng.graph_stats["route"],
-            "backend": mesh.backend, "build_s": build_s,
-            "cache_heads": eng.new_cache(1).k.shape[2], "memory": memory,
-            "memory_reserved": torch.cuda.memory_reserved()}
+            "backend": mesh.backend, "sp": eng.sp, "tp_rank": mesh.tp_rank,
+            "build_s": build_s, "cache_heads": eng.new_cache(1).k.shape[2],
+            "memory": memory, "memory_reserved": torch.cuda.memory_reserved()}
+
+
+def same_on_ranks(path: str, res: list, i: int) -> dict:
+    """Step i on every rank of a pool's run: the same output bit for bit
+    (a timed step's clock readings are each rank's own; a cache digest is
+    compared among the ranks holding rank 0's kv heads), the same counts
+    and shapes. Returns rank 0's step."""
+    import numpy as np
+
+    s0 = res[0]["steps"][i]
+    for rank, r in enumerate(res[1:], 1):
+        s = r["steps"][i]
+        out_same = (s0["what"] == "timed"
+                    or (np.array_equal(s["out"], s0["out"])
+                        if isinstance(s0["out"], np.ndarray)
+                        else s["out"] == s0["out"]))
+        if not out_same or ("digest" in s0 and r["tp_rank"] == 0
+                            and s["digest"] != s0["digest"]):
+            raise AssertionError(f"path {path}: rank {rank}'s output is not "
+                                 "rank 0's")
+        if s["counts"] != s0["counts"] or s["record"] != s0["record"]:
+            raise AssertionError(f"path {path}: rank {rank}'s launches "
+                                 f"{s['counts']} are not rank 0's "
+                                 f"{s0['counts']}")
+    return s0
+
+
+#: path (r): the rows of a sequence-parallel rank a row kind measures:
+#: (model, weight kind, sp, prompt tokens of path (r)'s prefill)
+SP_ROWS = {"q8-sp2": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 1450),
+           "q8-sp4": ("tinyllama-1.1b-chat-v0.4", "q8", 4, 1450),
+           "8b-q4-sp2": ("llama-3-8b", "q4", 2, 7000)}
+
+
+def cache_rows(cache, n: int, layers) -> "np.ndarray":
+    """Positions [0, n) of `layers` of a B = 1 cache (monolithic or paged,
+    int8 dequantized), as float16 numpy [len(layers), 2, Kh, n, d]."""
+    import numpy as np
+    import torch
+
+    from tinyllama_tpu_torch.runtime.kvcache import layer_cache_view
+    from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
+
+    view = (paged_layer_view if isinstance(cache, PagedKVCache)
+            else layer_cache_view)
+    out = [torch.stack([p[0, :, :n] for p in view(cache, li, torch.float32)])
+           for li in layers]
+    return np.stack([o.half().cpu().numpy() for o in out])
+
+
+def phase_sp_rows(torch, ops) -> list[dict]:
+    """The kernels of path (r)'s sequence-parallel prefill at one rank's
+    shapes against their plain versions, with their times, bounds and
+    library times (torch.matmul on the dequantized bf16 weight), as
+    phase 3: K2 on the four linears at the Tl rows of SP_ROWS's prompts
+    (TinyLlama q8 at sp 2 and 4, Llama-3-8B q4 at sp 2; random weights,
+    two layers, full widths: a rank at tp 1 holds every weight), K1 on
+    the lm_head (M = 1, f32 out, vocab padded). Then the ring's hop: one
+    _block_update over the rank's own (causal) block and over an earlier
+    (unmasked) one, timed beside K3 over the same keys (T = Tl from pos
+    0) and SDPA (is_causal, enable_gqa), at TinyLlama sp 2 and Llama-3-8B
+    sp 2; printed, not rows (the hop is PyTorch, not a kernel)."""
+    from tinyllama_tpu_torch.config import MODEL_REGISTRY
+    from tinyllama_tpu_torch.models.llama import pad_lm_head_vocab
+    from tinyllama_tpu_torch.parallel import ring
+    from tinyllama_tpu_torch.parallel.sp import padded_length
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache
+    from tinyllama_tpu_torch.tools.kbench import time_ms
+
+    qm, fa, _, _, _, _, codec = ops
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(dev)
+    gen.manual_seed(19)
+    layers = [torch.tensor([i], dtype=torch.int32, device=dev)
+              for i in range(2)]
+    rows = []
+    src = "tinyllama_tpu_torch/csrc/qmatmul.cu"
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    for kind, (model, wkind, sp, n) in SP_ROWS.items():
+        cfg = MODEL_REGISTRY[model]
+        D, H, Kh, d, F = (cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                          cfg.n_ffn)
+        Tl = padded_length(n, sp) // sp
+        shapes = {"wqkv": ((H + 2 * Kh) * d, D), "wo": (D, H * d),
+                  "w_gateup": (2 * F, D), "w_down": (D, F)}
+        cases = [(name, Tl, N, K, bf, 2) for name, (N, K) in shapes.items()]
+        if sp == 2:
+            cases.append(("lm_head", 1, cfg.n_vocab, D, torch.float32, 1))
+        for name, M, N, K, out, n_w in cases:
+            w = codec.stack([codec.quantize(
+                torch.randn((N, K), generator=gen, device=dev) * 0.02, wkind,
+                "kn") for _ in range(n_w)])
+            if name == "lm_head":  # as the engine pads it
+                w = pad_lm_head_vocab({"lm_head": codec.QTensor(
+                    w.data[0], w.scales[0], wkind, "kn")})["lm_head"]
+                N = w.shape[-2]
+            lay = [None] if n_w == 1 else layers
+            wd = [codec.dequantize(w if n_w == 1 else codec.QTensor(
+                w.data[i], w.scales[i], wkind, "kn"), bf) for i in range(n_w)]
+            x = rand(M, K)
+            err = check_close(f"{kind} {name} M={M}",
+                              qm.qmatmul(x, w, out, lay[0]),
+                              qm.qmatmul_ref(x, w, out, lay[0]))
+            ms = time_ms(lambda i: qm.qmatmul(x, w, out, lay[i % n_w]), 50,
+                         True)
+            plain = time_ms(lambda i: qm.qmatmul_ref(x, w, out, lay[i % n_w]),
+                            3, False)
+            lib = time_ms(lambda i: torch.matmul(x, wd[i % n_w]), 50, True)
+            small = M <= qm.SMALL_M
+            rep = (("tinyllama_tpu/ops/pallas/qmatmul.py:87" if small
+                    else "tinyllama_tpu/ops/pallas/qmatmul.py:288")
+                   if wkind == "q8"
+                   else REPLACES_4BIT["K1" if small else "K2"][wkind])
+            per = w.data.numel() // n_w * w.data.element_size() + \
+                w.scales.numel() // n_w * w.scales.element_size()
+            kernel = "K1 qmm_smallm" if small else "K2 qmm_bigm"
+            rows.append(kernel_row(
+                kernel, f"{kernel} {kind} {name} M={M} K={K} N={N}", kind, src,
+                rep, err, ms, plain,
+                per + M * K * 2 + M * N * out.itemsize, 2 * M * K * N, lib,
+                f" (an SP rank's {M} rows)" if not small
+                else " (the SP prefill's lm_head)"))
+            del w, wd
+        torch.cuda.empty_cache()
+        if sp != 2:
+            continue
+        # the ring's hop at this rank's Tl: the merge of one block (the
+        # rank's own, causal; an earlier one, unmasked) beside K3 and SDPA
+        # over the same Tl keys
+        q, k, v = rand(1, Tl, H, d), rand(1, Tl, Kh, d), rand(1, Tl, Kh, d)
+        G = H // Kh
+        qr = q.permute(0, 2, 1, 3).reshape(Kh, G * Tl, d)
+        kb, vb = (x.permute(0, 2, 1, 3).reshape(Kh, Tl, d) for x in (k, v))
+        pos = torch.arange(Tl, device=dev)
+        causal = (pos[None, :] <= pos[:, None]).repeat(G, 1)
+
+        def merge(mask):
+            m = torch.full((Kh, G * Tl, 1), float("-inf"), device=dev)
+            l, acc = torch.zeros_like(m), torch.zeros((Kh, G * Tl, d),
+                                                      device=dev)
+            ring._merge(qr, kb, vb, mask, m, l, acc, 1.0 / d ** 0.5)
+
+        hop_diag = time_ms(lambda i: merge(causal), 5, False)
+        hop_full = time_ms(lambda i: merge(None), 5, False)
+        S = -(-Tl // 64) * 64
+        kc, vc = (torch.zeros((1, 1, Kh, S, d), dtype=bf, device=dev)
+                  for _ in range(2))
+        kc[0, 0, :, :Tl], vc[0, 0, :, :Tl] = kb, vb
+        cache, zero = KVCache(kc, vc), torch.zeros(1, dtype=torch.int32,
+                                                   device=dev)
+        k3 = time_ms(lambda i: fa.flash_prefill_attention(q, cache, zero,
+                                                          zero), 20, True)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True), 20, True)
+        pairs = H * Tl * (Tl + 1) // 2
+        k3_bound = max((2 * Tl * H * d + 2 * Tl * Kh * d) * 2 / HBM_BW,
+                       4 * d * pairs / PEAK_BF16) * 1e3
+        print(f"hop {kind}: one _block_update at Tl={Tl} (H={H}, Kh={Kh}, "
+              f"d={d}): {hop_diag:.4f} ms over the rank's own causal block, "
+              f"{hop_full:.4f} ms over an earlier unmasked one (PyTorch: f32 "
+              f"scores on the tensor cores, sliced at {ring.SCORE_BYTES >> 20} "
+              f"MiB); K3 over the same {Tl} causal keys {k3:.4f} ms (bound "
+              f"{k3_bound:.4f} ms), SDPA is_causal {sdpa:.4f} ms",
+              flush=True)
+        del q, k, v, qr, kb, vb, kc, vc, cache
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kbench_replaces(counter: str) -> str:
@@ -1804,9 +2084,10 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
 
-    #: --tp-only: the build, then path (q) alone (for a machine of several
-    #: cards, where its ranks run NCCL)
+    #: --tp-only / --sp-only: the build, then path (q) / (r) alone (for a
+    #: machine of several cards, where their ranks run NCCL)
     tp_only = sys.argv[1:] == ["--tp-only"]
+    sp_only = sys.argv[1:] == ["--sp-only"]
 
     def finish(rows, kb_rows) -> int:
         for r in rows:
@@ -1826,7 +2107,7 @@ def main() -> int:
     ckpt = Path(files.name) / "tinyllama.q4.gten"
     vocab = Path(files.name) / "tokenizer.bin"
     atexit.register(files.cleanup)
-    if not tp_only:
+    if not (tp_only or sp_only):
         writer = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                                    "--write-checkpoint", str(ckpt), str(vocab)],
                                   stdout=subprocess.PIPE, text=True)
@@ -1856,7 +2137,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ops = (qm, fa, df, ffn, ao, fp, codec)
     rows, kb_rows = [], []
-    if not tp_only:
+    if not (tp_only or sp_only):
         rows = phase_kernels(engine, torch, ops)
         rows += phase_kernels(engine, torch, ops, kv="i8")
         rows += phase_kernels(engine, torch, ops, aq8=True)
@@ -2261,6 +2542,77 @@ def main() -> int:
               f"card {card}", flush=True)
         return out_, stats_
 
+    #: the pool of 4 rank processes paths (q) and (r) share (started at its
+    #: first use, stopped at exit)
+    rank_pools = {}
+
+    def rank_pool():
+        from tinyllama_tpu_torch.parallel.mesh import RankPool
+
+        if 4 not in rank_pools:
+            rank_pools[4] = RankPool(4)
+            atexit.register(rank_pools[4].close)
+        return rank_pools[4]
+
+    def free():
+        """Frees what engines deleted above held (an engine and its chunk
+        graphs refer to each other, so they go at a collection)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def ref_engine(model_cfg, kind, seed, S=TP_S, **kw):
+        """The tp = sp = 1 engine of paths (q) and (r), in this process,
+        over the ranks' weights (drawn on the card from `seed`)."""
+        g = torch.Generator("cuda")
+        g.manual_seed(seed)
+        return Engine(model_cfg, POLICIES[kind], llama.init_quantized_params(
+            model_cfg, POLICIES[kind], g, "cuda"), max_ctx=S, device="cuda",
+            **kw)
+
+    def rank_parity(path, got, want, vs):
+        """got (the ranks') within PARITY_REL of max |want| (the `vs` = 1
+        engine's)."""
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"parity {path}: max |{vs} - {vs}1| {err:.5f}, max |{vs}1| "
+              f"{scale:.4f}, mean |diff| {float(np.abs(got - want).mean()):.6f} "
+              f"(limit {PARITY_REL} of max |{vs}1|)", flush=True)
+        if not (np.isfinite(got).all() and err <= PARITY_REL * scale):
+            raise AssertionError(f"parity {path}: {err} > {PARITY_REL} * {scale}")
+
+    def ids_in_range(path, ids, n, vocab=TINYLLAMA_1_1B.n_vocab):
+        if len(ids) != n or not all(0 <= t < vocab for t in ids):
+            raise AssertionError(f"path {path}: {len(ids)} ids of {n}, or "
+                                 "ids out of range")
+
+    def check_ranks(path, kind, res, i, paged=False, unfused=False,
+                    overlap_tp=0):
+        """Step i of a pool's run: the same on every rank
+        (same_on_ranks), and rank 0's counts exactly what its prefills
+        (an SP prefill: the four linears at Tl rows a layer, K1 for the
+        lm_head) and chunks dictate, with the ring's overlap_tp - 1 more
+        launches for each of wo and w_down under --tp-overlap. Returns
+        rank 0's step."""
+        s0 = same_on_ranks(path, res, i)
+        want = {k: 0 for c in counters for k in c}
+        want["flash_prefill_own"] = 0
+        extra = 2 * (overlap_tp - 1) * L if overlap_tp else 0
+        for rec in s0["record"]["prefill"]:
+            if rec[0] == "sp":
+                want[qmm(rec[1])] += 4 * L
+                want["qmm_smallm"] += 1
+                continue
+            prefill_counts(want, rec[0], rec[1], paged, unfused)
+            want[qmm(rec[0] * rec[1])] += extra
+        for B, C in s0["record"]["chunk"]:
+            chunk_counts(want, B, C, paged, unfused)
+            want[qmm(B)] += C * extra
+        for c in counters:
+            for k in c:
+                c[k] = s0["counts"][k]
+        totals.setdefault(kind, {k: 0 for c in counters for k in c})
+        expect(f"{path} (each of {len(res)} ranks)", kind, **want)
+        return s0
+
     # (q) tensor parallelism: Engine(tp=N) in N rank processes on the
     # card(s), against the tp = 1 engine in this process
     def path_q() -> list[dict]:
@@ -2271,10 +2623,6 @@ def main() -> int:
         from tinyllama_tpu_torch.parallel.mesh import (
             RankPool, backend_for, with_mesh,
         )
-
-        def free_q():
-            gc.collect()
-            torch.cuda.empty_cache()
 
         t_q = time.perf_counter()
         q_rows = []
@@ -2291,63 +2639,11 @@ def main() -> int:
         batch_q = [q_prompt(PROMPT_LEN) for _ in range(BATCH)]
         requests_q = [q_prompt(int(n)) for n in qrng.integers(8, 201, 8)]
 
-        def ref_engine(model_cfg, kind, seed):
-            g = torch.Generator("cuda")
-            g.manual_seed(seed)
-            return Engine(model_cfg, POLICIES[kind], llama.init_quantized_params(
-                model_cfg, POLICIES[kind], g, "cuda"), max_ctx=TP_S,
-                device="cuda")
-
-        def same(a, b):
-            if isinstance(a, np.ndarray):
-                return np.array_equal(a, b)
-            return a == b
-
-        def check_step(path, kind, res, i, paged=False, overlap_tp=0):
-            """Step i on every rank: the same output bit for bit, the same
-            counts and shapes; rank 0's counts exactly what its prefills'
-            and chunks' shapes dictate on the unfused branch (TP), with
-            the ring's tp - 1 more launches for each of wo and w_down.
-            Returns rank 0's step."""
-            s0 = res[0]["steps"][i]
-            for rank, r in enumerate(res[1:], 1):
-                s = r["steps"][i]
-                if not same(s["out"], s0["out"]):
-                    raise AssertionError(f"path {path}: rank {rank}'s output "
-                                         "is not rank 0's")
-                if s["counts"] != s0["counts"] or s["record"] != s0["record"]:
-                    raise AssertionError(f"path {path}: rank {rank}'s launches "
-                                         f"{s['counts']} are not rank 0's "
-                                         f"{s0['counts']}")
-            want = {k: 0 for c in counters for k in c}
-            want["flash_prefill_own"] = 0
-            extra = 2 * (overlap_tp - 1) * L if overlap_tp else 0
-            for b, T in s0["record"]["prefill"]:
-                prefill_counts(want, b, T, paged, True)
-                want[qmm(b * T)] += extra
-            for B, C in s0["record"]["chunk"]:
-                chunk_counts(want, B, C, paged, True)
-                want[qmm(B)] += C * extra
-            for c in counters:
-                for k in c:
-                    c[k] = s0["counts"][k]
-            totals.setdefault(kind, {k: 0 for c in counters for k in c})
-            expect(f"{path} (each of {len(res)} ranks)", kind, **want)
-            return s0
+        # TP always takes the unfused branch
+        check_step = functools.partial(check_ranks, unfused=True)
 
         def parity(path, got, want):
-            err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
-            print(f"parity {path}: max |tp - tp1| {err:.5f}, max |tp1| "
-                  f"{scale:.4f}, mean |diff| {float(np.abs(got - want).mean()):.6f} "
-                  f"(limit {PARITY_REL} of max |tp1|)", flush=True)
-            if not (np.isfinite(got).all() and err <= PARITY_REL * scale):
-                raise AssertionError(f"parity {path}: {err} > {PARITY_REL} * {scale}")
-
-        def ids_in_range(path, ids, n):
-            if len(ids) != n or not all(0 <= t < TINYLLAMA_1_1B.n_vocab
-                                        for t in ids):
-                raise AssertionError(f"path {path}: {len(ids)} ids of {n}, or "
-                                     "ids out of range")
+            rank_parity(path, got, want, "tp")
 
         # the tp = 1 references: (a)'s weights (seed 1234), graph and eager
         e1 = ref_engine(TINYLLAMA_1_1B, "q8", 1234)
@@ -2357,7 +2653,7 @@ def main() -> int:
         with eager_chunks():
             _, st1e = generate(prompt_q, 64, e1)
         del e1
-        free_q()
+        free()
         print(f"path (q) tp=1: {st1.ms_per_token:.4f} ms/token as a CUDA graph, "
               f"{st1e.ms_per_token:.4f} eager (64 tokens after a "
               f"{PROMPT_LEN}-token prompt); card {card}", flush=True)
@@ -2370,9 +2666,9 @@ def main() -> int:
         route = "graph" if backend == "nccl" else "eager"
         how = (f"{backend}, the chunk {'a CUDA graph' if route == 'graph' else 'eager'}"
                f", ranks on {min(n_cards, 4)} card(s)")
-        with RankPool(4) as pool:
+        with contextlib.nullcontext(rank_pool()) as pool:
             def ranks(tp, *a, **k):
-                res = pool.run(with_mesh, tp_rank, tp, 1, None, *a, **k)[:tp]
+                res = pool.run(with_mesh, rank_task, tp, 1, None, *a, **k)[:tp]
                 for rank, r in enumerate(res):
                     if "steps" not in r:
                         continue
@@ -2459,7 +2755,7 @@ def main() -> int:
             e1 = ref_engine(TINYLLAMA_1_1B, "q4g", 4321)
             ref4 = e1.prefill(e1.new_cache(1), [prompt_q])[0].float().cpu().numpy()
             del e1
-            free_q()
+            free()
             res = ranks(2, name, "q4g", 4321, 0, [("prefill", [prompt_q]),
                                                   ("generate", prompt_q, 16)])
             s = check_step("(q2) q4g tp=2 prefill", "q4g-tp2", res, 0)
@@ -2501,7 +2797,7 @@ def main() -> int:
             e1 = ref_engine(cfg8, "q4", 88)
             ref8 = e1.prefill(e1.new_cache(1), [prompt_q])[0].float().cpu().numpy()
             del e1
-            free_q()
+            free()
             res = ranks(2, "llama-3-8b", "q4", 88, 4, [("prefill", [prompt_q])])
             L, L_tiny = 4, L
             try:
@@ -2543,7 +2839,7 @@ def main() -> int:
                   f"chunk a CUDA graph ({n_cards} cards)", flush=True)
         elif n_cards >= 2:
             with RankPool(2) as pool:
-                res = pool.run(with_mesh, tp_rank, 2, 1, None, name, "q8", 1234,
+                res = pool.run(with_mesh, rank_task, 2, 1, None, name, "q8", 1234,
                                0, [("prefill", [prompt_q]),
                                    ("generate", prompt_q, 64)])
             if any(r["backend"] != "nccl" or r["route"] != "graph" for r in res):
@@ -2570,9 +2866,280 @@ def main() -> int:
               flush=True)
         return q_rows
 
+    # (r) sequence parallelism: Engine(sp=N) in rank processes sharing the
+    # card, against the sp = 1 engine in this process
+    def path_r() -> list[dict]:
+        """Path (r); returns the SP kernel rows with their launches (a
+        rank's: every rank's are checked equal)."""
+        nonlocal L
+        from tinyllama_tpu_torch.config import MODEL_REGISTRY
+        from tinyllama_tpu_torch.parallel.mesh import (
+            RankPool, backend_for, with_mesh,
+        )
+        from tinyllama_tpu_torch.parallel.sp import padded_length
+
+        t_r = time.perf_counter()
+        r_rows = phase_sp_rows(torch, ops)
+        mark("(r) kernel rows")
+        name, L_tiny = TINYLLAMA_1_1B.name, L
+        rrng = np.random.default_rng(19)
+
+        def r_prompt(n, vocab=TINYLLAMA_1_1B.n_vocab):
+            return [1] + rrng.integers(2, vocab, n - 1).tolist()
+
+        def ref_prefill(eng, prompt_, layers_, reps=0):
+            """The sp = 1 engine's logits and cache rows of prompt_, its
+            prefill ms (best of reps, synced) and the card's peak over
+            the prefills (all this process holds included)."""
+            torch.cuda.reset_peak_memory_stats()
+            cache = eng.new_cache(1)
+            logits = eng.prefill(cache, [prompt_])[0].float().cpu().numpy()
+            rows_ = cache_rows(cache, len(prompt_), layers_)
+            best = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.prefill(cache, [prompt_])
+                torch.cuda.synchronize()
+                best.append((time.perf_counter() - t0) * 1e3)
+            return (logits, rows_, min(best, default=0.0),
+                    torch.cuda.max_memory_allocated())
+
+        check_step = check_ranks
+
+        def parity(path, got, want):
+            rank_parity(path, got, want, "sp")
+
+        # the sp = 1 references: (a)'s weights (seed 1234), (e)'s prompt
+        all_layers = list(range(L))
+        e1 = ref_engine(TINYLLAMA_1_1B, "q8", 1234)
+        ref_logits, ref_rows, ref_ms, _ = ref_prefill(e1, long_prompt,
+                                                      all_layers, reps=3)
+        ids1, _ = generate(long_prompt, 64, e1)
+        del e1
+        e1 = ref_engine(TINYLLAMA_1_1B, "q8-kvi8", 1234, paged=True)
+        ref_i8_logits, ref_i8_rows, _, _ = ref_prefill(e1, long_prompt,
+                                                       all_layers)
+        del e1
+        free()
+        print(f"path (r) sp=1: prefill of the {LONG_PROMPT}-token prompt "
+              f"{ref_ms:.3f} ms (bucket {engine_bucket(LONG_PROMPT, TP_S)}, "
+              f"best of 3, synced); card {card}", flush=True)
+        long_reqs = [r_prompt(1100), r_prompt(1300)]
+        requests_r = [r_prompt(int(n)) for n in rrng.integers(8, 201, 8)]
+        requests_r[2:2] = long_reqs[:1]
+        requests_r[7:7] = long_reqs[1:]
+        n_cards = torch.cuda.device_count()
+        backend = backend_for(4)
+        how = (f"{backend}, ranks on {min(n_cards, 4)} card(s), the chunk a "
+               "CUDA graph at tp 1")
+        hop_note = ("through host memory" if backend == "gloo"
+                    else "on the cards")
+
+        def cache_parity(path, got, want):
+            parity(f"{path} cache", got.astype(np.float32),
+                   want.astype(np.float32))
+
+        with contextlib.nullcontext(rank_pool()) as pool:
+            def ranks(tp, sp, *a, **k):
+                res = pool.run(with_mesh, rank_task, tp, sp, None, *a,
+                               **k)[:tp * sp]
+                for rank, r in enumerate(res):
+                    want_route = "graph" if tp == 1 or backend == "nccl" else "eager"
+                    if (r["backend"], r["route"], r["sp"]) != (backend,
+                                                               want_route, sp):
+                        raise AssertionError(
+                            f"path (r): rank {rank} ran {r['backend']}, the "
+                            f"{r['route']} chunk at sp {r['sp']}; want "
+                            f"{backend}, {want_route}, sp {sp}")
+                return res
+
+            ms_sp = {}
+            for sp in (2, 4):
+                kind = f"q8-sp{sp}"
+                # (r1) TinyLlama q8, bf16 KV, full width and depth
+                # (a sync around each hop, the gather and the writes at
+                # sp 2 only)
+                res = ranks(1, sp, name, "q8", 1234, 0, [
+                    ("prefill", [long_prompt], all_layers),
+                    ("generate", long_prompt, 64),
+                    ("timed", long_prompt, 3, sp == 2)])
+                s = check_step(f"(r1) sp={sp} prefill", kind, res, 0)
+                parity(f"(r1) TinyLlama q8 sp={sp} prefill", s["out"],
+                       ref_logits)
+                cache_parity(f"(r1) sp={sp}", s["cache"], ref_rows)
+                s = check_step(f"(r1) sp={sp} generate", kind, res, 1)
+                ids_in_range(f"(r1) sp={sp}", s["out"], 64)
+                shared = next((i for i, (x, y) in enumerate(zip(s["out"], ids1))
+                               if x != y), 64)
+                t = check_step(f"(r1) sp={sp} timed", kind, res, 2)["out"]
+                ms_sp[sp] = t["ms"]
+                split = (f"; with a sync around each: the ring's "
+                         f"{(sp - 1) * L} hops {t['hops']:.3f} ms, the K/V "
+                         f"gather {t['gather']:.3f} ms and the cache writes "
+                         f"{t['writes']:.3f} ms of {t['total']:.3f} ms (hops "
+                         f"{t['hops'] / t['total']:.3f}, handoff "
+                         f"{(t['gather'] + t['writes']) / t['total']:.3f}; "
+                         f"the hops {hop_note})" if "total" in t else "")
+                print(f"path (r1) sp={sp}: {sp} ranks ({how}); prefill of the "
+                      f"{LONG_PROMPT}-token prompt ({padded_length(LONG_PROMPT, sp)}"
+                      f" rows, Tl {padded_length(LONG_PROMPT, sp) // sp}) "
+                      f"{t['ms']:.3f} ms (best of 3, synced; sp=1 "
+                      f"{ref_ms:.3f} ms){split}; decode "
+                      f"{s['ms_per_token']:.4f} ms/token over 64 tokens, the "
+                      f"prefix shared with sp=1 at bf16 {shared} of 64; the "
+                      f"card's peak a rank in the prefill "
+                      f"{res[0]['steps'][0]['peak'] / 2**20:.0f} MiB; card "
+                      f"{card}", flush=True)
+            mark("(r1) sp = 2 and 4")
+
+            # (r2) a paged engine with an int8 cache at sp 2
+            res = ranks(1, 2, name, "q8-kvi8", 1234, 0, [
+                ("prefill", [long_prompt], all_layers),
+                ("generate", long_prompt, 16)], paged=True)
+            s = check_step("(r2) paged kvi8 prefill", "q8-sp2-kvi8", res, 0,
+                           paged=True)
+            parity("(r2) TinyLlama q8-kvi8 paged sp=2 prefill", s["out"],
+                   ref_i8_logits)
+            cache_parity("(r2) paged kvi8 sp=2", s["cache"], ref_i8_rows)
+            s = check_step("(r2) paged kvi8 generate", "q8-sp2-kvi8", res, 1,
+                           paged=True)
+            ids_in_range("(r2)", s["out"], 16)
+
+            # (r3) the batcher over Engine(sp=2): 8 short requests and 2
+            # long ones, each long one admitted alone (the SP route)
+            for paged in (True, False):
+                res = ranks(1, 2, name, "q8", 1234, 0, [
+                    ("batcher", requests_r, 16, 8)], paged=paged)
+                label = f"(r3) {'paged' if paged else 'monolithic'} batcher"
+                s = check_step(label, "q8-sp2", res, 0, paged=paged)
+                if sorted(s["out"]) != list(range(10)) or any(
+                        len(o) != 16 for o in s["out"].values()):
+                    raise AssertionError(f"path {label}: the requests did not "
+                                         "all finish their 16 tokens")
+                adm = s["record"]["prefill"]
+                longs = [a for a in adm if a[0] == "sp" and a[1] >= 512]
+                mixed = [a for a in adm if a[0] != "sp" and a[1] >= 1024]
+                if (len(longs) != 2 or mixed or s["threshold"] != 1024):
+                    raise AssertionError(f"path {label}: admissions {adm}: the "
+                                         "long prompts were not admitted alone")
+                print(f"path {label}: 10 requests x 16 tokens in "
+                      f"{s['s']:.2f} s ({160 / s['s']:.1f} tok/s; {how}); "
+                      f"admissions (rows, bucket) or (sp, Tl): {adm}; card "
+                      f"{card}", flush=True)
+            mark("(r2), (r3)")
+
+            # (r4) sp 2 x tp 2 on 4 ranks: prefill parity against sp 1, tp 1
+            res = ranks(2, 2, name, "q8", 1234, 0, [
+                ("prefill", [long_prompt], [0, L - 1])])
+            s = check_step("(r4) sp=2 x tp=2 prefill", "q8-sp2-tp2", res, 0,
+                           unfused=True)
+            parity("(r4) TinyLlama q8 sp=2 x tp=2 prefill", s["out"], ref_logits)
+            # rank 0 holds the first half of the kv heads
+            cache_parity("(r4) sp=2 x tp=2 (rank 0's kv heads)", s["cache"],
+                         ref_rows[[0, L - 1], :, : TINYLLAMA_1_1B.n_kv_heads // 2])
+            mark("(r4) sp x tp")
+
+            # (r5) Llama-3-8B q4, full width and depth, sp 2: (o2)'s
+            # 7,000-token prompt through a paged engine
+            cfg8 = MODEL_REGISTRY["llama-3-8b"]
+            prompt8 = r_prompt(7000, cfg8.n_vocab)
+            held = torch.cuda.memory_allocated()
+            e1 = ref_engine(cfg8, "q4", 88, S=cfg8.max_ctx, paged=True)
+            ref8, rows8, ms8, peak8 = ref_prefill(
+                e1, prompt8, [0, cfg8.n_layers - 1], reps=1)
+            del e1
+            free()
+            res = ranks(1, 2, "llama-3-8b", "q4", 88, 0, [
+                ("prefill", [prompt8], [0, cfg8.n_layers - 1]),
+                ("generate", prompt8, 16)], S=cfg8.max_ctx, paged=True)
+            L = cfg8.n_layers
+            try:
+                s = check_step("(r5) 8B prefill", "8b-q4-sp2", res, 0,
+                               paged=True, unfused=True)
+                parity("(r5) Llama-3-8B q4 sp=2 prefill", s["out"], ref8)
+                cache_parity("(r5) 8B sp=2", s["cache"], rows8)
+                g = check_step("(r5) 8B generate", "8b-q4-sp2", res, 1,
+                               paged=True, unfused=True)
+                ids_in_range("(r5)", g["out"], 16, cfg8.n_vocab)
+            finally:
+                L = L_tiny
+            print(f"path (r5): Llama-3-8B q4 sp=2, a 7,000-token prompt "
+                  f"(7,008 rows, Tl 3,504): generate's prefill "
+                  f"{g['prefill_ms']:.3f} ms (sp=1 {ms8:.3f} ms, bucket "
+                  f"8,192; synced); decode {g['ms_per_token']:.4f} ms/token "
+                  f"over 16 tokens; the card's peak in the prefill (the "
+                  f"engine's weights and cache included): a rank "
+                  f"{[round(r['steps'][0]['peak'] / 2**30, 2) for r in res]} "
+                  f"GiB, sp=1 {(peak8 - held) / 2**30:.2f} GiB; card {card}",
+                  flush=True)
+            mark("(r5) Llama-3-8B")
+
+        # (r6) the CLI as a user runs it: it starts its own 2 ranks
+        t0 = time.perf_counter()
+        cli_prompt = "".join(chr(ord("a") + i % 26) for i in range(1100))
+        child = subprocess.run(
+            [sys.executable, "-m", "tinyllama_tpu_torch.cli", "--sp", "2",
+             "-q8", "--random-weights", "-greedy", "-p", cli_prompt, "--npred",
+             "1200"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, timeout=600)
+        ids = [line.split() for line in child.stderr.splitlines()
+               if line.split() and all(w.isdigit() for w in line.split())]
+        if (child.returncode or child.stdout.count("PERFORMANCE") != 1
+                or len(ids) != 1 or len(ids[0]) != 99):
+            print(child.stdout, child.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"path (r6): the CLI with --sp 2 exited "
+                                 f"{child.returncode}, or printed other than one "
+                                 "table and 99 ids")
+        per_tok = next(line for line in child.stdout.splitlines()
+                       if "Inference [per tok]" in line)
+        print(f"path (r6): python -m tinyllama_tpu_torch.cli --sp 2 -q8 "
+              f"--random-weights -greedy -p <1,100 characters> --npred 1200: "
+              f"99 ids, one performance table ({per_tok.strip()}), "
+              f"{time.perf_counter() - t0:.1f} s with its ranks' start",
+              flush=True)
+
+        # (r7) NCCL, a card a rank: (r1)-(r5) ran it where the machine has
+        # 4 cards or more; with 2 or 3, sp 2 runs here on 2 of them
+        if backend == "nccl":
+            print(f"path (r7): (r1)-(r5) ran under NCCL, a card a rank "
+                  f"({n_cards} cards)", flush=True)
+        elif n_cards >= 2:
+            with RankPool(2) as pool:
+                res = pool.run(with_mesh, rank_task, 1, 2, None, name, "q8",
+                               1234, 0, [("prefill", [long_prompt], [0]),
+                                         ("generate", long_prompt, 64)])
+            if any(r["backend"] != "nccl" for r in res):
+                raise AssertionError("path (r7): ranks on cards of their own "
+                                     "must run NCCL")
+            s = check_step("(r7) NCCL prefill", "q8-sp2-nccl", res, 0)
+            parity("(r7) NCCL sp=2 prefill", s["out"], ref_logits)
+            s = check_step("(r7) NCCL generate", "q8-sp2-nccl", res, 1)
+            ids_in_range("(r7) NCCL", s["out"], 64)
+            print(f"path (r7): NCCL sp=2 on 2 cards: {s['ms_per_token']:.4f} "
+                  "ms/token", flush=True)
+        else:
+            print(f"path (r7): NCCL across cards did not run: this machine has "
+                  f"{n_cards} card (the ranks above shared it through gloo)",
+                  flush=True)
+        for r in r_rows:
+            names = [counter_name(n, r["kind"]) for n in LAUNCH_NAMES[r["kernel"]]]
+            r["launches"] = sum(totals[r["kind"]][k] for k in names)
+            if not r["launches"]:
+                raise AssertionError(f"{r['name']} was not launched on path (r)")
+        print(f"path (r): {time.perf_counter() - t_r:.1f} s; prefill of the "
+              f"{LONG_PROMPT}-token prompt sp=1 {ref_ms:.3f} ms, sp=2 "
+              f"{ms_sp[2]:.3f} ms, sp=4 {ms_sp[4]:.3f} ms ({how}); card {card}",
+              flush=True)
+        return r_rows
+
     if tp_only:
         rows = path_q()
         mark("(q) tensor parallelism")
+        return finish(rows, kb_rows)
+    if sp_only:
+        rows = path_r()
+        mark("(r) sequence parallelism")
         return finish(rows, kb_rows)
 
     # (a) main path: unfused prefill (bucket 128), fused b1 decode
@@ -3415,13 +3982,21 @@ def main() -> int:
     #: each trace's limit, relative to max |cpu logits|
     limit = {}
 
+    #: the CPU's traces run in the background, on four threads (the plain
+    #: ops hold no lock and launch nothing on the card), while the card's go
+    #: on; they are checked once all are in
+    cpu_side = ThreadPoolExecutor(4)
+
     def parity(pol, params_, *args, rel=PARITY_REL, **kw):
-        """The pairs (card, CPU) of one policy's traces."""
-        pairs = list(zip(*(parity_trace(Engine(cfg2, pol, params_, device=d),
-                                        *args, **kw) for d in ("cuda", "cpu"))))
-        limit.update({name: rel for (name, _), _ in pairs})
-        mark(f"parity {args[0] or 'q8 '}traces")
-        return pairs
+        """One policy's traces: the card's now, the CPU's in the background;
+        [(card trace, future of the CPU's)]."""
+        card_ = parity_trace(Engine(cfg2, pol, params_, device="cuda"), *args,
+                             **kw)
+        cpu_ = cpu_side.submit(lambda: parity_trace(
+            Engine(cfg2, pol, params_, device="cpu"), *args, **kw))
+        limit.update({name: rel for name, _ in card_})
+        mark(f"parity {args[0] or 'q8 '}card traces")
+        return [(card_, cpu_)]
 
     p2 = llama.init_quantized_params(cfg2, policy, cpu_gen, "cpu")
     # q8: long prefill and 4 decode steps, the short (fused) prefill, B = 4,
@@ -3461,20 +4036,6 @@ def main() -> int:
             pairs += parity(POLICIES[name], pd, f"dense {name} ", 2, short=True,
                             b4=True,
                             rel=F32_PARITY_REL if name == "f32" else PARITY_REL)
-    for (name, a), (_, b) in pairs:
-        if not (torch.isfinite(a).all() and a.shape[-1] == cfg2.n_vocab):
-            return fail(f"parity {name}: logits not finite or misshapen")
-        err = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        if limit[name] == PARITY_REL:
-            worst = max(worst, err / scale)
-        print(f"parity {name}: max |gpu - cpu| {err:.5f}, max |cpu| "
-              f"{scale:.4f}, mean |diff| {float((a - b).abs().mean()):.6f} "
-              f"(limit {limit[name]} of max |cpu|)")
-        if err > limit[name] * scale:
-            return fail(f"parity {name}: {err} > {limit[name]} * {scale}")
-    print(f"parity: worst relative max error {worst:.5f} (limit {PARITY_REL}; "
-          f"dense f32 within {F32_PARITY_REL})")
 
     # a reading, not a gate: the int8 cache's greedy tokens on the b1 path
     # (K8 dequantizes keys and values to bf16 as the plain version does,
@@ -3495,8 +4056,28 @@ def main() -> int:
         return toks, seen
 
     card_toks, _ = greedy_b1(Engine(cfg2, kvi8, p2, device="cuda"), GREEDY_STEPS)
-    _, cpu_logits = greedy_b1(Engine(cfg2, kvi8, p2, device="cpu"), GREEDY_STEPS,
-                              card_toks)
+    cpu_reading = cpu_side.submit(lambda: greedy_b1(
+        Engine(cfg2, kvi8, p2, device="cpu"), GREEDY_STEPS, card_toks)[1])
+    pairs = [pair for card_, cpu_ in pairs
+             for pair in zip(card_, cpu_.result())]
+    mark("parity CPU traces")
+    for (name, a), (_, b) in pairs:
+        if not (torch.isfinite(a).all() and a.shape[-1] == cfg2.n_vocab):
+            return fail(f"parity {name}: logits not finite or misshapen")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if limit[name] == PARITY_REL:
+            worst = max(worst, err / scale)
+        print(f"parity {name}: max |gpu - cpu| {err:.5f}, max |cpu| "
+              f"{scale:.4f}, mean |diff| {float((a - b).abs().mean()):.6f} "
+              f"(limit {limit[name]} of max |cpu|)")
+        if err > limit[name] * scale:
+            return fail(f"parity {name}: {err} > {limit[name]} * {scale}")
+    print(f"parity: worst relative max error {worst:.5f} (limit {PARITY_REL}; "
+          f"dense f32 within {F32_PARITY_REL})")
+
+    cpu_logits = cpu_reading.result()
+    cpu_side.shutdown()
     margins = [float(x.max() - x[t]) for t, x in zip(card_toks, cpu_logits)]
     print(f"i8 b1 greedy: the CPU picks the card's token at "
           f"{sum(m == 0 for m in margins)} of {GREEDY_STEPS} steps (pos "
@@ -3509,12 +4090,6 @@ def main() -> int:
     # card, bf16 activations, max_ctx 8,192; the helpers above read cfg and
     # L, so they count and check for it from here on
     from tinyllama_tpu_torch.config import LLAMA_3_70B, LLAMA_3_8B
-
-    def free():
-        """Frees what engines deleted above held (an engine and its chunk
-        graphs refer to each other, so they go at a collection)."""
-        gc.collect()
-        torch.cuda.empty_cache()
 
     free()
     t_o = time.perf_counter()
@@ -3926,6 +4501,8 @@ def main() -> int:
 
     rows += path_q()
     mark("(q) tensor parallelism")
+    rows += path_r()
+    mark("(r) sequence parallelism")
     return finish(rows, kb_rows)
 
 

@@ -3018,3 +3018,142 @@ def test_tp_local_serving_attention_matches_plain(card, model, tp, B, base):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
 
+
+
+# --- sequence parallelism: K1 / K2 at a rank's rows, the ring, the engine ----
+
+#: (model, sp, Tl) of the SP ranks path (r) of chip_smoke.py runs: path
+#: (e)'s 1,450-token prompt at sp 2 and 4 (1,456 and 1,472 rows), path
+#: (o2)'s 7,000 at Llama-3-8B sp 2 (7,008 rows), and the 8 rows of a
+#: prompt of at most 16 tokens at sp 2
+SP_CASES = [("tinyllama-1.1b-chat-v0.4", 2, 728),
+            ("tinyllama-1.1b-chat-v0.4", 4, 368),
+            ("tinyllama-1.1b-chat-v0.4", 2, 8), ("llama-3-8b", 2, 3504)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wqkv", "wo", "w_gateup", "w_down"])
+@pytest.mark.parametrize("model,sp,Tl", SP_CASES)
+def test_sp_rank_linears_match_plain(card, model, sp, Tl, name):
+    """K2 (K1 at Tl = 8) on one SP rank's Tl rows of each linear, at the
+    full widths (a rank at tp 1 holds every weight), against the plain
+    version."""
+    (H, Kh, d), shapes = _tp_local(model, 1)
+    K, N = shapes[name]
+    kind = "q4" if model == "llama-3-8b" else "q8"
+    w = _weight(2, K, N, seed=K + Tl, device=card, kind=kind)
+    x = torch.randn(Tl, K, device=card).to(torch.bfloat16)
+    layer = _i32([1], card)
+    got = _counted(qmatmul, "qmm_smallm" if Tl <= qmatmul.SMALL_M
+                   else "qmm_bigm",
+                   lambda: qmatmul.qmatmul(x, w, torch.bfloat16, layer))
+    want = qmatmul.qmatmul_ref(x, w, torch.bfloat16, layer)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+class _TwoRankRing:
+    """Data rank 1 of 2 for ring_gqa_attention in one process: its one hop
+    hands over rank 0's block."""
+
+    dp, dp_rank = 2, 1
+
+    def __init__(self, block0):
+        self.block0 = block0
+
+    def data_ring_shift(self, t):
+        return self.block0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,sp,Tl", [c for c in SP_CASES if c[2] > 8])
+def test_sp_ring_on_the_card_matches_plain(card, model, sp, Tl):
+    """The ring's rank 0 (its own block, causal) and rank 1 (rank 0's
+    block unmasked, then its own), bf16 on the card with f32 scores on the
+    tensor cores (sliced at Llama-3-8B's Tl), against the plain causal
+    attention over the 2 * Tl rows."""
+    from types import SimpleNamespace
+
+    from tinyllama_tpu_torch.ops.attention import gqa_attention
+    from tinyllama_tpu_torch.parallel.ring import ring_gqa_attention
+
+    (H, Kh, d), _ = _tp_local(model, 1)
+    g = torch.Generator(card).manual_seed(Tl)
+    q = torch.randn(1, 2 * Tl, H, d, device=card, generator=g).bfloat16()
+    k, v = (torch.randn(1, 2 * Tl, Kh, d, device=card, generator=g).bfloat16()
+            for _ in range(2))
+    half = [slice(0, Tl), slice(Tl, 2 * Tl)]
+    out0 = ring_gqa_attention(q[:, half[0]], k[:, half[0]], v[:, half[0]],
+                              SimpleNamespace(dp=1, dp_rank=0))
+    block0 = torch.stack([x[:, half[0]].permute(0, 2, 1, 3).reshape(
+        Kh, Tl, d) for x in (k, v)])
+    out1 = ring_gqa_attention(q[:, half[1]], k[:, half[1]], v[:, half[1]],
+                              _TwoRankRing(block0))
+    want = gqa_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                         torch.arange(2 * Tl, device=card)[None])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([out0, out1], 1).float(),
+                               want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_sp_engine_on_the_card(card):
+    """Engine(sp=2) in 2 rank processes sharing the card (gloo; the chunk
+    a CUDA graph at tp 1): TinyLlama's widths at 2 layers, q8, a 300-token
+    prompt. Each rank's prefill launches K2 4 x L times at Tl = 152 and
+    K1 once (the lm_head), no K3; its logits are bit-equal on both ranks
+    and within 5% of max |logits| of the sp = 1 engine's; 16 greedy
+    tokens the same on both."""
+    import torch_sp_tasks
+
+    from tinyllama_tpu_torch.parallel.mesh import run_ranks
+
+    cfg = MODEL_REGISTRY["tinyllama-1.1b-chat-v0.4"].replace(n_layers=2)
+    prompt = [1] + list(range(2, 301))
+    build.build_all()
+    res = run_ranks(torch_sp_tasks.card_sp_engine, 1, cfg, prompt, 16, dp=2)
+    assert np.array_equal(res[0][0], res[1][0]) and res[0][1:] == res[1][1:]
+    logits, ids, counts, route = res[0]
+    assert route == "graph" and len(ids) == 16
+    assert counts["qmm_bigm"] == 4 * cfg.n_layers
+    assert counts["qmm_smallm"] == 1 and counts["flash_prefill"] == 0
+    g = torch.Generator(card).manual_seed(7)
+    params = llama.init_quantized_params(cfg, POLICIES["q8"], g, card)
+    eng = Engine(cfg, POLICIES["q8"], params, max_ctx=512, device=card)
+    want = eng.prefill(eng.new_cache(1), [prompt])[0].float().cpu().numpy()
+    assert np.abs(logits - want).max() <= 0.05 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dropped_engines_graphs(card):
+    """An engine with a captured chunk dropped in a reference cycle (it
+    and its ChunkGraphs), then a capture whose body allocates Python
+    objects with the collector set to run at nearly every allocation: the
+    capture (graphs.capturing, as time_ms and the engines capture)
+    collects first and holds the collector off, so the dropped engine's
+    graphs are not destroyed inside it (CUDA error 901 when they were)."""
+    import gc
+    import weakref
+
+    from tinyllama_tpu_torch.runtime.graphs import capturing
+
+    eng = _graph_engine(card, POLICIES["q8"])
+    eng.generate([1, 5, 9], GenerationConfig(n_predict=11, greedy=True,
+                                             eos_token=-1, chunk_size=4))
+    assert eng._chunk_graphs
+    gone = weakref.ref(eng)
+    del eng
+    x = torch.zeros(4, device=card)
+    g = torch.cuda.CUDAGraph()
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        with capturing(g):
+            for _ in range(100):
+                _ = [object() for _ in range(10)]
+                x.add_(1)
+    finally:
+        gc.set_threshold(*thresholds)
+    g.replay()
+    torch.cuda.synchronize()
+    assert gone() is None and float(x[0]) == 100

@@ -448,7 +448,7 @@ def test_graph_modules_import_torch_and_the_standard_library(module):
     tops |= {n.module.split(".")[0] for n in ast.walk(tree)
              if isinstance(n, ast.ImportFrom) and n.module}
     assert tops <= {"__future__", "contextlib", "collections", "dataclasses",
-                    "threading", "time", "typing", "torch",
+                    "gc", "threading", "time", "typing", "torch",
                     "tinyllama_tpu_torch"}, tops
     assert graphs.capture_for(torch.device("cpu")) is None
 
@@ -470,3 +470,32 @@ def test_engine_with_graphs_is_freed(both_params, paged):
     del eng
     gc.collect()
     assert gone() is None
+
+
+@pytest.mark.parametrize("raises", [False, True])
+def test_capturing_holds_the_collector_off(monkeypatch, raises):
+    """Every capture of the port (``graphs.capturing``) runs in the
+    thread-local mode with the cyclic collector off (a collection inside a
+    capture could destroy a dropped engine's graphs there) and turns it
+    back on after, also when the body raises. A stand-in for
+    torch.cuda.graph records what the capture saw."""
+    import contextlib
+    import gc
+
+    seen = {}
+
+    @contextlib.contextmanager
+    def fake_graph(graph, **kwargs):
+        seen.update(kwargs, graph=graph, collector=gc.isenabled())
+        yield
+
+    monkeypatch.setattr(graphs.torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    with contextlib.suppress(RuntimeError):
+        with graphs.capturing("g", pool="p"):
+            assert not gc.isenabled()
+            if raises:
+                raise RuntimeError("in the capture")
+    assert gc.isenabled()
+    assert seen == {"graph": "g", "pool": "p", "collector": False,
+                    "capture_error_mode": "thread_local"}

@@ -479,17 +479,19 @@ def test_batcher_downshift_and_late_arrivals(both_params):
 
 
 def test_batcher_submit_and_options_refused(engines):
-    """An oversize request, SP admission, and a pool's sizes given to the
-    batcher of a monolithic engine (its cache follows the engine's kind)
-    are refused."""
+    """An oversize request and a pool's sizes given to the batcher of a
+    monolithic engine (its cache follows the engine's kind) are refused.
+    The SP admission threshold (ported since sequence parallelism) is
+    taken, and off by default over an engine at sp 1."""
     _, pengs = engines
     pb = ContinuousBatcher(pengs[True], pconfig.GenerationConfig(**GEN),
                            max_batch=2, n_pages=3, page_size=16)
     with pytest.raises(ValueError, match="pool holds 2"):
         pb.submit(list(range(1, 40)))
     pb.submit([1, 2, 3], max_new=8)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        ContinuousBatcher(pengs[False], max_batch=2, sp_admit_threshold=64)
+    assert pb.sp_admit_threshold is None
+    assert ContinuousBatcher(pengs[False], max_batch=2,
+                             sp_admit_threshold=64).sp_admit_threshold == 64
     with pytest.raises(ValueError, match="paged=True"):
         ContinuousBatcher(pengs[False], max_batch=2, n_pages=3, page_size=16)
     mono = ContinuousBatcher(pengs[False], max_batch=2)

@@ -512,6 +512,15 @@ def test_a_rank_that_raises_ends_the_run():
     assert time.monotonic() - t0 < 45
 
 
+def test_a_rank_that_dies_ends_the_run():
+    """Rank 1's process exits while rank 0 is at work: run_ranks raises
+    with rank 1's exit code at once, not at the timeout."""
+    t0 = time.monotonic()
+    with pytest.raises(RankError, match="rank 1 exited with code 3"):
+        run_ranks(tasks.exit_on_rank_1, 2, device="cpu", timeout=60)
+    assert time.monotonic() - t0 < 45
+
+
 def test_placement_and_route():
     assert backend_for(4, "cpu") == "gloo"
     gloo = SimpleNamespace(tp=2, backend="gloo")

@@ -7,6 +7,9 @@ reads, and return numpy arrays and Python values.
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -77,6 +80,13 @@ def raise_on_rank_1(mesh):
     if mesh.tp_rank == 1:
         raise ValueError("rank 1 fails on purpose")
     return mesh.all_reduce(torch.ones(4)).tolist()
+
+
+def exit_on_rank_1(mesh):
+    """Rank 1's process ends (code 3) while rank 0 is still at work."""
+    if mesh.tp_rank == 1:
+        os._exit(3)
+    time.sleep(60)
 
 
 def collectives(mesh):

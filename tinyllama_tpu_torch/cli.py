@@ -51,6 +51,12 @@ of their own through NCCL. ``--tp-overlap`` sums the row-parallel
 products with JAX's ring. ``--tp-mode gspmd`` (JAX's NamedSharding path,
 which runs no kernel) is not ported. ``--spec`` and ``--profile`` run at
 ``--tp 1``.
+
+``--sp N`` prefills each prompt sequence-parallel over N ranks (ring
+attention, parallel/sp.py; JAX's ``--sp``): the CLI starts tp x N rank
+processes as for ``--tp``, every rank decodes the same tokens after the
+handoff, and rank 0 alone prints. ``--spec`` combines with it, as in
+JAX; ``--tp-overlap`` and ``--profile`` do not.
 """
 
 from __future__ import annotations
@@ -155,6 +161,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sum the row-parallel products with a ring of "
                         "partial sums (reduce-scatter, then all-gather) "
                         "instead of an all-reduce")
+    p.add_argument("--sp", type=int, default=1, metavar="N",
+                   help="sequence-parallel prefill ways: shard each prompt's "
+                        "T over N rank processes with ring attention; every "
+                        "rank then decodes")
     p.add_argument("--tp-mode", default="shard_map",
                    choices=("shard_map", "gspmd"),
                    help="the JAX CLI's TP paths: shard_map (the ranks run "
@@ -188,6 +198,14 @@ def validate(args) -> None:
                          "default shard_map path is.")
     if args.tp > 1 and (args.spec or args.profile):
         raise SystemExit("--spec and --profile run at --tp 1.")
+    if args.sp < 1:
+        raise SystemExit("sp must be >= 1.")
+    if args.sp > 1 and args.profile:
+        raise SystemExit("--profile runs at --sp 1.")
+    if args.sp > 1 and args.tp > 1 and args.tp_overlap:
+        raise SystemExit("--tp-overlap does not combine with --sp (the "
+                         "sequence-parallel prefill sums with an "
+                         "all-reduce).")
 
 
 def load_params(args, cfg, device, store=None):
@@ -217,19 +235,19 @@ def load_params(args, cfg, device, store=None):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     validate(args)
-    if args.tp == 1:
+    if args.tp == 1 and args.sp == 1:
         return run(args, resolve_device(args.device))
     if rank_device(0, args.device).type == "cuda":
         build.build_all()  # the ranks only load the libraries
-    run_ranks(rank_main, args.tp, args, device=args.device,
+    run_ranks(rank_main, args.tp, args, dp=args.sp, device=args.device,
               stdin=not args.prompt)
     return 0
 
 
 def rank_main(mesh, args) -> int:
-    """The CLI on one rank of ``--tp N``: rank 0 prints, the others print
-    nothing."""
-    if mesh.tp_rank == 0:
+    """The CLI on one rank of ``--tp N`` / ``--sp M``: rank 0 prints, the
+    others print nothing."""
+    if mesh.rank == 0:
         return run(args, mesh.device, mesh)
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
             contextlib.redirect_stderr(null):
@@ -239,7 +257,7 @@ def rank_main(mesh, args) -> int:
 def run(args, device, mesh=None) -> int:
     """Load the weights, build the engine and generate (a prompt, or the
     chat REPL), on `device`; with `mesh`, as one rank of it."""
-    lead = mesh is None or mesh.tp_rank == 0
+    lead = mesh is None or mesh.rank == 0
     cfg = (tiny_test_config() if args.model == "tiny-test"
            else MODEL_REGISTRY[args.model])
     if args.max_ctx:

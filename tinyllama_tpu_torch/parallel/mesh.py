@@ -21,13 +21,18 @@ caller passes ``device="cpu"``. The backend follows from the placement
 ranks share a card (NCCL places no two ranks on one device), and on the
 CPU. It is fixed when the group is made; a failure of it raises.
 
-The collectives the model calls are the mesh's ``all_reduce`` (the sum
-after the row-parallel wo and w_down), ``ring_shift`` (the ring's hop of
-``--tp-overlap``) and ``all_gather``. After each of them every rank of
-the group holds the same bits. Under gloo the all-reduce of a CUDA
-tensor is gloo's own (it copies through host memory itself), and the
-ring's hop and the gather go through host memory (``Mesh._host_staged``);
-under NCCL they stay on the card and can be captured in a CUDA graph.
+The collectives the model calls are the model group's ``all_reduce``
+(the sum after the row-parallel wo and w_down), ``ring_shift`` (the
+ring's hop of ``--tp-overlap``) and ``all_gather``, and the data group's
+``data_ring_shift`` (the hop of sequence parallelism's ring attention,
+parallel/ring.py), ``data_all_gather`` (its K/V handoff) and
+``data_broadcast`` (its last row). After each of them every rank of the
+group holds the same bits. Under gloo the all-reduce of a CUDA tensor is
+gloo's own (it copies through host memory itself), and the other
+collectives of a CUDA tensor go through host memory
+(``Mesh._host_staged``; ``.cpu()`` waits for the work queued on the
+tensor first); under NCCL they stay on the card and can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -118,11 +123,38 @@ class Mesh:
         """The global rank `offset` places along this rank's model row."""
         return int(self.grid[self.dp_rank, (self.tp_rank + offset) % self.tp])
 
+    def _data_peer(self, offset: int) -> int:
+        """The global rank `offset` places along this rank's data column."""
+        return int(self.grid[(self.dp_rank + offset) % self.dp, self.tp_rank])
+
     def _host_staged(self, t: torch.Tensor) -> bool:
-        # gloo takes CUDA tensors in all_reduce and broadcast only: its
-        # point-to-point ops and all_gather go through host memory, here
-        # and nowhere else
+        # gloo's all_reduce takes a CUDA tensor itself; its point-to-point
+        # ops and all_gather take host tensors only, and the broadcast goes
+        # the same way here
         return self.backend == "gloo" and t.is_cuda
+
+    def _shift(self, t: torch.Tensor, to: int, source: int,
+               group) -> torch.Tensor:
+        """`source`'s t, while this rank's goes to `to` (global ranks)."""
+        staged = self._host_staged(t)
+        send = t.cpu() if staged else t.contiguous()
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, to, group),
+               dist.P2POp(dist.irecv, recv, source, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recv.to(t.device) if staged else recv
+
+    def _gather(self, t: torch.Tensor, dim: int, n: int,
+                group) -> torch.Tensor:
+        """The n ranks' t of `group`, concatenated along dim in rank
+        order."""
+        staged = self._host_staged(t)
+        src = t.cpu() if staged else t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts, dim)
+        return out.to(t.device) if staged else out
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of `t` over the model group, in place; returns t."""
@@ -133,31 +165,45 @@ class Mesh:
         """The right neighbour's `t` (model rank + 1), while this rank's
         goes to its left neighbour: the JAX ring's ppermute with perm
         [(i, i - 1)]."""
-        staged = self._host_staged(t)
-        send = t.cpu() if staged else t.contiguous()
-        recv = torch.empty_like(send)
-        ops = [dist.P2POp(dist.isend, send, self._peer(-1), self.model_group),
-               dist.P2POp(dist.irecv, recv, self._peer(1), self.model_group)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return recv.to(t.device) if staged else recv
+        return self._shift(t, self._peer(-1), self._peer(1), self.model_group)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every model rank's `t`, concatenated along `dim` in rank order
         (the JAX ``all_gather(tiled=True)``)."""
+        return self._gather(t, dim, self.tp, self.model_group)
+
+    def data_ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """The `t` of the data rank before this one (data rank - 1), while
+        this rank's goes to data rank + 1: the JAX ring attention's
+        ppermute with perm [(i, i + 1)] (the other way round from
+        ``ring_shift``)."""
+        return self._shift(t, self._data_peer(1), self._data_peer(-1),
+                           self.data_group)
+
+    def data_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every data rank's `t`, concatenated along `dim` in data-rank
+        order."""
+        return self._gather(t, dim, self.dp, self.data_group)
+
+    def data_broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Data rank `src`'s `t` on every rank of the data group (`t` of
+        the same shape and dtype on every rank); returns the tensor."""
         staged = self._host_staged(t)
-        src = t.cpu() if staged else t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.tp)]
-        dist.all_gather(parts, src, group=self.model_group)
-        out = torch.cat(parts, dim)
-        return out.to(t.device) if staged else out
+        box = t.cpu() if staged else t.contiguous()
+        dist.broadcast(box, src=int(self.grid[src, self.tp_rank]),
+                       group=self.data_group)
+        return box.to(t.device) if staged else box
 
     def broadcast_object(self, obj):
-        """Model rank 0's `obj` on every rank of the group (a host value:
-        a seed, a prompt)."""
+        """Rank 0's `obj` (the grid's first rank) on every rank of the grid
+        (a host value: a seed, a prompt): over each model row from its
+        first rank, then down each data column from row 0."""
         box = [obj]
         dist.broadcast_object_list(box, src=int(self.grid[self.dp_rank, 0]),
                                    group=self.model_group)
+        if self.dp > 1:
+            dist.broadcast_object_list(box, src=int(self.grid[0, self.tp_rank]),
+                                       group=self.data_group)
         return box[0]
 
 
@@ -167,8 +213,9 @@ def make_mesh(tp: int, dp: int = 1, device=None) -> Mesh | None:
     place in it, or None for a rank outside the grid. Every rank of the
     process group must call it (each group is made by all of them)."""
     if not dist.is_initialized():
-        raise RuntimeError("tensor parallelism runs in rank processes: start "
-                           "them with parallel.mesh.run_ranks")
+        raise RuntimeError("tensor and sequence parallelism run in rank "
+                           "processes: start them with "
+                           "parallel.mesh.run_ranks")
     world, rank = dist.get_world_size(), dist.get_rank()
     need = tp * dp
     if tp < 1 or dp < 1 or need > world:
@@ -294,12 +341,12 @@ class RankPool:
             try:
                 rank, status, value = self._results.get(timeout=1.0)
             except queue.Empty:
-                dead = [r for r, p in enumerate(self._procs)
+                dead = [(r, p.exitcode) for r, p in enumerate(self._procs)
                         if r not in out and p.exitcode is not None]
                 if dead:
                     self.close()
-                    raise RankError(f"rank {dead[0]} exited with code "
-                                    f"{self._procs[dead[0]].exitcode}")
+                    raise RankError(f"rank {dead[0][0]} exited with code "
+                                    f"{dead[0][1]}")
                 if time.monotonic() > deadline:
                     self.close()
                     raise RankError(f"{self.world - len(out)} rank(s) gave no "

@@ -58,6 +58,15 @@ tokens, and the host loops of all ranks stay in lockstep. The chunk is a
 CUDA graph where the collectives can be captured (NCCL, ranks on cards
 of their own); under gloo (ranks sharing a card, or the CPU) it runs
 eagerly. ``graph_stats["route"]`` says which.
+
+``sp=N`` is JAX's ``Engine(sp=N)``: the mesh is [N, tp] (data x model),
+and a prefill of one prompt (B == 1) shards the prompt's T over the data
+group with ring attention, then hands its K/V off into the cache
+(parallel/sp.py); every other prefill and every decode step runs as
+above on each rank, which holds every batch row (JAX's decode replicates
+over the data axis). At tp 1 each rank keeps the full weights on its
+device and decodes the same tokens, its chunk a CUDA graph on the card
+(no collective in it).
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from tinyllama_tpu_torch.models import llama
 from tinyllama_tpu_torch.ops import sampling
 from tinyllama_tpu_torch.ops.rope import rope_table
 from tinyllama_tpu_torch.parallel.mesh import make_mesh
+from tinyllama_tpu_torch.parallel.sp import sp_prefill_into_cache
 from tinyllama_tpu_torch.parallel.tp import (
     TpGroup,
     layer_ids_for,
@@ -147,9 +157,10 @@ def _drop_graphs(engine_ref, key: int) -> None:
 class Engine:
     """One model + dtype policy on one device (with tp > 1: one rank's
     shard, on the rank's device). `mesh` is the rank's ``make_mesh``,
-    whose tp the engine takes; without one, ``tp=N`` makes it here.
-    Under tensor parallelism `params` are best kept in host memory: only
-    the rank's shard is copied to its device.
+    whose tp and dp (the sp) the engine takes; without one, ``tp=N`` and
+    ``sp=M`` make it here ([M, N]). Under tensor parallelism `params` are
+    best kept in host memory: only the rank's shard is copied to its
+    device.
 
     ``paged`` makes every cache of the engine a page pool (one static run
     of pages a row, page 0 the scratch page)."""
@@ -157,20 +168,24 @@ class Engine:
     def __init__(self, cfg: ModelConfig, policy: DtypePolicy,
                  params: llama.Params, max_ctx: int | None = None,
                  device=None, paged: bool = False, debug_nans: bool = False,
-                 tp: int = 1, tp_overlap: bool = False, mesh=None):
-        if mesh is None and tp > 1:
-            mesh = make_mesh(tp, device=device)
+                 tp: int = 1, tp_overlap: bool = False, mesh=None,
+                 sp: int = 1):
+        if mesh is None and (tp > 1 or sp > 1):
+            mesh = make_mesh(tp, sp, device=device)
         if mesh is not None:
-            tp = mesh.tp
+            tp, sp = mesh.tp, mesh.dp
         self.tp = tp
+        #: the ways of the sequence-parallel prefill (the mesh's dp)
+        self.sp = sp
         self.tp_overlap = tp_overlap and tp > 1
         self._tp = None
-        if tp > 1:
+        if tp > 1 or self.sp > 1:
             if device is not None and \
                     torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device}: this rank runs on "
                                  f"{mesh.device}")
             device = mesh.device
+        if tp > 1:
             self._tp = TpGroup(mesh, self.tp_overlap)
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -264,13 +279,26 @@ class Engine:
 
     def prefill(self, cache, prompts: list[list[int]]):
         """Prefill a batch of prompts from position 0, padded to one bucket
-        length. Returns (logits [B, V] f32 of each prompt's last token,
-        lens)."""
+        length (at sp > 1, one prompt: sequence-parallel). Returns (logits
+        [B, V] f32 of each prompt's last token, lens)."""
         lens = np.array([len(p) for p in prompts], np.int64)
         if int(lens.max()) > self.max_ctx:
             raise ValueError(
                 f"Number of prompt tokens ({int(lens.max())}) exceeds maximum "
                 f"ctx size ({self.max_ctx})")
+        if self.sp > 1 and len(prompts) == 1:
+            # one prompt over the data group (parallel/sp.py), its K/V
+            # handed off into this cache
+            if self.tp_overlap:
+                raise ValueError("the sequence-parallel prefill sums wo and "
+                                 "w_down with an all-reduce: --tp-overlap "
+                                 "does not combine with sp (as the JAX "
+                                 "engine asserts)")
+            logits = sp_prefill_into_cache(
+                self.fwd_cfg, self.policy, self.params, prompts[0],
+                self.rope_tables, self.mesh, cache, self.layer_ids, self._tp)
+            self._note_nans(logits)
+            return logits, lens
         T = _bucket(int(lens.max()), self.max_ctx)
         toks = np.zeros((len(prompts), T), np.int64)
         for i, p in enumerate(prompts):

@@ -31,7 +31,13 @@ monolithic cache, or a page pool and every table over it):
 
 Captures are serialised in the process and made with the thread-local
 capture mode, so two engines driven by two threads (two servers in one
-process) capture and run side by side.
+process) capture and run side by side. Every capture of the port
+(``capturing``) also holds the cyclic garbage collector off: an engine
+dropped in a reference cycle (it and its ``ChunkGraphs`` hold each other)
+is freed by a collection, and a collection that ran inside a capture would
+destroy that engine's graphs there: CUDA refuses that during a capture
+and ends the capture (error 901 at the next launch in it). It collects
+first, outside the capture.
 
 On the CPU there is no capture: ``run`` runs the body over the same
 buffers at every call; so on the card for a tensor-parallel engine under
@@ -52,6 +58,8 @@ entry; with it off the keys and bodies are as they were.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from dataclasses import dataclass, field
@@ -85,6 +93,23 @@ class _Graph:
     tally: counts.Tally
 
 
+@contextlib.contextmanager
+def capturing(graph: "torch.cuda.CUDAGraph", **kwargs):
+    """``torch.cuda.graph(graph, **kwargs)`` in the thread-local capture
+    mode, with garbage collected first and the collector held off until
+    the capture ends (see the module's docstring)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local",
+                              **kwargs):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class CudaCapture:
     """Captures on one side stream into one graph pool (an engine's)."""
 
@@ -105,9 +130,8 @@ class CudaCapture:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with _CAPTURE_LOCK, torch.cuda.graph(
-                graph, pool=self.pool, stream=self.stream,
-                capture_error_mode="thread_local"):
+        with _CAPTURE_LOCK, capturing(graph, pool=self.pool,
+                                      stream=self.stream):
             body()
         return graph.replay
 

@@ -37,7 +37,11 @@ lockstep. (The JAX batcher turns its downshift off at tp > 1, where its
 batch rows shard over a data axis; here a rank holds every row, so the
 downshift stays.)
 
-Sequence-parallel admission is not ported (ROADMAP.md).
+Over a sequence-parallel engine (``Engine(sp=N)``) a prompt of at least
+``sp_admit_threshold`` tokens (default 1,024 there) is admitted alone, so
+its B == 1 prefill takes the engine's sequence-parallel route: an
+admission stops just before it, and it goes in the next wave by itself.
+Every rank runs the batcher with the same requests, as under tp.
 """
 
 from __future__ import annotations
@@ -91,9 +95,6 @@ class ContinuousBatcher:
         sp_admit_threshold: int | None = None,
         ttft_chunk: int = 0,
     ):
-        if sp_admit_threshold is not None:
-            raise NotImplementedError(
-                "sequence-parallel admission is not ported yet (ROADMAP.md)")
         paged = engine.paged
         if not paged and (n_pages or page_size):
             raise ValueError("n_pages and page_size size a page pool: build "
@@ -101,6 +102,12 @@ class ContinuousBatcher:
         self.engine = engine
         self.gen = gen or GenerationConfig()
         self.B = max_batch
+        #: prompts at least this long are admitted alone, so the engine's
+        #: B == 1 sequence-parallel prefill takes them (None: no rule);
+        #: on by default over an engine with sp > 1
+        if sp_admit_threshold is None and engine.sp > 1:
+            sp_admit_threshold = 1024
+        self.sp_admit_threshold = sp_admit_threshold
         #: first-token latency dial (0: off): while a running slot has
         #: produced no token yet, the next chunk runs at most this many
         #: steps, so its first token reaches the host sooner, at the cost
@@ -196,7 +203,7 @@ class ContinuousBatcher:
             return None
         if self.paged:
             return self._admit_prefill_paged(free)
-        take = min(len(free), len(self.queue))
+        take = self._sp_take(min(len(free), len(self.queue)))
         bucket = min(_pow2_at_least(take), self.B)
         reqs = [self.queue.pop(0) for _ in range(take)]
         prompts = [r.prompt for r in reqs] + [[1]] * (bucket - take)
@@ -206,19 +213,39 @@ class ContinuousBatcher:
         logits, lens = self.engine.prefill(cache, prompts)
         return free, reqs, logits, lens, cache
 
+    def _long(self, req: Request) -> bool:
+        """Whether `req` is admitted alone (the sequence-parallel rule)."""
+        return (self.sp_admit_threshold is not None
+                and len(req.prompt) >= self.sp_admit_threshold)
+
+    def _sp_take(self, take: int) -> int:
+        """An admission of the queue's first `take` requests, cut so that a
+        long prompt goes alone: just it when it heads the queue, else the
+        requests before it (it goes in the next wave)."""
+        for i in range(take):
+            if self._long(self.queue[i]):
+                return max(1, i)
+        return take
+
     def _admit_prefill_paged(self, free: list[int]):
         """Reserve each request's worst-case pages (so lazy growth never
         fails), allocate its prompt's pages, and prefill into the pool
-        through an admission table."""
+        through an admission table (whose unmapped entries are the scratch
+        page 0). A long prompt (``_long``) goes alone."""
         reqs: list[Request] = []
         needs: list[int] = []
         while self.queue and len(reqs) < len(free):
+            long = self._long(self.queue[0])
+            if long and reqs:
+                break  # it goes alone, in the next wave
             need = -(-self._worst_case_tokens(self.queue[0]) // self.P)
             if not self.alloc.can_reserve(need):
                 break  # FIFO admission: wait for pages to free
             self.alloc.reserve(need)
             reqs.append(self.queue.pop(0))
             needs.append(need)
+            if long:
+                break  # B == 1: the engine's sequence-parallel prefill
         if not reqs:
             return None
         bucket = min(_pow2_at_least(len(reqs)), self.B)

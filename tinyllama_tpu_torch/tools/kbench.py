@@ -50,6 +50,7 @@ from tinyllama_tpu_torch.ops.kernels import kbench_probe as kp
 from tinyllama_tpu_torch.ops.kernels import kbench_sweep as ks
 from tinyllama_tpu_torch.ops.kernels import qmatmul as qm
 from tinyllama_tpu_torch.quant import codec
+from tinyllama_tpu_torch.runtime.graphs import capturing
 
 #: TinyLlama-1.1B decode matmul shapes (K, N)
 SHAPES = {
@@ -88,7 +89,7 @@ def time_ms(fn, reps: int, graph: bool) -> float:
     torch.cuda.synchronize()
     if graph:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with capturing(g):
             for i in range(reps):
                 fn(i)
         run = g.replay
