@@ -225,8 +225,9 @@ Phases, each fatal on failure:
    exact on every rank and the same on all, its outputs bit-equal
    across ranks: (q1) TinyLlama q8, bf16 KV, full width and depth, at
    tp 2 and 4: the prefill's logits of (a)'s length against the tp = 1
-   engine (within PARITY_REL of max |logits|), 64 greedy tokens
-   (ms/token beside tp = 1 graph and eager), generate_batch of 4 x 100
+   engine (within PARITY_REL of max |logits|), 64 greedy tokens at tp 2
+   and 16 at tp 4 (ms/token beside tp = 1 graph and eager; tp 4's gloo
+   steps take seconds on a busy host), generate_batch of 4 x 100
    + 8 (K9), one all-reduce of a row timed (its share of a token, an
    estimate); (q4), (q5) a paged engine: generate of 16 tokens
    (K10), generate_batch (K11) and a batcher of 8 slots over 8 requests
@@ -266,6 +267,25 @@ Phases, each fatal on failure:
    --random-weights -greedy` on a 1,100-character prompt as a child (99
    ids, one table); (r7) NCCL, a card a rank, where the machine has 2
    cards or more, else a line says it did not run.
+10. path (s), data-parallel batch rows (Engine(tp=2, mesh=make_mesh(2,
+   2)): rows over the mesh's batch group, parallel/mesh.py), after (r)
+   in the same pool: first K1, K2, K3 and K9 at a dp 2 x tp 2 rank's 2
+   rows and local widths (K1 at M = 2, K2 at M = 256, K3 at B = 2), K3
+   and K11 over an int8 pool at 2 rows and K10 at a dcn 2 x tp 2 rank's
+   one row, against their plain versions (phase_tp_rows, DP_ROWS); then
+   TinyLlama q8 at full width and depth, each rank's engine and a dp 1 x
+   tp 2 engine over its model group alone (Mesh.model_mesh), every
+   step's launch counts exactly what the rank's own rows dictate, a
+   model group's ranks bit-equal: (s1) dp 2 x tp 2, generate_batch of 4
+   prompts of 100 tokens, 32 greedy tokens: each model group's rows
+   bit-equal in tokens and prefill logits to the dp 1 x tp 2 engine on
+   its 2 rows alone, every row's logits within PARITY_REL of tp 1, every
+   rank returning every row, and top-k over two prompts, each in a row
+   of both batch ranks, drawing apart; (s2) the same paged with an int8
+   cache, and a rank's pool bytes; (s3) the monolithic batcher over dp 2
+   x tp 2, 6 requests into 4 slots, 16 tokens each; (s4) a (dcn 2, data
+   1, model 2) mesh's paged generate_batch of 2 rows at 2 layers, held
+   as (s1); the ms a decode step and each rank's peak.
 
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
@@ -285,6 +305,12 @@ NCCL, the chunk a captured CUDA graph.
     python3 chip_smoke.py --sp-only
 
 builds the kernels and runs path (r) alone, with its kernel rows.
+
+    python3 chip_smoke.py --dp-only
+
+builds the kernels and runs path (s) alone, with its kernel rows: on a
+machine of 4 cards or more its ranks take a card each and run NCCL, the
+chunk a captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -1373,6 +1399,16 @@ TP_ROWS = {"q8-tp2": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "all"),
 #: path (q): the keys of a TP row's cache (max_ctx of its engines, and of
 #: path (r)'s TinyLlama engines)
 TP_S = 2048
+#: path (s): the local widths and rows of a data-parallel rank (dp 2 x tp
+#: 2; dcn 2 x tp 2) a row kind measures: (model, weight kind, tp, layers,
+#: part, the rank's rows of a batch). "dp": K1 and K2 at M = rows and
+#: 128 x rows on the four linears, K3 over the rows' prefill, K9 over
+#: their staged chunk; "dp-kv" (int8 KV, paged): K3 and K11; "dcn" (a row
+#: a rank, paged): K10
+DP_ROWS = {"q8-dp2tp2": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "dp", 2),
+           "q8-dp2tp2-kvi8": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22,
+                              "dp-kv", 2),
+           "q8-dcn2tp2": ("tinyllama-1.1b-chat-v0.4", "q8", 2, 22, "dcn", 1)}
 
 
 def phase_tp_rows(torch, ops, kind) -> list[dict]:
@@ -1388,7 +1424,8 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
     K2 only; "ring": K1 and K2 on --tp-overlap's chunk-stacked wo and
     w_down (tp_chunk_row_parallel: N / tp columns a chunk); "kv": K3 and
     K4 over an int8 cache; "prefill" (Llama-3-8B, whose path (q) runs a
-    prefill): K2 and K3 only."""
+    prefill): K2 and K3 only. The kinds of DP_ROWS (path (s)) take the
+    rank's rows of a batch as B (see there)."""
     from tinyllama_tpu_torch.config import MODEL_REGISTRY
     from tinyllama_tpu_torch.parallel.tp import (
         local_config, tp_chunk_row_parallel,
@@ -1401,11 +1438,12 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
     from tinyllama_tpu_torch.tools.kbench import time_ms
 
     qm, fa, _, _, _, fp, codec = ops
-    model, wkind, tp, L, part = TP_ROWS[kind]
+    model, wkind, tp, L, part, *rows_of = TP_ROWS.get(kind) or DP_ROWS[kind]
+    b = rows_of[0] if rows_of else 1  # the rank's rows (path (s))
     cfg = local_config(MODEL_REGISTRY[model], tp)
     D, H, Kh, d, F = cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.n_ffn
     dev, S, bf = "cuda", TP_S, torch.bfloat16
-    i8 = part == "kv"
+    i8 = part in ("kv", "dp-kv")
     gen = torch.Generator(dev)
     gen.manual_seed(11)
     layers = [torch.tensor([i], dtype=torch.int32, device=dev)
@@ -1437,8 +1475,8 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
     # K1 / K2 on the rank's column- and row-parallel shards
     shapes = {"wqkv": ((H + 2 * Kh) * d, D), "wo": (D, H * d),
               "w_gateup": (2 * F, D), "w_down": (D, F)}
-    names = {"all": shapes, "linears": shapes, "prefill": shapes,
-             "ring": ("wo", "w_down"), "kv": ()}[part]
+    names = {"all": shapes, "linears": shapes, "prefill": shapes, "dp": shapes,
+             "ring": ("wo", "w_down"), "kv": (), "dp-kv": (), "dcn": ()}[part]
     mats = {n: weights(*shapes[n], n in ("wo", "w_down")) for n in names}
     if part == "ring":
         mats = tp_chunk_row_parallel({"layers": mats}, tp)["layers"]
@@ -1448,7 +1486,7 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
         wd = [codec.dequantize(codec.QTensor(w.data[i], w.scales[i], wkind,
                                              "kn"), bf) for i in range(n_w)]
         w_bytes = w.data[0].numel() * w.data.element_size() + w.scales[0].numel() * 2
-        for M in (128,) if part == "prefill" else (1, 128):
+        for M in {"prefill": (128,), "dp": (b, 128 * b)}.get(part, (1, 128)):
             x = rand(M, K)
             err = check_close(f"{kind} {name} M={M}",
                               qm.qmatmul(x, w, bf, layers[0]),
@@ -1488,16 +1526,26 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
             2 * Kh * n_keys * kv_row + 2 * B * T * H * d * 2, 4 * d * pairs,
             lib_ms)
 
-    # K3 (T = 128 from pos 0) and K4 (pos 127) over a monolithic cache
-    # (int8 for "kv": its library yardstick SDPA over the dequantized keys)
-    cache = KVCache(rand(L, 1, Kh, S, d), rand(L, 1, Kh, S, d))
-    if i8:
-        (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
-        cache = KVCache(k, v, ks, vs)
+    def quant(c):
+        """c, or (int8 kinds) c quantized with its scale planes."""
+        if not i8:
+            return c
+        (k, ks), (v, vs) = quantize_kv(c.k), quantize_kv(c.v)
+        if isinstance(c, PagedKVCache):
+            return PagedKVCache(k, v, c.table, ks, vs)
+        return KVCache(k, v, ks, vs)
+
+    # K3 (T = 128 from pos 0; b rows of path (s)'s prefill) and K4 (pos
+    # 127) over a monolithic cache (int8 for "kv" and "dp-kv": its library
+    # yardstick SDPA over the dequantized keys)
+    cache = quant(KVCache(rand(L, b, Kh, S, d), rand(L, b, Kh, S, d)))
     dk, dv = layer_cache_view(cache, 3, bf)
-    for T, p in ((128, 0),) if part == "prefill" else ((128, 0), (1, 127)):
-        q = rand(1, T, H, d)
-        pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+    attn_shapes = {"prefill": ((128, 0),), "dp": ((128, 0),),
+                   "dp-kv": ((128, 0),), "dcn": ()}.get(part,
+                                                    ((128, 0), (1, 127)))
+    for T, p in attn_shapes:
+        q = rand(b, T, H, d)
+        pos = torch.full((b,), p, dtype=torch.int32, device=dev)
         fn = fa.flash_decode_heads_attention if T == 1 else fa.flash_prefill_attention
         n_keys = p + T
         kx, vx, qh = dk[:, :, :n_keys], dv[:, :, :n_keys], q.transpose(1, 2)
@@ -1506,48 +1554,54 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
                                                                else "35"))
         attn_row(
             "K4 flash_decode_heads" if T == 1 else "K3 flash_prefill",
-            f"T={T} pos={p} H={H} Kh={Kh} d={d} S={S}" + (" int8" if i8 else ""),
+            (f"B={b} " if b > 1 else "")
+            + f"T={T} pos={p} H={H} Kh={Kh} d={d} S={S}" + (" int8" if i8 else ""),
             "tinyllama_tpu_torch/csrc/" + ("decode_split.cu" if T == 1
                                            else "flash_attention.cu"),
             REPLACES_I8[kernel] if i8 else rep,
             lambda i: fn(q, cache, layers[i % L], pos),
             lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
-            lambda i: sdpa(qh, kx, vx, is_causal=T > 1), n_keys,
-            H * sum(p + t + 1 for t in range(T)), 1, T)
+            lambda i: sdpa(qh, kx, vx, is_causal=T > 1), b * n_keys,
+            b * H * sum(p + t + 1 for t in range(T)), b, T)
     del cache, dk, dv
-    if part != "all":
+    if part in ("prefill", "kv"):
         torch.cuda.empty_cache()
         return rows
 
     # K9, K10, K11 at the serving shapes of path (q): generate_batch's B = 4
     # staged chunk (monolithic), a paged b1 step, the batcher's B = 8
-    # staged chunk over the pool
+    # staged chunk over the pool; path (s)'s at the rank's rows
     P, fill, tail = 256, 128, 32
-    for kernel, B, paged, staged, rep in (
-            ("K9 flash_staged", 4, False, True, "flash_prefill.py:375"),
-            ("K10 flash_paged", 1, True, False, "flash_paged.py:38"),
-            ("K11 flash_paged_staged", 8, True, True, "flash_paged.py:171")):
+    k9 = ("K9 flash_staged", 4, False, True, "flash_prefill.py:375")
+    k10 = ("K10 flash_paged", 1, True, False, "flash_paged.py:38")
+    k11 = ("K11 flash_paged_staged", 8, True, True, "flash_paged.py:171")
+    cases = {"all": (k9, k10, k11), "dp": ((*k9[:1], b, *k9[2:]),),
+             "dp-kv": ((*k11[:1], b, *k11[2:4], "flash_paged.py:194"),),
+             "dcn": (k10,)}[part]
+    for kernel, B, paged, staged, rep in cases:
         q = rand(B, 1, H, d)
         if paged:
             table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
             table[:, 0] = 1 + torch.arange(B, device=dev, dtype=torch.int32)
-            pool = PagedKVCache(rand(L, 1 + B, Kh, P, d), rand(L, 1 + B, Kh, P, d),
-                                table)
+            pool = quant(PagedKVCache(rand(L, 1 + B, Kh, P, d),
+                                      rand(L, 1 + B, Kh, P, d), table))
             kd, vd = paged_layer_view(pool, 3, bf)
         else:
-            pool = KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d))
+            pool = quant(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)))
             kd, vd = layer_cache_view(pool, 3, bf)
         base = torch.full((B,), fill, dtype=torch.int32, device=dev)
         kx, vx = kd[:, :, :fill], vd[:, :, :fill]
         if staged:
-            sk, sv = rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)
-            arg = StagedKVCache(pool, sk, sv, base)
+            t = quant(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)))
+            arg = StagedKVCache(pool, t.k, t.v, base, sk_scale=t.k_scale,
+                                sv_scale=t.v_scale)
             pos = base + (tail - 1)
             fn = (fp.flash_paged_staged_attention if paged
                   else fa.flash_staged_attention)
             plain = fp.staged_attention_ref
-            kx = torch.cat([kx, sk[3, :, :, :tail]], dim=2)
-            vx = torch.cat([vx, sv[3, :, :, :tail]], dim=2)
+            tk, tv = layer_cache_view(t, 3, bf)
+            kx = torch.cat([kx, tk[:, :, :tail]], dim=2)
+            vx = torch.cat([vx, tv[:, :, :tail]], dim=2)
             label = f"B={B} fill={fill} tail={tail} H={H} Kh={Kh}"
         else:
             arg, pos = pool, base - 1
@@ -1555,7 +1609,8 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
             label = f"B={B} pos={fill - 1} P={P} H={H} Kh={Kh}"
         n_keys = kx.shape[2]
         qh = q.transpose(1, 2)
-        attn_row(kernel, label, "tinyllama_tpu_torch/csrc/decode_split.cu",
+        attn_row(kernel, label + (" int8" if i8 else ""),
+                 "tinyllama_tpu_torch/csrc/decode_split.cu",
                  f"tinyllama_tpu/ops/pallas/{rep}",
                  lambda i: fn(q, arg, layers[i % L], pos),
                  lambda i: plain(q, arg, layers[i % L], pos),
@@ -1566,9 +1621,9 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
 
 
 def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
-              **kw):
-    """One rank of paths (q) and (r): Engine(mesh=mesh) (tp and sp from
-    the mesh) over `kind` weights of `model` (cut to `layers` if given)
+              reference=False, **kw):
+    """One rank of paths (q) and (r): Engine(mesh=mesh, **kw) (tp from the
+    mesh; path (r) passes sp, the mesh's dp) over `kind` weights of `model` (cut to `layers` if given)
     drawn on the card from `seed` (the same on every rank: the tp = sp = 1
     engine's weights) and kept in host memory, as the CLI keeps them, so
     the engine copies only the rank's shard to the card; max_ctx S. Then
@@ -1579,13 +1634,20 @@ def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
     last-token logits (with cache_layers, one prompt: the digest of the
     cache's rows of those layers and, on rank 0, the rows);
     ("generate", prompt, n) -> ids; ("generate_batch", prompts, n) ->
-    ids; ("batcher", prompts, n, slots) -> ids by request;
+    ids; ("topk_batch", prompts, n) -> generate_batch's ids at top-k 40
+    (temperature 0.9, seed 17); ("batcher", prompts, n, slots) -> ids by
+    request;
     ("all_reduce", n) -> ms of one all-reduce of a [1, 1, n_embd] bf16
     row, back to back; ("timed", prompt, reps, synced) -> the prefill's
     ms (best of reps), and with `synced` one more run with a sync around
     each ring hop, the K/V gather and the cache writes: their ms. With
     `refused`, the engine is expected to refuse (a ValueError, whose
-    text returns)."""
+    text returns). Over a mesh whose batch group carries rows (path (s)),
+    a prefill's shape is this rank's rows and bucket, and with
+    `reference` a second engine over the same weights runs on the rank's
+    model group alone (``Mesh.model_mesh``: dp 1 x tp): the steps
+    ("ref_prefill", prompts) and ("ref_generate_batch", prompts, n) run
+    it on this rank's rows of prompts only."""
     import hashlib
 
     import torch
@@ -1630,6 +1692,8 @@ def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
         raise
     if refused:
         raise AssertionError("the engine was built where it must refuse")
+    ref = (Engine(cfg, policy, params, max_ctx=S, mesh=mesh.model_mesh(), **kw)
+           if reference else None)
     del params
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1638,19 +1702,25 @@ def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
               "shard": tree_nbytes(eng.params), "full": full_bytes,
               "lm_head": tree_nbytes(eng.params["lm_head"])}
     record = {"prefill": [], "chunk": []}
-    prefill, run_chunk = eng.prefill, eng.run_chunk
 
-    def rec_prefill(cache, prompts):
-        n = max(len(p) for p in prompts)
-        record["prefill"].append(
-            ("sp", spmod.padded_length(n, eng.sp) // eng.sp)
-            if eng.sp > 1 and len(prompts) == 1
-            else (len(prompts), _bucket(n, eng.max_ctx)))
-        return prefill(cache, prompts)
+    def recording(e):
+        """Wrap e's prefill and run_chunk to record their shapes."""
+        prefill, run_chunk = e.prefill, e.run_chunk
 
-    def rec_chunk(cache, logits, pos, C, *a, **k):
-        record["chunk"].append((logits.shape[0], C))
-        return run_chunk(cache, logits, pos, C, *a, **k)
+        def rec_prefill(cache, prompts):
+            mine = prompts[e.batch_rows(len(prompts))]
+            n = max(len(p) for p in mine)
+            record["prefill"].append(
+                ("sp", spmod.padded_length(n, e.sp) // e.sp)
+                if e.sp > 1 and len(prompts) == 1
+                else (len(mine), _bucket(n, e.max_ctx)))
+            return prefill(cache, prompts)
+
+        def rec_chunk(cache, logits, pos, C, *a, **k):
+            record["chunk"].append((logits.shape[0], C))
+            return run_chunk(cache, logits, pos, C, *a, **k)
+
+        e.prefill, e.run_chunk = rec_prefill, rec_chunk
 
     def timed_prefill(prompt, reps, synced):
         cache = eng.new_cache(1)
@@ -1694,7 +1764,9 @@ def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
              spmod.update_cache_at_layer, spmod.update_paged_at_layer) = saved
         return {**out, **spent}
 
-    eng.prefill, eng.run_chunk = rec_prefill, rec_chunk
+    for e in (eng, ref):
+        if e is not None:
+            recording(e)
     gcfg = GenerationConfig(n_predict=S, greedy=True, eos_token=-1,
                             chunk_size=32)
     results = []
@@ -1705,6 +1777,12 @@ def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
             # so the step times its replays
             eng.generate(step[1][:16], dataclasses.replace(
                 gcfg, n_predict=16 + step[2]))
+        if what.endswith("generate_batch") and eng.graph_stats["route"] == "graph":
+            # the same for a batch's chunk (path (s)): run it once before
+            e = ref if what.startswith("ref_") else eng
+            prompts = step[1][eng.batch_rows(len(step[1]))] if e is ref else step[1]
+            e.generate_batch(prompts, dataclasses.replace(
+                gcfg, n_predict=max(map(len, prompts)) + step[2]))
         for c in counters:
             for k in c:
                 c[k] = 0
@@ -1728,9 +1806,20 @@ def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
                 gcfg, n_predict=len(step[1]) + step[2]))
             res["ms_per_token"] = stats.ms_per_token
             res["prefill_ms"] = stats.prefill_s * 1e3
-        elif what == "generate_batch":
+        elif what in ("generate_batch", "ref_generate_batch"):
+            e, prompts = ((ref, step[1][eng.batch_rows(len(step[1]))])
+                          if what == "ref_generate_batch" else (eng, step[1]))
+            res["out"], stats = e.generate_batch(prompts, dataclasses.replace(
+                gcfg, n_predict=max(map(len, prompts)) + step[2]))
+            res["ms_per_step"] = stats.decode_s * 1e3 / max(stats.decode_steps, 1)
+        elif what == "topk_batch":
             res["out"], _ = eng.generate_batch(step[1], dataclasses.replace(
-                gcfg, n_predict=max(map(len, step[1])) + step[2]))
+                gcfg, n_predict=max(map(len, step[1])) + step[2], greedy=False,
+                top_k=40, temperature=0.9, seed=17))
+        elif what == "ref_prefill":
+            mine = step[1][eng.batch_rows(len(step[1]))]
+            logits, _ = ref.prefill(ref.new_cache(len(mine)), mine)
+            res["out"] = logits.float().cpu().numpy()
         elif what == "batcher":
             b = ContinuousBatcher(eng, gcfg, max_batch=step[3])
             for p in step[1]:
@@ -1758,7 +1847,10 @@ def rank_task(mesh, model, kind, seed, layers, steps, S=TP_S, refused=False,
         results.append(res)
     return {"steps": results, "route": eng.graph_stats["route"],
             "backend": mesh.backend, "sp": eng.sp, "tp_rank": mesh.tp_rank,
-            "build_s": build_s, "cache_heads": eng.new_cache(1).k.shape[2],
+            "batch": eng.batch, "batch_rank": eng.batch_rank,
+            # the planes of generate and generate_batch's caches
+            "cache_bytes": sum(tree_nbytes(c) for c in eng._caches.values()),
+            "build_s": build_s, "cache_heads": eng.new_cache(eng.batch).k.shape[2],
             "memory": memory, "memory_reserved": torch.cuda.memory_reserved()}
 
 
@@ -2084,10 +2176,13 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
 
-    #: --tp-only / --sp-only: the build, then path (q) / (r) alone (for a
-    #: machine of several cards, where their ranks run NCCL)
+    #: --tp-only / --sp-only / --dp-only: the build, then path (q) / (r) /
+    #: (s) alone (for a machine of several cards, where their ranks run
+    #: NCCL)
     tp_only = sys.argv[1:] == ["--tp-only"]
     sp_only = sys.argv[1:] == ["--sp-only"]
+    dp_only = sys.argv[1:] == ["--dp-only"]
+    only = tp_only or sp_only or dp_only
 
     def finish(rows, kb_rows) -> int:
         for r in rows:
@@ -2107,7 +2202,7 @@ def main() -> int:
     ckpt = Path(files.name) / "tinyllama.q4.gten"
     vocab = Path(files.name) / "tokenizer.bin"
     atexit.register(files.cleanup)
-    if not (tp_only or sp_only):
+    if not only:
         writer = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                                    "--write-checkpoint", str(ckpt), str(vocab)],
                                   stdout=subprocess.PIPE, text=True)
@@ -2137,7 +2232,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ops = (qm, fa, df, ffn, ao, fp, codec)
     rows, kb_rows = [], []
-    if not (tp_only or sp_only):
+    if not only:
         rows = phase_kernels(engine, torch, ops)
         rows += phase_kernels(engine, torch, ops, kv="i8")
         rows += phase_kernels(engine, torch, ops, aq8=True)
@@ -2163,9 +2258,10 @@ def main() -> int:
             for k in c:
                 c[k] = 0
 
-    def expect(path, kind="q8", **want):
+    def expect(path, kind="q8", tally=True, **want):
         """The launch counts of a path of policy `kind` must be `want`
-        (by the bf16, weight-only names, moved by counter_name)."""
+        (by the bf16, weight-only names, moved by counter_name); with
+        `tally` they add to the kind's totals."""
         got = {k: v for c in counters for k, v in c.items()}
         moved = {}
         for k, v in want.items():
@@ -2176,7 +2272,7 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"path {path}: launch counts {got}, want {want}")
         for k, v in got.items():
-            totals[kind][k] += v
+            totals[kind][k] += v if tally else 0
 
     L = cfg.n_layers
     rng = np.random.default_rng(0)
@@ -2585,13 +2681,13 @@ def main() -> int:
                                  "ids out of range")
 
     def check_ranks(path, kind, res, i, paged=False, unfused=False,
-                    overlap_tp=0):
+                    overlap_tp=0, tally=True):
         """Step i of a pool's run: the same on every rank
         (same_on_ranks), and rank 0's counts exactly what its prefills
         (an SP prefill: the four linears at Tl rows a layer, K1 for the
         lm_head) and chunks dictate, with the ring's overlap_tp - 1 more
-        launches for each of wo and w_down under --tp-overlap. Returns
-        rank 0's step."""
+        launches for each of wo and w_down under --tp-overlap (with
+        `tally`, added to the kind's totals). Returns rank 0's step."""
         s0 = same_on_ranks(path, res, i)
         want = {k: 0 for c in counters for k in c}
         want["flash_prefill_own"] = 0
@@ -2610,7 +2706,7 @@ def main() -> int:
             for k in c:
                 c[k] = s0["counts"][k]
         totals.setdefault(kind, {k: 0 for c in counters for k in c})
-        expect(f"{path} (each of {len(res)} ranks)", kind, **want)
+        expect(f"{path} (each of {len(res)} ranks)", kind, tally, **want)
         return s0
 
     # (q) tensor parallelism: Engine(tp=N) in N rank processes on the
@@ -2692,8 +2788,9 @@ def main() -> int:
             for tp in (2, 4):
                 kind = f"q8-tp{tp}"
                 # (q1) TinyLlama q8, bf16 KV, full width and depth
+                n_q1 = 64 if tp == 2 else 16
                 res = ranks(tp, name, "q8", 1234, 0, [
-                    ("prefill", [prompt_q]), ("generate", prompt_q, 64),
+                    ("prefill", [prompt_q]), ("generate", prompt_q, n_q1),
                     ("generate_batch", batch_q, 8), ("all_reduce", 200)])
                 heads = res[0]["cache_heads"]
                 if heads != TINYLLAMA_1_1B.n_kv_heads // tp:
@@ -2702,9 +2799,9 @@ def main() -> int:
                 s = check_step(f"(q1) tp={tp} prefill", kind, res, 0)
                 parity(f"(q1) TinyLlama q8 tp={tp} prefill", s["out"], ref_logits)
                 s = check_step(f"(q1) tp={tp} generate", kind, res, 1)
-                ids_in_range(f"(q1) tp={tp}", s["out"], 64)
+                ids_in_range(f"(q1) tp={tp}", s["out"], n_q1)
                 shared = next((i for i, (x, y) in enumerate(zip(s["out"], ids1))
-                               if x != y), 64)
+                               if x != y), n_q1)
                 s_b = check_step(f"(q4) tp={tp} generate_batch", kind, res, 2)
                 for o in s_b["out"]:
                     ids_in_range(f"(q4) tp={tp} generate_batch", o, 8)
@@ -2719,14 +2816,14 @@ def main() -> int:
                       f"{m['shard'] / 2**20:.1f} MiB (the full weights "
                       f"{m['full'] / 2**20:.1f} MiB, in host memory); prefill "
                       f"{s['prefill_ms']:.3f} ms, decode "
-                      f"{s['ms_per_token']:.4f} ms/token over 64 tokens "
+                      f"{s['ms_per_token']:.4f} ms/token over {n_q1} tokens "
                       f"(tp=1: {st1.ms_per_token:.4f} graph, "
                       f"{st1e.ms_per_token:.4f} eager); one all-reduce of a "
                       f"[1, 1, {TINYLLAMA_1_1B.n_embd}] bf16 row {ar_ms:.4f} ms "
                       f"back to back, x {2 * L} a step = "
                       f"{2 * L * ar_ms / s['ms_per_token']:.3f} of a token (an "
                       f"estimate); the prefix shared with tp=1 at bf16 "
-                      f"{shared} of 64; memory_reserved a rank "
+                      f"{shared} of {n_q1}; memory_reserved a rank "
                       f"{res[0]['memory_reserved'] / 2**20:.0f} MiB; card {card}",
                       flush=True)
                 # (q4), (q5) paged generate, paged generate_batch and a
@@ -2943,7 +3040,7 @@ def main() -> int:
         with contextlib.nullcontext(rank_pool()) as pool:
             def ranks(tp, sp, *a, **k):
                 res = pool.run(with_mesh, rank_task, tp, sp, None, *a,
-                               **k)[:tp * sp]
+                               sp=sp, **k)[:tp * sp]
                 for rank, r in enumerate(res):
                     want_route = "graph" if tp == 1 or backend == "nccl" else "eager"
                     if (r["backend"], r["route"], r["sp"]) != (backend,
@@ -3108,7 +3205,7 @@ def main() -> int:
             with RankPool(2) as pool:
                 res = pool.run(with_mesh, rank_task, 1, 2, None, name, "q8",
                                1234, 0, [("prefill", [long_prompt], [0]),
-                                         ("generate", long_prompt, 64)])
+                                         ("generate", long_prompt, 64)], sp=2)
             if any(r["backend"] != "nccl" for r in res):
                 raise AssertionError("path (r7): ranks on cards of their own "
                                      "must run NCCL")
@@ -3133,6 +3230,188 @@ def main() -> int:
               flush=True)
         return r_rows
 
+    # (s) data-parallel batch rows: Engine(tp=2, mesh=make_mesh(2, 2)) and a
+    # (dcn 2, data 1, model 2) mesh in path (q)'s pool, against the dp 1 x
+    # tp 2 engine on each model group's own rows and the tp = 1 engine
+    def path_s() -> list[dict]:
+        """Path (s); returns the DP kernel rows with their launches (rank
+        0's: every rank's counts are checked against its own rows, and a
+        model group's ranks against each other)."""
+        nonlocal L
+        from tinyllama_tpu_torch.parallel.mesh import backend_for, with_mesh
+
+        t_s = time.perf_counter()
+        s_rows = []
+        for kind in DP_ROWS:
+            s_rows += phase_tp_rows(torch, ops, kind)
+        mark("(s) kernel rows")
+        name = TINYLLAMA_1_1B.name
+        srng = np.random.default_rng(20)
+
+        def s_prompt(n):
+            return [1] + srng.integers(2, TINYLLAMA_1_1B.n_vocab, n - 1).tolist()
+
+        prompts = [s_prompt(PROMPT_LEN) for _ in range(4)]
+        requests = [s_prompt(int(n)) for n in srng.integers(8, 201, 6)]
+        # the tp = 1 references: (a)'s weights (seed 1234)
+        # ((s4)'s at its 2 layers)
+        want = {}
+        full = TINYLLAMA_1_1B.n_layers
+        for key, kind, paged, layers in (("q8", "q8", False, full),
+                                         ("q8-kvi8", "q8-kvi8", True, full),
+                                         ("q8 2 layers", "q8", True, 2)):
+            e1 = ref_engine(TINYLLAMA_1_1B.replace(n_layers=layers), kind,
+                            1234, paged=paged)
+            want[key] = e1.prefill(e1.new_cache(4), prompts)[0].float().cpu().numpy()
+            del e1
+        free()
+        n_cards = torch.cuda.device_count()
+        backend = backend_for(4)
+        route = "graph" if backend == "nccl" else "eager"
+        how = (f"{backend}, the chunk {'a CUDA graph' if route == 'graph' else 'eager'}"
+               f", ranks on {min(n_cards, 4)} card(s)")
+        pool = rank_pool()
+
+        def ranks(dp, dcn, kind, steps, layers=0, **k):
+            res = pool.run(with_mesh, rank_task, 2, dp, None, name, kind, 1234,
+                           layers, steps, dcn=dcn, reference=True, **k)
+            for rank, r in enumerate(res):
+                got = (r["backend"], r["route"], r["batch"], r["batch_rank"])
+                if got != (backend, route, dp * dcn, rank // 2):
+                    raise AssertionError(
+                        f"path (s): rank {rank} ran (backend, route, batch "
+                        f"group, batch rank) {got}; want {backend}, {route}, "
+                        f"{dp * dcn}, {rank // 2}")
+            return res
+
+        def by_group(path, kind, res, i, paged):
+            """Step i of each model group (ranks 2g, 2g + 1): its ranks
+            the same, their counts what their own rows dictate (rank 0's
+            tallied, the dp engine's steps only). Returns the groups'
+            steps."""
+            ref = res[0]["steps"][i]["what"].startswith("ref_")
+            return [check_ranks(f"{path} model group {g}", kind,
+                                res[2 * g:2 * g + 2], i, paged, unfused=True,
+                                tally=g == 0 and not ref) for g in range(2)]
+
+        def held(path, kind, res, rows, paged, ref_logits):
+            """Steps 0-3 (the dp engine's prefill and generate_batch, the
+            dp 1 x tp 2 engine's on the group's own rows): each group's
+            rows bit-equal to its own-rows engine's in tokens and logits,
+            with the same launches, every row within PARITY_REL of tp 1;
+            every rank returns every row. Returns the dp ms a step."""
+            pre, gen_, ref_pre, ref_gen = (by_group(path, kind, res, i, paged)
+                                           for i in range(4))
+            b = rows // 2
+            for g in range(2):
+                own = slice(g * b, (g + 1) * b)
+                if not np.array_equal(pre[g]["out"], ref_pre[g]["out"]):
+                    raise AssertionError(f"path {path}: model group {g}'s "
+                                         "prefill logits are not those of "
+                                         "the dp 1 x tp 2 engine on its rows")
+                if gen_[g]["out"][own] != ref_gen[g]["out"]:
+                    raise AssertionError(f"path {path}: model group {g}'s "
+                                         "tokens are not those of the dp 1 x "
+                                         "tp 2 engine on its rows")
+                if (gen_[g]["counts"], gen_[g]["record"]) != (
+                        ref_gen[g]["counts"], ref_gen[g]["record"]):
+                    raise AssertionError(f"path {path}: model group {g}'s "
+                                         "launches differ from its own-rows "
+                                         "engine's")
+            if gen_[0]["out"] != gen_[1]["out"]:
+                raise AssertionError(f"path {path}: the groups returned "
+                                     "other rows")
+            for o in gen_[0]["out"]:
+                ids_in_range(path, o, 32)
+            rank_parity(f"{path} prefill", np.concatenate(
+                [pre[g]["out"] for g in range(2)]), ref_logits[:rows], "tp")
+            return gen_[0]["ms_per_step"]
+
+        def memory(res):
+            return ", ".join(
+                f"rank {r}: engines {m['memory']['peak'] / 2**20:.0f} MiB, "
+                f"steps {max(x['peak'] for x in m['steps']) / 2**30:.2f} GiB"
+                for r, m in enumerate(res))
+
+        # (s1) dp 2 x tp 2, q8, bf16 KV: generate_batch of 4 prompts, 32
+        # greedy tokens; (s3) the monolithic batcher, 6 requests into 4
+        # slots; then top-k over two prompts, each in a row of both batch
+        # ranks
+        best_of = [prompts[0], prompts[1]] * 2
+        res = ranks(2, 1, "q8", [
+            ("prefill", prompts), ("generate_batch", prompts, 32),
+            ("ref_prefill", prompts), ("ref_generate_batch", prompts, 32),
+            ("batcher", requests, 16, 4), ("topk_batch", best_of, 8)])
+        ms1 = held("(s1)", "q8-dp2tp2", res, 4, False, want["q8"])
+        s3 = by_group("(s3) batcher", "q8-dp2tp2", res, 4, False)
+        out3 = s3[0]["out"]
+        if out3 != s3[1]["out"] or sorted(out3) != list(range(6)) or any(
+                len(o) != 16 for o in out3.values()):
+            raise AssertionError("path (s3): the requests did not all end at "
+                                 "their 16 tokens, or the groups differ")
+        topk = [r["steps"][5]["out"] for r in res]
+        for o in topk[0]:
+            ids_in_range("(s1) top-k", o, 8)
+        if any(o != topk[0] for o in topk[1:]) or (
+                topk[0][0] == topk[0][2] or topk[0][1] == topk[0][3]):
+            raise AssertionError("path (s1) top-k: the ranks returned other "
+                                 "rows, or a prompt's rows on the two batch "
+                                 "ranks drew the same tokens")
+        t3 = res[0]["steps"][4]["s"]
+        print(f"path (s1) dp=2 x tp=2: 4 ranks ({how}); generate_batch of 4 "
+              f"x {PROMPT_LEN} tokens, 32 greedy: {ms1:.4f} ms a decode step "
+              f"(2 rows a rank), {res[0]['steps'][1]['s']:.2f} s; the dp 1 x "
+              f"tp 2 engine on a group's 2 rows "
+              f"{res[0]['steps'][3]['ms_per_step']:.4f} ms a step; memory "
+              f"{memory(res)}; card {card}", flush=True)
+        print(f"path (s1) top-k 40: two prompts, each in a row of both batch "
+              f"ranks: 8 tokens a row, the rows apart {topk[0]}", flush=True)
+        print(f"path (s3): the batcher over dp=2 x tp=2, 6 requests x 16 "
+              f"tokens into 4 slots in {t3:.2f} s ({96 / t3:.1f} tok/s); "
+              f"admissions (rows, bucket) of rank 0 "
+              f"{res[0]['steps'][4]['record']['prefill']}, of rank 2 "
+              f"{res[2]['steps'][4]['record']['prefill']}; card {card}",
+              flush=True)
+        mark("(s1), (s3)")
+
+        # (s2) the same, paged with an int8 KV cache
+        res = ranks(2, 1, "q8-kvi8", [
+            ("prefill", prompts), ("generate_batch", prompts, 32),
+            ("ref_prefill", prompts), ("ref_generate_batch", prompts, 32)],
+            paged=True)
+        ms2 = held("(s2)", "q8-dp2tp2-kvi8", res, 4, True, want["q8-kvi8"])
+        pool_b = res[0]["cache_bytes"]
+        print(f"path (s2) dp=2 x tp=2 paged, int8 KV: {ms2:.4f} ms a decode "
+              f"step, {res[0]['steps'][1]['s']:.2f} s; a rank's page pool for "
+              f"the batch of 4 (the whole page-id space, 2 rows' table) "
+              f"{pool_b / 2**20:.1f} MiB; memory {memory(res)}; card {card}",
+              flush=True)
+
+        # (s4) a (dcn 2, data 1, model 2) mesh: a row a model group, paged,
+        # at 2 layers (its kernels and shapes are (s2)'s at a row a rank)
+        res = ranks(1, 2, "q8", [
+            ("prefill", prompts[:2]), ("generate_batch", prompts[:2], 32),
+            ("ref_prefill", prompts[:2]),
+            ("ref_generate_batch", prompts[:2], 32)], layers=2, paged=True)
+        L, L_full = 2, L
+        try:
+            ms4 = held("(s4)", "q8-dcn2tp2", res, 2, True, want["q8 2 layers"])
+        finally:
+            L = L_full
+        print(f"path (s4) dcn=2 x dp=1 x tp=2 paged, 2 layers: {ms4:.4f} ms a "
+              f"decode step (a row a rank), {res[0]['steps'][1]['s']:.2f} s; "
+              f"memory {memory(res)}; card {card}", flush=True)
+        mark("(s2), (s4)")
+        for r in s_rows:
+            names = [counter_name(n, r["kind"]) for n in LAUNCH_NAMES[r["kernel"]]]
+            r["launches"] = sum(totals[r["kind"]][k] for k in names)
+            if not r["launches"]:
+                raise AssertionError(f"{r['name']} was not launched on path (s)")
+        print(f"path (s): {time.perf_counter() - t_s:.1f} s; ms a decode step "
+              f"dp=2 x tp=2 {ms1:.4f} (bf16 KV), {ms2:.4f} (paged int8), dcn=2 "
+              f"x tp=2 {ms4:.4f} ({how}); card {card}", flush=True)
+        return s_rows
+
     if tp_only:
         rows = path_q()
         mark("(q) tensor parallelism")
@@ -3140,6 +3419,10 @@ def main() -> int:
     if sp_only:
         rows = path_r()
         mark("(r) sequence parallelism")
+        return finish(rows, kb_rows)
+    if dp_only:
+        rows = path_s()
+        mark("(s) data-parallel rows")
         return finish(rows, kb_rows)
 
     # (a) main path: unfused prefill (bucket 128), fused b1 decode
@@ -4503,6 +4786,8 @@ def main() -> int:
     mark("(q) tensor parallelism")
     rows += path_r()
     mark("(r) sequence parallelism")
+    rows += path_s()
+    mark("(s) data-parallel rows")
     return finish(rows, kb_rows)
 
 

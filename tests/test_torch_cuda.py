@@ -3125,6 +3125,63 @@ def test_sp_engine_on_the_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,paged", [("q8", False), ("q8-kvi8", True)])
+def test_dp_engine_rows_on_the_card(card, kind, paged):
+    """Engine(tp=2, mesh=make_mesh(2, 2)) in 4 rank processes on the
+    card(s) (gloo where they share one): TinyLlama's widths at 2 layers,
+    generate_batch of 4 prompts of 100 tokens, 16 greedy tokens (one
+    chunk). Every rank returns
+    every row; each model group's two rows equal, bit for bit in tokens
+    and prefill logits and with the same launches, a dp 1 x tp 2 engine's
+    over those rows alone (Mesh.model_mesh); the monolithic bf16 cache
+    (K9 in the staged chunk) and the paged int8 one (K11)."""
+    import torch_dp_tasks
+
+    from tinyllama_tpu_torch.parallel.mesh import run_ranks
+
+    cfg = MODEL_REGISTRY["tinyllama-1.1b-chat-v0.4"].replace(n_layers=2)
+    rng = np.random.default_rng(20)
+    prompts = [[1] + rng.integers(2, cfg.n_vocab, 99).tolist()
+               for _ in range(4)]
+    build.build_all()
+    res = run_ranks(torch_dp_tasks.card_dp_engine, 2, cfg, kind, prompts, 16,
+                    paged, dp=2)
+    staged = "flash_paged_staged" if paged else "flash_staged"
+    staged += "_i8" if paged else ""
+    for r, ((dp, own), route) in enumerate(res):
+        (ids, logits, counts), (own_ids, own_logits, own_counts) = dp, own
+        assert ids == res[0][0][0][0] and len(ids) == 4
+        assert all(len(o) == 16 for o in ids)
+        assert own_ids == ids[2 * (r // 2):2 * (r // 2) + 2]
+        assert np.array_equal(logits, own_logits) and logits.shape[0] == 2
+        assert counts == own_counts and counts[staged] == 16 * cfg.n_layers
+        assert route == ("graph" if torch.cuda.device_count() >= 4
+                         else "eager")
+
+
+@pytest.mark.cuda
+def test_dp_topk_rows_on_the_card(card):
+    """Top-k at dp 2 x tp 2 on the card(s): two prompts, each in a row of
+    both batch ranks (rows 0 and 2, 1 and 3): every rank returns the same
+    rows, and a prompt's two rows draw different tokens (each rank draws
+    the whole batch's variates and keeps its own rows)."""
+    import torch_dp_tasks
+
+    from tinyllama_tpu_torch.parallel.mesh import run_ranks
+
+    cfg = MODEL_REGISTRY["tinyllama-1.1b-chat-v0.4"].replace(n_layers=2)
+    rng = np.random.default_rng(21)
+    prompts = [[1] + rng.integers(2, cfg.n_vocab, 99).tolist()
+               for _ in range(2)] * 2
+    build.build_all()
+    res = run_ranks(torch_dp_tasks.card_dp_topk, 2, cfg, prompts, 16, dp=2)
+    assert all(r == res[0] for r in res) and len(res[0]) == 4
+    assert all(len(o) == 16 and all(0 <= t < cfg.n_vocab for t in o)
+               for o in res[0])
+    assert res[0][0] != res[0][2] and res[0][1] != res[0][3]
+
+
+@pytest.mark.cuda
 def test_capture_survives_a_dropped_engines_graphs(card):
     """An engine with a captured chunk dropped in a reference cycle (it
     and its ChunkGraphs), then a capture whose body allocates Python

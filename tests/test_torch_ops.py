@@ -276,6 +276,8 @@ def test_port_source_hygiene(rule):
     assert PKG / "io" / "checkpoint.py" in sources
     assert {PKG / "parallel" / name for name in (
         "mesh.py", "tp.py", "ring.py", "sp.py")} <= set(sources)
+    assert {PKG / "tools" / name for name in (
+        "dryrun_multichip.py", "multihost_smoke.py")} <= set(sources)
     for path in sources:
         tree = ast.parse(path.read_text())
         used = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}

@@ -30,6 +30,8 @@ def ring(mesh, q, k, v, dtype="float32"):
 
 
 def _engine(mesh, cfg, policy, tree, **kw) -> Engine:
+    """Engine(mesh=mesh) with the mesh's data group as its sp group."""
+    kw.setdefault("sp", mesh.dp)
     return Engine(cfg, policy, params_from_numpy(tree, cfg, policy),
                   device="cpu", mesh=mesh, **kw)
 
@@ -118,7 +120,8 @@ def card_sp_engine(mesh, cfg, prompt, n_new):
     g = torch.Generator(mesh.device).manual_seed(7)
     params = llama.init_quantized_params(cfg, POLICIES["q8"], g, mesh.device,
                                          "cpu")
-    eng = Engine(cfg, POLICIES["q8"], params, max_ctx=512, mesh=mesh)
+    eng = Engine(cfg, POLICIES["q8"], params, max_ctx=512, mesh=mesh,
+                 sp=mesh.dp)
     for c in (qmatmul.launches, flash_attention.launches):
         for k in c:
             c[k] = 0

@@ -275,7 +275,7 @@ def run(args, device, mesh=None) -> int:
         policy = dataclasses.replace(policy, kv_dtype=args.kv)
     engine = Engine(cfg, policy, params, max_ctx=args.max_ctx, device=device,
                     paged=args.paged, debug_nans=args.debug_nans,
-                    tp_overlap=args.tp_overlap, mesh=mesh)
+                    tp_overlap=args.tp_overlap, mesh=mesh, sp=args.sp)
     del params  # a rank keeps its shard only
 
     tok_path = args.tokenizer or ("tokenizer.bin" if Path("tokenizer.bin").exists()

@@ -1,19 +1,24 @@
 """Rank processes, their process groups and the collectives of tensor
 parallelism: the port's counterpart of the JAX package's parallel/mesh.py.
 
-The JAX package runs one program over a (data, model) device mesh. Here
-each rank is a process with one device, over ``torch.distributed``:
+The JAX package runs one program over a (dcn, data, model) device mesh.
+Here each rank is a process with one device, over ``torch.distributed``:
 
-* ``run_ranks(fn, tp, ...)`` starts the tp * dp rank processes on this
+* ``run_ranks(fn, tp, ...)`` starts the dcn * dp * tp rank processes on this
   host, runs ``fn(mesh, *args)`` in each and returns their results in
   rank order; ``RankPool`` keeps the processes (and their process group)
   for many such calls. A rank that raises, dies or outlives the timeout
   ends the run: the others are stopped and the call raises;
 * ``init_distributed`` joins the process group, with a timeout, so no
   collective waits forever on a rank that is gone;
-* ``make_mesh(tp, dp)`` lays the ranks out as a [dp, tp] grid: the model
-  group is a row (the ranks that share one batch and split the weights),
-  the data group a column.
+* ``make_mesh(tp, dp, dcn)`` lays the ranks out as a [dcn, dp, tp] cube,
+  host-major as JAX's device order: the model group is tp consecutive
+  ranks (the ranks that share one batch and split the weights, on one
+  host's links), the data group the dp ranks of one dcn slice that share
+  a model rank, and the batch group the dcn * dp ranks that share a model
+  rank (JAX's ``batch_axes``: "data", or ("dcn", "data") where the mesh
+  has a dcn axis); only the dcn axis crosses hosts. ``RankPool(hosts=,
+  host=)`` starts one host's share of a world.
 
 Rank r runs on ``cuda:(r % device_count)``, or on the CPU where the
 caller passes ``device="cpu"``. The backend follows from the placement
@@ -26,18 +31,20 @@ The collectives the model calls are the model group's ``all_reduce``
 ring's hop of ``--tp-overlap``) and ``all_gather``, and the data group's
 ``data_ring_shift`` (the hop of sequence parallelism's ring attention,
 parallel/ring.py), ``data_all_gather`` (its K/V handoff) and
-``data_broadcast`` (its last row). After each of them every rank of the
-group holds the same bits. Under gloo the all-reduce of a CUDA tensor is
-gloo's own (it copies through host memory itself), and the other
-collectives of a CUDA tensor go through host memory
-(``Mesh._host_staged``; ``.cpu()`` waits for the work queued on the
-tensor first); under NCCL they stay on the card and can be captured in a
-CUDA graph.
+``data_broadcast`` (its last row), and the batch group's
+``batch_all_gather`` (the rows of a data-parallel batch). After each of
+them every rank of the group holds the same bits. Under gloo the
+all-reduce of a CUDA tensor is gloo's own (it copies through host memory
+itself), and the other collectives of a CUDA tensor go through host
+memory (``Mesh._host_staged``; ``.cpu()`` waits for the work queued on
+the tensor first); under NCCL they stay on the card and can be captured
+in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -46,7 +53,6 @@ import socket
 import sys
 import time
 import traceback
-from dataclasses import dataclass
 from multiprocessing import reduction
 
 import numpy as np
@@ -92,32 +98,70 @@ def init_distributed(rank: int, world: int, address: str, device=None,
                             timeout=datetime.timedelta(seconds=timeout))
 
 
-@dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the [dp, tp] grid of ranks."""
+    """One rank's view of the [dcn, dp, tp] cube of ranks."""
 
-    grid: np.ndarray  # [dp, tp] global ranks
+    cube: np.ndarray  # [dcn, dp, tp] global ranks
     rank: int
     model_group: dist.ProcessGroup
     data_group: dist.ProcessGroup
+    batch_group: dist.ProcessGroup
     device: torch.device
     backend: str
 
     @property
+    def dcn(self) -> int:
+        return self.cube.shape[0]
+
+    @property
     def dp(self) -> int:
-        return self.grid.shape[0]
+        return self.cube.shape[1]
 
     @property
     def tp(self) -> int:
-        return self.grid.shape[1]
+        return self.cube.shape[2]
+
+    def _coords(self) -> tuple[int, int, int]:
+        c, d, t = np.argwhere(self.cube == self.rank)[0]
+        return int(c), int(d), int(t)
+
+    @property
+    def dcn_rank(self) -> int:
+        return self._coords()[0]
 
     @property
     def dp_rank(self) -> int:
-        return int(np.argwhere(self.grid == self.rank)[0, 0])
+        return self._coords()[1]
 
     @property
     def tp_rank(self) -> int:
-        return int(np.argwhere(self.grid == self.rank)[0, 1])
+        return self._coords()[2]
+
+    @property
+    def grid(self) -> np.ndarray:
+        """The [dp, tp] grid of this rank's dcn slice (global ranks)."""
+        return self.cube[self.dcn_rank]
+
+    @property
+    def batch(self) -> int:
+        """The ranks of the batch group: dcn * dp."""
+        return self.dcn * self.dp
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's place in its batch group: dcn-major, as JAX shards
+        a leading batch dimension over ("dcn", "data")."""
+        c, d, _ = self._coords()
+        return c * self.dp + d
+
+    def model_mesh(self) -> "Mesh":
+        """This rank's model group alone, as a mesh of dcn = dp = 1: a
+        tensor-parallel engine over it runs only this model group's rows
+        (its data and batch groups are left as they are, and an engine at
+        sp 1 runs no collective over them)."""
+        c, d, _ = self._coords()
+        return dataclasses.replace(self, cube=self.cube[c:c + 1, d:d + 1])
 
     def _peer(self, offset: int) -> int:
         """The global rank `offset` places along this rank's model row."""
@@ -194,45 +238,63 @@ class Mesh:
                        group=self.data_group)
         return box.to(t.device) if staged else box
 
+    def batch_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every batch rank's `t`, concatenated along `dim` in batch-rank
+        order (each rank's rows of a batch back in the batch's order)."""
+        return self._gather(t, dim, self.batch, self.batch_group)
+
     def broadcast_object(self, obj):
-        """Rank 0's `obj` (the grid's first rank) on every rank of the grid
+        """Rank 0's `obj` (the cube's first rank) on every rank of the cube
         (a host value: a seed, a prompt): over each model row from its
-        first rank, then down each data column from row 0."""
+        first rank, then over each batch group from its first rank."""
         box = [obj]
         dist.broadcast_object_list(box, src=int(self.grid[self.dp_rank, 0]),
                                    group=self.model_group)
-        if self.dp > 1:
-            dist.broadcast_object_list(box, src=int(self.grid[0, self.tp_rank]),
-                                       group=self.data_group)
+        if self.batch > 1:
+            dist.broadcast_object_list(
+                box, src=int(self.cube[0, 0, self.tp_rank]),
+                group=self.batch_group)
         return box[0]
 
 
-def make_mesh(tp: int, dp: int = 1, device=None) -> Mesh | None:
-    """The [dp, tp] grid over the first tp * dp ranks of the process group
-    (row-major: a model group is tp consecutive ranks) and this rank's
-    place in it, or None for a rank outside the grid. Every rank of the
-    process group must call it (each group is made by all of them)."""
+def make_mesh(tp: int, dp: int = 1, dcn: int = 1, device=None) -> Mesh | None:
+    """The [dcn, dp, tp] cube over the first dcn * dp * tp ranks of the
+    process group (row-major, JAX's device order: a model group is tp
+    consecutive ranks, and dcn is the outermost axis, the one that crosses
+    hosts) and this rank's place in it, or None for a rank outside it.
+    Every rank of the process group must call it (each group is made by
+    all of them, in the same order)."""
     if not dist.is_initialized():
         raise RuntimeError("tensor and sequence parallelism run in rank "
                            "processes: start them with "
                            "parallel.mesh.run_ranks")
     world, rank = dist.get_world_size(), dist.get_rank()
-    need = tp * dp
-    if tp < 1 or dp < 1 or need > world:
-        raise ValueError(f"a mesh of {dp} x {tp} needs {need} ranks, the "
-                         f"process group has {world}")
+    need = tp * dp * dcn
+    if tp < 1 or dp < 1 or dcn < 1 or need > world:
+        raise ValueError(f"a mesh of {dcn} x {dp} x {tp} needs {need} ranks, "
+                         f"the process group has {world}")
     backend = dist.get_backend()
     if backend != backend_for(world, device):
         raise RuntimeError(f"the process group runs {backend}; ranks on "
                            f"these devices take {backend_for(world, device)}")
-    key = (id(dist.group.WORLD), tp, dp, str(rank_device(rank, device)))
+    key = (id(dist.group.WORLD), tp, dp, dcn, str(rank_device(rank, device)))
     if key not in _MESHES:
-        grid = np.arange(need).reshape(dp, tp)
-        rows = [dist.new_group(row.tolist()) for row in grid]
-        cols = [dist.new_group(col.tolist()) for col in grid.T]
-        d, t = divmod(rank, tp)
-        _MESHES[key] = None if rank >= need else Mesh(
-            grid, rank, rows[d], cols[t], rank_device(rank, device), backend)
+        cube = np.arange(need).reshape(dcn, dp, tp)
+        models = {(c, d): dist.new_group(cube[c, d].tolist())
+                  for c in range(dcn) for d in range(dp)}
+        datas = {(c, t): dist.new_group(cube[c, :, t].tolist())
+                 for c in range(dcn) for t in range(tp)}
+        # at dcn 1 the batch group is the data group
+        batches = ({t: datas[0, t] for t in range(tp)} if dcn == 1 else
+                   {t: dist.new_group(cube[:, :, t].ravel().tolist())
+                    for t in range(tp)})
+        if rank >= need:
+            _MESHES[key] = None
+        else:
+            c, d, t = (int(i) for i in np.argwhere(cube == rank)[0])
+            _MESHES[key] = Mesh(cube, rank, models[c, d], datas[c, t],
+                                batches[t], rank_device(rank, device),
+                                backend)
     return _MESHES[key]
 
 
@@ -262,7 +324,8 @@ class _InheritedFd:
         return _InheritedFd, (reduction.DupFd(self.fd).detach(),)
 
 
-def _free_port() -> int:
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that is free now (for a rendezvous)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -303,25 +366,40 @@ class RankPool:
     stops every rank and raises RankError; the pool is then closed.
     `threads` sets torch's threads a rank (default on the CPU: the cores
     shared out). With `stdin`, rank 0 reads this process's standard input
-    (the CLI's chat REPL)."""
+    (the CLI's chat REPL).
+
+    With `hosts` > 1 the world spans that many hosts, each of which starts
+    its own pool: this one starts host `host`'s world / hosts ranks
+    (global ranks host * world / hosts onwards), joined at `address`
+    (``tcp://host:port``, the same on every host; host 0's first rank
+    serves it), and ``run`` returns this host's ranks' results."""
 
     def __init__(self, world: int, device=None,
                  timeout: float = DEFAULT_TIMEOUT_S,
-                 threads: int | None = None, stdin: bool = False):
+                 threads: int | None = None, stdin: bool = False,
+                 hosts: int = 1, host: int = 0, address: str | None = None):
+        if world % hosts or not 0 <= host < hosts:
+            raise ValueError(f"{world} ranks do not split over {hosts} hosts, "
+                             f"or host {host} is not one of them")
+        if hosts > 1 and address is None:
+            raise ValueError("a world over several hosts needs the address "
+                             "that every host joins")
+        local = world // hosts
+        self.ranks = list(range(host * local, (host + 1) * local))
         if rank_device(0, device).type == "cpu" and threads is None:
-            threads = max(1, (os.cpu_count() or 1) // world)
+            threads = max(1, (os.cpu_count() or 1) // local)
         self.world, self.timeout = world, timeout
         ctx = multiprocessing.get_context("spawn")
         self._results = ctx.Queue()
-        self._tasks = [ctx.SimpleQueue() for _ in range(world)]
-        address = f"tcp://127.0.0.1:{_free_port()}"
+        self._tasks = [ctx.SimpleQueue() for _ in self.ranks]
+        address = address or f"tcp://127.0.0.1:{free_port()}"
         fd = os.dup(sys.stdin.fileno()) if stdin else None
         self._procs = [
             ctx.Process(target=_rank_main, daemon=True, args=(
                 r, world, address, device, timeout, threads,
                 _InheritedFd(fd) if r == 0 and fd is not None else None,
-                self._tasks[r], self._results))
-            for r in range(world)]
+                q, self._results))
+            for r, q in zip(self.ranks, self._tasks)]
         try:
             for p in self._procs:
                 p.start()
@@ -337,11 +415,11 @@ class RankPool:
     def _collect(self, what: str, timeout: float) -> list:
         out: dict[int, object] = {}
         deadline = time.monotonic() + timeout
-        while len(out) < self.world:
+        while len(out) < len(self.ranks):
             try:
                 rank, status, value = self._results.get(timeout=1.0)
             except queue.Empty:
-                dead = [(r, p.exitcode) for r, p in enumerate(self._procs)
+                dead = [(r, p.exitcode) for r, p in zip(self.ranks, self._procs)
                         if r not in out and p.exitcode is not None]
                 if dead:
                     self.close()
@@ -349,14 +427,14 @@ class RankPool:
                                     f"{dead[0][1]}")
                 if time.monotonic() > deadline:
                     self.close()
-                    raise RankError(f"{self.world - len(out)} rank(s) gave no "
-                                    f"{what} within {timeout:.0f} s")
+                    raise RankError(f"{len(self.ranks) - len(out)} rank(s) "
+                                    f"gave no {what} within {timeout:.0f} s")
                 continue
             if status == "error":
                 self.close()
                 raise RankError(f"rank {rank} raised:\n{value}")
             out[rank] = value
-        return [out[r] for r in range(self.world)]
+        return [out[r] for r in self.ranks]
 
     def run(self, fn, *args, **kwargs) -> list:
         """fn(*args, **kwargs) on every rank; the results in rank order."""
@@ -388,20 +466,20 @@ class RankPool:
         self.close()
 
 
-def with_mesh(fn, tp: int, dp: int, device, *args, **kwargs):
-    """fn(mesh, *args, **kwargs) on a rank of the [dp, tp] grid; None on
-    a rank outside it (a task for ``RankPool.run``)."""
-    mesh = make_mesh(tp, dp, device)
+def with_mesh(fn, tp: int, dp: int, device, *args, dcn: int = 1, **kwargs):
+    """fn(mesh, *args, **kwargs) on a rank of the [dcn, dp, tp] cube; None
+    on a rank outside it (a task for ``RankPool.run``)."""
+    mesh = make_mesh(tp, dp, dcn, device)
     return None if mesh is None else fn(mesh, *args, **kwargs)
 
 
-def run_ranks(fn, tp: int, *args, dp: int = 1, device=None,
+def run_ranks(fn, tp: int, *args, dp: int = 1, dcn: int = 1, device=None,
               timeout: float = DEFAULT_TIMEOUT_S, stdin: bool = False) -> list:
-    """Start tp * dp rank processes, run fn(mesh, *args) in each (mesh:
-    ``make_mesh(tp, dp, device)``) and return the results in rank order;
-    the processes end with the call. fn must be importable (a module's
-    function) and its arguments and result picklable. A rank that raises
-    or dies ends the run with RankError, within the process group's
-    `timeout`."""
-    with RankPool(tp * dp, device, timeout, stdin=stdin) as pool:
-        return pool.run(with_mesh, fn, tp, dp, device, *args)
+    """Start dcn * dp * tp rank processes, run fn(mesh, *args) in each
+    (mesh: ``make_mesh(tp, dp, dcn, device)``) and return the results in
+    rank order; the processes end with the call. fn must be importable (a
+    module's function) and its arguments and result picklable. A rank
+    that raises or dies ends the run with RankError, within the process
+    group's `timeout`."""
+    with RankPool(tp * dp * dcn, device, timeout, stdin=stdin) as pool:
+        return pool.run(with_mesh, fn, tp, dp, device, *args, dcn=dcn)

@@ -67,6 +67,21 @@ above on each rank, which holds every batch row (JAX's decode replicates
 over the data axis). At tp 1 each rank keeps the full weights on its
 device and decodes the same tokens, its chunk a CUDA graph on the card
 (no collective in it).
+
+A mesh passed with tp > 1 and sp == 1 is JAX's ``Engine(tp=, mesh=)``
+with ``batch_axes``: batch rows shard over the mesh's batch group (its
+dcn x data ranks, parallel/mesh.py). Every rank receives every prompt;
+rank r of a group of n prefills and decodes rows [r * B / n, (r + 1) *
+B / n) at its local widths (``batch_rows``), its caches hold those rows
+(a page pool the whole page-id space, as JAX's replicated pool: a rank
+reads only the pages its rows wrote), and after each chunk's read back
+the rows' tokens are all-gathered over the batch group
+(``all_rows``), so every rank's host loop makes the same decisions and
+returns every row. The gather is outside the chunk, which keeps its CUDA
+graph under NCCL. A batch the group does not divide raises, as JAX's
+``device_put`` does (``generate`` at dp > 1 among them). At tp 1 and
+sp 1 a passed mesh only places the engine on its rank's device: every
+rank runs every row, as JAX uses no mesh there.
 """
 
 from __future__ import annotations
@@ -157,7 +172,9 @@ def _drop_graphs(engine_ref, key: int) -> None:
 class Engine:
     """One model + dtype policy on one device (with tp > 1: one rank's
     shard, on the rank's device). `mesh` is the rank's ``make_mesh``,
-    whose tp and dp (the sp) the engine takes; without one, ``tp=N`` and
+    whose tp the engine takes; its data group is the sequence-parallel
+    group where ``sp`` > 1 (sp must then be the mesh's dp), else, at tp >
+    1, its batch group carries the batch rows. Without one, ``tp=N`` and
     ``sp=M`` make it here ([M, N]). Under tensor parallelism `params` are
     best kept in host memory: only the rank's shard is copied to its
     device.
@@ -173,13 +190,24 @@ class Engine:
         if mesh is None and (tp > 1 or sp > 1):
             mesh = make_mesh(tp, sp, device=device)
         if mesh is not None:
-            tp, sp = mesh.tp, mesh.dp
+            if tp not in (1, mesh.tp):
+                raise ValueError(f"tp={tp}: the mesh's model group has "
+                                 f"{mesh.tp} ranks")
+            if sp > 1 and sp != mesh.dp:
+                raise ValueError(f"sp={sp}: sequence parallelism runs over "
+                                 f"the mesh's data group, of {mesh.dp} ranks")
+            tp = mesh.tp
         self.tp = tp
         #: the ways of the sequence-parallel prefill (the mesh's dp)
         self.sp = sp
+        #: the ranks the batch rows shard over (the mesh's batch group,
+        #: dcn x data, under tp with sp 1; else 1) and this rank's place
+        self.batch = mesh.batch if mesh is not None and tp > 1 and sp == 1 \
+            else 1
+        self.batch_rank = mesh.batch_rank if self.batch > 1 else 0
         self.tp_overlap = tp_overlap and tp > 1
         self._tp = None
-        if tp > 1 or self.sp > 1:
+        if mesh is not None:
             if device is not None and \
                     torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device}: this rank runs on "
@@ -234,22 +262,44 @@ class Engine:
         #: set by a NaN in the logits while debug_nans is on
         self.nan_flag = torch.zeros(1, dtype=torch.bool, device=self.device)
 
+    def batch_rows(self, batch: int) -> slice:
+        """This rank's rows of a batch of `batch` (all of them at a batch
+        group of one). Raises ValueError where the batch group does not
+        divide the batch, as JAX's ``device_put`` does."""
+        if batch % self.batch:
+            raise ValueError(
+                f"a batch of {batch} row(s) does not divide over the batch "
+                f"group of {self.batch} ranks (the mesh's dcn x data axes)")
+        b = batch // self.batch
+        return slice(self.batch_rank * b, (self.batch_rank + 1) * b)
+
+    def all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every batch rank's rows of `t` ([rows, ...], this rank's),
+        all-gathered in the batch's order (`t` itself at a batch group of
+        one)."""
+        return self.mesh.batch_all_gather(t, 0) if self.batch > 1 else t
+
     def new_cache(self, batch: int) -> KVCache | PagedKVCache:
+        """A cache for a batch of `batch`: this rank's rows of it."""
         if self.paged:
             return self.new_paged_cache(batch)
-        return init_cache(self.fwd_cfg, batch, self.policy.kv_dtype,
-                          self.max_ctx, self.device)
+        rows = self.batch_rows(batch)
+        return init_cache(self.fwd_cfg, rows.stop - rows.start,
+                          self.policy.kv_dtype, self.max_ctx, self.device)
 
     def new_paged_cache(self, batch: int) -> PagedKVCache:
         """A page pool for the paths outside the scheduler (generate,
         generate_batch, the CLI's --paged): row b owns pages 1 + b * J ..
-        (b + 1) * J, covering max_ctx; page 0 stays the scratch page."""
+        (b + 1) * J, covering max_ctx; page 0 stays the scratch page. The
+        pool spans the whole batch's page ids, its table this rank's
+        rows."""
+        rows = self.batch_rows(batch)
         J = self.max_ctx // default_page_size(self.max_ctx)
-        cache = init_paged_cache(self.fwd_cfg, 1 + batch * J, batch,
-                                 self.policy.kv_dtype, self.max_ctx,
-                                 device=self.device)
-        return cache.with_table(
-            1 + torch.arange(batch * J, dtype=torch.int32).reshape(batch, J))
+        cache = init_paged_cache(self.fwd_cfg, 1 + batch * J,
+                                 rows.stop - rows.start, self.policy.kv_dtype,
+                                 self.max_ctx, device=self.device)
+        table = 1 + torch.arange(batch * J, dtype=torch.int32).reshape(batch, J)
+        return cache.with_table(table[rows])
 
     def _cache(self, batch: int) -> KVCache | PagedKVCache:
         """The engine's own cache of `batch` rows for generate and
@@ -280,7 +330,10 @@ class Engine:
     def prefill(self, cache, prompts: list[list[int]]):
         """Prefill a batch of prompts from position 0, padded to one bucket
         length (at sp > 1, one prompt: sequence-parallel). Returns (logits
-        [B, V] f32 of each prompt's last token, lens)."""
+        [B, V] f32 of each prompt's last token, lens). Over a batch group,
+        `cache` holds this rank's rows (``new_cache(B)``), which it
+        prefills, padded to their own bucket, and the logits are theirs;
+        lens are every prompt's."""
         lens = np.array([len(p) for p in prompts], np.int64)
         if int(lens.max()) > self.max_ctx:
             raise ValueError(
@@ -299,16 +352,18 @@ class Engine:
                 self.rope_tables, self.mesh, cache, self.layer_ids, self._tp)
             self._note_nans(logits)
             return logits, lens
-        T = _bucket(int(lens.max()), self.max_ctx)
-        toks = np.zeros((len(prompts), T), np.int64)
-        for i, p in enumerate(prompts):
+        rows = self.batch_rows(len(prompts))
+        mine, mine_lens = prompts[rows], lens[rows]
+        T = _bucket(int(mine_lens.max()), self.max_ctx)
+        toks = np.zeros((len(mine), T), np.int64)
+        for i, p in enumerate(mine):
             toks[i, : len(p)] = p
-        pos = torch.zeros(len(prompts), dtype=torch.int32, device=self.device)
+        pos = torch.zeros(len(mine), dtype=torch.int32, device=self.device)
         # from position 0: the paged prefill attends its own keys only
         # (models/llama.py)
         logits = self._forward_logits(
             cache, torch.from_numpy(toks).to(self.device), pos,
-            torch.from_numpy(lens - 1).to(self.device), from_zero=True)
+            torch.from_numpy(mine_lens - 1).to(self.device), from_zero=True)
         self._note_nans(logits)
         return logits, lens
 
@@ -347,7 +402,8 @@ class Engine:
                 tok = sampling.greedy(logits)
             else:
                 tok = sampling.sample_top_k(logits, generator, gen.temperature,
-                                            gen.top_k)
+                                            gen.top_k, self.batch_rank,
+                                            self.batch)
             tok = torch.where(done, eos, tok)
             done |= tok == eos
             toks[:, i] = tok
@@ -392,8 +448,11 @@ class Engine:
 
     def nan_mark(self) -> torch.Tensor | None:
         """With debug_nans, the NaN flag as the work queued so far leaves
-        it (a copy, queued behind that work); else None."""
-        return self.nan_flag.clone() if self.debug_nans else None
+        it (a copy, queued behind that work; over a batch group, any
+        rank's, so all raise together); else None."""
+        if not self.debug_nans:
+            return None
+        return self.all_rows(self.nan_flag.int()).amax(0, keepdim=True).bool()
 
     def raise_on_nan(self, mark: torch.Tensor | None, call: str,
                      where: str) -> None:
@@ -579,6 +638,7 @@ class Engine:
         gen = gen or GenerationConfig()
         B = len(prompts)
         stats = GenStats(prompt_tokens=sum(len(p) for p in prompts))
+        rows = self.batch_rows(B)
         cache = self._cache(B)
         t0 = time.perf_counter()
         logits, lens = self.prefill(cache, prompts)
@@ -593,7 +653,7 @@ class Engine:
             return [[] for _ in range(B)], stats
         C = max(1, min(gen.chunk_size, max_new))
         generator = self._generator(gen)
-        pos = torch.from_numpy(lens.astype(np.int32)).to(self.device)
+        pos = torch.from_numpy(lens[rows].astype(np.int32)).to(self.device)
 
         outs: list[list[int]] = [[] for _ in range(B)]
         finished = [b == 0 for b in budgets]
@@ -603,7 +663,8 @@ class Engine:
             toks, _, logits, pos = self.run_chunk(cache, logits, pos, C, gen,
                                                   generator)
             stats.decode_steps += C
-            toks_np = toks.cpu().numpy()  # one read-back per chunk
+            # one read-back per chunk (every batch rank's rows)
+            toks_np = self.all_rows(toks).cpu().numpy()
             self.raise_on_nan(self.nan_mark(), "generate_batch",
                               f"chunk {stats.decode_steps // C - 1}")
             emitted += C

@@ -22,20 +22,34 @@ package's runtime/scheduler.py.
   host never waits on the card to admit.
 * Finished slots park at position 0 (paged: table row 0, the scratch
   page) and their tokens are dropped.
-* Paged bucket downshift: when few slots run, the chunk runs at the
-  smallest power-of-two bucket that holds them; the table rows, pos and
-  logits rows are gathered into the bucket's buffers and the logits
-  scattered back, outside the graph. The KV pages never move. (A
-  monolithic downshift would move cache rows, so the monolithic batcher
-  always runs at full width.)
+* Paged bucket downshift (``downshift``, on by default for a paged
+  batcher whose engine has a batch group of one): when few slots run, the
+  chunk runs at the smallest power-of-two bucket that holds them; the
+  table rows, pos and logits rows are gathered into the bucket's buffers
+  and the logits scattered back, outside the graph. The KV pages never
+  move. (A monolithic downshift would move cache rows, so the monolithic
+  batcher always runs at full width.)
 
 Over a tensor-parallel engine (``Engine(tp=N)``) the batcher runs on every
 rank with the same requests: its pool is made at the rank's local config
 (its kv heads), and every host decision follows from tokens that are
 bit-equal on all ranks, so the ranks admit, grow, downshift and finish in
 lockstep. (The JAX batcher turns its downshift off at tp > 1, where its
-batch rows shard over a data axis; here a rank holds every row, so the
-downshift stays.)
+batch rows shard over a data axis; at dp = 1 a rank holds every row, so
+the downshift stays.)
+
+Over an engine whose batch rows shard over a batch group (``Engine(tp=N,
+mesh=make_mesh(N, dp, dcn))``, dcn x dp > 1) the slots shard as the
+rows do: rank r of the group holds slots [r * B / n, (r + 1) * B / n)
+(``Engine.batch_rows``), decodes them, and the chunk's tokens are
+all-gathered (``Engine.all_rows``), so every rank keeps every slot's host
+state and decides the same. An admission's bucket is laid out by owner:
+each rank's share of it holds the requests bound for its own slots, so no
+row moves between ranks, and the share is the smallest power of two that
+holds the largest rank's requests (the JAX batcher makes one bucket of
+the admitted count and raises where it is smaller than the batch group:
+ROADMAP.md, Queue 3, reference fault 11). A downshift would move rows
+between ranks: it is off there, and asking for it raises, as JAX's.
 
 Over a sequence-parallel engine (``Engine(sp=N)``) a prompt of at least
 ``sp_admit_threshold`` tokens (default 1,024 there) is admitted alone, so
@@ -94,6 +108,7 @@ class ContinuousBatcher:
         page_size: int | None = None,
         sp_admit_threshold: int | None = None,
         ttft_chunk: int = 0,
+        downshift: bool | None = None,
     ):
         paged = engine.paged
         if not paged and (n_pages or page_size):
@@ -102,6 +117,18 @@ class ContinuousBatcher:
         self.engine = engine
         self.gen = gen or GenerationConfig()
         self.B = max_batch
+        #: this rank's slots (every slot at a batch group of one)
+        self.rows = engine.batch_rows(max_batch)
+        self.b = self.rows.stop - self.rows.start
+        if downshift is None:
+            downshift = paged and engine.batch == 1
+        if downshift and not (paged and engine.batch == 1):
+            raise ValueError(
+                "bucket downshift requires paged=True and a batch group of one "
+                f"rank (this engine's has {engine.batch}): compaction would "
+                "move rows between ranks")
+        #: paged bucket downshift (see the module's docstring)
+        self.downshift = downshift
         #: prompts at least this long are admitted alone, so the engine's
         #: B == 1 sequence-parallel prefill takes them (None: no rule);
         #: on by default over an engine with sp > 1
@@ -113,8 +140,8 @@ class ContinuousBatcher:
         #: steps, so its first token reaches the host sooner, at the cost
         #: of more, shorter chunks
         self.ttft_chunk = ttft_chunk
-        #: the batch of the last chunk
-        self._bucket = self.B
+        #: the batch of the last chunk (this rank's rows)
+        self._bucket = self.b
         self._ids = itertools.count()
         self.queue: list[Request] = []
         self.running: list[Request | None] = [None] * self.B
@@ -132,7 +159,7 @@ class ContinuousBatcher:
             self.P = page_size or default_page_size(S)
             self.J = S // self.P
             n_pages = n_pages or self.B * self.J + 1
-            self.pool = init_paged_cache(engine.fwd_cfg, n_pages, self.B,
+            self.pool = init_paged_cache(engine.fwd_cfg, n_pages, self.b,
                                          engine.policy.kv_dtype, S,
                                          page_size=self.P, device=dev)
             self.alloc = PageAllocator(n_pages)
@@ -149,9 +176,9 @@ class ContinuousBatcher:
             self.cache = engine.new_cache(self.B)
         #: the chunks' static buffers over this batcher's pool or cache
         self.graphs = engine.chunk_graphs(self.pool if paged else self.cache)
-        #: every slot's logits: the full-width chunk's input buffer
+        #: this rank's slots' logits: the full-width chunk's input buffer
         self.logits = self.graphs.buffers_for(self.pool if paged
-                                              else self.cache, self.B).logits
+                                              else self.cache, self.b).logits
         #: monolithic admission caches, one a bucket, reused
         self._admit_caches: dict = {}
 
@@ -204,14 +231,34 @@ class ContinuousBatcher:
         if self.paged:
             return self._admit_prefill_paged(free)
         take = self._sp_take(min(len(free), len(self.queue)))
-        bucket = min(_pow2_at_least(take), self.B)
         reqs = [self.queue.pop(0) for _ in range(take)]
-        prompts = [r.prompt for r in reqs] + [[1]] * (bucket - take)
+        at, prompts = self._layout(free, reqs)
+        bucket = len(prompts)
         cache = self._admit_caches.get(bucket)
         if cache is None:
             cache = self._admit_caches[bucket] = self.engine.new_cache(bucket)
         logits, lens = self.engine.prefill(cache, prompts)
-        return free, reqs, logits, lens, cache
+        return free, reqs, at, logits, lens, cache
+
+    def _layout(self, free: list[int], reqs: list[Request]):
+        """An admission's bucket: request i (bound for slot free[i]) at
+        row at[i], and the bucket's prompts (BOS-only rows pad it). Each
+        batch rank's share of the bucket holds the requests of its own
+        slots in order, then padding; a share is the smallest power of two
+        that holds the most any rank takes (at a batch group of one: the
+        power of two at least len(reqs), at most B)."""
+        ways = self.engine.batch
+        owners = [s // self.b for s in free[: len(reqs)]]
+        share = min(_pow2_at_least(max(owners.count(r) for r in range(ways))),
+                    self.b)
+        at, taken = [], [0] * ways
+        for r in owners:
+            at.append(r * share + taken[r])
+            taken[r] += 1
+        prompts = [[1]] * (share * ways)
+        for i, req in zip(at, reqs):
+            prompts[i] = req.prompt
+        return at, prompts
 
     def _long(self, req: Request) -> bool:
         """Whether `req` is admitted alone (the sequence-parallel rule)."""
@@ -248,25 +295,26 @@ class ContinuousBatcher:
                 break  # B == 1: the engine's sequence-parallel prefill
         if not reqs:
             return None
-        bucket = min(_pow2_at_least(len(reqs)), self.B)
-        adm_table = np.zeros((bucket, self.J), np.int32)
+        at, prompts = self._layout(free, reqs)
+        adm_table = np.zeros((len(prompts), self.J), np.int32)
         pages_list: list[list[int]] = []
-        for i, req in enumerate(reqs):
+        for i, req in zip(at, reqs):
             pages = self.alloc.alloc(max(1, -(-len(req.prompt) // self.P)))
             adm_table[i, : len(pages)] = pages
             pages_list.append(pages)
-        prompts = [r.prompt for r in reqs] + [[1]] * (bucket - len(reqs))
-        logits, lens = self.engine.prefill(
-            self.pool.with_table(adm_table), prompts)
-        return free, reqs, logits, lens, (needs, pages_list)
+        logits, lens = self.engine.prefill(self.pool.with_table(
+            adm_table[self.engine.batch_rows(len(prompts))]), prompts)
+        return free, reqs, at, logits, lens, (needs, pages_list)
 
     def _insert_admitted(self, admitted) -> None:
         """Put the admitted requests in their slots: the logits row (and,
-        monolithic, the cache row) of each admitted request only."""
-        free, reqs, logits, lens, extra = admitted
-        slots = free[: len(reqs)]
-        for i, (slot, req) in enumerate(zip(slots, reqs)):
-            self.pos_np[slot] = int(lens[i])
+        monolithic, the cache row) of each admitted request only, each on
+        the rank that holds its slot (its bucket row is there too)."""
+        free, reqs, at, logits, lens, extra = admitted
+        first = self.engine.batch_rank * logits.shape[0]  # this rank's share
+        mine, src = [], []
+        for i, (slot, req) in enumerate(zip(free, reqs)):
+            self.pos_np[slot] = int(lens[at[i]])
             self.running[slot] = req
             if self.paged:
                 needs, pages_list = extra
@@ -274,12 +322,18 @@ class ContinuousBatcher:
                 self.slot_reserved[slot] = needs[i]
                 self.table_np[slot, :] = 0
                 self.table_np[slot, : len(pages_list[i])] = pages_list[i]
-        idx = torch.tensor(slots, dtype=torch.long, device=self.logits.device)
-        n = len(reqs)
-        self.logits.index_copy_(0, idx, logits[:n])
+            if self.rows.start <= slot < self.rows.stop:
+                mine.append(slot - self.rows.start)
+                src.append(at[i] - first)
+        if not mine:
+            return
+        dev = self.logits.device
+        idx = torch.tensor(mine, dtype=torch.long, device=dev)
+        src_idx = torch.tensor(src, dtype=torch.long, device=dev)
+        self.logits.index_copy_(0, idx, logits.index_select(0, src_idx))
         if not self.paged:  # data and, int8, scale planes
             for plane, rows in zip(kv_planes(self.cache), kv_planes(extra)):
-                plane.index_copy_(1, idx, rows[:, :n])
+                plane.index_copy_(1, idx, rows.index_select(1, src_idx))
 
     # ------------------------------------------------------------------ decode
 
@@ -318,10 +372,12 @@ class ContinuousBatcher:
         idx = None  # bucket row -> slot (None: every slot, in order)
         in_flight = None
         if any(was_running):
-            pos_in, store = self.pos_np, self.pool if self.paged else self.cache
+            pos_in = self.pos_np[self.rows]
+            store = self.pool if self.paged else self.cache
             if self.paged:
                 self._grow_pages(C)
-                table = self.table_np
+                table = self.table_np[self.rows]
+            if self.downshift:
                 # the smallest power-of-two bucket holding the running slots
                 self._bucket = min(_pow2_at_least(sum(was_running)), self.B)
                 if self._bucket < self.B:
@@ -350,7 +406,8 @@ class ContinuousBatcher:
             self.logits.index_copy_(0, idx_dev, logits_out)
         elif logits_out is not self.logits:  # the eager Engine.chunk's own
             self.logits.copy_(logits_out)
-        toks_np = toks.cpu().numpy()  # one read-back a chunk
+        # one read-back a chunk (every batch rank's slots)
+        toks_np = self.engine.all_rows(toks).cpu().numpy()
         self.engine.raise_on_nan(self.engine.nan_mark(), "ContinuousBatcher",
                                  "a chunk or an admission")
         now = time.perf_counter()
