@@ -605,6 +605,59 @@ REPLACES_I8 = {
     "K10": "tinyllama_tpu/ops/pallas/flash_paged.py:43",
     "K11": "tinyllama_tpu/ops/pallas/flash_paged.py:194",
 }
+#: the note of an attention row's library yardstick over each KV kind
+KV_YARDSTICK = {"bf16": "", "i8": " (SDPA over the dequantized bf16 K/V)",
+                "f16": " (SDPA over the cache cast to bf16)",
+                "f32": " (SDPA over the cache cast to bf16)"}
+#: the TPU kernels the bf16 attention rows replace
+REPLACES_ATTN = {"K3": "tinyllama_tpu/ops/pallas/flash_prefill.py:35",
+                 "K4": "tinyllama_tpu/ops/pallas/flash_prefill.py:201",
+                 "K8": "tinyllama_tpu/ops/pallas/attn_out_fused.py:143",
+                 "K9": "tinyllama_tpu/ops/pallas/flash_prefill.py:375",
+                 "K10": "tinyllama_tpu/ops/pallas/flash_paged.py:38",
+                 "K11": "tinyllama_tpu/ops/pallas/flash_paged.py:171"}
+
+
+def attention_replaces(kernel: str, kv: str) -> str:
+    """The TPU kernel line an attention row ("K4 ...") over a cache of KV
+    kind `kv` replaces."""
+    k = kernel.split()[0]
+    if kv == "i8":
+        return REPLACES_I8[k]
+    if kv != "bf16":
+        return REPLACES_KV16.get(k, REPLACES_KV16_HELPER)
+    return REPLACES_ATTN[k]
+
+
+def as_kv_kind(cache, kv: str):
+    """A bf16 KVCache or PagedKVCache in the KV kind `kv`: itself for
+    "bf16", quantized to int8 with its f32 scale planes for "i8", cast
+    for "f16" and "f32"."""
+    import torch
+
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache, quantize_kv
+    from tinyllama_tpu_torch.runtime.paged import PagedKVCache
+
+    if kv == "bf16":
+        return cache
+    if kv == "i8":
+        (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
+    else:
+        dt = {"f16": torch.float16, "f32": torch.float32}[kv]
+        k, v, ks, vs = cache.k.to(dt), cache.v.to(dt), None, None
+    if isinstance(cache, PagedKVCache):
+        return PagedKVCache(k, v, cache.table, ks, vs)
+    return KVCache(k, v, ks, vs)
+
+
+def sdpa_gqa(q, k, v, is_causal=False, mask=None):
+    """The attention rows' library yardstick: one SDPA call with the K/V
+    shared across each query group (enable_gqa), so it reads the bytes
+    the kernels read."""
+    import torch
+
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
 
 
 def kernel_row(kernel, name, kind, src, replaces, err, ms, plain_ms, nbytes,
@@ -637,9 +690,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     aq8 branch, on the five decode shapes at M = 1."""
     import numpy as np
 
-    from tinyllama_tpu_torch.runtime.kvcache import (
-        KVCache, layer_cache_view, quantize_kv,
-    )
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
     from tinyllama_tpu_torch.runtime.paged import (
         PagedKVCache, default_page_size, paged_layer_view,
     )
@@ -662,9 +713,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     else:
         label, row_kind = ("" if kind == "q8" else f"{kind} "), kind
     kv_row = KV_ROW_BYTES[kv](cfg.d_head)
-    yardstick = {"i8": " (SDPA over the dequantized bf16 K/V)",
-                 "f16": " (SDPA over the cache cast to bf16)",
-                 "f32": " (SDPA over the cache cast to bf16)"}.get(kv, "")
+    yardstick = KV_YARDSTICK[kv]
 
     def replaces(kernel, q8_line):
         if i8:
@@ -672,21 +721,6 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         if attn_only:
             return REPLACES_KV16.get(kernel, REPLACES_KV16_HELPER)
         return q8_line if kind == "q8" else REPLACES_4BIT[kernel][kind]
-
-    def quant(cache):
-        """`cache` as it is for kv="bf16"; quantized to int8 for "i8";
-        cast for "f16" and "f32"."""
-        if not attn_only:
-            return cache
-        if not i8:
-            dt = {"f16": torch.float16, "f32": torch.float32}[kv]
-            if isinstance(cache, PagedKVCache):
-                return PagedKVCache(cache.k.to(dt), cache.v.to(dt), cache.table)
-            return KVCache(cache.k.to(dt), cache.v.to(dt))
-        (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
-        if isinstance(cache, PagedKVCache):
-            return PagedKVCache(k, v, cache.table, ks, vs)
-        return KVCache(k, v, ks, vs)
 
     def row(kernel, shape, route_src, replaces, err, ms, plain_ms, nbytes,
             flops, library_ms, note=""):
@@ -860,18 +894,12 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     # K3 / K4 / K8: attention over a full-size random bf16 cache
     H, Kh, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, engine.max_ctx
     shape = (L, 1, Kh, S, d)
-    cache = quant(KVCache(
+    cache = as_kv_kind(KVCache(
         torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
-        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)), kv)
     # the library's K/V: layer 3 as bf16 (int8 dequantized, f16 and f32
     # cast)
     dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
-
-    def sdpa(q, k, v, is_causal=False):
-        # the library yardstick: K/V shared across each query group, so it
-        # reads the bytes the kernels read
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=is_causal, enable_gqa=True)
 
     src = "tinyllama_tpu_torch/csrc/attn_out_fused.cu"
     for p in (127, 1500):
@@ -889,7 +917,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
                                             lin["wo"]),
             # SDPA over the visible keys, then wo and the residual
             lambda i: torch.addmm(res.view(1, D),
-                                  sdpa(qh, kx, vx).reshape(1, D),
+                                  sdpa_gqa(qh, kx, vx).reshape(1, D),
                                   dense["wo"][i % L]),
             w_bytes["wo"] + 2 * Kh * (p + 1) * kv_row + H * d * 2 + 2 * D * 2,
             4 * d * H * (p + 1) + 2 * D * D, replay=True)
@@ -921,7 +949,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
         kx, vx = dk[:, :, :n_keys], dv[:, :, :n_keys]
         qh = q.transpose(1, 2)
         causal = T > 1
-        lib = time_ms(lambda i: sdpa(qh, kx, vx, is_causal=causal), 100, True)
+        lib = time_ms(lambda i: sdpa_gqa(qh, kx, vx, is_causal=causal), 100, True)
         pairs = B * H * sum(p + t + 1 for t in range(T))
         nbytes = B * (2 * T * H * d * 2 + 2 * Kh * n_keys * kv_row)
         rep = replaces(kernel.split()[0],
@@ -940,17 +968,17 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
     del cache, dense_k, dense_v
     # K4 at path (c)'s batch: 4 rows at pos 1500
     shape = (L, BATCH, Kh, S, d)
-    cache = quant(KVCache(
+    cache = as_kv_kind(KVCache(
         torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
-        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)), kv)
     dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
     attn_case("K4 flash_decode_heads", 1, 1500, BATCH, cache, dense_k, dense_v)
     del cache, dense_k, dense_v
     # K3 at an admission of path (f): 32 rows of 256 tokens from pos 0
     shape = (L, ADMIT, Kh, S, d)
-    cache = quant(KVCache(
+    cache = as_kv_kind(KVCache(
         torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
-        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)))
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)), kv)
     dense_k, dense_v = layer_cache_view(cache, 3, torch.bfloat16)
     attn_case("K3 flash_prefill", 256, 0, ADMIT, cache, dense_k, dense_v)
     del cache, dense_k, dense_v
@@ -973,13 +1001,13 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
             n = -(-most // P)
             table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
             table[:, :n] = 1 + torch.arange(B * n, device=dev).reshape(B, n)
-            pool = quant(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
-                                      rand(L, 1 + B * n, Kh, P, d), table))
+            pool = as_kv_kind(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
+                                      rand(L, 1 + B * n, Kh, P, d), table), kv)
         else:
-            pool = quant(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)))
+            pool = as_kv_kind(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)), kv)
         base = torch.tensor(fills, dtype=torch.int32, device=dev)
         if tail:
-            t = quant(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)))
+            t = as_kv_kind(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)), kv)
             st = StagedKVCache(pool, t.k, t.v, base, sk_scale=t.k_scale,
                                sv_scale=t.v_scale)
             pos = base + (tail - 1)
@@ -1010,7 +1038,7 @@ def phase_kernels(engine, torch, ops, kind="q8", kv="bf16",
                 return torch.nn.functional.scaled_dot_product_attention(
                     qh, kx, vx, attn_mask=mask[:, None, None, :],
                     enable_gqa=True)
-            return sdpa(qh, kx, vx)
+            return sdpa_gqa(qh, kx, vx)
 
         n_keys = sum(fills) + B * tail
         if label is None:
@@ -1067,9 +1095,7 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
     K11 fill 1,536 + 32), at G = 4. Each row's bound counts the kind's
     bytes (int8 with its f32 scales); its library yardstick is SDPA over
     the same keys as bf16."""
-    from tinyllama_tpu_torch.runtime.kvcache import (
-        KVCache, layer_cache_view, quantize_kv,
-    )
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
     from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
     from tinyllama_tpu_torch.runtime.staging import StagedKVCache
     from tinyllama_tpu_torch.tools.kbench import time_ms
@@ -1082,42 +1108,10 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
     rows = []
     kv_row = KV_ROW_BYTES[kv](d)
     kind = "8b-q4" if kv == "bf16" else f"8b-q4-kv{kv}"
-    yardstick = {"bf16": "", "i8": " (SDPA over the dequantized bf16 K/V)"}.get(
-        kv, " (SDPA over the cache cast to bf16)")
-    rep_of = {"K3": ("tinyllama_tpu/ops/pallas/flash_prefill.py:35",
-                     REPLACES_I8["K3"], REPLACES_KV16["K3"]),
-              "K4": ("tinyllama_tpu/ops/pallas/flash_prefill.py:201",
-                     REPLACES_I8["K4"], REPLACES_KV16_HELPER),
-              "K9": ("tinyllama_tpu/ops/pallas/flash_prefill.py:375",
-                     REPLACES_I8["K9"], REPLACES_KV16_HELPER),
-              "K10": ("tinyllama_tpu/ops/pallas/flash_paged.py:38",
-                      REPLACES_I8["K10"], REPLACES_KV16_HELPER),
-              "K11": ("tinyllama_tpu/ops/pallas/flash_paged.py:171",
-                      REPLACES_I8["K11"], REPLACES_KV16_HELPER)}
-
-    def replaces(kernel):
-        bf, i8, f = rep_of[kernel.split()[0]]
-        return {"bf16": bf, "i8": i8}.get(kv, f)
+    yardstick = KV_YARDSTICK[kv]
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-
-    def quant(cache):
-        if kv == "bf16":
-            return cache
-        table = cache.table if isinstance(cache, PagedKVCache) else None
-        if kv == "i8":
-            (k, ks), (v, vs) = quantize_kv(cache.k), quantize_kv(cache.v)
-        else:
-            dt = {"f16": torch.float16, "f32": torch.float32}[kv]
-            k, v, ks, vs = cache.k.to(dt), cache.v.to(dt), None, None
-        if table is not None:
-            return PagedKVCache(k, v, table, ks, vs)
-        return KVCache(k, v, ks, vs)
-
-    def sdpa(q, k, v, is_causal=False, mask=None):
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=is_causal, attn_mask=mask, enable_gqa=True)
 
     def measure(kernel, shape, src, fn, plain, library, nbytes, flops, reps):
         err = check_close(f"{kernel} d=128 {kv} {shape}", fn(0), plain(0))
@@ -1126,11 +1120,11 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
         lib_ms = time_ms(library, reps, True)
         rows.append(kernel_row(kernel, f"{kernel} d=128 "
                                + ("" if kv == "bf16" else f"{kv} ") + shape,
-                               kind, src, replaces(kernel), err, ms, plain_ms,
-                               nbytes, flops, lib_ms, yardstick))
+                               kind, src, attention_replaces(kernel, kv), err,
+                               ms, plain_ms, nbytes, flops, lib_ms, yardstick))
 
     def mono(B, H, Kh):
-        return quant(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)))
+        return as_kv_kind(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)), kv)
 
     # K3: the causal prefill from pos 0 over T new tokens
     src3 = "tinyllama_tpu_torch/csrc/flash_attention.cu"
@@ -1149,7 +1143,7 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
                 src3, lambda i: fa.flash_prefill_attention(q, cache, layers[i % L],
                                                            pos),
                 lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
-                lambda i: sdpa(qh, dk, dv, is_causal=True),
+                lambda i: sdpa_gqa(qh, dk, dv, is_causal=True),
                 2 * T * H * d * 2 + 2 * Kh * T * kv_row, 4 * d * pairs,
                 20 if T == 8192 else 100)
         del cache, dk, dv, q, qh
@@ -1175,7 +1169,7 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
                 src, lambda i: fa.flash_decode_heads_attention(q, cache,
                                                                layers[i % L], pos),
                 lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
-                lambda i: sdpa(qh, kx, vx),
+                lambda i: sdpa_gqa(qh, kx, vx),
                 B * (2 * H * d * 2 + 2 * Kh * (p + 1) * kv_row),
                 4 * d * B * H * (p + 1), 100)
         del cache, dk, dv, kx, vx
@@ -1183,8 +1177,8 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
         n = p // P + 1
         table = torch.zeros((1, S // P), dtype=torch.int32, device=dev)
         table[0, :n] = 1 + torch.arange(n, device=dev)
-        pool = quant(PagedKVCache(rand(L, 1 + n, Kh, P, d),
-                                  rand(L, 1 + n, Kh, P, d), table))
+        pool = as_kv_kind(PagedKVCache(rand(L, 1 + n, Kh, P, d),
+                                  rand(L, 1 + n, Kh, P, d), table), kv)
         q = rand(1, 1, H, d)
         pos = torch.full((1,), p, dtype=torch.int32, device=dev)
         dk, dv = paged_layer_view(pool, 3, torch.bfloat16)
@@ -1196,7 +1190,7 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
         measure("K10 flash_paged", f"B=1 pos={p} P={P} H={H} Kh={Kh}", src,
                 lambda i: fp.flash_paged_attention(q, pool, layers[i % L], pos),
                 lambda i: fp.paged_attention_ref(q, pool, layers[i % L], pos),
-                lambda i: sdpa(qh, kx, vx),
+                lambda i: sdpa_gqa(qh, kx, vx),
                 2 * H * d * 2 + 2 * Kh * (p + 1) * kv_row, 4 * d * H * (p + 1),
                 100)
         del pool, dk, dv, kx, vx
@@ -1210,15 +1204,15 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
                 n = -(-fill // P)
                 table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
                 table[:, :n] = 1 + torch.arange(B * n, device=dev).reshape(B, n)
-                pool = quant(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
-                                          rand(L, 1 + B * n, Kh, P, d), table))
+                pool = as_kv_kind(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
+                                          rand(L, 1 + B * n, Kh, P, d), table), kv)
                 fn = fp.flash_paged_staged_attention
                 dk, dv = paged_layer_view(pool, 3, torch.bfloat16)
             else:
                 pool = mono(B, H, Kh)
                 fn = fa.flash_staged_attention
                 dk, dv = layer_cache_view(pool, 3, torch.bfloat16)
-            t = quant(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)))
+            t = as_kv_kind(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)), kv)
             base = torch.full((B,), fill, dtype=torch.int32, device=dev)
             st = StagedKVCache(pool, t.k, t.v, base, sk_scale=t.k_scale,
                                sv_scale=t.v_scale)
@@ -1232,10 +1226,209 @@ def phase_attention_d128(torch, ops, kv="bf16") -> list[dict]:
                     + (f"P={P}" if paged else f"S={S}") + f" H={H} Kh={Kh}", src,
                     lambda i: fn(q, st, layers[i % L], pos),
                     lambda i: fp.staged_attention_ref(q, st, layers[i % L], pos),
-                    lambda i: sdpa(qh, kx, vx),
+                    lambda i: sdpa_gqa(qh, kx, vx),
                     2 * Kh * B * (fill + 32) * kv_row + 2 * B * H * d * 2,
                     4 * d * H * B * (fill + 32), 100)
             del pool, st, t, dk, dv, kx, vx
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: path (t): the tiny configurations' rows: K4 and K9-K11 at each of the
+#: fills (tiny-test's max_ctx, and 2,048), K8 at each position
+TINY_FILLS = (128, 2048)
+TINY_K8_POS = (127, 1500)
+#: path (t): K11's batch rows (the server's slots, and the batcher's)
+TINY_SLOTS = 8
+#: path (t1): the CLI's greedy tokens after its prompt (two 32-step
+#: chunks within tiny-test's max_ctx of 128)
+TINY_NEW = 64
+
+
+def phase_attention_tiny(torch, ops, kv="bf16") -> list[dict]:
+    """The attention kernels at the JAX package's tiny head shapes against
+    their plain versions, over random caches of one KV kind: head dim 32,
+    the tiny-test config's 4 query heads over 2 kv heads (G 2) or 4 (G 1):
+    K3 at T = 32 and 128 from pos 0 over max_ctx 128 (G 2); K4 (B = 4),
+    K10 (B = 1), K9 (B = 4) and K11 (B = TINY_SLOTS) at G 1 and 2 with
+    every row's keys filled to each of TINY_FILLS (K9 and K11: the last 32
+    in a full tail); K8 at d 32 (G 2, the tiny config's wo 128 x 128) and
+    at d 128 (4 query heads over 1 kv head, G 4, wo 512 x 512: path (t4)'s
+    model) at TINY_K8_POS over 2,048 keys, q8 wo; with kv = "i8", "f16" or
+    "f32" one shape of each (K3 T = 128, the rest at G 2 over 2,048 keys,
+    K8 at pos 1,500), as the d = 128 rows do. In bf16, K4 and K8 at d 32
+    are also captured in a CUDA graph at one position and replayed at
+    others. Each row's bound counts the kind's bytes (int8 with its f32 scales);
+    its library yardstick is SDPA (enable_gqa) over the same keys as bf16,
+    for K8 then wo (dequantized, bf16) and the residual by torch.addmm."""
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
+    from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
+    from tinyllama_tpu_torch.runtime.staging import StagedKVCache
+    from tinyllama_tpu_torch.tools.kbench import time_ms
+
+    _, fa, _, _, ao, fp, codec = ops
+    dev, d, L, H = "cuda", 32, 2, 4
+    layers = [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(L)]
+    gen = torch.Generator(dev)
+    gen.manual_seed(32)
+    rows = []
+    sfx = "" if kv == "bf16" else f"-kv{kv}"
+    yardstick = KV_YARDSTICK[kv]
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def measure(kernel, dh, shape, src, fn, plain, library, nbytes, flops,
+                kind="tiny-q8"):
+        name = f"{kernel} d={dh} " + ("" if kv == "bf16" else f"{kv} ") + shape
+        err = check_close(name, fn(0), plain(0))
+        ms = time_ms(fn, 50, True)
+        plain_ms = time_ms(plain, 3, False)
+        lib_ms = time_ms(library, 50, True)
+        rows.append(kernel_row(kernel, name, kind + sfx, src,
+                               attention_replaces(kernel, kv),
+                               err, ms, plain_ms, nbytes, flops, lib_ms,
+                               yardstick))
+
+    kv_row = KV_ROW_BYTES[kv](d)
+    # K3: the causal prefill from pos 0 over T new tokens, max_ctx 128
+    S, Kh = 128, 2
+    cache = as_kv_kind(KVCache(rand(L, 1, Kh, S, d), rand(L, 1, Kh, S, d)), kv)
+    dk, dv = layer_cache_view(cache, 1, torch.bfloat16)
+    pos0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    every = kv == "bf16"  # every shape, else one of each
+    for T in (32, 128) if every else (128,):
+        q = rand(1, T, H, d)
+        qh, kx, vx = q.transpose(1, 2), dk[:, :, :T], dv[:, :, :T]
+        measure("K3 flash_prefill", d, f"T={T} pos=0 S={S} H={H} Kh={Kh} G=2",
+                "tinyllama_tpu_torch/csrc/flash_attention.cu",
+                lambda i: fa.flash_prefill_attention(q, cache, layers[i % L], pos0),
+                lambda i: fa.attention_ref(q, cache, layers[i % L], pos0),
+                lambda i: sdpa_gqa(qh, kx, vx, is_causal=True),
+                2 * T * H * d * 2 + 2 * Kh * T * kv_row,
+                4 * d * H * T * (T + 1) // 2)
+    del cache
+
+    src = "tinyllama_tpu_torch/csrc/decode_split.cu"
+    P = 64
+    for G in (1, 2) if every else (2,):
+        Kh = H // G
+        for fill in TINY_FILLS if every else TINY_FILLS[-1:]:
+            # K4: path (c)'s batch of 4 rows, each at pos fill - 1
+            B, S = 4, fill
+            cache = as_kv_kind(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)), kv)
+            q = rand(B, 1, H, d)
+            pos = torch.full((B,), fill - 1, dtype=torch.int32, device=dev)
+            dk, dv = layer_cache_view(cache, 1, torch.bfloat16)
+            qh = q.transpose(1, 2)
+            if every and fill == TINY_FILLS[-1]:  # any position is valid
+                replay_at(f"K4 d=32 {kv} G={G} B={B}",
+                          lambda: fa.flash_decode_heads_attention(
+                              q, cache, layers[1], pos),
+                          pos, 127, (1500, 5, S - 1))
+            measure("K4 flash_decode_heads", d,
+                    f"B={B} pos={fill - 1} S={S} H={H} Kh={Kh} G={G}", src,
+                    lambda i: fa.flash_decode_heads_attention(
+                        q, cache, layers[i % L], pos),
+                    lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
+                    lambda i: sdpa_gqa(qh, dk, dv),
+                    B * (2 * H * d * 2 + 2 * Kh * fill * kv_row),
+                    4 * d * B * H * fill)
+            del cache
+            # K10: one row at pos fill - 1 through its page table
+            n = fill // P
+            table = (1 + torch.arange(n, device=dev, dtype=torch.int32))[None]
+            pool = as_kv_kind(PagedKVCache(rand(L, 1 + n, Kh, P, d),
+                                      rand(L, 1 + n, Kh, P, d), table), kv)
+            q = rand(1, 1, H, d)
+            pos = torch.full((1,), fill - 1, dtype=torch.int32, device=dev)
+            dk, dv = paged_layer_view(pool, 1, torch.bfloat16)
+            qh = q.transpose(1, 2)
+            measure("K10 flash_paged", d,
+                    f"B=1 pos={fill - 1} P={P} H={H} Kh={Kh} G={G}", src,
+                    lambda i: fp.flash_paged_attention(q, pool, layers[i % L], pos),
+                    lambda i: fp.paged_attention_ref(q, pool, layers[i % L], pos),
+                    lambda i: sdpa_gqa(qh, dk[:, :, :fill], dv[:, :, :fill]),
+                    2 * H * d * 2 + 2 * Kh * fill * kv_row, 4 * d * H * fill)
+            del pool
+            # K9 (B = 4, the monolithic cache) and K11 (TINY_SLOTS rows, the
+            # pool): every row's base at fill - 32, its 32-slot tail full
+            for kernel, B, paged in (("K9 flash_staged", 4, False),
+                                     ("K11 flash_paged_staged", TINY_SLOTS,
+                                      True)):
+                base_n = fill - 32
+                if paged:
+                    n = -(-base_n // P)
+                    table = torch.zeros((B, fill // P), dtype=torch.int32,
+                                        device=dev)
+                    table[:, :n] = 1 + torch.arange(
+                        B * n, device=dev, dtype=torch.int32).reshape(B, n)
+                    pool = as_kv_kind(PagedKVCache(rand(L, 1 + B * n, Kh, P, d),
+                                              rand(L, 1 + B * n, Kh, P, d),
+                                              table), kv)
+                    fn = fp.flash_paged_staged_attention
+                    dk, dv = paged_layer_view(pool, 1, torch.bfloat16)
+                else:
+                    pool = as_kv_kind(KVCache(rand(L, B, Kh, fill, d),
+                                         rand(L, B, Kh, fill, d)), kv)
+                    fn = fa.flash_staged_attention
+                    dk, dv = layer_cache_view(pool, 1, torch.bfloat16)
+                t = as_kv_kind(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)), kv)
+                base = torch.full((B,), base_n, dtype=torch.int32, device=dev)
+                st = StagedKVCache(pool, t.k, t.v, base, sk_scale=t.k_scale,
+                                   sv_scale=t.v_scale)
+                pos = base + 31
+                q = rand(B, 1, H, d)
+                tk, tv = layer_cache_view(t, 1, torch.bfloat16)
+                kx = torch.cat([dk[:, :, :base_n], tk], dim=2)
+                vx = torch.cat([dv[:, :, :base_n], tv], dim=2)
+                qh = q.transpose(1, 2)
+                measure(kernel, d, f"B={B} fill={base_n} tail=32 "
+                        + (f"P={P}" if paged else f"S={fill}")
+                        + f" H={H} Kh={Kh} G={G}", src,
+                        lambda i: fn(q, st, layers[i % L], pos),
+                        lambda i: fp.staged_attention_ref(q, st, layers[i % L],
+                                                          pos),
+                        lambda i: sdpa_gqa(qh, kx, vx),
+                        2 * Kh * B * fill * kv_row + 2 * B * H * d * 2,
+                        4 * d * H * B * fill)
+                del pool, st, t
+
+    # K8: the b1 step's attention, wo (q8) and residual over 2,048 keys
+    S = 2048
+    for dh, Kh, kind in ((32, 2, "tiny-q8"), (128, 1, "t4-q8")):
+        D = H * dh
+        w = [codec.quantize(torch.randn((D, D), generator=gen, device=dev) * 0.02,
+                            "q8", "kn") for _ in range(L)]
+        wo = codec.QTensor(torch.stack([x.data for x in w]),
+                           torch.stack([x.scales for x in w]), "q8", "kn")
+        dense = [codec.dequantize(x, torch.bfloat16) for x in w]
+        cache = as_kv_kind(KVCache(rand(L, 1, Kh, S, dh), rand(L, 1, Kh, S, dh)), kv)
+        dk, dv = layer_cache_view(cache, 1, torch.bfloat16)
+        row_bytes = KV_ROW_BYTES[kv](dh)
+        for p in TINY_K8_POS if every else TINY_K8_POS[-1:]:
+            q, res = rand(1, 1, H, dh), rand(1, 1, D)
+            pos = torch.tensor([p], dtype=torch.int32, device=dev)
+            qh, kx, vx = q.transpose(1, 2), dk[:, :, :p + 1], dv[:, :, :p + 1]
+            if every and dh == 32 and p == TINY_K8_POS[0]:
+                replay_at(f"K8 d=32 {kv} G=2",
+                          lambda: ao.fused_attn_out(q, cache, layers[1], pos, res,
+                                                    wo),
+                          pos, 127, (1500, 5, S - 1))
+            measure("K8 fused_attn_out", dh,
+                    f"pos={p} S={S} H={H} Kh={Kh} G={H // Kh} N={D}",
+                    "tinyllama_tpu_torch/csrc/attn_out_fused.cu",
+                    lambda i: ao.fused_attn_out(q, cache, layers[i % L], pos,
+                                                res, wo),
+                    lambda i: ao.fused_attn_out_ref(q, cache, layers[i % L], pos,
+                                                    res, wo),
+                    lambda i: torch.addmm(res.view(1, D),
+                                          sdpa_gqa(qh, kx, vx).reshape(1, D),
+                                          dense[i % L]),
+                    D * D + D // 32 * D * 2 + 2 * Kh * (p + 1) * row_bytes
+                    + H * dh * 2 + 2 * D * 2,
+                    4 * dh * H * (p + 1) + 2 * D * D, kind)
+        del cache, wo, dense
     torch.cuda.empty_cache()
     return rows
 
@@ -1430,9 +1623,7 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
     from tinyllama_tpu_torch.parallel.tp import (
         local_config, tp_chunk_row_parallel,
     )
-    from tinyllama_tpu_torch.runtime.kvcache import (
-        KVCache, layer_cache_view, quantize_kv,
-    )
+    from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
     from tinyllama_tpu_torch.runtime.paged import PagedKVCache, paged_layer_view
     from tinyllama_tpu_torch.runtime.staging import StagedKVCache
     from tinyllama_tpu_torch.tools.kbench import time_ms
@@ -1511,11 +1702,8 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
         torch.cuda.empty_cache()
         return rows
 
-    def sdpa(q, k, v, is_causal=False, mask=None):
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
-
-    kv_row = KV_ROW_BYTES["i8" if i8 else "bf16"](d)
+    kv = "i8" if i8 else "bf16"
+    kv_row = KV_ROW_BYTES[kv](d)
 
     def attn_row(kernel, label, src, rep, fn, plain, lib, n_keys, pairs, B, T):
         err = check_close(f"{kernel} {kind} {label}", fn(0), plain(0))
@@ -1526,19 +1714,10 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
             2 * Kh * n_keys * kv_row + 2 * B * T * H * d * 2, 4 * d * pairs,
             lib_ms)
 
-    def quant(c):
-        """c, or (int8 kinds) c quantized with its scale planes."""
-        if not i8:
-            return c
-        (k, ks), (v, vs) = quantize_kv(c.k), quantize_kv(c.v)
-        if isinstance(c, PagedKVCache):
-            return PagedKVCache(k, v, c.table, ks, vs)
-        return KVCache(k, v, ks, vs)
-
     # K3 (T = 128 from pos 0; b rows of path (s)'s prefill) and K4 (pos
     # 127) over a monolithic cache (int8 for "kv" and "dp-kv": its library
     # yardstick SDPA over the dequantized keys)
-    cache = quant(KVCache(rand(L, b, Kh, S, d), rand(L, b, Kh, S, d)))
+    cache = as_kv_kind(KVCache(rand(L, b, Kh, S, d), rand(L, b, Kh, S, d)), kv)
     dk, dv = layer_cache_view(cache, 3, bf)
     attn_shapes = {"prefill": ((128, 0),), "dp": ((128, 0),),
                    "dp-kv": ((128, 0),), "dcn": ()}.get(part,
@@ -1561,7 +1740,7 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
             REPLACES_I8[kernel] if i8 else rep,
             lambda i: fn(q, cache, layers[i % L], pos),
             lambda i: fa.attention_ref(q, cache, layers[i % L], pos),
-            lambda i: sdpa(qh, kx, vx, is_causal=T > 1), b * n_keys,
+            lambda i: sdpa_gqa(qh, kx, vx, is_causal=T > 1), b * n_keys,
             b * H * sum(p + t + 1 for t in range(T)), b, T)
     del cache, dk, dv
     if part in ("prefill", "kv"):
@@ -1583,16 +1762,16 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
         if paged:
             table = torch.zeros((B, S // P), dtype=torch.int32, device=dev)
             table[:, 0] = 1 + torch.arange(B, device=dev, dtype=torch.int32)
-            pool = quant(PagedKVCache(rand(L, 1 + B, Kh, P, d),
-                                      rand(L, 1 + B, Kh, P, d), table))
+            pool = as_kv_kind(PagedKVCache(rand(L, 1 + B, Kh, P, d),
+                                      rand(L, 1 + B, Kh, P, d), table), kv)
             kd, vd = paged_layer_view(pool, 3, bf)
         else:
-            pool = quant(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)))
+            pool = as_kv_kind(KVCache(rand(L, B, Kh, S, d), rand(L, B, Kh, S, d)), kv)
             kd, vd = layer_cache_view(pool, 3, bf)
         base = torch.full((B,), fill, dtype=torch.int32, device=dev)
         kx, vx = kd[:, :, :fill], vd[:, :, :fill]
         if staged:
-            t = quant(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)))
+            t = as_kv_kind(KVCache(rand(L, B, Kh, 32, d), rand(L, B, Kh, 32, d)), kv)
             arg = StagedKVCache(pool, t.k, t.v, base, sk_scale=t.k_scale,
                                 sv_scale=t.v_scale)
             pos = base + (tail - 1)
@@ -1614,7 +1793,7 @@ def phase_tp_rows(torch, ops, kind) -> list[dict]:
                  f"tinyllama_tpu/ops/pallas/{rep}",
                  lambda i: fn(q, arg, layers[i % L], pos),
                  lambda i: plain(q, arg, layers[i % L], pos),
-                 lambda i: sdpa(qh, kx, vx), B * n_keys, B * H * n_keys, B, 1)
+                 lambda i: sdpa_gqa(qh, kx, vx), B * n_keys, B * H * n_keys, B, 1)
         del pool, arg, kd, vd, kx, vx
     torch.cuda.empty_cache()
     return rows
@@ -2134,10 +2313,15 @@ def profile_decode(engine, prompt, torch, steps: int = 4) -> None:
 
 def main() -> int:
     t_start = time.perf_counter()
+    last_mark = [t_start]
 
     def mark(what: str) -> None:
-        print(f"elapsed: {what} done at {time.perf_counter() - t_start:.1f} s",
-              flush=True)
+        """The script's seconds so far, and on a line of its own those
+        since the last mark (each path's, or phase's, own)."""
+        now = time.perf_counter()
+        print(f"elapsed: {what} done at {now - t_start:.1f} s", flush=True)
+        print(f"seconds: {what} {now - last_mark[0]:.1f} s", flush=True)
+        last_mark[0] = now
     if not (ROOT / "tinyllama_tpu_torch" / "csrc").is_dir():
         return fail("the tinyllama_tpu_torch package is not beside this script")
     import torch
@@ -2176,13 +2360,14 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
 
-    #: --tp-only / --sp-only / --dp-only: the build, then path (q) / (r) /
-    #: (s) alone (for a machine of several cards, where their ranks run
-    #: NCCL)
+    #: --tp-only / --sp-only / --dp-only / --tiny-only: the build, then
+    #: path (q) / (r) / (s) / (t) alone (the first three for a machine of
+    #: several cards, where their ranks run NCCL)
     tp_only = sys.argv[1:] == ["--tp-only"]
     sp_only = sys.argv[1:] == ["--sp-only"]
     dp_only = sys.argv[1:] == ["--dp-only"]
-    only = tp_only or sp_only or dp_only
+    tiny_only = sys.argv[1:] == ["--tiny-only"]
+    only = tp_only or sp_only or dp_only or tiny_only
 
     def finish(rows, kb_rows) -> int:
         for r in rows:
@@ -2376,6 +2561,17 @@ def main() -> int:
             c["fused_out_residual"] += C * L
         c[qmm(B)] += C
 
+    def dictated(record, paged, unfused=False):
+        """The launches of a record's admissions (rows, bucket) and chunks
+        (rows, steps), by the bf16, weight-only names."""
+        want = {k: 0 for c in counters for k in c}
+        want["flash_prefill_own"] = 0
+        for b, T in record["prefill"]:
+            prefill_counts(want, b, T, paged, unfused)
+        for B, C in record["chunk"]:
+            chunk_counts(want, B, C, paged, unfused)
+        return want
+
     def recorded(eng, paged, run):
         """Run `run()` with the prefill and run_chunk of `eng` (an Engine,
         or a list of Engines of one policy) wrapped to record each
@@ -2412,19 +2608,37 @@ def main() -> int:
             for e in engs:
                 del e.prefill, e.run_chunk
         notes["first_use"] = first_use(engs, before)
-        want = {k: 0 for c in counters for k in c}
-        want["flash_prefill_own"] = 0
-        if engs[0].policy.is_quantized:
-            unfused = engs[0].policy.aq8 or engs[0].cfg.n_embd > 2048
-            for b, T in record["prefill"]:
-                prefill_counts(want, b, T, paged, unfused)
-            for B, C in record["chunk"]:
-                chunk_counts(want, B, C, paged, unfused)
-        return out, record, want
+        if not engs[0].policy.is_quantized:
+            return out, record, dictated({"prefill": [], "chunk": []}, paged)
+        unfused = engs[0].policy.aq8 or engs[0].cfg.n_embd > 2048
+        return out, record, dictated(record, paged, unfused)
 
     def ids_ok(outs, n_new):
         return all(len(o) == n and all(0 <= t < cfg.n_vocab for t in o)
                    for o, n in zip(outs, n_new))
+
+    def run_cli(argv, method="generate"):
+        """cli.main(argv) with Engine.generate (or `method`) caught:
+        (engine, prompt tokens, ids, stats) of its one call."""
+        seen = []
+        real = getattr(Engine, method)
+
+        def spy(self, prompt_tokens, *a, **k):
+            out, stats = real(self, prompt_tokens, *a, **k)
+            seen.append((self, prompt_tokens, out, stats))
+            return out, stats
+
+        setattr(Engine, method, spy)
+        try:
+            reset()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            setattr(Engine, method, real)
+        if rc or len(seen) != 1:
+            raise AssertionError(f"cli.main {argv[0]} gave {rc} after "
+                                 f"{len(seen)} generate calls")
+        return seen[0]
 
     # the decode chunk as a CUDA graph (Engine.run_chunk) against the
     # eager Engine.chunk
@@ -2650,6 +2864,25 @@ def main() -> int:
             atexit.register(rank_pools[4].close)
         return rank_pools[4]
 
+    #: kernel rows made ahead of their paths (beside the Llama-3 parity's
+    #: CPU traces), by path
+    ready_rows: dict[str, list] = {}
+
+    def path_rows(path: str) -> list[dict]:
+        """The kernel rows of path (q), (r), (s) or (t): those made ahead,
+        else made now."""
+        if path in ready_rows:
+            return ready_rows.pop(path)
+        made = {"q": lambda: [r for k in TP_ROWS
+                              for r in phase_tp_rows(torch, ops, k)],
+                "r": lambda: phase_sp_rows(torch, ops),
+                "s": lambda: [r for k in DP_ROWS
+                              for r in phase_tp_rows(torch, ops, k)],
+                "t": lambda: [r for kv in ("bf16", "i8", "f16", "f32")
+                              for r in phase_attention_tiny(torch, ops, kv)]}[path]()
+        mark(f"({path}) kernel rows")
+        return made
+
     def free():
         """Frees what engines deleted above held (an engine and its chunk
         graphs refer to each other, so they go at a collection)."""
@@ -2721,10 +2954,7 @@ def main() -> int:
         )
 
         t_q = time.perf_counter()
-        q_rows = []
-        for kind in TP_ROWS:
-            q_rows += phase_tp_rows(torch, ops, kind)
-        mark("(q) kernel rows")
+        q_rows = path_rows("q")
         name = TINYLLAMA_1_1B.name
         qrng = np.random.default_rng(18)
 
@@ -2976,8 +3206,7 @@ def main() -> int:
         from tinyllama_tpu_torch.parallel.sp import padded_length
 
         t_r = time.perf_counter()
-        r_rows = phase_sp_rows(torch, ops)
-        mark("(r) kernel rows")
+        r_rows = path_rows("r")
         name, L_tiny = TINYLLAMA_1_1B.name, L
         rrng = np.random.default_rng(19)
 
@@ -3241,10 +3470,7 @@ def main() -> int:
         from tinyllama_tpu_torch.parallel.mesh import backend_for, with_mesh
 
         t_s = time.perf_counter()
-        s_rows = []
-        for kind in DP_ROWS:
-            s_rows += phase_tp_rows(torch, ops, kind)
-        mark("(s) kernel rows")
+        s_rows = path_rows("s")
         name = TINYLLAMA_1_1B.name
         srng = np.random.default_rng(20)
 
@@ -3412,6 +3638,297 @@ def main() -> int:
               f"x tp=2 {ms4:.4f} ({how}); card {card}", flush=True)
         return s_rows
 
+    # (t) the JAX package's own tiny configurations on the card: tiny-test
+    # (head dim 32, 2 query heads a kv head) through the CLI and the HTTP
+    # server, the dryrun on JAX's unwidened configs in path (q)'s pool, and
+    # a d = 128 model narrow enough for the fused branch (K8 at d = 128)
+    def path_t() -> list[dict]:
+        """Path (t); returns the tiny-shape kernel rows with their
+        launches (on (t1), (t2) and (t4) in this process)."""
+        nonlocal L, cfg
+        from tinyllama_tpu_torch.config import tiny_test_config
+
+        t_t = time.perf_counter()
+        t_rows = path_rows("t")
+        for kind in [f"{m}-q8{k}" for m in ("tiny", "t4")
+                     for k in ("", "-kvi8", "-kvf16", "-kvf32")] + ["tiny-q4g"]:
+            totals.setdefault(kind, {k: 0 for c in counters for k in c})
+        trng = np.random.default_rng(21)
+        keep = cfg, L
+        cfg = tiny_test_config()
+        L = cfg.n_layers
+        try:
+            engines = t1_cli(trng)
+            mark("(t1) cli")
+            t2_server(engines["tiny-q8"], trng)
+            mark("(t2) server")
+            t3_dryrun()
+            mark("(t3) dryrun")
+            t4_d128(trng)
+        finally:
+            cfg, L = keep
+        for r in t_rows:
+            names = [counter_name(n, r["kind"]) for n in LAUNCH_NAMES[r["kernel"]]]
+            r["launches"] = sum(totals[r["kind"]][k] for k in names)
+            if not r["launches"]:
+                raise AssertionError(f"{r['name']} was not launched on path (t)")
+        print(f"path (t): {time.perf_counter() - t_t:.1f} s; card {card}",
+              flush=True)
+        return t_rows
+
+    def t1_cli(trng) -> dict:
+        """(t1) cli.main at --model tiny-test on random weights (no
+        tokenizer: a prompt's ids are its characters'): q8 with a short
+        prompt (bucket 32: the fused prefill, K5, K3, K6, K7), q4g with one
+        past 32 ids (bucket 64: K2, K3), q8 over int8, f16 and f32 caches;
+        TINY_NEW greedy tokens of fused b1 decode (K5, K8, K7, the lm_head's
+        K1) each in whole 32-step chunks (the CLI's --chunk), exact counts
+        from the prompt's bucket and the steps run, and the chunks replayed
+        as a CUDA graph equal to the eager chunk. Then,
+        on each q8 engine's weights, the serving kernels at tiny-test's
+        heads. Returns the CLI engines by kind."""
+        short, long_ = "hello tiny world", ("the quick brown fox jumps over "
+                                             "the lazy dog again")
+        engines = {}
+        for wkind, kv, prompt_ in (("q8", None, short), ("q4g", None, long_),
+                                   ("q8", "i8", short), ("q8", "f16", short),
+                                   ("q8", "f32", short)):
+            kind = f"tiny-{wkind}" + (f"-kv{kv}" if kv else "")
+            path = f"(t1) {kind}"
+            n_prompt = 1 + len(prompt_)
+            argv = (["--model", "tiny-test", "--random-weights", f"-{wkind}",
+                     "-p", prompt_, "-greedy", "--npred",
+                     str(n_prompt + TINY_NEW)] + (["--kv", kv] if kv else []))
+            with contextlib.redirect_stdout(io.StringIO()):
+                eng, toks, out, stats = run_cli(argv)
+            bucket = 32 if prompt_ == short else 64
+            if (eng.cfg != cfg or eng.device.type != "cuda"
+                    or len(toks) != n_prompt
+                    or engine_bucket(n_prompt, cfg.max_ctx) != bucket
+                    or stats.decode_steps != TINY_NEW
+                    or not ids_ok([out], [TINY_NEW])):
+                raise AssertionError(
+                    f"path {path}: {eng.cfg.name} on {eng.device}, "
+                    f"{len(toks)} prompt ids, {len(out)} ids in "
+                    f"{stats.decode_steps} steps")
+            want = dictated({"prefill": [(1, bucket)],
+                             "chunk": [(1, 32)] * (TINY_NEW // 32)}, False)
+            expect(path, kind, **want)
+            if not (want["fused_attn_out"] and want["flash_prefill"]):
+                raise AssertionError(f"path {path}: K8 or K3 not on the path")
+            graph_equals(path, eng, [toks])
+            print(f"path {path}: cli.main --model tiny-test -{wkind}"
+                  + (f" --kv {kv}" if kv else "") + f": {n_prompt}-id prompt "
+                  f"(bucket {bucket}), prefill {stats.prefill_s * 1e3:.3f} ms, "
+                  f"decode {stats.ms_per_token:.4f} ms/token over {len(out)} "
+                  f"tokens (head dim {cfg.d_head}, {cfg.q_heads_per_group} "
+                  f"query heads a kv head); card {card}", flush=True)
+            if wkind == "q8":
+                t1_serving(path, kind, eng, trng)
+            engines[kind] = eng
+        return engines
+
+    def t1_serving(path, kind, eng, trng) -> None:
+        """The serving kernels on a CLI engine's weights and cache kind,
+        the chunks eager (exact counts): 4 rows of B = 4 decode steps (K4),
+        generate_batch (staged chunks, K9), a paged generate (K10) and a
+        paged batcher of TINY_SLOTS slots (K11; K3 at admission)."""
+        prompts = [[1] + trng.integers(2, cfg.n_vocab, n - 1).tolist()
+                   for n in (9, 20, 31, 12)]
+        gcfg = GenerationConfig(n_predict=32 + 16, greedy=True, eos_token=-1,
+                                chunk_size=8)
+        cache = eng.new_cache(len(prompts))
+        logits, lens = eng.prefill(cache, prompts)
+        pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        reset()
+        for _ in range(BATCH_STEPS):
+            logits = eng.decode_step(cache, logits.argmax(-1).to(torch.int32),
+                                     pos)
+            pos += 1
+        torch.cuda.synchronize()
+        n = BATCH_STEPS
+        expect(f"{path} B={len(prompts)} steps", kind, fused_norm_qkv=L * n,
+               flash_decode_heads=L * n, fused_out_residual=L * n,
+               ffn_fused_normed=L * n, qmm_smallm=n)
+        peng = Engine(cfg, eng.policy, eng.params, device="cuda", paged=True)
+        with eager_chunks():
+            (outs, _), rec, want = recorded(
+                eng, False, lambda: eng.generate_batch(prompts, gcfg))
+            expect(f"{path} generate_batch", kind, **want)
+            (out, _), rec_p, want_p = recorded(
+                peng, True, lambda: peng.generate(prompts[1], gcfg))
+            expect(f"{path} paged generate", kind, **want_p)
+            batcher = ContinuousBatcher(peng, gcfg, max_batch=TINY_SLOTS)
+            reqs = [[1] + trng.integers(2, cfg.n_vocab, int(m) - 1).tolist()
+                    for m in trng.integers(8, 60, 2 * TINY_SLOTS)]
+            ids = [batcher.submit(r, max_new=16) for r in reqs]
+            res, rec_b, want_b = recorded(peng, True, batcher.run)
+            expect(f"{path} batcher", kind, **want_b)
+        done = [res[i].output for i in ids]
+        if not (ids_ok(outs, [gcfg.n_predict - len(p) for p in prompts])
+                and ids_ok([out], [gcfg.n_predict - len(prompts[1])])
+                and ids_ok(done, [16] * len(reqs))
+                and want["flash_staged"] and want_p["flash_paged"]
+                and want_b["flash_paged_staged"]):
+            raise AssertionError(f"path {path}: serving ids out of range, or "
+                                 "K9, K10 or K11 not on the path")
+        print(f"path {path} serving: {BATCH_STEPS} B=4 steps (K4), "
+              f"generate_batch of 4 (K9), a paged generate (K10), a paged "
+              f"batcher of {TINY_SLOTS} slots over {len(reqs)} requests (K11 "
+              f"at buckets {sorted({B for B, _ in rec_b['chunk']})}), the "
+              "chunks eager", flush=True)
+
+    def t2_server(eng_q8, trng) -> None:
+        """(t2) the HTTP server over a paged tiny-test engine (the CLI's q8
+        weights), TINY_SLOTS slots, 16 requests of 16 greedy tokens from 8
+        client threads, half streamed, through a stand-in tokenizer (its
+        ids past tiny-test's 512 rows take the last, as JAX's gather
+        does): exact launch counts (K3 at admission, K10 / K11 in the
+        chunks). Then every request sent alone must answer
+        Engine.generate's tokens for its prompt."""
+        from tinyllama_tpu_torch.io import tokenizer
+        from tinyllama_tpu_torch.runtime.server import serve
+
+        with tempfile.TemporaryDirectory() as tmp:
+            vocab_t = Path(tmp) / "tokenizer.bin"
+            tokenizer.stand_in_vocab(vocab_t)
+            tok = tokenizer.Tokenizer(vocab_t)
+        # prompts of 3 to 24 words (at most 80 ids): the batcher ends a
+        # request within one chunk of max_ctx (JAX's rule), so 16 new
+        # tokens and a 16-step chunk stay inside tiny-test's 128
+        words = CLI_PROMPT.replace(",", "").replace(".", "").split()
+        payloads = [{"prompt": " ".join(words[: int(k)]), "max_new": 16,
+                     "stream": i % 2 == 1}
+                    for i, k in enumerate(trng.integers(3, 25, 16))]
+        gcfg = GenerationConfig(greedy=True, eos_token=-1, chunk_size=16)
+        peng = Engine(cfg, eng_q8.policy, eng_q8.params, device="cuda",
+                      paged=True)
+        httpd = serve(peng, tok, gcfg, 0, max_batch=TINY_SLOTS)
+        port = start_server(httpd)
+        try:
+            def clients(reqs):
+                with ThreadPoolExecutor(8) as pool:
+                    got = list(pool.map(lambda r: http_generate(port, r, tok),
+                                        reqs))
+                if not ids_ok([a for a, _ in got], [16] * len(reqs)):
+                    raise AssertionError("path (t2): a request did not get its "
+                                         "16 ids in range")
+                return got
+
+            clients(payloads)  # captures the chunk graphs of its buckets
+            answers, record, want = recorded(peng, True,
+                                             lambda: clients(payloads))
+            expect("(t2) server", "tiny-q8", **want)
+            got = {k: v for c in counters for k, v in c.items()}
+            if not (got["flash_prefill"]
+                    and got["flash_paged_staged"] + got["flash_paged"]):
+                raise AssertionError(f"path (t2): the server's launches {got} "
+                                     "miss K3, or K10 and K11")
+            same = 0
+            for (concurrent, _), p in zip(answers, payloads):
+                ids = tok.encode(p["prompt"])
+                want_ids, _ = peng.generate(ids, GenerationConfig(
+                    n_predict=len(ids) + 16, greedy=True, eos_token=-1,
+                    chunk_size=16))
+                alone, _ = http_generate(port, {**p, "stream": False}, tok)
+                if alone != want_ids:
+                    raise AssertionError(
+                        f"path (t2): {p['prompt']!r} sent alone answered "
+                        f"{alone}, Engine.generate {want_ids}")
+                same += concurrent == want_ids
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        print(f"path (t2): serve(Engine(tiny-test, paged=True), max_batch="
+              f"{TINY_SLOTS}), 16 requests (8 streamed) from 8 client threads,"
+              f" 16 greedy tokens each: {len(record['prefill'])} admissions, "
+              f"{len(record['chunk'])} chunks at buckets "
+              f"{sorted({B for B, _ in record['chunk']})}; each request sent "
+              f"alone answers Engine.generate's tokens; {same} of 16 "
+              "answers sent together did too (a reading: a batch's chunks "
+              "run K11 and other kernel shapes, whose bf16 sums may part "
+              f"from b1's on random weights); card {card}", flush=True)
+
+    def t3_dryrun() -> None:
+        """(t3) the port's multi-device dryrun at N = 4 in the rank pool
+        of paths (q)-(s), on JAX's configurations as they are (head dim
+        32, 2 query heads a kv head): an OK line for paths 2, 3, 4, 6 and
+        7, and path 1's not-ported line."""
+        from tinyllama_tpu_torch.tools import dryrun_multichip
+
+        lines = dryrun_multichip.run_paths(rank_pool(), 4)
+        for n in (2, 3, 4, 6, 7):
+            if not any(ln.startswith(f"dryrun_multichip path {n} OK")
+                       for ln in lines):
+                raise AssertionError(f"path (t3): no OK line for path {n}")
+        if not any("path 1 not ported" in ln for ln in lines):
+            raise AssertionError("path (t3): no line for path 1")
+        cfg_d, l3 = dryrun_multichip.configs()
+        print(f"path (t3): dryrun_multichip at N = 4 on "
+              f"{torch.cuda.device_count()} card(s): paths 2, 3, 4, 6, 7 OK "
+              f"at head dim {cfg_d.d_head} and {l3.d_head}, "
+              f"{cfg_d.q_heads_per_group} query heads a kv head (JAX's "
+              "configs, unwidened)", flush=True)
+
+    def t4_d128(trng) -> None:
+        """(t4) a hand-made d = 128 model that takes the fused branch
+        (tiny_test_config(n_embd=512, n_heads=4, n_kv_heads=1, n_ffn=1024):
+        G 4), q8, over every cache kind: Engine.generate b1 for 32 tokens
+        (K8 at d = 128 a layer a step, exact counts), then the prefill's
+        and each teacher-forced step's logits within PARITY_REL of max
+        |logits| of the same engine on the CPU (the plain versions)."""
+        nonlocal cfg, L
+        from tinyllama_tpu_torch.config import tiny_test_config
+
+        cfg = tiny_test_config(n_embd=512, n_heads=4, n_kv_heads=1, n_ffn=1024)
+        L = cfg.n_layers
+        g4 = torch.Generator()
+        g4.manual_seed(128)
+        params4 = llama.init_quantized_params(cfg, POLICIES["q8"], g4, "cpu")
+        prompt4 = [1] + trng.integers(2, cfg.n_vocab, 19).tolist()
+        worst = 0.0
+
+        def trace4(eng, toks):
+            i32 = functools.partial(torch.tensor, dtype=torch.int32,
+                                    device=eng.device)
+            cache = eng.new_cache(1)
+            logits, _ = eng.prefill(cache, [prompt4])
+            trace = [logits]
+            for i, t in enumerate(toks[:-1]):
+                trace.append(eng.decode_step(cache, i32([t]),
+                                             i32([len(prompt4) + i])))
+            return [x.float().cpu() for x in trace]
+
+        for kv in (None, "i8", "f16", "f32"):
+            pol = (POLICIES["q8"] if kv is None
+                   else dataclasses.replace(POLICIES["q8"], kv_dtype=kv))
+            kind = "t4-q8" + (f"-kv{kv}" if kv else "")
+            eng4 = Engine(cfg, pol, params4, device="cuda")
+            (out4, _), _, want = recorded(eng4, False, lambda: eng4.generate(
+                prompt4, GenerationConfig(n_predict=len(prompt4) + 32,
+                                          greedy=True, eos_token=-1,
+                                          chunk_size=32)))
+            if not ids_ok([out4], [32]) or want["fused_attn_out"] != 32 * L:
+                raise AssertionError(f"path (t4) {kind}: {len(out4)} ids, or "
+                                     f"K8 {want['fused_attn_out']} times")
+            expect(f"(t4) {kind}", kind, **want)
+            card_tr = trace4(eng4, out4)
+            cpu_tr = trace4(Engine(cfg, pol, params4, device="cpu"), out4)
+            for i, (a, b) in enumerate(zip(card_tr, cpu_tr)):
+                scale = float(b.abs().max())
+                err = float((a - b).abs().max())
+                worst = max(worst, err / scale)
+                if not (torch.isfinite(a).all() and err <= PARITY_REL * scale):
+                    raise AssertionError(
+                        f"path (t4) {kind}: step {i}'s logits {err} from the "
+                        f"CPU's, limit {PARITY_REL} * {scale}")
+            del eng4
+        print(f"path (t4): d = {cfg.d_head}, G = {cfg.q_heads_per_group}, "
+              f"n_embd {cfg.n_embd} (the fused branch): 32 greedy tokens a "
+              f"cache kind with K8 at d = 128 ({32 * L} launches each), the "
+              f"prefill's and 32 steps' logits within {worst:.4f} of max "
+              f"|CPU logits| (limit {PARITY_REL}); card {card}", flush=True)
+
     if tp_only:
         rows = path_q()
         mark("(q) tensor parallelism")
@@ -3423,6 +3940,10 @@ def main() -> int:
     if dp_only:
         rows = path_s()
         mark("(s) data-parallel rows")
+        return finish(rows, kb_rows)
+    if tiny_only:
+        rows = path_t()
+        mark("(t) tiny configurations")
         return finish(rows, kb_rows)
 
     # (a) main path: unfused prefill (bucket 128), fused b1 decode
@@ -3883,29 +4404,6 @@ def main() -> int:
     n_prompt = len(tok.encode(CLI_PROMPT))
     if not 33 <= n_prompt <= 128:
         return fail(f"path (h): the templated prompt has {n_prompt} tokens")
-
-    def run_cli(argv, method="generate"):
-        """cli.main(argv) with Engine.generate (or `method`) caught:
-        (engine, prompt tokens, ids, stats) of its one call."""
-        seen = []
-        real = getattr(Engine, method)
-
-        def spy(self, prompt_tokens, *a, **k):
-            out, stats = real(self, prompt_tokens, *a, **k)
-            seen.append((self, prompt_tokens, out, stats))
-            return out, stats
-
-        setattr(Engine, method, spy)
-        try:
-            reset()
-            rc = cli.main(argv)
-            torch.cuda.synchronize()
-        finally:
-            setattr(Engine, method, real)
-        if rc or len(seen) != 1:
-            raise AssertionError(f"cli.main {argv[0]} gave {rc} after "
-                                 f"{len(seen)} generate calls")
-        return seen[0]
 
     # (m) the HTTP server and the router over the port's batcher, on (a)'s
     # q8 weights: a paged engine, SERVE_SLOTS slots, an ephemeral port
@@ -4580,10 +5078,28 @@ def main() -> int:
                          tag, kw, card_trace))
         del made
         free()
+    def cpu_trace(job):
+        t0 = time.perf_counter()
+        trace = parity_trace(Engine(job[0], job[1], job[2], device="cpu"),
+                             job[3], **job[4])
+        print(f"parity {job[3]}CPU trace: {time.perf_counter() - t0:.1f} s "
+              f"(one of {len(jobs)} threads)", flush=True)
+        return trace
+
+    # the CPU traces (2-3 minutes of the host's cores) run while the card
+    # makes the kernel rows of paths (q)-(t): their times are the card's
+    # over CUDA graphs (the median of time_ms's replays, so a host thread
+    # held up by the traces spoils at most one), and only their plain
+    # versions' eager times share the host. Each trace keeps every
+    # intra-op thread: with fewer the five took longer on the card's
+    # 8-core host (PERF.md §6).
+    print(f"parity: {len(jobs)} CPU traces at once, beside the kernel rows "
+          "of paths (q)-(t)", flush=True)
     with ThreadPoolExecutor(len(jobs)) as pool:
-        cpu_traces = list(pool.map(
-            lambda j: parity_trace(Engine(j[0], j[1], j[2], device="cpu"), j[3],
-                                   **j[4]), jobs))
+        traces = [pool.submit(cpu_trace, job) for job in jobs]
+        for path in "qrst":
+            ready_rows[path] = path_rows(path)
+        cpu_traces = [t.result() for t in traces]
     pairs = []
     for job, cpu_trace in zip(jobs, cpu_traces):
         pairs += list(zip(job[5], cpu_trace))
@@ -4788,6 +5304,8 @@ def main() -> int:
     mark("(r) sequence parallelism")
     rows += path_s()
     mark("(s) data-parallel rows")
+    rows += path_t()
+    mark("(t) tiny configurations")
     return finish(rows, kb_rows)
 
 

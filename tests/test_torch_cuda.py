@@ -54,7 +54,12 @@ equal to generate, the graph keys and launch counts with and without
 debug_nans, and the profiler's kernel events against the launch counts
 of a replayed chunk and a replayed set of rounds; and K1-K4 and K9-K11 at
 a tensor-parallel rank's local widths (TinyLlama at tp 2 and 4, Kh = 1
-at 4; Llama-3-8B at tp 2; the --tp-overlap ring's column chunks).
+at 4; Llama-3-8B at tp 2; the --tp-overlap ring's column chunks); and
+the JAX package's tiny head shapes: K4, K10, K9 and K11 at head dim 32,
+64 and 128 with G = 1, 2, 3, 5 and 8 query heads a kv head (a runtime
+argument of the split template), K3 at d 32, K8 at d 32 and 128 in q8
+and q4g, each over every KV kind, and K4, K10 and K8 replayed from a
+CUDA graph at other positions (``small_heads``).
 Tolerance: the JAX suite's bf16 kernel tolerance,
 rtol 2e-2 / atol 5e-3 (tests/test_tpu_kernels.py), against the plain
 version on the same card and inputs.
@@ -668,17 +673,17 @@ def test_serving_attention_replays_in_a_graph(card):
 
 @pytest.mark.cuda
 def test_serving_attention_refuses_on_the_card(card):
-    """Pages that are not whole 64-key tiles, and 2 query heads per kv
-    head, are refused before a launch."""
-    q, pos, pool, _, st_paged = _serving_inputs(2, 4, 10, seed=1, device=card)
+    """Pages that are not whole 64-key tiles, and 16 query heads per kv
+    head (more than the products' 8 columns), are refused before a
+    launch."""
+    q, pos, pool, _, st_paged = _serving_inputs(2, 16, 10, seed=1, device=card)
     layer = _i32([0], card)
     small = PagedKVCache(pool.k[:, :, :, :32].contiguous(),
                          pool.v[:, :, :, :32].contiguous(), pool.table)
     with pytest.raises(ValueError, match="multiple of 64"):
-        flash_paged.flash_paged_attention(q, small, layer, pos)
-    with pytest.raises(ValueError, match="H / Kh"):
-        flash_paged.flash_paged_staged_attention(q[:, :, :4], st_paged, layer,
-                                                 pos)
+        flash_paged.flash_paged_attention(q[:, :, :8], small, layer, pos)
+    with pytest.raises(ValueError, match="H / Kh.*Queue 2"):
+        flash_paged.flash_paged_staged_attention(q, st_paged, layer, pos)
 
 
 @pytest.mark.cuda
@@ -1861,8 +1866,11 @@ def _bad_attention_inputs():
     li, pos = _i32([0]), _i32([1])
     return {
         "f32 queries": (q.float(), cache, li, pos, TypeError),
+        # d 32 is taken (as 64 and 128), but not against a d 64 cache
         "head dim 32": (torch.zeros(1, 3, 8, 32, dtype=torch.bfloat16),
-                        _cache(1, 2, 64, [4], seed=0, d=32), li, pos,
+                        cache, li, pos, ValueError),
+        "head dim 96": (torch.zeros(1, 3, 8, 96, dtype=torch.bfloat16),
+                        _cache(1, 2, 64, [4], seed=0, d=96), li, pos,
                         ValueError),
         "batch mismatch": (torch.zeros(2, 3, 8, 64, dtype=torch.bfloat16),
                            cache, li, _i32([1, 1]), ValueError),
@@ -1879,7 +1887,7 @@ def _bad_attention_inputs():
 def test_attention_checks_refuse(case):
     q, cache, li, pos, exc = _bad_attention_inputs()[case]
     with pytest.raises(exc):
-        flash_attention._check(q, cache, li, pos)
+        flash_attention._check("flash_decode_heads", q, cache, li, pos)
 
 
 def test_decode_attention_refuses_several_tokens():
@@ -1933,9 +1941,9 @@ def test_serving_checks_refuse(case):
     q, pool, st, pos, exc = _bad_serving_inputs()[case]
     li = _i32([0])
     with pytest.raises(exc):
-        flash_paged._check_paged(q, pool, li, pos)
+        flash_paged._check_paged("flash_paged", q, pool, li, pos)
     with pytest.raises(exc):
-        flash_paged._check_paged(q, pool, li, pos, st)
+        flash_paged._check_paged("flash_paged_staged", q, pool, li, pos, st)
 
 
 # --- the prefill kernels redesigned for Hopper: K2 and K3 on wgmma ---------
@@ -2692,8 +2700,8 @@ def test_d128_kernels_replay_in_a_graph(card, kv):
 @pytest.mark.cuda
 def test_d128_wrappers_refuse_other_head_dims(card):
     """A head dim the kernels do not take (96) is refused on the card with
-    a ValueError naming the ones they take, before a launch; K8 takes
-    only 64."""
+    a ValueError naming the ones they take, before a launch; K8 as well,
+    and K8 at more than 8 query heads a kv head."""
     d = 96
     q = torch.zeros(1, 1, 8, d, dtype=torch.bfloat16, device=card)
     cache = _cache(1, 2, 256, [4], seed=0, device=card, d=d)
@@ -2712,13 +2720,18 @@ def test_d128_wrappers_refuse_other_head_dims(card):
         lambda: flash_paged.flash_paged_staged_attention(
             q, StagedKVCache(pool, st.sk, st.sv, st.base), layer, pos),
     ]
+    calls.append(lambda: attn_out_fused.fused_attn_out(
+        q, cache, layer, pos, torch.zeros(1, 1, 768, dtype=torch.bfloat16,
+                                          device=card),
+        _weight(2, 768, 768, 0, card)))
     for call in calls:
-        with pytest.raises(ValueError, match=r"d must be one of \(64, 128\)"):
+        with pytest.raises(ValueError,
+                           match=r"d must be one of \(32, 64, 128\).*Queue 2"):
             call()
-    q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16, device=card)
-    cache = _cache(1, 2, 256, [4], seed=0, device=card, d=128)
+    q = torch.zeros(1, 1, 32, 32, dtype=torch.bfloat16, device=card)
+    cache = _cache(1, 2, 256, [4], seed=0, device=card, d=32)
     res = torch.zeros(1, 1, 1024, dtype=torch.bfloat16, device=card)
-    with pytest.raises(ValueError, match=r"one of \(64,\)"):
+    with pytest.raises(ValueError, match="H / Kh"):
         attn_out_fused.fused_attn_out(q, cache, _i32([0], card), _i32([3], card),
                                       res, _weight(2, 1024, 1024, 0, card))
 
@@ -3214,3 +3227,201 @@ def test_capture_survives_a_dropped_engines_graphs(card):
     g.replay()
     torch.cuda.synchronize()
     assert gone() is None and float(x[0]) == 100
+
+
+# --- the JAX package's tiny head shapes: d 32, and G 1 to 8 at every d ------
+
+#: the KV kinds of the attention kernels
+KV_KINDS = ["bf16", "i8", "f16", "f32"]
+
+
+def _kind_of(cache, kv):
+    """A bf16 KVCache or PagedKVCache in the KV kind `kv`."""
+    return cache if kv == "bf16" else _i8(cache) if kv == "i8" else _float_kv(cache, kv)
+
+
+def _heads_inputs(B, Kh, G, d, kv, seed, device, S=2048, P=64, L=2):
+    """q [B, 1, G Kh, d]; a monolithic cache [L, B, Kh, S, d] of random
+    keys and a page pool (P-key pages under a shuffled table) of the same
+    values, both in the KV kind `kv`."""
+    g = torch.Generator().manual_seed(seed)
+    J = S // P
+    dense = _cache(B, Kh, S, [S] * B, seed=seed, device=device, L=L, d=d)
+    table = 1 + torch.randperm(B * J, generator=g).reshape(B, J)
+    pk = torch.zeros((L, 1 + B * J, Kh, P, d), dtype=torch.bfloat16, device=device)
+    pv = torch.zeros_like(pk)
+    for b in range(B):
+        for j in range(J):
+            pk[:, table[b, j]] = dense.k[:, b, :, j * P:(j + 1) * P]
+            pv[:, table[b, j]] = dense.v[:, b, :, j * P:(j + 1) * P]
+    pool = PagedKVCache(pk, pv, table.to(device, torch.int32))
+    q = torch.randn(B, 1, G * Kh, d, generator=g).to(device, torch.bfloat16)
+    return q, _kind_of(dense, kv), _kind_of(pool, kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", KV_KINDS)
+@pytest.mark.parametrize("G", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_small_heads_split_decode_match_plain(card, d, G, kv):
+    """K4 (4 rows, a position each) and K10 (each row alone through its
+    page table) at head dim d and G query heads a kv head, G a runtime
+    argument of one instantiation a head dim and KV kind: positions on
+    both sides of a key tile, past SOLO_TILES tiles and the last key;
+    against the plain version, one launch counted a call."""
+    q, dense, pool = _heads_inputs(4, 2, G, d, kv, seed=d + 10 * G, device=card)
+    layer = _i32([1], card)
+    sfx = "" if kv == "bf16" else f"_{kv}"
+    for rows in ([0, 63, 64, 1500], [2047, 448, 447, 5]):
+        p = _i32(rows, card)
+        got = _counted(flash_attention, "flash_decode_heads" + sfx,
+                       lambda: flash_attention.flash_decode_heads_attention(
+                           q, dense, layer, p))
+        torch.testing.assert_close(
+            got.float(), flash_attention.attention_ref(q, dense, layer, p).float(),
+            **TOL, msg=f"K4 d={d} G={G} {kv} at {rows}")
+        for b in range(4):
+            qb, pb = q[b:b + 1], p[b:b + 1]
+            one = PagedKVCache(pool.k, pool.v, pool.table[b:b + 1].contiguous(),
+                               pool.k_scale, pool.v_scale)
+            got = _counted(flash_paged, "flash_paged" + sfx,
+                           lambda: flash_paged.flash_paged_attention(qb, one, layer, pb))
+            torch.testing.assert_close(
+                got.float(),
+                flash_paged.paged_attention_ref(qb, one, layer, pb).float(),
+                **TOL, msg=f"K10 d={d} G={G} {kv} at {rows[b]}")
+
+
+def _staged_heads_inputs(d, G, kv, seed, device, Cs=32, Kh=2, L=2, S=2048,
+                         P=64):
+    """K9's and K11's operands at head dim d over 8 rows of _staged_rows:
+    q, a staged chunk over the monolithic cache and one over the page pool
+    (the same keys, in KV kind `kv`), layer 1 and the rows' positions."""
+    rows = _staged_rows(Cs)
+    B = len(rows)
+    q, dense, pool = _heads_inputs(B, Kh, G, d, "bf16", seed, device, S, P, L)
+    g = torch.Generator().manual_seed(seed + 1)
+    tail = KVCache(*(torch.randn(L, B, Kh, Cs, d, generator=g).to(
+        device, torch.bfloat16) for _ in range(2)))
+    dense, pool, tail = (_kind_of(c, kv) for c in (dense, pool, tail))
+    base = _i32([b for b, _ in rows], device)
+    st = [StagedKVCache(c, tail.k, tail.v, base, sk_scale=tail.k_scale,
+                        sv_scale=tail.v_scale) for c in (dense, pool)]
+    pos = _i32([b + f - 1 for b, f in rows], device)
+    return q, st[0], st[1], pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", KV_KINDS)
+@pytest.mark.parametrize("G", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_small_heads_staged_split_match_plain(card, d, G, kv):
+    """K9 over the monolithic cache and K11 over the page pool at head dim
+    d and G query heads a kv head: ragged chunk bases and tail fills
+    across 8 rows, each against its plain version, one launch counted a
+    call."""
+    q, st_dense, st_paged, pos = _staged_heads_inputs(d, G, kv, d + G, card)
+    layer = _i32([1], card)
+    sfx = "" if kv == "bf16" else f"_{kv}"
+    for mod, name, kernel, plain in _staged_cases(q, st_dense, st_paged, layer,
+                                                  pos):
+        got = _counted(mod, name + sfx, kernel)
+        torch.testing.assert_close(got.float(), plain().float(), **TOL,
+                                   msg=f"{name} d={d} G={G} {kv}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", KV_KINDS)
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("T", [12, 65, 128])
+def test_small_heads_prefill_match_plain(card, T, B, G, kv):
+    """K3 at head dim 32 (each row padded to 64 values in shared memory
+    only) over every KV kind: T new tokens a row at unequal positions,
+    partial last query blocks, diagonal tiles at pos % 64 != 0; one
+    launch, against its plain version."""
+    S = -(-(T + 192) // 64) * 64
+    pos = [0] if B == 1 else [0, 70, 3, 131]
+    cache = _kind_of(_cache(B, 2, S, [p + T for p in pos], seed=T + G,
+                            device=card, d=32), kv)
+    g = torch.Generator().manual_seed(T + B)
+    q = torch.randn(B, T, 2 * G, 32, generator=g).to(card, torch.bfloat16)
+    layer, p = _i32([1], card), _i32(pos, card)
+    sfx = "" if kv == "bf16" else f"_{kv}"
+    got = _counted(flash_attention, "flash_prefill" + sfx,
+                   lambda: flash_attention.flash_prefill_attention(q, cache, layer, p))
+    want = flash_attention.attention_ref(q, cache, layer, p)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", KV_KINDS)
+@pytest.mark.parametrize("kind", ["q8", "q4g"])
+@pytest.mark.parametrize("d, G", [(32, 1), (32, 2), (32, 8), (128, 1), (128, 4),
+                                  (128, 8), (64, 5)])
+def test_fused_attn_out_small_heads_match_plain(card, d, G, kind, kv):
+    """K8's two launches at head dim d (wo's K = H d: 128 at tiny-test's
+    d 32 and 4 heads) and G query heads a kv head over every KV kind and
+    wo in q8 and q4g, at pos 0, 63, 64, 447, 448 and 1500: against its
+    plain version, counted once under its KV kind's key, a second call
+    bit-equal to the first."""
+    Kh = 1 if G == 8 and d == 128 else 2
+    H = G * Kh
+    if kind == "q4g" and (H * d) % 128:
+        H, Kh = 2 * H, 2 * Kh  # q4g's group of 128 rows
+    D = H * d
+    cache = _kind_of(_cache(1, Kh, 1536, [1536], seed=d + G, device=card, d=d), kv)
+    g = torch.Generator().manual_seed(d * G)
+    q = torch.randn(1, 1, H, d, generator=g).to(card, torch.bfloat16)
+    res = torch.randn(1, 1, D, generator=g).to(card, torch.bfloat16)
+    wo = _weight(2, D, D, d + G, card, kind)
+    layer = _i32([1], card)
+    key = "fused_attn_out" + ("" if kv == "bf16" else f"_{kv}")
+    for pos in (0, 63, 64, 447, 448, 1500):
+        p = _i32([pos], card)
+        got = _counted(attn_out_fused, key, lambda: attn_out_fused.fused_attn_out(
+            q, cache, layer, p, res, wo))
+        again = attn_out_fused.fused_attn_out(q, cache, layer, p, res, wo)
+        want = attn_out_fused.fused_attn_out_ref(q, cache, layer, p, res, wo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (d, G, pos)
+        torch.testing.assert_close(got.float(), want.float(), **TOL,
+                                   msg=f"K8 d={d} G={G} {kind} {kv} pos={pos}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", KV_KINDS)
+def test_small_heads_kernels_replay_in_a_graph(card, kv):
+    """K4 and K10 at d 32, G 2, and K8 at d 32, G 2 and d 128, G 4,
+    captured in a CUDA graph at pos 127 and replayed at other positions:
+    each replay torch.equal to the eager call there."""
+    from tinyllama_tpu_torch.runtime.graphs import capturing
+
+    q, dense, pool = _heads_inputs(1, 2, 2, 32, kv, seed=3, device=card)
+    layer = _i32([1], card)
+    p = _i32([127], card)
+    calls = [lambda: flash_attention.flash_decode_heads_attention(q, dense, layer, p),
+             lambda: flash_paged.flash_paged_attention(q, pool, layer, p)]
+    for d, G, Kh in ((32, 2, 2), (128, 4, 1)):
+        D = G * Kh * d
+        cache = _kind_of(_cache(1, Kh, 2048, [2048], seed=d, device=card, d=d), kv)
+        g = torch.Generator().manual_seed(d)
+        q8 = torch.randn(1, 1, G * Kh, d, generator=g).to(card, torch.bfloat16)
+        res = torch.randn(1, 1, D, generator=g).to(card, torch.bfloat16)
+        wo = _weight(2, D, D, d, card)
+        calls.append(lambda q8=q8, cache=cache, res=res, wo=wo:
+                     attn_out_fused.fused_attn_out(q8, cache, layer, p, res, wo))
+    for i, fn in enumerate(calls):
+        p.fill_(127)
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with capturing(graph):
+            out = fn()
+        for at in (1500, 5, 2047):
+            p.fill_(at)
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, fn()), (i, kv, at)

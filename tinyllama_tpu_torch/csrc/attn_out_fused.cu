@@ -1,12 +1,12 @@
 // Fused batch-1 decode attention + output projection + residual for
 // Hopper (sm_90a), two launches from one entry point:
 //   out = residual + attention(q, cache layer, keys 0..pos) @ dequant(wo)
-// q [H, 64] bf16 of the one new token; the stacked cache [L, 1, Kh, S,
-// 64], bf16, f16, f32, or int8 with f32 scales [L, 1, Kh, S]
-// (kvkind.cuh), with the token's k/v already written; wo the
-// layer-stacked "kn" weight [L, H*64, N] (q8, or q4 / q4g as [L, H*32, N]
-// nibble data; qkind.cuh); the layer index and pos read from device
-// memory.
+// q [H, d] bf16 of the one new token (head dim d = 32, 64 or 128); the
+// stacked cache [L, 1, Kh, S, d], bf16, f16, f32, or int8 with f32 scales
+// [L, 1, Kh, S] (kvkind.cuh), with the token's k/v already written; wo
+// the layer-stacked "kn" weight [L, H*d, N] (q8, or q4 / q4g as [L,
+// H*d/2, N] nibble data; qkind.cuh); the layer index and pos read from
+// device memory.
 //
 // K8 replaces the kernel of _run_attn_out in
 //   tinyllama_tpu/ops/pallas/attn_out_fused.py. Bound: the bytes of wo
@@ -19,12 +19,13 @@
 //   phases are the port's two templates, launched one after the other on
 //   the stream:
 //   - attention: the split-key template of decode_split.cuh at K4's
-//     addressing (B = 1, G = H / Kh query heads a kv head, any G <= 8):
+//     addressing (B = 1, G = H / Kh query heads a kv head, any G <= 8, a
+//     runtime argument; one instantiation a head dim and KV kind):
 //     mma.sync products over a cp.async ring, a row of at most SOLO_TILES
 //     tiles one block's, a longer one split over n_split blocks
 //     (decode_split.decode_splits, host sizes only) and merged by the last
 //     block to arrive; each head's result rounded to bf16, as the TPU
-//     kernel casts its scratch, into a [H * 64] workspace;
+//     kernel casts its scratch, into a [H * d] workspace;
 //   - wo: one launch of the walk of fused_walk.cuh with K6's arguments (x
 //     that workspace, M = 1; row tile 8: exact integer products scaled
 //     after each 32-row block, the TPU's m = 1 blockdot; split K summed in
@@ -46,51 +47,28 @@
 #include "decode_split.cuh"
 #include "fused_walk.cuh"
 
-namespace {
-
-// K8's head dim. The split template also has 128 (Llama-3), which no
-// registry model brings here: the fused branch takes n_embd <= 2048.
-constexpr int D = 64;
-
-// The attention at K4's addressing with G query heads a kv head, letting
-// the wo walk start early.
-template <class KV>
-int attention(const dsplit::Args<KV>& a, int G, cudaStream_t st) {
-  switch (G) {
-    case 1: return dsplit::launch_g<D, 1, false, false, KV, true>(a, st);
-    case 2: return dsplit::launch_g<D, 2, false, false, KV, true>(a, st);
-    case 3: return dsplit::launch_g<D, 3, false, false, KV, true>(a, st);
-    case 4: return dsplit::launch_g<D, 4, false, false, KV, true>(a, st);
-    case 5: return dsplit::launch_g<D, 5, false, false, KV, true>(a, st);
-    case 6: return dsplit::launch_g<D, 6, false, false, KV, true>(a, st);
-    case 7: return dsplit::launch_g<D, 7, false, false, KV, true>(a, st);
-    case 8: return dsplit::launch_g<D, 8, false, false, KV, true>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
 extern "C" {
 
-// q: [H, 64] bf16; k, v: [L, 1, Kh, S, 64] of kv_kind (0 bf16, 1 int8,
+// q: [H, d] bf16; k, v: [L, 1, Kh, S, d] of kv_kind (0 bf16, 1 int8,
 // 2 f16, 3 f32); ks, vs: [L, 1, Kh, S] f32 scales (int8, 16-byte
 // aligned; else null); layer, pos: [1] int32; kind: 0 q8, 1 q4, 2 q4g;
-// w, s: [L, H*64, N] int8 (or [L, H*32, N] uint8) and [L, H*64/32 (or
-// /128), N] fp16; res, out: [N] bf16; ws: f32 [H, n_split, 66] and attn:
-// bf16 [H * 64] workspaces (never zeroed); n_split: the attention's
+// w, s: [L, H*d, N] int8 (or [L, H*d/2, N] uint8) and [L, H*d/32 (or
+// /128), N] fp16; res, out: [N] bf16; ws: f32 [H, n_split, d + 2] and
+// attn: bf16 [H * d] workspaces (never zeroed); n_split: the attention's
 // splits, 1 <= n_split <= min(32, S / 64); width, splits: the wo walk's
 // tile width (64 or 128) and K splits (ops/kernels/fused_plan.py).
-// Requires H / Kh <= 8, S % 64 == 0, N % 32 == 0, H * 64 a multiple of
-// the scale block, splits <= min(8, H) and pos < S.
+// Requires d in {32, 64, 128}, H / Kh <= 8, S % 64 == 0, N % 32 == 0,
+// H * d a multiple of the scale block, splits <= the walk's K steps and
+// pos < S.
 int fused_attn_out(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* layer, const void* pos,
                    const void* w, const void* s, const void* res, void* ws,
                    void* attn, void* out, int kind, int kv_kind, int H, int Kh,
-                   int S, int N, int n_split, int width, int splits,
+                   int S, int N, int d, int n_split, int width, int splits,
                    void* stream) {
-  const int K = H * D;
-  if (!kvkind::valid(kv_kind) || Kh < 1 || H % Kh || H / Kh > dsplit::GMAX ||
+  const int K = H * d;
+  if (!kvkind::valid(kv_kind) || (d != 32 && d != 64 && d != 128) || Kh < 1 ||
+      H % Kh || H / Kh > dsplit::GMAX ||
       S < dsplit::BS || S % dsplit::BS || n_split < 1 ||
       n_split > min(S / dsplit::BS, dsplit::MAX_SPLITS) ||
       Kh > dsplit::MAX_GROUPS || N % 32 || fwalk::bad_shape(kind, 1, K, N, splits))
@@ -110,10 +88,12 @@ int fused_attn_out(const void* q, const void* k, const void* v, const void* ks,
     a.out = static_cast<dsplit::bf16*>(attn);
     a.B = 1;
     a.Kh = Kh;
+    a.G = H / Kh;
     a.rows = S;
     a.cap_tiles = S / dsplit::BS;
     a.n_split = n_split;
-    return attention(a, H / Kh, st);
+    // the wo walk may start once the attention's copies are issued
+    return dsplit::launch_d<false, false, KV, true>(a, d, st);
   });
   if (err) return err;
   fwalk::Args r = {};  // attn -> out (+ res)
@@ -135,7 +115,7 @@ int fused_attn_out(const void* q, const void* k, const void* v, const void* ks,
   });
 }
 
-// The clusters of fused_attn_out's wo launch (kind, K = H * 64, width,
+// The clusters of fused_attn_out's wo launch (kind, K = H * d, width,
 // splits as above) that the card keeps resident at once, into *clusters.
 int fused_attn_out_resident(int kind, int K, int width, int splits, int* clusters) {
   if (fwalk::bad_shape(kind, 1, K, 32, splits)) return (int)cudaErrorInvalidValue;

@@ -1,8 +1,9 @@
 // Single-token grouped-query attention over a long KV cache for Hopper
 // (sm_90a), with the key walk split across the card's SMs: bf16 queries,
 // a bf16, f16, f32 or int8 cache (kvkind.cuh), f32 softmax and sums, at
-// head dim 64 (TinyLlama) or 128 (Llama-3), each an instantiation of the
-// template.
+// head dim 32 (the tiny configurations), 64 (TinyLlama) or 128 (Llama-3),
+// each an instantiation of the template, and 1 to 8 query heads a kv head
+// (a runtime argument of every instantiation).
 //
 // One kernel template serves four TPU kernels, which differ only in how
 // key tile t of batch row b is addressed:
@@ -44,8 +45,9 @@ struct Ptrs {
 template <bool PAGED, bool STAGED>
 int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int rows,
              int n_pages, int J, int Cs, int d, int n_split, void* stream) {
-  if (!kvkind::valid(kv_kind) || (d != 64 && d != 128) || B < 1 || Kh < 1 ||
-      H % Kh || rows < BS || rows % BS || (PAGED && (J < 1 || n_pages < 1)) ||
+  if (!kvkind::valid(kv_kind) || (d != 32 && d != 64 && d != 128) || B < 1 ||
+      Kh < 1 || H % Kh || H / Kh > GMAX || rows < BS || rows % BS ||
+      (PAGED && (J < 1 || n_pages < 1)) ||
       (STAGED && (Cs < 32 || Cs % 32)))
     return (int)cudaErrorInvalidValue;
   const int cap_tiles = PAGED ? J * (rows / BS) : rows / BS;
@@ -63,15 +65,9 @@ int dispatch(int kv_kind, const Ptrs& p, int B, int H, int Kh, int rows,
                static_cast<const float*>(p.svs), static_cast<const int*>(p.layer),
                static_cast<const int*>(p.pos), static_cast<const int*>(p.base),
                static_cast<const int*>(p.table), static_cast<float*>(p.ws),
-               static_cast<bf16*>(p.out), B, Kh, rows, n_pages, J, Cs,
-               cap_tiles, n_split};
-    const int G = H / Kh;
-    if (G != 4 && G != 8) return (int)cudaErrorInvalidValue;
-    if (d == 64)
-      return G == 4 ? launch_g<64, 4, PAGED, STAGED, KV>(a, st)
-                    : launch_g<64, 8, PAGED, STAGED, KV>(a, st);
-    return G == 4 ? launch_g<128, 4, PAGED, STAGED, KV>(a, st)
-                  : launch_g<128, 8, PAGED, STAGED, KV>(a, st);
+               static_cast<bf16*>(p.out), B, Kh, H / Kh, rows, n_pages, J,
+               Cs, cap_tiles, n_split};
+    return launch_d<PAGED, STAGED>(a, d, st);
   });
 }
 
@@ -84,9 +80,9 @@ extern "C" {
 // n_split, d + 2], written whole before it is read (never zeroed);
 // 1 <= n_split <= min(32, the row's capacity in 64-key tiles, a staged
 // tail's ceil(Cs / 64) counted); B * Kh <= 65536. One launch: the split
-// walk, its last block a group merging. Every entry requires d in {64,
-// 128}, H / Kh in {4, 8} and S (or P) % 64 == 0; the staged ones Cs % 32
-// == 0.
+// walk, its last block a group merging. Every entry requires d in {32,
+// 64, 128}, 1 <= H / Kh <= 8 and S (or P) % 64 == 0; the staged ones Cs %
+// 32 == 0.
 
 // K4. q, out: [B, 1, H, d] bf16; k, v: [L, B, Kh, S, d]; ks, vs: [L, B,
 // Kh, S]; layer [1]; pos [B] (pos[b] < S).

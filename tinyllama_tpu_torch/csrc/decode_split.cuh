@@ -1,13 +1,17 @@
 // The split-key single-token attention of the port, for Hopper (sm_90a):
 // one kernel template, bf16 queries against a bf16, f16, f32 or int8
-// cache (kvkind.cuh), f32 softmax and sums, at head dim D = 64 or 128 (a
-// template parameter: TinyLlama's 64, Llama-3's 128). Its users:
+// cache (kvkind.cuh), f32 softmax and sums, at head dim D = 32, 64 or 128
+// (a template parameter: the tiny configurations' 32, TinyLlama's 64,
+// Llama-3's 128) and any G = H / Kh from 1 to 8 query heads a kv head (a
+// runtime argument: the products hold a group's heads as their 8
+// columns, heads past G zero, so one instantiation serves every G and
+// the count grows with D and the KV kind only). Its users:
 // * K4, K9, K10 and K11 (decode_split.cu), which differ only in how key
 //   tile t of batch row b is addressed (the PAGED and STAGED flags);
-// * K8 fused_attn_out (attn_out_fused.cu): K4's addressing at B = 1, any
-//   G <= 8, D = 64 only, its result the x of the wo walk (fused_walk.cuh) that runs as
-//   the next, programmatic dependent, launch; the TRIGGER flag lets that
-//   launch start once a block's first copies are issued.
+// * K8 fused_attn_out (attn_out_fused.cu): K4's addressing at B = 1, its
+//   result the x of the wo walk (fused_walk.cuh) that runs as the next,
+//   programmatic dependent, launch; the TRIGGER flag lets that launch
+//   start once a block's first copies are issued.
 //
 // Every tile copies only its visible keys (n_ok of its 64) and their
 // scales; the stage's other rows are zero-filled by copies that read
@@ -58,10 +62,11 @@
 //   f32 scales): tile t + NS - 1 is in flight while tile t is computed;
 //   the page number of a tile is read as its copies are issued. bf16 K
 //   and V rows (D / 8 chunks of 16 bytes) are stored with an XOR swizzle
-//   of their chunks (chunk c of row r at c ^ (r & 7): at D = 128 the low
-//   three bits of c, so a chunk stays in its half of the row), so the
-//   copies stay 16-byte aligned and the 8 rows of an ldmatrix come from 8
-//   distinct bank groups. An
+//   of their chunks (kchunk: chunk c of row r at c ^ (r & 7), at D = 128
+//   the low three bits of c, so a chunk stays in its half of the row; at
+//   D = 32 a row is 4 chunks and two rows share a 128-byte line, so c ^
+//   ((r >> 1) & 3)), so the copies stay 16-byte aligned and the 8 rows of
+//   an ldmatrix come from 8 distinct bank groups. An
 //   int8, f16 or f32 tile lands raw and is converted once, by the whole
 //   block, into swizzled bf16 K and V tiles beside the ring: f16 and f32
 //   rounded to bf16, as the TPU kernels cast a tile; int8 K and V times
@@ -77,14 +82,15 @@
 //   probabilities are transposed in registers (movmatrix) into the B
 //   operand of O^T [D dims x 8 heads] += V^T P^T, D / 16 more mma.sync
 //   with V^T by ldmatrix.trans. At the end of the walk the four warps'
-//   partials merge in shared memory into the block's.
+//   partials merge in shared memory (after the ring, G heads' worth) into
+//   the block's.
 // * Merge, in the same launch. A group with one live block writes its
 //   output directly. Otherwise each live block writes (m, l, acc[64]) in
 //   f32 a query head to a workspace [B, H, n_split, D + 2] from torch.empty
 //   (slots past n_live are never written or read), fences, and takes a
 //   ticket from its group's arrival count; the block that takes the last
-//   merges, a warp a head and a lane a partial (then, D / 64 times, two
-//   dims a lane): M = max m_i, then
+//   merges, a warp a head and a lane a partial (then, ceil(D / 64) times,
+//   two dims a lane, lanes past D / 2 idle at D = 32): M = max m_i, then
 //   sum(exp(m_i - M) acc_i) / sum(exp(m_i - M) l_i) as bf16 (l > 0, else
 //   1). Its atomicInc wraps the count back to 0, so nothing is zeroed
 //   between launches or graph replays. A second, merging launch was the
@@ -126,10 +132,11 @@ constexpr int SOLO_TILES = 7;    // a row of <= this many tiles: one block
 // The ring for a KV element type at head dim D: NS stages, each the raw K
 // and V tiles of BS rows, then (int8) the tile's BS key scales and BS
 // value scales. Kinds other than bf16 are converted once a tile, into
-// bf16 K and V tiles beside the ring, before the warps read them.
+// bf16 K and V tiles beside the ring, before the warps read them. The
+// warps' partials follow, G heads of WS floats a warp (part_bytes).
 template <class KV, int D>
 struct Tile {
-  static_assert(D == 64 || D == 128, "the template's head dims");
+  static_assert(D == 32 || D == 64 || D == 128, "the template's head dims");
   static constexpr bool I8 = kvkind::is_i8<KV>;
   static constexpr bool RAW = !std::is_same<KV, bf16>::value;
   static constexpr int WS = D + 2;                  // floats of a partial
@@ -140,14 +147,19 @@ struct Tile {
   static constexpr int STAGE = 2 * BYTES + (I8 ? 2 * BS * 4 : 0);
   static constexpr int NS = sizeof(KV) == 4 ? 2 : 3;  // stages
   static constexpr int SMEM = NS * STAGE + (RAW ? 2 * BF_TILE : 0);
+  // the warps' partials of G heads, after the ring and the bf16 tiles
+  static constexpr int part_bytes(int G) { return NW * G * WS * 4; }
 };
 
 // Where 16-byte chunk c of bf16 row r (D / 8 chunks) sits in a tile: at
-// c ^ (r & 7) of its row, so the 8 rows of an ldmatrix matrix (one chunk
-// each) land in 8 distinct bank groups and every copy stays 16-byte
-// aligned.
+// c ^ (r & 7) of its row (D >= 64), or at c ^ ((r >> 1) & 3) of a 4-chunk
+// row (D = 32, two rows a 128-byte line), so the 8 rows of an ldmatrix
+// matrix (one chunk each) land in 8 distinct bank groups and every copy
+// stays 16-byte aligned.
 template <int D>
-__device__ inline int kchunk(int r, int c) { return r * (D / 8) + (c ^ (r & 7)); }
+__device__ inline int kchunk(int r, int c) {
+  return D >= 64 ? r * (D / 8) + (c ^ (r & 7)) : r * (D / 8) + (c ^ ((r >> 1) & 3));
+}
 
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
@@ -186,6 +198,7 @@ struct Args {
   float* ws;           // [B, H, n_split, D + 2]
   bf16* out;           // [B, 1, H, D]
   int B, Kh;
+  int G;               // query heads a kv head, 1 .. GMAX
   int rows;            // dense: S; paged: page size P
   int n_pages, J;      // paged only
   int Cs;              // staged slots (staged only)
@@ -291,18 +304,19 @@ __device__ inline uint4 i8x8_bf16(const int8_t* p, float s) {
 // f16 and f32 rounded to nearest even (kvkind::load8); int8 K and V times
 // their row's scale (sc[r] and sc[BS + r]) rounded (as
 // kvkind::load8_scaled). A thread
-// converts CPT 8-value chunks a pass (D / 64 passes), every load of a
-// pass issued before its first store (one shared-memory latency, not CPT
-// of them).
+// converts CPT 8-value chunks a pass (8, or 4 at D = 32; D / 64 passes,
+// one at D = 32), every load of a pass issued before its first store (one
+// shared-memory latency, not CPT of them).
 template <int D, class KV>
 __device__ inline void convert_tile(const unsigned char* stage,
                                     unsigned char* bk, unsigned char* bv,
                                     const float* sc) {
   using T = Tile<KV, D>;
   constexpr int CR = D / 8;  // 8-value chunks a row
-  constexpr int CPT = 2 * BS * 8 / NT;
+  constexpr int ALL = 2 * BS * CR;  // chunks of the K and V tiles
+  constexpr int CPT = ALL / NT < 8 ? ALL / NT : 8;
 #pragma unroll
-  for (int pass = 0; pass < D / 64; ++pass) {
+  for (int pass = 0; pass < ALL / (NT * CPT); ++pass) {
     uint4 x[CPT];
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
@@ -331,8 +345,8 @@ __device__ inline void convert_tile(const unsigned char* stage,
 constexpr int MAX_GROUPS = 1 << 16;
 __device__ unsigned int g_tickets[MAX_GROUPS];
 
-// Block (split, kh, b), NW warps over the G query heads of the group: the
-// split's share of row b's visible tiles. The group's live blocks are
+// Block (split, kh, b), NW warps over the a.G query heads of the group:
+// the split's share of row b's visible tiles. The group's live blocks are
 // splits 0 .. n_live - 1, each with `share` tiles (the last fewer); a
 // block past them returns at once. One live block writes the output
 // itself; otherwise each writes its partial and the last to arrive
@@ -340,17 +354,20 @@ __device__ unsigned int g_tickets[MAX_GROUPS];
 // the next launch, a programmatic dependent one, start (a block that
 // returns early lets it by exiting). At D = 128 the stages and the
 // accumulators double; two blocks an SM is what the bf16 ring leaves
-// (the register budget follows).
-template <int D, int G, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
-__global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
+// (the register budget follows). Heads past G are zero columns of the
+// products: they write nothing, and the tickets count blocks, not heads.
+template <int D, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
+__global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2)
     decode_split_kernel(Args<KV> a) {
   using T = Tile<KV, D>;
-  static_assert(G <= GMAX, "a group's heads are the products' 8 columns");
   constexpr int WS = T::WS;
   constexpr int KS = D / 16;  // k16 steps of the scores, m16 tiles of O^T
+  constexpr int HALVES = (D + 63) / 64;  // passes of 64 dims over a warp
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float part[NW][G][WS];  // each warp's (m, l, acc) a head
   __shared__ unsigned int ticket;
+  const int G = a.G;
+  // each warp's (m, l, acc) a head: part[(x * G + h) * WS + i]
+  float* part = reinterpret_cast<float*>(smem + T::SMEM);
   // the split is the grid's slowest dimension: every group's split 0,
   // the only live block of a short row, is dispatched before any block
   // that may find nothing to do
@@ -504,34 +521,38 @@ __global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
   for (int e = 0; e < 2; ++e) {
     const int h = 2 * c4 + e;
     if (h < G) {
+      float* ph = part + (w * G + h) * WS;
       if (r4 == 0) {
-        part[w][h][0] = m[e];
-        part[w][h][1] = l[e];
+        ph[0] = m[e];
+        ph[1] = l[e];
       }
 #pragma unroll
       for (int mt = 0; mt < KS; ++mt) {
-        part[w][h][2 + 16 * mt + r4] = acc[mt][e];
-        part[w][h][2 + 16 * mt + r4 + 8] = acc[mt][2 + e];
+        ph[2 + 16 * mt + r4] = acc[mt][e];
+        ph[2 + 16 * mt + r4 + 8] = acc[mt][2 + e];
       }
     }
   }
   __syncthreads();
-  // a warp a head, a lane two dims of each 64 (pair 32 hf + lane)
+  // a warp a head, a lane two dims of each 64 (pair 32 hf + lane; at D =
+  // 32 lanes 0-15)
   for (int h = w; h < G; h += NW) {
     float M = TL_NEG_INF;
 #pragma unroll
-    for (int x = 0; x < NW; ++x) M = fmaxf(M, part[x][h][0]);
+    for (int x = 0; x < NW; ++x) M = fmaxf(M, part[(x * G + h) * WS]);
     const size_t row = head0 + h;
 #pragma unroll
-    for (int hf = 0; hf < D / 64; ++hf) {
+    for (int hf = 0; hf < HALVES; ++hf) {
       const int dd = 64 * hf + 2 * lane;
+      if (dd >= D) break;
       float L = 0.f, a0 = 0.f, a1 = 0.f;
 #pragma unroll
       for (int x = 0; x < NW; ++x) {
-        const float c = expf(part[x][h][0] - M);
-        L = fmaf(c, part[x][h][1], L);
-        a0 = fmaf(c, part[x][h][2 + dd], a0);
-        a1 = fmaf(c, part[x][h][3 + dd], a1);
+        const float* ph = part + (x * G + h) * WS;
+        const float c = expf(ph[0] - M);
+        L = fmaf(c, ph[1], L);
+        a0 = fmaf(c, ph[2 + dd], a0);
+        a1 = fmaf(c, ph[3 + dd], a1);
       }
       if (n_live == 1) {  // the whole walk was this block's
         const float den = L > 0.f ? L : 1.f;
@@ -567,13 +588,15 @@ __global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
       mp = __ldcg(ws + lane * WS);
       lp = __ldcg(ws + lane * WS + 1);
     }
-    // dims 64 hf + 2 lane, + 1 of partial x: issued before the reductions
+    // dims 64 hf + 2 lane, + 1 of partial x (none past D): issued before
+    // the reductions
     auto load = [&](float2 (&pacc)[MAX_SPLITS], int hf) {
 #pragma unroll
       for (int x = 0; x < MAX_SPLITS; ++x)
-        if (x < n_live)
-          pacc[x] = __ldcg(reinterpret_cast<const float2*>(ws + x * WS + 2) +
-                           32 * hf + lane);
+        pacc[x] = x < n_live && 64 * hf + 2 * lane < D
+                      ? __ldcg(reinterpret_cast<const float2*>(ws + x * WS + 2) +
+                               32 * hf + lane)
+                      : make_float2(0.f, 0.f);
     };
     float2 pacc[MAX_SPLITS];
     load(pacc, 0);
@@ -582,7 +605,7 @@ __global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
     const float den_sum = tl_warp_sum(c * lp);
     const float den = den_sum > 0.f ? den_sum : 1.f;
 #pragma unroll
-    for (int hf = 0; hf < D / 64; ++hf) {
+    for (int hf = 0; hf < HALVES; ++hf) {
       if (hf) load(pacc, hf);
       float a0 = 0.f, a1 = 0.f;
 #pragma unroll
@@ -593,23 +616,36 @@ __global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
           a1 = fmaf(cx, pacc[x].y, a1);
         }
       }
-      reinterpret_cast<__nv_bfloat162*>(a.out + row * D)[32 * hf + lane] =
-          __floats2bfloat162_rn(a0 / den, a1 / den);
+      if (64 * hf + 2 * lane < D)
+        reinterpret_cast<__nv_bfloat162*>(a.out + row * D)[32 * hf + lane] =
+            __floats2bfloat162_rn(a0 / den, a1 / den);
     }
   }
 }
 
-template <int D, int G, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
-int launch_g(const Args<KV>& a, cudaStream_t st) {
-  // f16: 64 KB, f32: 80 KB at D = 64, twice that at D = 128; above 48
-  constexpr int SMEM = Tile<KV, D>::SMEM;
+// One launch at a.G (1 .. GMAX) query heads a kv head.
+template <int D, bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
+int launch(const Args<KV>& a, cudaStream_t st) {
+  using T = Tile<KV, D>;
+  if (a.G < 1 || a.G > GMAX) return (int)cudaErrorInvalidValue;
+  // the ring (f16: 64 KB, f32: 80 KB at D = 64, twice that at D = 128,
+  // half at D = 32) and the partials; above 48 KB the attribute's
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<D, G, PAGED, STAGED, KV, TRIGGER>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      decode_split_kernel<D, PAGED, STAGED, KV, TRIGGER>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM + T::part_bytes(GMAX));
   if (attr != cudaSuccess) return (int)attr;
-  decode_split_kernel<D, G, PAGED, STAGED, KV, TRIGGER>
-      <<<dim3(a.Kh, a.B, a.n_split), NT, SMEM, st>>>(a);
+  decode_split_kernel<D, PAGED, STAGED, KV, TRIGGER>
+      <<<dim3(a.Kh, a.B, a.n_split), NT, T::SMEM + T::part_bytes(a.G), st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// launch at the call's head dim d (32, 64 or 128).
+template <bool PAGED, bool STAGED, class KV, bool TRIGGER = false>
+int launch_d(const Args<KV>& a, int d, cudaStream_t st) {
+  if (d == 32) return launch<32, PAGED, STAGED, KV, TRIGGER>(a, st);
+  if (d == 64) return launch<64, PAGED, STAGED, KV, TRIGGER>(a, st);
+  if (d == 128) return launch<128, PAGED, STAGED, KV, TRIGGER>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,8 +1,8 @@
 // Causal grouped-query attention of new tokens over the stacked KV cache
 // for Hopper (sm_90a), bf16 queries, a bf16, f16, f32 or int8 cache
 // (kvkind.cuh: int8 with f32 scales [L, B, Kh, S]), f32 softmax and
-// accumulation, at head dim D = 64 (TinyLlama) or 128 (Llama-3), a
-// template parameter.
+// accumulation, at head dim D = 32 (the tiny configurations), 64
+// (TinyLlama) or 128 (Llama-3), a template parameter.
 //
 // The cache is [L, B, Kh, S, d] with the new tokens' k/v already written;
 // the layer and the positions are read from device memory, so no layer
@@ -24,10 +24,16 @@
 //     reverse, so the longest causal walks start first and the tail of
 //     the grid is short walks;
 //   * S = Q K^T as D / 16 wgmma.m64n64k16 from shared memory (Q loaded
-//     once). A bf16 tile of 64 rows is D / 64 column blocks of 64 values,
-//     each 64 rows of 128 bytes under the 128-byte swizzle (8 KB, the
-//     swizzle's atom column), the second 8 KB after the first: at D = 128
-//     a row's 256 bytes span both and k16 steps 4..7 start one block on.
+//     once). A bf16 tile of 64 rows is DP / 64 column blocks of 64 values
+//     (DP = max(D, 64)), each 64 rows of 128 bytes under the 128-byte
+//     swizzle (8 KB, the swizzle's atom column), the second 8 KB after the
+//     first: at D = 128 a row's 256 bytes span both and k16 steps 4..7
+//     start one block on. At D = 32 a row is padded to 64 values in
+//     shared memory only (the cache is read as it lies): its 4 chunks are
+//     chunks 0-3 of the 128-byte row, S takes the 2 k16 steps over them
+//     and never reads the other 4, and P V runs one m64n64 product whose
+//     columns 32-63 (from the unwritten half of V's rows) are dropped, so
+//     nothing there reaches the output and nothing is zeroed;
 //     The online softmax runs on the accumulator registers, each thread
 //     holding 16 scores of each of two rows, their max and sum two quad
 //     shuffles; the bf16 probabilities are the A operand of the P V
@@ -47,7 +53,9 @@
 //     masked.
 //   Shared memory at D = 64: 57 KB (bf16), 52 KB (int8), 73 KB (f16),
 //   89 KB (f32), so at least two blocks an SM; at D = 128: 81 KB (bf16),
-//   100 KB (int8), two blocks an SM; 145 KB (f16), 177 KB (f32), one.
+//   100 KB (int8), two blocks an SM; 145 KB (f16), 177 KB (f32), one; at
+//   D = 32: 57 KB (bf16; the padded tiles), 40 KB (int8), 49 KB (f16),
+//   57 KB (f32).
 //
 // K4 flash_decode_heads (T = 1), which replaces _decode_heads_kernel of
 //   the same file, shares one split-key template with K10 in
@@ -74,17 +82,20 @@ constexpr int PF_BS = 64;        // keys a tile
 constexpr int ATOM = 64 * 128;   // a 64-row column block of 64 bf16 values
 
 // The ring for a KV element type at head dim D: NS stages, each the K and
-// V tiles of PF_BS rows (bf16: swizzled, read by the products as they
-// are; else raw), then (int8) the tile's key and value scales.
+// V tiles of PF_BS rows (bf16: swizzled at the padded width DP, read by
+// the products as they are; else raw), then (int8) the tile's key and
+// value scales.
 template <class KV, int D>
 struct PfTile {
-  static_assert(D == 64 || D == 128, "the kernel's head dims");
+  static_assert(D == 32 || D == 64 || D == 128, "the kernel's head dims");
   static constexpr bool I8 = kvkind::is_i8<KV>;
   static constexpr bool RAW = !std::is_same<KV, bf16>::value;
-  static constexpr int BF_TILE = PF_BS * D * 2;   // a bf16 Q, K or V tile
+  static constexpr int DP = D < 64 ? 64 : D;       // a bf16 tile's row
+  static constexpr int BF_TILE = PF_BS * DP * 2;   // a bf16 Q, K or V tile
   static constexpr int ROW = D * (int)sizeof(KV);  // bytes of a raw row
   static constexpr int BYTES = PF_BS * ROW;        // a raw K or V tile
-  static constexpr int STAGE = (2 * BYTES + (I8 ? 2 * PF_BS * 4 : 0) + 1023) / 1024 * 1024;
+  static constexpr int PLANE = RAW ? BYTES : BF_TILE;  // K's or V's in a stage
+  static constexpr int STAGE = (2 * PLANE + (I8 ? 2 * PF_BS * 4 : 0) + 1023) / 1024 * 1024;
   static constexpr int NS = sizeof(KV) == 4 || (D == 128 && !RAW) ? 2 : 3;
   // Q, the converted K and V (not bf16), the ring, its barriers, slack
   // for the 1024-byte alignment
@@ -125,14 +136,14 @@ __device__ inline void pf_issue(const PfArgs<KV>& a, size_t kv_off, int jt,
   for (int u = threadIdx.x; u < 2 * CHUNKS; u += PF_THREADS) {
     const int plane = u / CHUNKS, o = u % CHUNKS;
     const unsigned char* src = (plane ? vg : kg) + o * 16;
-    unsigned char* dst = slot + plane * T::BYTES;
+    unsigned char* dst = slot + plane * T::PLANE;
     hopper::cp_async16(T::RAW ? dst + o * 16 : dst + tswz(o / (D / 8), o % (D / 8)), src);
   }
   if constexpr (T::I8) {
     if (threadIdx.x < 2 * PF_BS / 4) {  // 16 chunks of f32 scales a plane
       const int plane = threadIdx.x / (PF_BS / 4), o = threadIdx.x % (PF_BS / 4);
       const float* src = (plane ? a.vs : a.ks) + kv_off / D + (size_t)jt * PF_BS + o * 4;
-      hopper::cp_async16(slot + 2 * T::BYTES + plane * PF_BS * 4 + o * 16, src);
+      hopper::cp_async16(slot + 2 * T::PLANE + plane * PF_BS * 4 + o * 16, src);
     }
   }
 }
@@ -143,7 +154,7 @@ __device__ inline void pf_convert(const unsigned char* slot, unsigned char* kb,
                                   unsigned char* vb) {
   using T = PfTile<KV, D>;
   constexpr int CR = D / 8;  // 8-value chunks a row
-  const float* sc = reinterpret_cast<const float*>(slot + 2 * T::BYTES);
+  const float* sc = reinterpret_cast<const float*>(slot + 2 * T::PLANE);
 #pragma unroll 4
   for (int u = threadIdx.x; u < 2 * PF_BS * CR; u += PF_THREADS) {
     const int plane = u / (PF_BS * CR), r = (u / CR) % PF_BS, c = u % CR;
@@ -161,7 +172,7 @@ template <int D, class KV>
 __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfArgs<KV> a) {
   using T = PfTile<KV, D>;
   constexpr int BF_TILE = T::BF_TILE;
-  constexpr int NB = D / 64;  // column blocks of 64 values
+  constexpr int NB = T::DP / 64;  // column blocks of 64 values
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* qs = smem;                                  // Q, swizzled
@@ -241,7 +252,7 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
     }
 
     // S = Q K^T over d: D / 16 k16 steps of 32 bytes along the rows, the
-    // fifth on in the next column block
+    // fifth on in the next column block (D = 32: the padded rows' first 2)
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -326,7 +337,8 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
     __syncthreads();  // the slot (and converted tiles) are free
   }
 
-  // o[h][4 c + 2 i + e]: row i, dim 64 h + 8 c + 2 (lane % 4) + e
+  // o[h][4 c + 2 i + e]: row i, dim 64 h + 8 c + 2 (lane % 4) + e (dims
+  // past D, the padding's, dropped)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int rr = r0 + 16 * w + lane / 4 + 8 * i;
@@ -336,7 +348,7 @@ __global__ void __launch_bounds__(PF_THREADS, 2) flash_prefill_kernel(const PfAr
 #pragma unroll
     for (int h = 0; h < NB; ++h)
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
+      for (int c = 0; c < (D < 64 ? D / 8 : 8); ++c)
         *reinterpret_cast<uint32_t*>(op + 64 * h + 8 * c) =
             hopper::pack_bf16(o[h][4 * c + 2 * i] / den, o[h][4 * c + 2 * i + 1] / den);
   }
@@ -360,13 +372,14 @@ extern "C" {
 // q, out: [B, T, H, d] bf16; k, v: [L, B, Kh, S, d] of the KV kind
 // (kvkind.cuh: 0 bf16, 1 int8, 2 f16, 3 f32); ks, vs: [L, B, Kh, S] f32
 // scales (int8, 16-byte aligned; null for the others); layer: [1]; pos:
-// [B]. Requires d in {64, 128}, H % Kh == 0 and S % 64 == 0; pos[b] + T
-// <= S.
+// [B]. Requires d in {32, 64, 128}, H % Kh == 0 and S % 64 == 0; pos[b]
+// + T <= S.
 int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* layer, const void* pos, void* out,
                   int kv_kind, int B, int T, int H, int Kh, int S, int d,
                   void* stream) {
-  if (!kvkind::valid(kv_kind) || (d != 64 && d != 128) || Kh < 1 || H % Kh || S % PF_BS ||
+  if (!kvkind::valid(kv_kind) || (d != 32 && d != 64 && d != 128) || Kh < 1 || H % Kh ||
+      S % PF_BS ||
       T < 1 || B < 1 || B > 65535 || Kh > 65535)
     return (int)cudaErrorInvalidValue;
   return kvkind::with_type(kv_kind, [&](auto tag) {
@@ -377,6 +390,7 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* ks,
                        static_cast<const int*>(pos), static_cast<bf16*>(out),
                        T, H, Kh, S, H / Kh, (size_t)B * Kh * S * d};
     auto st = static_cast<cudaStream_t>(stream);
+    if (d == 32) return launch_prefill<32, KV>(a, B, st);
     return d == 64 ? launch_prefill<64, KV>(a, B, st) : launch_prefill<128, KV>(a, B, st);
   });
 }

@@ -4,14 +4,16 @@ Replaces the kernel of ``_run_attn_out`` in
 tinyllama_tpu/ops/pallas/attn_out_fused.py (K8, entry ``fused_attn_out``)
 with hand-written Hopper kernels (csrc/attn_out_fused.cu): the new
 token's GQA attention over cache layer `layer` (keys 0..pos), then
-residual + attn @ dequant(wo), two launches from one C call.
+residual + attn @ dequant(wo), two launches from one C call, at head
+dim d = 32, 64 or 128 and 1 to 8 query heads a kv head
+(``flash_paged.check_heads``).
 
 Bound by the bytes of wo (q8, q4 or q4g) plus the visible keys and
 values. The TPU kernel keeps the attention result in VMEM for the wo
 steps of its sequential grid. On Hopper the attention is K4's split-key
 template (csrc/decode_split.cuh; its split count
 ``decode_split.decode_splits``), which writes each head's result as bf16
-to a [H * 64] workspace, and wo is K6's walk (csrc/fused_walk.cuh; its
+to a [H * d] workspace, and wo is K6's walk (csrc/fused_walk.cuh; its
 plan ``fused_plan.fused_plan`` with the card's residency of the launch),
 launched as a programmatic dependent launch whose blocks stream their
 share of wo while the attention runs and read the workspace once it is
@@ -22,9 +24,8 @@ The layer index and pos are device tensors. The cache is bf16, f16, f32,
 or int8 with f32 scale planes (read at half the bytes a key, each key
 and value times its scale rounded to bf16 as a tile lands, as the plain
 version dequantizes; f16 and f32 values rounded to bf16). CUDA tensors
-(bf16 q and residual, d_head 64 (HEAD_DIM), at most 8 query heads per
-kv head) launch the kernels or raise; only CPU tensors go to the plain
-version.
+(bf16 q and residual) launch the kernels or raise; only CPU tensors go
+to the plain version.
 """
 
 from __future__ import annotations
@@ -48,13 +49,6 @@ from tinyllama_tpu_torch.runtime.kvcache import KVCache, layer_cache_view
 #: "fused_attn_out_i8", "_f16" or "_f32".
 launches = {"fused_attn_out" + sfx: 0 for sfx in KV_SUFFIX}
 
-#: query heads per kv head the kernels take at most (the attention's
-#: products have 8 head columns).
-MAX_GROUP = 8
-#: the head dim the kernels take (the split template's d = 128 is not
-#: instantiated here: no registry model with it takes the fused branch)
-HEAD_DIM = 64
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -62,7 +56,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("attn_out_fused")
     if lib.fused_attn_out.argtypes is None:
-        lib.fused_attn_out.argtypes = [_P] * 13 + [_I] * 9 + [_P]
+        lib.fused_attn_out.argtypes = [_P] * 13 + [_I] * 10 + [_P]
         lib.fused_attn_out.restype = _I
         lib.fused_attn_out_resident.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
         lib.fused_attn_out_resident.restype = _I
@@ -73,7 +67,7 @@ def plan(Kh: int, S: int, K: int, N: int, n_sm: int,
          resident=None) -> tuple[int, int, int]:
     """(n_split, width, splits) of a call: the attention's split count
     (``decode_split.decode_splits`` at B = 1 over the cache's S / 64
-    tiles) and the wo walk's tile width and K splits for K = H * 64 rows
+    tiles) and the wo walk's tile width and K splits for K = H * d rows
     to N columns by K1's rule at M = 1, whose product it is
     (``fused_plan.fused_plan`` with K1's slice length, so K may reach
     49,152 rows, and its slack of n_sm / 32 SMs: 128 columns x 8 splits
@@ -124,15 +118,12 @@ def fused_attn_out(q: torch.Tensor, cache: KVCache, layer: torch.Tensor,
         raise ValueError("fused_attn_out is the batch-1 decode path (B = T = 1)")
     if not q.is_cuda:
         return fused_attn_out_ref(q, cache, layer, pos, residual, wo)
-    kv_kind = flash_attention._check(q, cache, layer, pos, (HEAD_DIM,))
+    kv_kind = flash_attention._check("fused_attn_out", q, cache, layer, pos)
     if any(s is not None and s.data_ptr() % 16
            for s in (cache.k_scale, cache.v_scale)):
         raise ValueError("int8 cache scales must lie on 16-byte boundaries "
                          "(cp.async copies)")
     Kh, S = cache.k.shape[2], cache.k.shape[3]
-    if H // Kh > MAX_GROUP:
-        raise ValueError(f"the kernel takes at most {MAX_GROUP} query heads "
-                         f"per kv head, got {H // Kh}")
     D = residual.shape[-1]
     qmatmul.check_weight(wo, H * d, layer, q.device)
     N = wo.data.shape[-1]
@@ -152,7 +143,7 @@ def fused_attn_out(q: torch.Tensor, cache: KVCache, layer: torch.Tensor,
         ptr(cache.k_scale), ptr(cache.v_scale), layer.data_ptr(),
         pos.data_ptr(), wo.data.data_ptr(), wo.scales.data_ptr(),
         residual.data_ptr(), ws.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        code, kv_kind, H, Kh, S, N, n_split, width, splits,
+        code, kv_kind, H, Kh, S, N, d, n_split, width, splits,
         build.stream_ptr(q))
     build.check(err, "fused_attn_out")
     count(launches, "fused_attn_out", kv_kind)

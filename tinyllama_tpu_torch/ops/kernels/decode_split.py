@@ -88,7 +88,7 @@ def _lib() -> ctypes.CDLL:
 
 def partial_floats(d: int) -> int:
     """f32 values of one partial in the workspace: m, l, then acc over
-    the head dim d (66 at d = 64, 130 at d = 128)."""
+    the head dim d (34 at d = 32, 66 at d = 64, 130 at d = 128)."""
     return d + 2
 
 

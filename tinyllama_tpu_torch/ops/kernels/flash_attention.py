@@ -37,10 +37,11 @@ bf16 as a tile is converted (as the plain version dequantizes; the TPU
 kernels fold the key scales into the scores and the value scales into
 the probabilities). f16 and f32 values are rounded to bf16 once a
 tile after its raw bytes land, as the TPU kernels cast a tile to the
-compute dtype. CUDA tensors (bf16 q, d = 64 or 128, each an
-instantiation of the kernels' templates) launch a kernel or raise; only
-CPU tensors go to the plain version, ``gqa_attention`` over the layer's
-cache, dequantized.
+compute dtype. CUDA tensors (bf16 q, d = 32, 64 or 128, each an
+instantiation of the kernels' templates, and for K4 and K9 1 to 8 query
+heads a kv head: ``flash_paged.check_heads``) launch a kernel or raise;
+only CPU tensors go to the plain version, ``gqa_attention`` over the
+layer's cache, dequantized.
 """
 
 from __future__ import annotations
@@ -101,19 +102,19 @@ def prefill_row_blocks(T: int, G: int) -> list[range]:
             for x in range(n)]
 
 
-def _check(q: torch.Tensor, cache: KVCache, layer, pos: torch.Tensor,
-           head_dims=fp.HEAD_DIMS) -> int:
-    """What K3, K4 and K8 take, d one of `head_dims`; returns the
-    cache's KV kind."""
+def _check(kernel: str, q: torch.Tensor, cache: KVCache, layer,
+           pos: torch.Tensor) -> int:
+    """What K3, K4 and K8 take (`kernel` their launch-count name, for
+    fp.check_heads); returns the cache's KV kind."""
     B, T, H, d = q.shape
     L, Bc, Kh, S, dc = cache.k.shape
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA attention takes bf16 queries, not {q.dtype}")
     kind = fp.kv_kind([cache.k, cache.v], [cache.k_scale, cache.v_scale])
-    if d not in head_dims or dc != d or Bc != B or H % Kh:
+    if dc != d or Bc != B or H % Kh:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
-                         f"{tuple(cache.k.shape)} (d must be one of "
-                         f"{head_dims})")
+                         f"{tuple(cache.k.shape)}")
+    fp.check_heads(kernel, d, H // Kh)
     if S % KEY_TILE or cache.v.shape != cache.k.shape:
         raise ValueError(f"cache length {S} is not a multiple of {KEY_TILE}")
     for t in (q, cache.k, cache.v):
@@ -136,7 +137,7 @@ def flash_prefill_attention(q: torch.Tensor, cache: KVCache, layer,
     pos[b]) against cache layer `layer`. Returns [B, T, H, d] in q.dtype."""
     if not q.is_cuda:
         return attention_ref(q, cache, layer, pos)
-    kind = _check(q, cache, layer, pos)
+    kind = _check("flash_prefill", q, cache, layer, pos)
     if any(s is not None and s.data_ptr() % 16
            for s in (cache.k_scale, cache.v_scale)):
         raise ValueError("int8 cache scales must lie on 16-byte boundaries "
@@ -163,12 +164,9 @@ def flash_decode_heads_attention(q: torch.Tensor, cache: KVCache, layer,
         raise ValueError("flash_decode_heads_attention is the T=1 decode path")
     if not q.is_cuda:
         return attention_ref(q, cache, layer, pos)
-    kind = _check(q, cache, layer, pos)
+    kind = _check("flash_decode_heads", q, cache, layer, pos)
     B, _, H, d = q.shape
     Kh, S = cache.k.shape[2], cache.k.shape[3]
-    if H // Kh not in (4, 8):
-        raise ValueError(f"the decode kernel takes 4 or 8 query heads per "
-                         f"kv head, got {H // Kh}")
     out = ds.launch("flash_decode_heads", q, cache.k, cache.v,
                     (cache.k_scale, cache.v_scale), (layer, pos), kind,
                     (B, H, Kh, S, d), S // KEY_TILE)
@@ -195,7 +193,8 @@ def flash_staged_attention(q: torch.Tensor, st, layer,
                          f"{cache.k.shape[1]} and a staged tail of "
                          f"{st.sk.shape[1]} rows")
     kind = fp.check_serving_inputs(
-        q, [(cache.k, KEY_TILE), (cache.v, KEY_TILE), (st.sk, 32), (st.sv, 32)],
+        "flash_staged", q,
+        [(cache.k, KEY_TILE), (cache.v, KEY_TILE), (st.sk, 32), (st.sv, 32)],
         [cache.k_scale, cache.v_scale, st.sk_scale, st.sv_scale],
         {"layer": (layer, 1), "pos": (pos, B), "base": (st.base, B)})
     Kh, S = cache.k.shape[2], cache.k.shape[3]

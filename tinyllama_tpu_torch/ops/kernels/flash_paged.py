@@ -24,8 +24,9 @@ dequantizes, where the TPU kernels fold the key scales into the scores
 and the value scales into the probabilities; f16 and f32 values are rounded
 to bf16 as a tile is converted, as the TPU kernels cast a tile to the
 compute dtype). Each tile reads only its row's visible keys. CUDA
-tensors (bf16 q, d = 64 or 128, G in {4, 8}, pages a whole number of
-64-key tiles, a tail a multiple of 32 slots) launch a kernel or raise;
+tensors (bf16 q, d = 32, 64 or 128, G from 1 to 8: ``check_heads``;
+pages a whole number of 64-key tiles, a tail a multiple of 32 slots)
+launch a kernel or raise;
 only CPU tensors go to the plain versions, ``gqa_attention`` over
 ``paged_layer_view`` or ``staged_layer_view``, which dequantize.
 """
@@ -51,13 +52,32 @@ KV_SUFFIX = ("", "_i8", "_f16", "_f32")
 launches = {name + sfx: 0 for name in ("flash_paged", "flash_paged_staged")
             for sfx in KV_SUFFIX}
 
-#: head dims the attention kernels take (TinyLlama's 64, Llama-3's 128;
-#: K8 64 only).
-HEAD_DIMS = (64, 128)
+#: head dims the attention kernels take, K3, K4 and K8-K11 alike (the
+#: tiny configurations' 32, TinyLlama's 64, Llama-3's 128): each an
+#: instantiation of their templates.
+HEAD_DIMS = (32, 64, 128)
 #: keys per tile: a page must be a whole number of tiles.
 KEY_TILE = 64
-#: query heads per kv head the kernels take.
-GROUPS = (4, 8)
+#: query heads per kv head the split-key kernels take (K4, K8-K11: a
+#: group's heads are the 8 columns of their products, a runtime argument);
+#: K3 takes any.
+GROUPS = range(1, 9)
+
+
+def check_heads(kernel: str, d: int, G: int) -> None:
+    """What `kernel` (a launch-count name: "flash_prefill" for K3, else
+    a split-key kernel) takes of the head dim d and the query heads per
+    kv head G, from host ints alone: d in HEAD_DIMS, and G in GROUPS but
+    for K3. Anything else raises a ValueError that names where those
+    shapes wait (ROADMAP.md Queue 2)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: d must be one of {HEAD_DIMS}, got {d} "
+                         "(other head dims: ROADMAP.md Queue 2)")
+    if kernel != "flash_prefill" and G not in GROUPS:
+        raise ValueError(f"{kernel}: H / Kh must be 1 to {GROUPS[-1]} query "
+                         f"heads per kv head, got {G} (more: ROADMAP.md "
+                         "Queue 2)")
+
 
 def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer,
                         pos: torch.Tensor) -> torch.Tensor:
@@ -110,13 +130,14 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
-    """What K9-K11 take: q [B, 1, H, d] bf16 with H / Kh in GROUPS and
-    d in HEAD_DIMS; key planes [.., Kh, rows, d] of one KV kind with
-    `scales` (one per plane; kv_kind), whose rows are whole 64-key tiles
-    (32-slot multiples for a staged tail); contiguous, 16-byte aligned
-    tensors on q's device; int32 index tensors of the sizes in `ints` ({name:
-    (tensor, numel)}). Returns the KV kind."""
+def check_serving_inputs(kernel: str, q: torch.Tensor, planes, scales,
+                         ints) -> int:
+    """What K9-K11 take: q [B, 1, H, d] bf16 with d and H / Kh as
+    check_heads(kernel, ...) takes them; key planes [.., Kh, rows, d] of
+    one KV kind with `scales` (one per plane; kv_kind), whose rows are
+    whole 64-key tiles (32-slot multiples for a staged tail); contiguous,
+    16-byte aligned tensors on q's device; int32 index tensors of the
+    sizes in `ints` ({name: (tensor, numel)}). Returns the KV kind."""
     B, T, H, d = q.shape
     if T != 1:
         raise ValueError("the serving attention kernels are the T=1 decode path")
@@ -126,10 +147,10 @@ def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
     kind = kv_kind([p for p, _ in planes], scales)
     for plane, rows_quantum in planes:
         Kh, rows, dc = plane.shape[2:]
-        if d not in HEAD_DIMS or dc != d or H % Kh or H // Kh not in GROUPS:
+        if dc != d or H % Kh:
             raise ValueError(f"q {tuple(q.shape)} does not fit keys "
-                             f"{tuple(plane.shape)}: d must be one of "
-                             f"{HEAD_DIMS} and H / Kh one of {GROUPS}")
+                             f"{tuple(plane.shape)}")
+        check_heads(kernel, d, H // Kh)
         if rows % rows_quantum:
             raise ValueError(f"{rows} key rows a slab, not a multiple of "
                              f"{rows_quantum}")
@@ -147,7 +168,8 @@ def check_serving_inputs(q: torch.Tensor, planes, scales, ints) -> int:
     return kind
 
 
-def _check_paged(q, cache: PagedKVCache, layer, pos, staged=None) -> int:
+def _check_paged(kernel, q, cache: PagedKVCache, layer, pos,
+                 staged=None) -> int:
     B = q.shape[0]
     planes = [(cache.k, KEY_TILE), (cache.v, KEY_TILE)]
     scales = [cache.k_scale, cache.v_scale]
@@ -162,7 +184,7 @@ def _check_paged(q, cache: PagedKVCache, layer, pos, staged=None) -> int:
     if rows != {B}:
         raise ValueError(f"{B} query rows against a page table or staged "
                          f"tail of {sorted(rows)} rows")
-    return check_serving_inputs(q, planes, scales, ints)
+    return check_serving_inputs(kernel, q, planes, scales, ints)
 
 
 def count(table: dict, name: str, kind: int) -> None:
@@ -181,7 +203,7 @@ def flash_paged_attention(q: torch.Tensor, cache: PagedKVCache, layer,
         raise ValueError("flash_paged_attention is the T=1 decode path")
     if not q.is_cuda:
         return paged_attention_ref(q, cache, layer, pos)
-    kind = _check_paged(q, cache, layer, pos)
+    kind = _check_paged("flash_paged", q, cache, layer, pos)
     B, _, H, d = q.shape
     _, NP, Kh, P, _ = cache.k.shape
     J = cache.table.shape[1]
@@ -204,7 +226,7 @@ def flash_paged_staged_attention(q: torch.Tensor, st: StagedKVCache, layer,
     if not q.is_cuda:
         return staged_attention_ref(q, st, layer, pos)
     cache = st.pool
-    kind = _check_paged(q, cache, layer, pos, st)
+    kind = _check_paged("flash_paged_staged", q, cache, layer, pos, st)
     B, _, H, d = q.shape
     _, NP, Kh, P, _ = cache.k.shape
     J, Cs = cache.table.shape[1], st.sk.shape[3]

@@ -68,8 +68,11 @@ def embedding_lookup(tokens: torch.Tensor, table, dtype) -> torch.Tensor:
     """tokens [B, T] -> [B, T, D] in `dtype`. A dense table's rows are
     gathered and cast; a quantized one's packed rows and scales are
     gathered, then only those rows dequantized (any kind: a 4-bit row is
-    d_in/2 bytes of nibbles)."""
-    idx = tokens.long()
+    d_in/2 bytes of nibbles). An id past the table takes its last row, as
+    JAX's gather clamps (the tiny configurations' 512 rows under a
+    32,000-piece tokenizer); on the card an out-of-range index would
+    stop the device instead."""
+    idx = tokens.long().clamp(max=table.shape[0] - 1)
     if not isinstance(table, QTensor):
         return table[idx].to(dtype)
     if table.layout != "nk":

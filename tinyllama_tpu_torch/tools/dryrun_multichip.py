@@ -26,11 +26,9 @@ by torch from those seeds), printing one line a path:
    single-device engine.
 
 A path that fails raises (the run exits non-zero); nothing is skipped
-silently. The JAX configs have a head dim of 32 and 2 query heads a kv
-head; the card's attention kernels take a head dim of 64 or 128 and 4 or
-8 query heads a kv head, so on the card every config keeps its kv heads
-and takes 4 query heads for each, at head dim 64 (n_embd 256 * kv heads,
-n_ffn twice that); on the CPU they run as JAX's.
+silently. The configs are JAX's on every device, the card included: a
+head dim of 32 and 2 query heads a kv head (1 kv head and 2 query heads
+a rank at tp 4), which the card's attention kernels take.
 """
 
 from __future__ import annotations
@@ -63,19 +61,14 @@ from tinyllama_tpu_torch.runtime.engine import Engine
 T = 8
 
 
-def configs(device) -> tuple[ModelConfig, ModelConfig]:
+def configs() -> tuple[ModelConfig, ModelConfig]:
     """JAX's two dryrun configs (the tiny one of paths 2, 4, 6 and 7; the
-    Llama-3 mini of path 3), widened on the card to the attention
-    kernels' shapes: head dim 64, 4 query heads a kv head."""
+    Llama-3 mini of path 3), the same on every device."""
     cfg = tiny_test_config(n_heads=8, n_kv_heads=4, n_embd=256, n_ffn=512)
     l3 = tiny_test_config(
         name="llama-3-mini", n_vocab=2048, max_ctx=256, n_embd=512,
         n_ffn=1024, n_layers=4, n_heads=16, n_kv_heads=8,
     ).replace(rope_theta=500000.0, norm_eps=1e-5, norm_eps_inside_sqrt=True)
-    if rank_device(0, device).type == "cuda":
-        cfg, l3 = (c.replace(n_heads=4 * c.n_kv_heads,
-                             n_embd=256 * c.n_kv_heads,
-                             n_ffn=512 * c.n_kv_heads) for c in (cfg, l3))
     return cfg, l3
 
 
@@ -201,7 +194,7 @@ def run_paths(pool: RankPool, n: int, device=None) -> list[str]:
     def ranks(fn, tp, dp, *args):
         return pool.run(with_mesh, fn, tp, dp, device, *args)[: tp * dp]
 
-    cfg, l3 = configs(device)
+    cfg, l3 = configs()
     dp, tp = factor(n, cfg)
     say(f"dryrun_multichip path 1 not ported: GSPMD (param_sharding, "
         f"cache_sharding + jit) waits for --tp-mode gspmd (ROADMAP.md, Queue 1 "

@@ -78,12 +78,20 @@ REL = 1e-4
 SWEEP_DEFAULT = "stream,cur,i8shift,dq"
 
 
+#: timed replays of a captured graph; time_ms takes their median
+GRAPH_REPLAYS = 3
+
+
 def time_ms(fn, reps: int, graph: bool) -> float:
     """Mean ms per call by CUDA events over `reps` calls, after warm-up;
     fn(i) gets the call index (to cycle operands past the 50 MB L2). With
     graph=True the calls are captured in one CUDA graph and replayed, so
-    the time is the device's alone, free of Python dispatch; the plain
-    versions read the layer index back to the host and run eagerly."""
+    the time is the device's alone, free of Python dispatch: the median of
+    GRAPH_REPLAYS replays, each between its own events, since a host
+    thread held up between an event and the replay behind it (by other
+    work on the host's cores) leaves the card idle inside that one
+    measurement. The plain versions read the layer index back to the host
+    and run eagerly, once timed."""
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
@@ -92,20 +100,24 @@ def time_ms(fn, reps: int, graph: bool) -> float:
         with capturing(g):
             for i in range(reps):
                 fn(i)
-        run = g.replay
+        run, timed = g.replay, GRAPH_REPLAYS
         run()
     else:
         def run():
             for i in range(reps):
                 fn(i)
+        timed = 1
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
 
 
 def card_line() -> str:
